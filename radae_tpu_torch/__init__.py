@@ -1,0 +1,27 @@
+"""radae_tpu_torch: the PyTorch/CUDA port of radae_tpu.
+
+The package imports torch and numpy only.  Its entry points take an explicit
+`device` that defaults to "cuda" and raise when no card is present, unless
+the caller asks for the CPU.  Submodules are imported on demand:
+
+  config        modem geometry (numpy)
+  convert       npz checkpoints -> torch parameter trees
+  ops           split-complex modem math, pilot EQ, fused core kernels
+  models        stateful core encoder/decoder
+  runtime       batched streaming tx/rx serving steps
+"""
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The torch.device an entry point runs on.
+
+    A CUDA device is refused when no card is present: the port never
+    falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,451 @@
+// Fused RADAE core codec steps for Hopper (sm_90a): the whole recurrent
+// encoder or decoder stack, for nz latent steps, in one launch.
+//
+// Replaces the Pallas TPU kernels in radae_tpu/ops/fused_core.py:
+//   radae_fused_decoder_step  <- make_fused_decoder_step (unmerged f32 form)
+//   radae_fused_encoder_step  <- make_fused_encoder_step (f32 form)
+// and computes the same functions as the plain PyTorch versions in
+// radae_tpu_torch/ops/fused_core.py (decoder_step_plain, encoder_step_plain).
+//
+// What bounds it on this card.  One z-step of one stream is ~0.91M (decoder)
+// or ~0.94M (encoder) multiply-adds over ~3.6 MB of f32 weights.  At serving
+// batch (B=2048, nz=3) the weights are read once per block per z-step and
+// reused by the block's R rows, so the arithmetic (2*params*nz*B flop at the
+// 67 TFLOP/s f32 rate outside the tensor cores) is the bound, not HBM: the
+// 3.6 MB stay resident in the 50 MB L2.  The recurrence is serial in the
+// layers (27 dependent products per z-step), so each block walks all nz steps
+// and all 5 layers itself with a barrier between dependent products; the TPU
+// kernel's sequential grid becomes the loop inside the block.
+//
+// What the design does about it:
+//   * one block per R=16 batch rows (the ragged edge is masked: loads clamp
+//     to the last valid row, stores skip rows past B), 384 threads;
+//   * the growing concat vector x (736 / 864 floats a row) lives in dynamic
+//     shared memory as a ring of per-step buffers, so a conv's delayed input
+//     x[t-d] is the same prefix of an earlier step's buffer and never goes
+//     back to device memory inside a launch; the carried state (GRU h, conv
+//     history) is read from device memory at the first step and written at
+//     the end, in the unmerged layout of the plain version;
+//   * every product is x (shared) @ W (L2, pre-transposed (in, out)): a
+//     thread owns a 4-row x 4-column tile, reads W as float4 along `out`
+//     (coalesced), x as float4 along `in` (shared broadcast), and narrow
+//     products split `in` into KS chunks whose partial sums are added in a
+//     fixed order, so every launch gives the same bits;
+//   * f32 accumulation with expf/tanhf (no fast math).
+//
+// Built by radae_tpu_torch/ops/_kernels.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and bound with ctypes: plain C entries, pointers and the stream passed as
+// void*, the launch status returned as cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int R = 16;     // batch rows per block
+constexpr int NT = 384;   // threads per block
+
+// decoder widths (radae_tpu/models/core.py:41-43)
+constexpr int DEC_H = 96, DEC_G = 3 * DEC_H, DEC_CO = 32, DEC_X = 736;
+constexpr int DEC_NW = 2 + 5 * 8 + 2;
+// encoder widths (radae_tpu/models/core.py:37-39)
+constexpr int ENC_H = 64, ENC_G = 3 * ENC_H, ENC_CO = 96, ENC_X = 864;
+constexpr int ENC_NW = 2 + 5 * 7 + 2;
+
+// shared memory: x ring + (decoder) h ring + scratch for gates / partials
+constexpr int DEC_SCR = 2 * R * DEC_G;   // >= every partial buffer below
+constexpr int ENC_SCR = 2 * R * ENC_G;
+constexpr size_t DEC_SMEM =
+    sizeof(float) * (2 * R * DEC_X + 2 * 5 * R * DEC_H + DEC_SCR);
+constexpr size_t ENC_SMEM = sizeof(float) * (3 * R * ENC_X + ENC_SCR);
+// widest output of the last product (its 4 partial buffers fit the scratch)
+constexpr int DEC_MAX_OUT = DEC_SCR / (4 * R);   // 144 >= 4 * 21
+constexpr int ENC_MAX_OUT = ENC_SCR / (4 * R);   // 96 >= latent 80
+
+struct DecArgs {
+  const float* w;
+  int off[DEC_NW];
+  const float* z;
+  float* feats;
+  int B, nz, in_dim, out_dim;
+  const float* h_in[5];
+  const float* hist_in[5];
+  float* h_out[5];
+  float* hist_out[5];
+};
+
+struct EncArgs {
+  const float* w;
+  int off[ENC_NW];
+  const float* f;
+  float* z;
+  int B, nz, in_dim, out_dim, bottleneck;
+  const float* h_in[5];
+  const float* hist_in[5];
+  float* h_out[5];
+  float* hist_out[5];
+};
+
+// A row-major operand: row r is p + min(r, rmax) * ld (rmax clamps the
+// ragged batch edge for operands read from device memory).
+struct Src {
+  const float* p;
+  int ld;
+  int rmax;
+};
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ float4 tanh4(float4 v) {
+  return make_float4(tanhf(v.x), tanhf(v.y), tanhf(v.z), tanhf(v.w));
+}
+__device__ __forceinline__ void fma4(float4& a, float x, float4 w) {
+  a.x = fmaf(x, w.x, a.x);
+  a.y = fmaf(x, w.y, a.y);
+  a.z = fmaf(x, w.z, a.z);
+  a.w = fmaf(x, w.w, a.w);
+}
+
+// acc[i] += sum_{k0 <= k < k1} X[r0 + i][k] * W[k][c .. c+3]
+template <int RPT>
+__device__ __forceinline__ void mac(float4 (&acc)[RPT], const Src& s, int r0,
+                                    const float* __restrict__ W, int out,
+                                    int c, int k0, int k1) {
+  const float* xr[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) xr[i] = s.p + (size_t)min(r0 + i, s.rmax) * s.ld;
+  const float* wp = W + (size_t)k0 * out + c;
+  for (int k = k0; k < k1; k += 4, wp += 4 * out) {
+    const float4 w0 = ldg4(wp), w1 = ldg4(wp + out);
+    const float4 w2 = ldg4(wp + 2 * out), w3 = ldg4(wp + 3 * out);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float4 x = ld4(xr[i] + k);
+      fma4(acc[i], x.x, w0);
+      fma4(acc[i], x.y, w1);
+      fma4(acc[i], x.z, w2);
+      fma4(acc[i], x.w, w3);
+    }
+  }
+}
+
+// Y = A @ Wa (+ Bm @ Wb when wb != nullptr) over R rows; A and Bm have K
+// columns, Y has `out` columns; epi(r, c, Y[r][c..c+3]) consumes the result.
+// Work items: KS chunks of the (virtually concatenated) K axis x R/RPT row
+// groups x out/4 column quads.  With KS > 1 the partial sums go to `part`
+// (KS*R*out floats) and are added in chunk order.  All threads must call it;
+// the caller syncs before the result is read.
+template <int RPT, int KS, class Epi>
+__device__ __forceinline__ void dot(const Src& a, const float* __restrict__ wa,
+                                    const Src& bm, const float* __restrict__ wb,
+                                    int K, int out, float* part, Epi epi) {
+  const int nq = out >> 2, ng = R / RPT;
+  const int ktot = wb ? 2 * K : K;
+  const int kc = ((ktot + KS - 1) / KS + 3) & ~3;
+  const int n = KS * ng * nq;
+  for (int it = threadIdx.x; it < n; it += NT) {
+    const int cq = it % nq, g = (it / nq) % ng, ks = it / (nq * ng);
+    const int c = cq * 4, r0 = g * RPT;
+    const int kb = ks * kc, ke = min(ktot, kb + kc);
+    float4 acc[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kb < K) mac<RPT>(acc, a, r0, wa, out, c, kb, min(ke, K));
+    if (wb && ke > K) mac<RPT>(acc, bm, r0, wb, out, c, max(kb, K) - K, ke - K);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      if (KS == 1)
+        epi(r0 + i, c, acc[i]);
+      else
+        st4(part + ((size_t)ks * R + r0 + i) * out + c, acc[i]);
+    }
+  }
+  if (KS > 1) {
+    __syncthreads();
+    for (int it = threadIdx.x; it < R * nq; it += NT) {
+      const int r = it / nq, c = (it % nq) * 4;
+      float4 s = ld4(part + (size_t)r * out + c);
+#pragma unroll
+      for (int ks = 1; ks < KS; ++ks)
+        s = add4(s, ld4(part + ((size_t)ks * R + r) * out + c));
+      epi(r, c, s);
+    }
+  }
+}
+
+// One GRU step over R rows (gate blocks r, z, n): xg = x @ wih + bih and
+// hg = h @ whh + bhh into shared scratch, then the gate math; dst(r, j, h')
+// stores the new state.  hold must not alias what dst writes.
+template <class Dst>
+__device__ __forceinline__ void gru(const Src& x, int K, const Src& hold,
+                                    const float* __restrict__ wih,
+                                    const float* __restrict__ whh,
+                                    const float* __restrict__ bih,
+                                    const float* __restrict__ bhh, int H,
+                                    float* xg, float* hg, Dst dst) {
+  const int G = 3 * H, nq = G / 4, n1 = (R / 2) * nq;
+  for (int it = threadIdx.x; it < 2 * n1; it += NT) {
+    const bool hh = it >= n1;          // uniform per warp: n1 % 32 == 0
+    const int j = hh ? it - n1 : it;
+    const int c = (j % nq) * 4, r0 = (j / nq) * 2;
+    float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                     make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (hh)
+      mac<2>(acc, hold, r0, whh, G, c, 0, H);
+    else
+      mac<2>(acc, x, r0, wih, G, c, 0, K);
+    const float4 b = ldg4((hh ? bhh : bih) + c);
+    float* o = hh ? hg : xg;
+    st4(o + (size_t)r0 * G + c, add4(acc[0], b));
+    st4(o + (size_t)(r0 + 1) * G + c, add4(acc[1], b));
+  }
+  __syncthreads();
+  for (int it = threadIdx.x; it < R * H; it += NT) {
+    const int r = it / H, j = it % H;
+    const float* a = xg + (size_t)r * G;
+    const float* b = hg + (size_t)r * G;
+    const float rr = sigm(a[j] + b[j]);
+    const float zz = sigm(a[H + j] + b[H + j]);
+    const float nn = tanhf(a[2 * H + j] + rr * b[2 * H + j]);
+    const float hp = hold.p[(size_t)min(r, hold.rmax) * hold.ld + j];
+    dst(r, j, (1.f - zz) * nn + zz * hp);
+  }
+}
+
+__global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const xb = reinterpret_cast<float*>(smem4);   // [2][R][DEC_X]
+  float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
+  float* const scr = hb + 2 * 5 * R * DEC_H;            // gates / partials
+  const int b0 = blockIdx.x * R;
+  const int nv = min(R, a.B - b0);
+  const int rmax = nv - 1;
+  const float* const w = a.w;
+  const int* const off = a.off;
+
+  for (int k = 0; k < a.nz; ++k) {
+    const int cur = k & 1, prv = cur ^ 1;
+    float* const X = xb + cur * R * DEC_X;
+    const float* const Xp = xb + prv * R * DEC_X;
+    const Src xs{X, DEC_X, R - 1};
+
+    // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b)
+    const Src zs{a.z + ((size_t)b0 * a.nz + k) * a.in_dim, a.nz * a.in_dim, rmax};
+    const float* d1b = w + off[1];
+    dot<4, 4>(zs, w + off[0], zs, nullptr, a.in_dim, DEC_H, scr,
+              [&](int r, int c, float4 v) {
+                st4(X + r * DEC_X + c, tanh4(add4(v, ldg4(d1b + c))));
+              });
+    __syncthreads();
+
+    for (int i = 0; i < 5; ++i) {
+      const int gin = DEC_H + 128 * i, cin = gin + DEC_H;
+      const int* o = off + 2 + 8 * i;   // wih whh bih bhh glu cw0 cw1 cb
+      float* const hc = hb + (cur * 5 + i) * R * DEC_H;
+      const Src hold = k == 0 ? Src{a.h_in[i] + (size_t)b0 * DEC_H, DEC_H, rmax}
+                              : Src{hb + (prv * 5 + i) * R * DEC_H, DEC_H, R - 1};
+      gru(xs, gin, hold, w + o[0], w + o[1], w + o[2], w + o[3], DEC_H, scr,
+          scr + R * DEC_G, [&](int r, int j, float v) { hc[r * DEC_H + j] = v; });
+      __syncthreads();
+
+      // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w)
+      const Src hs{hc, DEC_H, R - 1};
+      dot<4, 4>(hs, w + o[4], hs, nullptr, DEC_H, DEC_H, scr,
+                [&](int r, int c, float4 v) {
+                  const float4 h = ld4(hc + r * DEC_H + c);
+                  st4(X + r * DEC_X + gin + c,
+                      make_float4(h.x * sigm(v.x), h.y * sigm(v.y),
+                                  h.z * sigm(v.z), h.w * sigm(v.w)));
+                });
+      __syncthreads();
+
+      // conv k2: X[:, cin:cin+32] = tanh(hist @ cw0 + X[:, :cin] @ cw1 + cb);
+      // the history is the previous step's prefix (the state at k == 0)
+      const Src hist = k == 0 ? Src{a.hist_in[i] + (size_t)b0 * cin, cin, rmax}
+                              : Src{Xp, DEC_X, R - 1};
+      const float* cb = w + o[7];
+      dot<4, 12>(hist, w + o[5], xs, w + o[6], cin, DEC_CO, scr,
+                 [&](int r, int c, float4 v) {
+                   st4(X + r * DEC_X + cin + c, tanh4(add4(v, ldg4(cb + c))));
+                 });
+      __syncthreads();
+    }
+
+    // output: feats[:, k] = X @ out_w + out_b
+    const float* ob = w + off[DEC_NW - 1];
+    float* const fo = a.feats + ((size_t)b0 * a.nz + k) * a.out_dim;
+    dot<4, 4>(xs, w + off[DEC_NW - 2], xs, nullptr, DEC_X, a.out_dim, scr,
+              [&](int r, int c, float4 v) {
+                if (r < nv) st4(fo + (size_t)r * a.nz * a.out_dim + c, add4(v, ldg4(ob + c)));
+              });
+    __syncthreads();
+  }
+
+  const int last = (a.nz - 1) & 1;
+  for (int i = 0; i < 5; ++i) {
+    const int cin = 2 * DEC_H + 128 * i;
+    const float* hs = hb + (last * 5 + i) * R * DEC_H;
+    for (int it = threadIdx.x; it < nv * DEC_H; it += NT)
+      a.h_out[i][(size_t)b0 * DEC_H + it] = hs[it];
+    const float* xl = xb + last * R * DEC_X;
+    for (int it = threadIdx.x; it < nv * cin; it += NT) {
+      const int r = it / cin, j = it % cin;
+      a.hist_out[i][((size_t)b0 + r) * cin + j] = xl[r * DEC_X + j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
+  float* const scr = xb + 3 * R * ENC_X;                // gates / partials
+  const int b0 = blockIdx.x * R;
+  const int nv = min(R, a.B - b0);
+  const int rmax = nv - 1;
+  const float* const w = a.w;
+  const int* const off = a.off;
+
+  for (int k = 0; k < a.nz; ++k) {
+    float* const X = xb + (k % 3) * R * ENC_X;
+    const Src xs{X, ENC_X, R - 1};
+
+    // dense_1: X[:, :64] = tanh(f_k @ d1_w + d1_b)
+    const Src fs{a.f + ((size_t)b0 * a.nz + k) * a.in_dim, a.nz * a.in_dim, rmax};
+    const float* d1b = w + off[1];
+    dot<4, 4>(fs, w + off[0], fs, nullptr, a.in_dim, ENC_H, scr,
+              [&](int r, int c, float4 v) {
+                st4(X + r * ENC_X + c, tanh4(add4(v, ldg4(d1b + c))));
+              });
+    __syncthreads();
+
+    for (int i = 0; i < 5; ++i) {
+      const int gin = ENC_H + 160 * i, cin = gin + ENC_H;
+      const int d = i == 0 ? 1 : 2;     // conv dilations 1,2,2,2,2
+      const int* o = off + 2 + 7 * i;   // wih whh bih bhh cw0 cw1 cb
+      // GRU: X[:, gin:cin] = h' (the encoder appends h itself); the previous
+      // h is the previous step's window (the state at k == 0)
+      const Src hold =
+          k == 0 ? Src{a.h_in[i] + (size_t)b0 * ENC_H, ENC_H, rmax}
+                 : Src{xb + ((k - 1) % 3) * R * ENC_X + gin, ENC_X, R - 1};
+      gru(xs, gin, hold, w + o[0], w + o[1], w + o[2], w + o[3], ENC_H, scr,
+          scr + R * ENC_G,
+          [&](int r, int j, float v) { X[r * ENC_X + gin + j] = v; });
+      __syncthreads();
+
+      // conv k2, dilation d: X[:, cin:cin+96] =
+      //   tanh(x[t-d][:, :cin] @ cw0 + X[:, :cin] @ cw1 + cb)
+      const Src hist =
+          k >= d ? Src{xb + ((k - d) % 3) * R * ENC_X, ENC_X, R - 1}
+                 : Src{a.hist_in[i] + ((size_t)b0 * d + k) * cin, d * cin, rmax};
+      const float* cb = w + o[6];
+      dot<4, 4>(hist, w + o[4], xs, w + o[5], cin, ENC_CO, scr,
+                [&](int r, int c, float4 v) {
+                  st4(X + r * ENC_X + cin + c, tanh4(add4(v, ldg4(cb + c))));
+                });
+      __syncthreads();
+    }
+
+    // z_dense: z[:, k] = X @ out_w + out_b (tanh for bottleneck 1)
+    const float* ob = w + off[ENC_NW - 1];
+    float* const zo = a.z + ((size_t)b0 * a.nz + k) * a.out_dim;
+    const bool th = a.bottleneck == 1;
+    dot<4, 4>(xs, w + off[ENC_NW - 2], xs, nullptr, ENC_X, a.out_dim, scr,
+              [&](int r, int c, float4 v) {
+                v = add4(v, ldg4(ob + c));
+                if (r < nv) st4(zo + (size_t)r * a.nz * a.out_dim + c, th ? tanh4(v) : v);
+              });
+    __syncthreads();
+  }
+
+  // state: h = last step's GRU window; history ring tap t = x[nz-d+t]
+  const float* xl = xb + ((a.nz - 1) % 3) * R * ENC_X;
+  for (int i = 0; i < 5; ++i) {
+    const int gin = ENC_H + 160 * i, cin = gin + ENC_H;
+    const int d = i == 0 ? 1 : 2;
+    for (int it = threadIdx.x; it < nv * ENC_H; it += NT) {
+      const int r = it / ENC_H, j = it % ENC_H;
+      a.h_out[i][((size_t)b0 + r) * ENC_H + j] = xl[r * ENC_X + gin + j];
+    }
+    for (int it = threadIdx.x; it < nv * d * cin; it += NT) {
+      const int r = it / (d * cin), t = (it / cin) % d, j = it % cin;
+      const int s = a.nz - d + t;
+      const size_t row = ((size_t)b0 + r) * d * cin;
+      a.hist_out[i][row + (size_t)t * cin + j] =
+          s >= 0 ? xb[(s % 3) * R * ENC_X + r * ENC_X + j]
+                 : a.hist_in[i][row + (size_t)(s + d) * cin + j];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int radae_fused_decoder_step(const void* w, const int* off, int n_off,
+                             const void* z, void* feats, int B, int nz,
+                             int in_dim, int out_dim, void* const* h_in,
+                             void* const* hist_in, void* const* h_out,
+                             void* const* hist_out, void* stream) {
+  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
+      out_dim > DEC_MAX_OUT)
+    return (int)cudaErrorInvalidValue;
+  DecArgs a;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < DEC_NW; ++i) a.off[i] = off[i];
+  a.z = static_cast<const float*>(z);
+  a.feats = static_cast<float*>(feats);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(h_in[i]);
+    a.hist_in[i] = static_cast<const float*>(hist_in[i]);
+    a.h_out[i] = static_cast<float*>(h_out[i]);
+    a.hist_out[i] = static_cast<float*>(hist_out[i]);
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DEC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dec_kernel<<<(B + R - 1) / R, NT, DEC_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int radae_fused_encoder_step(const void* w, const int* off, int n_off,
+                             const void* f, void* z, int B, int nz,
+                             int in_dim, int out_dim, int bottleneck,
+                             void* const* h_in, void* const* hist_in,
+                             void* const* h_out, void* const* hist_out,
+                             void* stream) {
+  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
+      out_dim > ENC_MAX_OUT)
+    return (int)cudaErrorInvalidValue;
+  EncArgs a;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < ENC_NW; ++i) a.off[i] = off[i];
+  a.f = static_cast<const float*>(f);
+  a.z = static_cast<float*>(z);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  a.bottleneck = bottleneck;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(h_in[i]);
+    a.hist_in[i] = static_cast<const float*>(hist_in[i]);
+    a.h_out[i] = static_cast<float*>(h_out[i]);
+    a.hist_out[i] = static_cast<float*>(hist_out[i]);
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      enc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ENC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  enc_kernel<<<(B + R - 1) / R, NT, ENC_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
