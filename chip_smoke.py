@@ -9,17 +9,24 @@ EQ, coarse magnitude):
 
   1. prints the card's name and power limit (nvidia-smi);
   2. holds each kernel against its plain PyTorch version on the card over
-     3 chained calls with carried state: at B=2048 with one frame (3
-     latent steps) a call, and at a ragged B=37 with one and with two
-     frames a call (rtol 1e-4, atol 1e-4: the sums run in another order
-     than cuBLAS);
+     3 chained calls with carried state (rtol 1e-4, atol 1e-4: the sums
+     run in another order than cuBLAS): the unmerged and the chain-merged
+     decoder and the encoder at B=2048 with one frame (3 latent steps) a
+     call and at a ragged B=37 with one and with two frames a call; the
+     whole-frame rx kernel at B=2048 and B=37, one frame a call, on
+     fixture tx frames with Gaussian noise;
   3. drives the batched streaming serving path on the fixture checkpoint:
-     2048 streams of fixtures/speech_feats.f32 through 20 tx steps, then
-     the frame-aligned rx windows through 20 rx steps, both fused; checks
-     that both kernels launched, that the features match the same path
-     with the plain layers (1e-3), that the mean distortion loss is below
-     0.65, and that streams 0-3 give the losses radae_tpu gives on the CPU;
-  4. times the steps and the kernels with CUDA events;
+     2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
+     then the frame-aligned rx windows through 20 rx steps, three times:
+     the composite rx step on the unmerged decoder kernel, the same step
+     on the chain-merged kernel (fused_merged=True), and the whole-frame
+     kernel (make_fused_rx_frame_step).  Each run starts with the launch
+     counts at 0; each checks that its kernels launched once a frame, that
+     the features match the same path with the plain layers (1e-3), that
+     the mean distortion loss is below 0.65, and that streams 0-3 give
+     the losses radae_tpu gives on the CPU;
+  4. times the three rx steps, the tx step and the four kernels with CUDA
+     events, beside each kernel's plain version and its bound;
   5. prints a `kernels` JSON line, and last the `ok` JSON line.
 
 Any failure exits non-zero without the `ok` line; so does a machine without
@@ -49,6 +56,14 @@ LOSS_LIMIT = 0.65
 JAX_LOSS_0_3 = [0.332894, 0.566543, 0.52081007, 0.49320942]
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores (SXM data sheet)
 H100_BYTES_S = 3.35e12   # HBM3
+RX_NOISE = 0.1           # std of the Gaussian noise on the frame-kernel check
+SRC = "radae_tpu_torch/csrc/fused_core.cu"
+TPU_SRC = "radae_tpu/ops/fused_core.py"
+# kernel -> (replaced TPU kernel body, file:line)
+REPLACES = {"fused_decoder_step": f"{TPU_SRC}:344",
+            "fused_decoder_merged_step": f"{TPU_SRC}:273",
+            "fused_rx_frame_step": f"{TPU_SRC}:543",
+            "fused_encoder_step": f"{TPU_SRC}:785"}
 
 
 def card_line() -> str:
@@ -88,14 +103,26 @@ def time_ms(fn, n, warmup=3) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def bound(weights, inputs, outputs, nz, batch):
+def demod_flops(cfg) -> float:
+    """Flop of one stream's frame front end, counting only what the math
+    needs: the DFT of the M kept samples of each symbol row, the 3-tap LS
+    fit of the two pilot rows, the coarse magnitude over the carriers and
+    the interpolation + EQ of every data symbol (8 flop a complex
+    multiply-add)."""
+    n_sym, Nc = cfg.Ns + 2, cfg.Nc
+    return float(8 * n_sym * cfg.M * Nc + 8 * 2 * 3 * Nc + 8 * Nc
+                 + 22 * cfg.Ns * Nc)
+
+
+def bound(weights, inputs, outputs, nz, batch, extra_flops=0.0):
     """Least time for one launch: each input read once and each output
     written once at the HBM rate, or 2 flop per weight-matrix element per
-    z-step per stream at the f32 rate, whichever is larger."""
+    z-step per stream (+ extra_flops) at the f32 rate, whichever is
+    larger."""
     nbytes = 4 * (weights.buf.numel() + sum(t.numel() for t in inputs)
                   + sum(t.numel() for t in outputs))
     flops = 2.0 * sum(a.numel() for a in weights.arrays if a.dim() == 2) \
-        * nz * batch
+        * nz * batch + extra_flops
     t_bytes, t_ops = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -126,49 +153,24 @@ def main() -> int:
     for name, proc in procs.items():
         log = _kernels.finish_build(name, proc)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "spill")):
                 print(f"ptxas {name}: {line.strip()}")
     print(f"build: {time.time() - t0:.1f} s")
 
     cfg = flagship_config()
     tree, _ = load_checkpoint(os.path.join(HERE, "fixtures", "model_fs_flagship.npz"))
     dw = fc.decoder_weights(tree["decoder"], dev)
+    dwm = fc.decoder_weights(tree["decoder"], dev, merged=True)
+    rw = fc.fused_rx_weights(tree["decoder"], cfg, dev)
     ew = fc.encoder_weights(tree["encoder"], dev)
     gen = np.random.default_rng(0)
     nz = cfg.Nzmf
+    Nmf, win = cfg.Nmf, cfg.Nmf + cfg.M + cfg.Ncp
+    enc = CoreEncoder(cfg.feature_dim, cfg.latent_dim, cfg.bottleneck)
+    dec = CoreDecoder(cfg.latent_dim, cfg.feature_dim)
+    params = params_to_torch(tree, dev)
 
-    # -- kernels against their plain versions -----------------------------
-    errs = {"fused_decoder_step": 0.0, "fused_encoder_step": 0.0}
-    with torch.no_grad():
-        for batch, steps in ((B, nz), (RAGGED_B, nz), (RAGGED_B, 2 * nz)):
-            sk = sp = fc.decoder_state_zero(batch, dev)
-            ek = ep = fc.encoder_state_zero(batch, dev)
-            for frame in range(3):
-                z = torch.as_tensor(np.tanh(gen.standard_normal(
-                    (batch, steps, cfg.latent_dim))).astype(np.float32), device=dev)
-                fk, sk = fc.fused_decoder_step(dw, z, sk)
-                fp, sp = fc.decoder_step_plain(dw, z, sp)
-                torch.cuda.synchronize()
-                check_close(f"decoder B={batch} nz={steps} call {frame}", (fk,) + sk,
-                            (fp,) + sp, TOL)
-                f = torch.as_tensor((0.3 * gen.standard_normal(
-                    (batch, 4 * steps, cfg.feature_dim))).astype(np.float32),
-                    device=dev)
-                zk, ek = fc.fused_encoder_step(ew, f, ek, cfg.bottleneck)
-                zp, ep = fc.encoder_step_plain(ew, f, ep, cfg.bottleneck)
-                torch.cuda.synchronize()
-                check_close(f"encoder B={batch} nz={steps} call {frame}", (zk,) + ek,
-                            (zp,) + ep, TOL)
-                if batch == B:
-                    errs["fused_decoder_step"] = max(
-                        errs["fused_decoder_step"], max_err((fk,) + sk, (fp,) + sp))
-                    errs["fused_encoder_step"] = max(
-                        errs["fused_encoder_step"], max_err((zk,) + ek, (zp,) + ep))
-    print(f"kernels vs plain (rtol 1e-4, atol 1e-4): max abs err "
-          f"decoder {errs['fused_decoder_step']:.3g} "
-          f"encoder {errs['fused_encoder_step']:.3g}")
-
-    # -- the serving path on the fixture ----------------------------------
+    # the fixture's features: stream b starts at feature row b*37 (wrapped)
     raw = read_f32(os.path.join(HERE, "fixtures", "speech_feats.f32"),
                    NB_TOTAL_FEATURES)
     T = N_FRAMES * nz * 4
@@ -178,102 +180,180 @@ def main() -> int:
         feats[b, :, :NUM_USED_FEATURES] = raw[o:o + T, :NUM_USED_FEATURES]
     feats[:, :, NUM_USED_FEATURES] = -1.0          # auxdata column
     feats = torch.as_tensor(feats, device=dev)
-    enc = CoreEncoder(cfg.feature_dim, cfg.latent_dim, cfg.bottleneck)
-    dec = CoreDecoder(cfg.latent_dim, cfg.feature_dim)
-    params = params_to_torch(tree, dev)
-    Nmf, win = cfg.Nmf, cfg.Nmf + cfg.M + cfg.Ncp
 
-    def tx_rx(fused):
+    def tx_signal(fused, n_frames=N_FRAMES):
+        """n_frames of tx samples (B, n*Nmf + M+Ncp, 2), zero-padded so the
+        last frame has its closing pilot window."""
         tx = make_streaming_tx_step(cfg, enc, B, fused=fused, device=dev)
-        rx = make_streaming_rx_step(cfg, dec, B, fused=fused, device=dev)
-        ep, dp = ((ew, dw) if fused else (params["encoder"], params["decoder"]))
+        ep = ew if fused else params["encoder"]
         es = fc.encoder_state_zero(B, dev) if fused else None
-        ds = fc.decoder_state_zero(B, dev) if fused else None
         sig = []
-        for k in range(N_FRAMES):
+        for k in range(n_frames):
             s, es = tx(ep, feats[:, 12 * k:12 * (k + 1)], es)
             sig.append(s)
         sig.append(torch.zeros((B, win - Nmf, 2), device=dev))
-        sig = torch.cat(sig, dim=1)
+        return torch.cat(sig, dim=1)
+
+    def rx_run(step, w, state, sig):
         out = []
         for k in range(N_FRAMES):
-            f, ds = rx(dp, sig[:, k * Nmf:k * Nmf + win], ds)
+            f, state = step(w, sig[:, k * Nmf:k * Nmf + win], state)
             out.append(f)
         return torch.cat(out, dim=1)
 
+    # -- kernels against their plain versions -----------------------------
+    errs = {name: 0.0 for name in fc.LAUNCHES}
+
+    def held(name, batch, what, got, want):
+        torch.cuda.synchronize()
+        check_close(f"{name} B={batch} {what}", got, want, TOL)
+        if batch == B:
+            errs[name] = max(errs[name], max_err(got, want))
+
     with torch.no_grad():
-        fc.reset_launches()
-        f_fused = tx_rx(True)
+        for batch, steps in ((B, nz), (RAGGED_B, nz), (RAGGED_B, 2 * nz)):
+            sk = sp = fc.decoder_state_zero(batch, dev)
+            mk = mp = fc.decoder_state_zero(batch, dev, merged=True)
+            ek = ep = fc.encoder_state_zero(batch, dev)
+            for frame in range(3):
+                what = f"nz={steps} call {frame}"
+                z = torch.as_tensor(np.tanh(gen.standard_normal(
+                    (batch, steps, cfg.latent_dim))).astype(np.float32), device=dev)
+                fk, sk = fc.fused_decoder_step(dw, z, sk)
+                fp, sp = fc.decoder_step_plain(dw, z, sp)
+                held("fused_decoder_step", batch, what, (fk,) + sk, (fp,) + sp)
+                fk, mk = fc.fused_decoder_step(dwm, z, mk)
+                fp, mp = fc.decoder_merged_step_plain(dwm, z, mp)
+                held("fused_decoder_merged_step", batch, what, (fk,) + mk,
+                     (fp,) + mp)
+                f = torch.as_tensor((0.3 * gen.standard_normal(
+                    (batch, 4 * steps, cfg.feature_dim))).astype(np.float32),
+                    device=dev)
+                zk, ek = fc.fused_encoder_step(ew, f, ek, cfg.bottleneck)
+                zp, ep = fc.encoder_step_plain(ew, f, ep, cfg.bottleneck)
+                held("fused_encoder_step", batch, what, (zk,) + ek, (zp,) + ep)
+        sig3 = tx_signal(False, 3)
+        for batch in (B, RAGGED_B):
+            step = fc.make_fused_rx_frame_step(cfg, batch, dev)
+            sk = sp = fc.decoder_state_zero(batch, dev)
+            for frame in range(3):
+                rx = sig3[:batch, frame * Nmf:frame * Nmf + win] + torch.as_tensor(
+                    (RX_NOISE * gen.standard_normal((batch, win, 2))).astype(
+                        np.float32), device=dev)
+                fk, sk = step(rw, rx, sk)
+                fp, sp = fc.rx_frame_step_plain(rw, rx, sp)
+                held("fused_rx_frame_step", batch, f"call {frame}", (fk,) + sk,
+                     (fp,) + sp)
+    print("kernels vs plain (rtol 1e-4, atol 1e-4), max abs err at B=2048: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+    # -- the serving path on the fixture, three rx paths -------------------
+    rx_steps = {
+        "composite": (make_streaming_rx_step(cfg, dec, B, fused=True, device=dev),
+                      dw, lambda: fc.decoder_state_zero(B, dev),
+                      ("fused_decoder_step",)),
+        "merged": (make_streaming_rx_step(cfg, dec, B, fused=True,
+                                          fused_merged=True, device=dev),
+                   dwm, lambda: fc.decoder_state_zero(B, dev, merged=True),
+                   ("fused_decoder_merged_step",)),
+        "frame": (fc.make_fused_rx_frame_step(cfg, B, dev), rw,
+                  lambda: fc.decoder_state_zero(B, dev),
+                  ("fused_rx_frame_step",)),
+    }
+    launches, outs = {}, {}
+    with torch.no_grad():
+        for path, (step, w, state0, names) in rx_steps.items():
+            fc.reset_launches()
+            if path == "composite":          # the tx step runs on this path
+                sig = tx_signal(True)
+                names = names + ("fused_encoder_step",)
+            outs[path] = rx_run(step, w, state0(), sig)
+            torch.cuda.synchronize()
+            counts = dict(fc.LAUNCHES)
+            bad = {n: counts[n] for n in names if counts[n] != N_FRAMES}
+            if bad:
+                raise AssertionError(f"{path} path: kernels launched {bad} "
+                                     f"times, not {N_FRAMES}: {counts}")
+            for n in names:
+                launches[n] = counts[n]
+        f_plain = rx_run(make_streaming_rx_step(cfg, dec, B, device=dev),
+                         params["decoder"], None, tx_signal(False))
         torch.cuda.synchronize()
-        launches = dict(fc.LAUNCHES)
-        f_plain = tx_rx(False)
-        torch.cuda.synchronize()
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel did not launch on the main path: {launches}")
-    if tuple(f_fused.shape) != (B, T, cfg.feature_dim) or not bool(torch.isfinite(f_fused).all()):
-        raise AssertionError(f"bad features: shape {tuple(f_fused.shape)}")
-    e2e_err = float((f_fused - f_plain).abs().max())
-    if e2e_err > E2E_TOL:
-        raise AssertionError(f"fused vs plain path: max abs err {e2e_err:.3g} > {E2E_TOL}")
-    loss = distortion_loss(feats, f_fused)
-    mean_loss = float(loss.mean())
-    if not mean_loss < LOSS_LIMIT:
-        raise AssertionError(f"mean distortion loss {mean_loss:.4f} >= {LOSS_LIMIT}")
-    ref_err = float(np.abs(loss[:4].cpu().numpy() - JAX_LOSS_0_3).max())
-    if ref_err > 1e-3:
-        raise AssertionError(f"streams 0-3 loss {loss[:4].tolist()} vs "
-                             f"radae_tpu {JAX_LOSS_0_3}")
-    print(f"serving path B={B} x {N_FRAMES} frames: launches {launches}, "
-          f"fused vs plain max abs err {e2e_err:.3g}, mean loss "
-          f"{mean_loss:.4f}, streams 0-3 {[round(x, 4) for x in loss[:4].tolist()]} "
-          f"(radae_tpu {JAX_LOSS_0_3}, max diff {ref_err:.2g})")
+    for path, f_out in outs.items():
+        if tuple(f_out.shape) != (B, T, cfg.feature_dim) or not bool(
+                torch.isfinite(f_out).all()):
+            raise AssertionError(f"{path} path: bad features, shape "
+                                 f"{tuple(f_out.shape)}")
+        e2e_err = float((f_out - f_plain).abs().max())
+        if e2e_err > E2E_TOL:
+            raise AssertionError(f"{path} path vs plain: max abs err "
+                                 f"{e2e_err:.3g} > {E2E_TOL}")
+        loss = distortion_loss(feats, f_out)
+        mean_loss = float(loss.mean())
+        if not mean_loss < LOSS_LIMIT:
+            raise AssertionError(f"{path} path: mean distortion loss "
+                                 f"{mean_loss:.4f} >= {LOSS_LIMIT}")
+        ref_err = float(np.abs(loss[:4].cpu().numpy() - JAX_LOSS_0_3).max())
+        if ref_err > 1e-3:
+            raise AssertionError(f"{path} path: streams 0-3 loss "
+                                 f"{loss[:4].tolist()} vs radae_tpu {JAX_LOSS_0_3}")
+        print(f"serving path B={B} x {N_FRAMES} frames, rx {path}: "
+              f"vs plain max abs err {e2e_err:.3g}, mean loss {mean_loss:.4f}, "
+              f"streams 0-3 {[round(x, 4) for x in loss[:4].tolist()]} "
+              f"(radae_tpu {JAX_LOSS_0_3}, max diff {ref_err:.2g})")
+    print(f"launches on the main paths: {launches}")
 
     # -- timing -----------------------------------------------------------
+    frame_s = cfg.Tmf                               # 0.12 s of audio
     with torch.no_grad():
         tx = make_streaming_tx_step(cfg, enc, B, fused=True, device=dev)
-        rx = make_streaming_rx_step(cfg, dec, B, fused=True, device=dev)
         f12 = feats[:, :12].contiguous()
-        rx_win = torch.zeros((B, win, 2), device=dev)
-        rx_win[:, :Nmf] = tx(ew, f12, fc.encoder_state_zero(B, dev))[0]
-        es, ds = fc.encoder_state_zero(B, dev), fc.decoder_state_zero(B, dev)
+        rx_win = sig[:, :win].contiguous()
+        es = fc.encoder_state_zero(B, dev)
         tx_ms = time_ms(lambda: tx(ew, f12, es), 20)
-        rx_ms = time_ms(lambda: rx(dw, rx_win, ds), 20)
+        print(f"tx step B={B}: {tx_ms:.4f} ms/frame, "
+              f"{B * frame_s / (tx_ms / 1e3):.0f} audio-s/s")
+        for path, (step, w, state0, _) in rx_steps.items():
+            st = state0()
+            ms = time_ms(lambda: step(w, rx_win, st), 20)
+            print(f"rx step {path} B={B}: {ms:.4f} ms/frame, "
+                  f"{B * frame_s / (ms / 1e3):.0f} audio-s/s")
+
         z = torch.as_tensor(np.tanh(gen.standard_normal(
             (B, nz, cfg.latent_dim))).astype(np.float32), device=dev)
         f = feats[:, :4 * nz].contiguous()
-        dec_ms = time_ms(lambda: fc.fused_decoder_step(dw, z, ds), 50)
-        dec_plain_ms = time_ms(lambda: fc.decoder_step_plain(dw, z, ds), 10)
-        enc_ms = time_ms(lambda: fc.fused_encoder_step(ew, f, es), 50)
-        enc_plain_ms = time_ms(lambda: fc.encoder_step_plain(ew, f, es), 10)
-        feats_out, ds1 = fc.decoder_step_plain(dw, z, ds)
-        z_out, es1 = fc.encoder_step_plain(ew, f, es)
-    frame_s = cfg.Tmf                               # 0.12 s of audio
-    print(f"tx step B={B}: {tx_ms:.4f} ms/frame, "
-          f"{B * frame_s / (tx_ms / 1e3):.0f} audio-s/s")
-    print(f"rx step B={B}: {rx_ms:.4f} ms/frame, "
-          f"{B * frame_s / (rx_ms / 1e3):.0f} audio-s/s")
-    dec_bound, dec_by = bound(dw, (z,) + ds, (feats_out,) + ds1, nz, B)
-    enc_bound, enc_by = bound(ew, (f,) + es, (z_out,) + es1, nz, B)
-    print(f"fused_decoder_step: {dec_ms:.4f} ms (plain {dec_plain_ms:.4f} ms, "
-          f"bound {dec_bound:.4f} ms by {dec_by})")
-    print(f"fused_encoder_step: {enc_ms:.4f} ms (plain {enc_plain_ms:.4f} ms, "
-          f"bound {enc_bound:.4f} ms by {enc_by})")
+        ds, dsm = fc.decoder_state_zero(B, dev), fc.decoder_state_zero(
+            B, dev, merged=True)
+        runs = {   # kernel -> (kernel call, plain call, bound args)
+            "fused_decoder_step": (
+                lambda: fc.fused_decoder_step(dw, z, ds),
+                lambda: fc.decoder_step_plain(dw, z, ds), (dw, z, ds, 0.0)),
+            "fused_decoder_merged_step": (
+                lambda: fc.fused_decoder_step(dwm, z, dsm),
+                lambda: fc.decoder_merged_step_plain(dwm, z, dsm),
+                (dwm, z, dsm, 0.0)),
+            "fused_rx_frame_step": (
+                lambda: fc.fused_rx_frame_step(rw, rx_win, ds),
+                lambda: fc.rx_frame_step_plain(rw, rx_win, ds),
+                (rw.decoder, rx_win, ds, demod_flops(cfg) * B)),
+            "fused_encoder_step": (
+                lambda: fc.fused_encoder_step(ew, f, es),
+                lambda: fc.encoder_step_plain(ew, f, es), (ew, f, es, 0.0)),
+        }
+        kernels = []
+        for name, (kern, plain, (w, x, st, extra)) in runs.items():
+            ms = time_ms(kern, 50)
+            plain_ms = time_ms(plain, 10)
+            out, st1 = plain()
+            b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B, extra)
+            print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms by {b_by})")
+            kernels.append({
+                "name": name, "route": "cuda", "source": SRC,
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
-    src = "radae_tpu_torch/csrc/fused_core.cu"
-    kernels = [
-        {"name": "fused_decoder_step", "route": "cuda", "source": src,
-         "replaces": "radae_tpu/ops/fused_core.py:216",
-         "launches": launches["fused_decoder_step"],
-         "max_abs_err": errs["fused_decoder_step"], "ms": dec_ms,
-         "plain_ms": dec_plain_ms, "bound_ms": dec_bound, "bound_by": dec_by,
-         "library_ms": None},
-        {"name": "fused_encoder_step", "route": "cuda", "source": src,
-         "replaces": "radae_tpu/ops/fused_core.py:740",
-         "launches": launches["fused_encoder_step"],
-         "max_abs_err": errs["fused_encoder_step"], "ms": enc_ms,
-         "plain_ms": enc_plain_ms, "bound_ms": enc_bound, "bound_by": enc_by,
-         "library_ms": None},
-    ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

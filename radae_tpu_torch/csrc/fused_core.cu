@@ -1,11 +1,18 @@
 // Fused RADAE core codec steps for Hopper (sm_90a): the whole recurrent
-// encoder or decoder stack, for nz latent steps, in one launch.
+// encoder or decoder stack, for nz latent steps, in one launch; and the whole
+// rx frame (OFDM demod, LS pilot EQ, coarse magnitude, demap, decoder) in one.
 //
 // Replaces the Pallas TPU kernels in radae_tpu/ops/fused_core.py:
-//   radae_fused_decoder_step  <- make_fused_decoder_step (unmerged f32 form)
-//   radae_fused_encoder_step  <- make_fused_encoder_step (f32 form)
+//   radae_fused_decoder_step         <- make_fused_decoder_step, body `kernel`
+//                                       (unmerged f32 form)
+//   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
+//                                       `kernel_merged` (merged=True, f32)
+//   radae_fused_rx_frame_step        <- make_fused_rx_frame_step (f32, the
+//                                       samples read straight from HBM)
+//   radae_fused_encoder_step         <- make_fused_encoder_step (f32 form)
 // and computes the same functions as the plain PyTorch versions in
-// radae_tpu_torch/ops/fused_core.py (decoder_step_plain, encoder_step_plain).
+// radae_tpu_torch/ops/fused_core.py (decoder_step_plain,
+// decoder_merged_step_plain, rx_frame_step_plain, encoder_step_plain).
 //
 // What bounds it on this card.  One z-step of one stream is ~0.91M (decoder)
 // or ~0.94M (encoder) multiply-adds over ~3.6 MB of f32 weights.  At serving
@@ -33,6 +40,26 @@
 //     fixed order, so every launch gives the same bits;
 //   * f32 accumulation with expf/tanhf (no fast math).
 //
+// The chain-merged decoder has the same products in fewer, wider operands:
+// h @ [whh | glu] (96 x 384) and x @ [tap1 | tap0] (in x 64).  Its state
+// carries the projections (hh row 288, conv tap 32) instead of the raw
+// conv history, so a block keeps one x buffer, not a ring, and updates h,
+// the hh projection and the tap projection in place in shared memory
+// (217,088 B: x 47 KB, h 30 KB, hh projections 92 KB, taps 10 KB, scratch
+// 36 KB); each is read before it is overwritten within a layer.
+//
+// The frame kernel runs a demod prologue and then the unmerged decoder body
+// (dec_body, shared with dec_kernel).  The prologue reads the block's 16
+// streams x 6 symbol rows of interleaved IQ straight from HBM as one
+// (96, 384) operand, multiplies by the real (384, 60) DFT block matrix
+// (CP strip folded in as zero rows) to [Yr | Yi], takes the two pilot rows
+// through the (60, 60) LS block matrix, reduces the coarse magnitude over
+// the 30 carriers in a fixed order (one thread a stream), and writes the
+// equalised, scaled data symbols as [re | im] latents (16 x 3 x 80) into
+// shared memory, where the decoder body reads them as its z.  Y and the
+// pilot estimates live in the decoder's gate scratch, idle until the first
+// z-step; the bound is the decoder's plus about 4% for the demod.
+//
 // Built by radae_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes: plain C entries, pointers and the stream passed as
@@ -48,6 +75,8 @@ constexpr int NT = 384;   // threads per block
 // decoder widths (radae_tpu/models/core.py:41-43)
 constexpr int DEC_H = 96, DEC_G = 3 * DEC_H, DEC_CO = 32, DEC_X = 736;
 constexpr int DEC_NW = 2 + 5 * 8 + 2;
+constexpr int DEC_NWM = 2 + 5 * 6 + 2;         // chain-merged layout
+constexpr int DEC_GG = DEC_G + DEC_H;          // [whh | glu] columns
 // encoder widths (radae_tpu/models/core.py:37-39)
 constexpr int ENC_H = 64, ENC_G = 3 * ENC_H, ENC_CO = 96, ENC_X = 864;
 constexpr int ENC_NW = 2 + 5 * 7 + 2;
@@ -61,6 +90,26 @@ constexpr size_t ENC_SMEM = sizeof(float) * (3 * R * ENC_X + ENC_SCR);
 // widest output of the last product (its 4 partial buffers fit the scratch)
 constexpr int DEC_MAX_OUT = DEC_SCR / (4 * R);   // 144 >= 4 * 21
 constexpr int ENC_MAX_OUT = ENC_SCR / (4 * R);   // 96 >= latent 80
+// merged: one x buffer, then per layer h, hh projection, tap projection
+constexpr int DECM_CONV_KS = 6;                  // K chunks of x @ [tap1|tap0]
+constexpr size_t DECM_SMEM =
+    sizeof(float) * (R * DEC_X + 5 * R * (DEC_H + DEC_G + DEC_CO) + DEC_SCR);
+static_assert(DECM_CONV_KS * R * 2 * DEC_CO + R * 2 * DEC_CO <= DEC_SCR,
+              "conv partials + staging fit the scratch");
+static_assert(DECM_SMEM <= 232448, "opt-in shared memory of one block");
+
+// frame kernel geometry (flagship modem: Ns=4 data rows between two pilot
+// rows, Nc=30 carriers, M+Ncp=192 samples a symbol, 3 z-steps of latent 80)
+constexpr int FR_NS = 4, FR_NSYM = FR_NS + 2, FR_NC = 30, FR_SAMP = 192;
+constexpr int FR_ROW = 2 * FR_SAMP;            // floats of one symbol row
+constexpr int FR_Y = 2 * FR_NC;                // [Yr | Yi]
+constexpr int FR_NZ = 3, FR_LAT = 80, FR_PZ = FR_LAT / 2;
+constexpr int FR_NW = 4 + DEC_NW + 2;          // Wr Wi Er Ei, decoder, dft_w ls_w
+constexpr size_t FR_SMEM = DEC_SMEM + sizeof(float) * R * FR_NZ * FR_LAT;
+static_assert(FR_NS * FR_NC == FR_NZ * FR_PZ, "data symbols fill the z-steps");
+static_assert(R * FR_NSYM * FR_Y + 2 * R * FR_Y + R <= DEC_SCR,
+              "demod intermediates fit the decoder's scratch");
+static_assert(FR_SMEM <= 232448, "opt-in shared memory of one block");
 
 struct DecArgs {
   const float* w;
@@ -72,6 +121,29 @@ struct DecArgs {
   const float* hist_in[5];
   float* h_out[5];
   float* hist_out[5];
+};
+
+struct DecMergedArgs {
+  const float* w;
+  int off[DEC_NWM];
+  const float* z;
+  float* feats;
+  int B, nz, in_dim, out_dim;
+  const float* h_in[5];
+  const float* hgp_in[5];
+  const float* hpp_in[5];
+  float* h_out[5];
+  float* hgp_out[5];
+  float* hpp_out[5];
+};
+
+struct FrameArgs {
+  DecArgs d;          // the decoder (d.z unused: z is made in shared memory)
+  const float* rx;    // (B, FR_NSYM * FR_SAMP, 2) interleaved IQ
+  const float* dft_w; // (FR_ROW, FR_Y)
+  const float* ls_w;  // (FR_Y, FR_Y)
+  float mag_k;
+  int coarse_mag;
 };
 
 struct EncArgs {
@@ -140,17 +212,17 @@ __device__ __forceinline__ void mac(float4 (&acc)[RPT], const Src& s, int r0,
   }
 }
 
-// Y = A @ Wa (+ Bm @ Wb when wb != nullptr) over R rows; A and Bm have K
+// Y = A @ Wa (+ Bm @ Wb when wb != nullptr) over ROWS rows; A and Bm have K
 // columns, Y has `out` columns; epi(r, c, Y[r][c..c+3]) consumes the result.
-// Work items: KS chunks of the (virtually concatenated) K axis x R/RPT row
+// Work items: KS chunks of the (virtually concatenated) K axis x ROWS/RPT row
 // groups x out/4 column quads.  With KS > 1 the partial sums go to `part`
-// (KS*R*out floats) and are added in chunk order.  All threads must call it;
-// the caller syncs before the result is read.
-template <int RPT, int KS, class Epi>
+// (KS*ROWS*out floats) and are added in chunk order.  All threads must call
+// it; the caller syncs before the result is read.
+template <int RPT, int KS, int ROWS = R, class Epi>
 __device__ __forceinline__ void dot(const Src& a, const float* __restrict__ wa,
                                     const Src& bm, const float* __restrict__ wb,
                                     int K, int out, float* part, Epi epi) {
-  const int nq = out >> 2, ng = R / RPT;
+  const int nq = out >> 2, ng = ROWS / RPT;
   const int ktot = wb ? 2 * K : K;
   const int kc = ((ktot + KS - 1) / KS + 3) & ~3;
   const int n = KS * ng * nq;
@@ -168,17 +240,17 @@ __device__ __forceinline__ void dot(const Src& a, const float* __restrict__ wa,
       if (KS == 1)
         epi(r0 + i, c, acc[i]);
       else
-        st4(part + ((size_t)ks * R + r0 + i) * out + c, acc[i]);
+        st4(part + ((size_t)ks * ROWS + r0 + i) * out + c, acc[i]);
     }
   }
   if (KS > 1) {
     __syncthreads();
-    for (int it = threadIdx.x; it < R * nq; it += NT) {
+    for (int it = threadIdx.x; it < ROWS * nq; it += NT) {
       const int r = it / nq, c = (it % nq) * 4;
       float4 s = ld4(part + (size_t)r * out + c);
 #pragma unroll
       for (int ks = 1; ks < KS; ++ks)
-        s = add4(s, ld4(part + ((size_t)ks * R + r) * out + c));
+        s = add4(s, ld4(part + ((size_t)ks * ROWS + r) * out + c));
       epi(r, c, s);
     }
   }
@@ -223,9 +295,12 @@ __device__ __forceinline__ void gru(const Src& x, int K, const Src& hold,
   }
 }
 
-__global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
-  extern __shared__ float4 smem4[];
-  float* const xb = reinterpret_cast<float*>(smem4);   // [2][R][DEC_X]
+// The unmerged decoder stack over a.nz z-steps for the block's R rows
+// (dec_kernel's and rx_frame_kernel's body).  Step k reads its latents from
+// the rows of z0 shifted by k * zstep floats; smem holds DEC_SMEM bytes.
+__device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
+                                         const Src& z0, int zstep) {
+  float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
   float* const scr = hb + 2 * 5 * R * DEC_H;            // gates / partials
   const int b0 = blockIdx.x * R;
@@ -241,7 +316,7 @@ __global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
     const Src xs{X, DEC_X, R - 1};
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b)
-    const Src zs{a.z + ((size_t)b0 * a.nz + k) * a.in_dim, a.nz * a.in_dim, rmax};
+    const Src zs{z0.p + (size_t)k * zstep, z0.ld, z0.rmax};
     const float* d1b = w + off[1];
     dot<4, 4>(zs, w + off[0], zs, nullptr, a.in_dim, DEC_H, scr,
               [&](int r, int c, float4 v) {
@@ -304,6 +379,205 @@ __global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
       a.hist_out[i][((size_t)b0 + r) * cin + j] = xl[r * DEC_X + j];
     }
   }
+}
+
+__global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
+  extern __shared__ float4 smem4[];
+  const int b0 = blockIdx.x * R;
+  const Src z0{a.z + (size_t)b0 * a.nz * a.in_dim, a.nz * a.in_dim,
+               min(R, a.B - b0) - 1};
+  dec_body(a, reinterpret_cast<float*>(smem4), z0, a.in_dim);
+}
+
+__global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
+  float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
+  float* const gp = hs + 5 * R * DEC_H;                 // [5][R][DEC_G]
+  float* const pp = gp + 5 * R * DEC_G;                 // [5][R][DEC_CO]
+  float* const scr = pp + 5 * R * DEC_CO;               // gates / partials
+  float* const cc = scr + DECM_CONV_KS * R * 2 * DEC_CO;  // [R][2*DEC_CO]
+  const int b0 = blockIdx.x * R;
+  const int nv = min(R, a.B - b0);
+  const int rmax = nv - 1;
+  const float* const w = a.w;
+  const int* const off = a.off;
+  const Src xs{X, DEC_X, R - 1};
+
+  // carried state -> shared memory (rows past B repeat the last one)
+  for (int i = 0; i < 5; ++i) {
+    for (int it = threadIdx.x; it < R * DEC_H; it += NT)
+      hs[i * R * DEC_H + it] =
+          a.h_in[i][((size_t)b0 + min(it / DEC_H, rmax)) * DEC_H + it % DEC_H];
+    for (int it = threadIdx.x; it < R * DEC_G; it += NT)
+      gp[i * R * DEC_G + it] =
+          a.hgp_in[i][((size_t)b0 + min(it / DEC_G, rmax)) * DEC_G + it % DEC_G];
+    for (int it = threadIdx.x; it < R * DEC_CO; it += NT)
+      pp[i * R * DEC_CO + it] =
+          a.hpp_in[i][((size_t)b0 + min(it / DEC_CO, rmax)) * DEC_CO + it % DEC_CO];
+  }
+  __syncthreads();
+
+  for (int k = 0; k < a.nz; ++k) {
+    // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b)
+    const Src zs{a.z + ((size_t)b0 * a.nz + k) * a.in_dim, a.nz * a.in_dim, rmax};
+    const float* d1b = w + off[1];
+    dot<4, 4>(zs, w + off[0], zs, nullptr, a.in_dim, DEC_H, scr,
+              [&](int r, int c, float4 v) {
+                st4(X + r * DEC_X + c, tanh4(add4(v, ldg4(d1b + c))));
+              });
+    __syncthreads();
+
+    for (int i = 0; i < 5; ++i) {
+      const int gin = DEC_H + 128 * i, cin = gin + DEC_H;
+      const int* o = off + 2 + 6 * i;   // wih wgg bih bhh cw cb
+      float* const h = hs + i * R * DEC_H;
+      float* const hg = gp + i * R * DEC_G;
+      float* const hp = pp + i * R * DEC_CO;
+
+      // xg = X[:, :gin] @ wih + bih, summed in place over partial 0
+      const float* bih = w + o[2];
+      dot<2, 2>(xs, w + o[0], xs, nullptr, gin, DEC_G, scr,
+                [&](int r, int c, float4 v) {
+                  st4(scr + r * DEC_G + c, add4(v, ldg4(bih + c)));
+                });
+      __syncthreads();
+
+      // GRU gates from xg and the carried hh projection + bhh; h in place
+      const float* bhh = w + o[3];
+      for (int it = threadIdx.x; it < R * DEC_H; it += NT) {
+        const int r = it / DEC_H, j = it % DEC_H;
+        const float* xg = scr + r * DEC_G;
+        const float* g = hg + r * DEC_G;
+        const float rr = sigm(xg[j] + (g[j] + __ldg(bhh + j)));
+        const float zz = sigm(xg[DEC_H + j] + (g[DEC_H + j] + __ldg(bhh + DEC_H + j)));
+        const float nn = tanhf(xg[2 * DEC_H + j] +
+                               rr * (g[2 * DEC_H + j] + __ldg(bhh + 2 * DEC_H + j)));
+        float* const hr = h + r * DEC_H + j;
+        *hr = (1.f - zz) * nn + zz * *hr;
+      }
+      __syncthreads();
+
+      // h @ [whh | glu]: the next step's hh projection, and the GLU output
+      // X[:, gin:cin] = h * sigmoid(h @ glu)
+      const Src hsrc{h, DEC_H, R - 1};
+      dot<4, 1>(hsrc, w + o[1], hsrc, nullptr, DEC_H, DEC_GG, nullptr,
+                [&](int r, int c, float4 v) {
+                  if (c < DEC_G) {
+                    st4(hg + r * DEC_G + c, v);
+                  } else {
+                    const float4 hv = ld4(h + r * DEC_H + c - DEC_G);
+                    st4(X + r * DEC_X + gin + c - DEC_G,
+                        make_float4(hv.x * sigm(v.x), hv.y * sigm(v.y),
+                                    hv.z * sigm(v.z), hv.w * sigm(v.w)));
+                  }
+                });
+      __syncthreads();
+
+      // X[:, :cin] @ [tap1 | tap0] -> staging cc, then
+      // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
+      // half of cc is the next step's projection
+      dot<4, DECM_CONV_KS>(xs, w + o[4], xs, nullptr, cin, 2 * DEC_CO, scr,
+                           [&](int r, int c, float4 v) {
+                             st4(cc + r * 2 * DEC_CO + c, v);
+                           });
+      __syncthreads();
+      const float* cb = w + o[5];
+      for (int it = threadIdx.x; it < R * (DEC_CO / 4); it += NT) {
+        const int r = it / (DEC_CO / 4), c = (it % (DEC_CO / 4)) * 4;
+        float* const p = hp + r * DEC_CO + c;
+        const float* t = cc + r * 2 * DEC_CO;
+        st4(X + r * DEC_X + cin + c,
+            tanh4(add4(add4(ld4(p), ld4(t + c)), ldg4(cb + c))));
+        st4(p, ld4(t + DEC_CO + c));
+      }
+      __syncthreads();
+    }
+
+    // output: feats[:, k] = X @ out_w + out_b
+    const float* ob = w + off[DEC_NWM - 1];
+    float* const fo = a.feats + ((size_t)b0 * a.nz + k) * a.out_dim;
+    dot<4, 4>(xs, w + off[DEC_NWM - 2], xs, nullptr, DEC_X, a.out_dim, scr,
+              [&](int r, int c, float4 v) {
+                if (r < nv) st4(fo + (size_t)r * a.nz * a.out_dim + c, add4(v, ldg4(ob + c)));
+              });
+    __syncthreads();
+  }
+
+  for (int i = 0; i < 5; ++i) {
+    for (int it = threadIdx.x; it < nv * DEC_H; it += NT)
+      a.h_out[i][(size_t)b0 * DEC_H + it] = hs[i * R * DEC_H + it];
+    for (int it = threadIdx.x; it < nv * DEC_G; it += NT)
+      a.hgp_out[i][(size_t)b0 * DEC_G + it] = gp[i * R * DEC_G + it];
+    for (int it = threadIdx.x; it < nv * DEC_CO; it += NT)
+      a.hpp_out[i][(size_t)b0 * DEC_CO + it] = pp[i * R * DEC_CO + it];
+  }
+}
+
+__global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  // the decoder's gate scratch holds the demod intermediates until z is made
+  float* const Y = smem + 2 * R * DEC_X + 2 * 5 * R * DEC_H;  // [R][NSYM][Y]
+  float* const hp0 = Y + R * FR_NSYM * FR_Y;                  // [R][Y]
+  float* const hp1 = hp0 + R * FR_Y;                          // [R][Y]
+  float* const inv_mag = hp1 + R * FR_Y;                      // [R]
+  float* const zsh = smem + DEC_SMEM / sizeof(float);         // [R][NZ*LAT]
+  const int b0 = blockIdx.x * R;
+  const int nv = min(R, a.d.B - b0);
+
+  // strip_cp + DFT of every symbol row: (R*NSYM, 384) @ dft_w -> [Yr | Yi]
+  const Src rows{a.rx + (size_t)b0 * FR_NSYM * FR_ROW, FR_ROW, nv * FR_NSYM - 1};
+  dot<4, 1, R * FR_NSYM>(rows, a.dft_w, rows, nullptr, FR_ROW, FR_Y, nullptr,
+                         [&](int r, int c, float4 v) { st4(Y + r * FR_Y + c, v); });
+  __syncthreads();
+
+  // LS channel estimates of the two pilot rows: [Yr | Yi] @ ls_w
+  const Src p0{Y, FR_NSYM * FR_Y, R - 1};
+  const Src p1{Y + (FR_NSYM - 1) * FR_Y, FR_NSYM * FR_Y, R - 1};
+  dot<1, 1>(p0, a.ls_w, p0, nullptr, FR_Y, FR_Y, nullptr,
+            [&](int r, int c, float4 v) { st4(hp0 + r * FR_Y + c, v); });
+  dot<1, 1>(p1, a.ls_w, p1, nullptr, FR_Y, FR_Y, nullptr,
+            [&](int r, int c, float4 v) { st4(hp1 + r * FR_Y + c, v); });
+  __syncthreads();
+
+  // coarse magnitude: the mean over the carriers, summed in carrier order
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    float im = 1.f;
+    if (a.coarse_mag) {
+      const float* q0 = hp0 + r * FR_Y;
+      const float* q1 = hp1 + r * FR_Y;
+      float s = 0.f;
+      for (int c = 0; c < FR_NC; ++c)
+        s += q0[c] * q0[c] + q0[FR_NC + c] * q0[FR_NC + c] +
+             q1[c] * q1[c] + q1[FR_NC + c] * q1[FR_NC + c];
+      im = 1.f / ((sqrtf(0.5f * (s / FR_NC)) + 1e-6f) * a.mag_k);
+    }
+    inv_mag[r] = im;
+  }
+  __syncthreads();
+
+  // linear pilot interpolation + phase EQ + magnitude, demapped into the
+  // z-steps' [re(40) | im(40)] latents (data symbol m = (s-1)*Nc + c)
+  for (int it = threadIdx.x; it < R * FR_NS * FR_NC; it += NT) {
+    const int r = it / (FR_NS * FR_NC), m = it % (FR_NS * FR_NC);
+    const int s = m / FR_NC + 1, c = m % FR_NC;
+    const float t = (float)s / (FR_NS + 1), u = 1.f - t;
+    const float* q0 = hp0 + r * FR_Y;
+    const float* q1 = hp1 + r * FR_Y;
+    const float hr = q0[c] * u + q1[c] * t;
+    const float hi = q0[FR_NC + c] * u + q1[FR_NC + c] * t;
+    const float scale = rsqrtf(hr * hr + hi * hi + 1e-12f) * inv_mag[r];
+    const float* y = Y + (r * FR_NSYM + s) * FR_Y;
+    const float yr = y[c], yi = y[FR_NC + c];
+    float* const zk = zsh + r * FR_NZ * FR_LAT + (m / FR_PZ) * FR_LAT + m % FR_PZ;
+    zk[0] = (yr * hr + yi * hi) * scale;
+    zk[FR_PZ] = (yi * hr - yr * hi) * scale;
+  }
+  __syncthreads();
+
+  dec_body(a.d, smem, Src{zsh, FR_NZ * FR_LAT, R - 1}, FR_LAT);
 }
 
 __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
@@ -392,11 +666,13 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
 
 extern "C" {
 
+// Every entry takes (weights, offsets[n_off], n_off, input, output, sizes...,
+// state_in[], state_out[], stream) and returns the launch's cudaError_t.
+
 int radae_fused_decoder_step(const void* w, const int* off, int n_off,
                              const void* z, void* feats, int B, int nz,
-                             int in_dim, int out_dim, void* const* h_in,
-                             void* const* hist_in, void* const* h_out,
-                             void* const* hist_out, void* stream) {
+                             int in_dim, int out_dim, void* const* state_in,
+                             void* const* state_out, void* stream) {
   if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
       out_dim > DEC_MAX_OUT)
     return (int)cudaErrorInvalidValue;
@@ -407,10 +683,10 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
   a.feats = static_cast<float*>(feats);
   a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
   for (int i = 0; i < 5; ++i) {
-    a.h_in[i] = static_cast<const float*>(h_in[i]);
-    a.hist_in[i] = static_cast<const float*>(hist_in[i]);
-    a.h_out[i] = static_cast<float*>(h_out[i]);
-    a.hist_out[i] = static_cast<float*>(hist_out[i]);
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
   cudaError_t e = cudaFuncSetAttribute(
       dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DEC_SMEM);
@@ -419,11 +695,75 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
   return (int)cudaGetLastError();
 }
 
+int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
+                                    const void* z, void* feats, int B, int nz,
+                                    int in_dim, int out_dim,
+                                    void* const* state_in,
+                                    void* const* state_out, void* stream) {
+  if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
+      out_dim > DEC_MAX_OUT)
+    return (int)cudaErrorInvalidValue;
+  DecMergedArgs a;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < DEC_NWM; ++i) a.off[i] = off[i];
+  a.z = static_cast<const float*>(z);
+  a.feats = static_cast<float*>(feats);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hgp_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.hpp_in[i] = static_cast<const float*>(state_in[10 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
+    a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      dec_merged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DECM_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dec_merged_kernel<<<(B + R - 1) / R, NT, DECM_SMEM,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
+                              const void* rx, void* feats, int B, int out_dim,
+                              float mag_k, int coarse_mag,
+                              void* const* state_in, void* const* state_out,
+                              void* stream) {
+  if (n_off != FR_NW || B < 1 || out_dim % 4 || out_dim > DEC_MAX_OUT)
+    return (int)cudaErrorInvalidValue;
+  FrameArgs a;
+  const float* wf = static_cast<const float*>(w);
+  a.d.w = wf;
+  for (int i = 0; i < DEC_NW; ++i) a.d.off[i] = off[4 + i];
+  a.d.z = nullptr;
+  a.d.feats = static_cast<float*>(feats);
+  a.d.B = B; a.d.nz = FR_NZ; a.d.in_dim = FR_LAT; a.d.out_dim = out_dim;
+  for (int i = 0; i < 5; ++i) {
+    a.d.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.d.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.d.h_out[i] = static_cast<float*>(state_out[i]);
+    a.d.hist_out[i] = static_cast<float*>(state_out[5 + i]);
+  }
+  a.rx = static_cast<const float*>(rx);
+  a.dft_w = wf + off[4 + DEC_NW];
+  a.ls_w = wf + off[4 + DEC_NW + 1];
+  a.mag_k = mag_k;
+  a.coarse_mag = coarse_mag;
+  cudaError_t e = cudaFuncSetAttribute(
+      rx_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FR_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  rx_frame_kernel<<<(B + R - 1) / R, NT, FR_SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 int radae_fused_encoder_step(const void* w, const int* off, int n_off,
                              const void* f, void* z, int B, int nz,
                              int in_dim, int out_dim, int bottleneck,
-                             void* const* h_in, void* const* hist_in,
-                             void* const* h_out, void* const* hist_out,
+                             void* const* state_in, void* const* state_out,
                              void* stream) {
   if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
       out_dim > ENC_MAX_OUT)
@@ -436,10 +776,10 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
   a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
   a.bottleneck = bottleneck;
   for (int i = 0; i < 5; ++i) {
-    a.h_in[i] = static_cast<const float*>(h_in[i]);
-    a.hist_in[i] = static_cast<const float*>(hist_in[i]);
-    a.h_out[i] = static_cast<float*>(h_out[i]);
-    a.hist_out[i] = static_cast<float*>(hist_out[i]);
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
   cudaError_t e = cudaFuncSetAttribute(
       enc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ENC_SMEM);

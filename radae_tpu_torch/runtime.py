@@ -11,7 +11,9 @@ Complex samples go in and out as packed (..., 2) float tensors.  Each
 factory builds its device constants once; the DFT/IDFT are constant-matrix
 products left to torch.matmul (in full f32: TF32 is switched off).  With
 fused=True the core net runs as the fused kernel of ops/fused_core.py and
-takes `decoder_weights`/`encoder_weights` and the fused state tuples.
+takes `decoder_weights`/`encoder_weights` and the fused state tuples;
+fused_merged=True picks the chain-merged decoder kernel.  The whole rx
+frame as one kernel is `ops.fused_core.make_fused_rx_frame_step`.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def _device(device) -> torch.device:
 
 def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
                            batch: int, fused: bool = False,
+                           fused_merged: bool = False,
                            frames_per_step: int = 1, device="cuda"):
     """Batched streaming rx step.
 
@@ -46,7 +49,9 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
     Unfused: dec_params is the `params_to_torch` decoder tree and dec_state
     the `CoreDecoder` state dict (or None).  fused=True: dec_params comes
     from `fused_core.decoder_weights` and dec_state from
-    `decoder_state_zero`.  frames_per_step=N demodulates and decodes N
+    `decoder_state_zero`; with fused_merged=True both come from the
+    same functions with merged=True and the chain-merged decoder kernel
+    runs.  frames_per_step=N demodulates and decodes N
     consecutive frames per call, each frame equalised from its own two
     bracketing pilot rows (the same math as N chained calls)."""
     dev = _device(device)
@@ -54,6 +59,8 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
     fps = int(frames_per_step)
     if fps < 1:
         raise ValueError(f"frames_per_step must be >= 1, got {fps}")
+    if fused_merged and not fused:
+        raise ValueError("fused_merged=True needs fused=True")
     Wfwd = cplx.const(cfg.Wfwd, dev)
     ls = pilots_ops.ls_consts(cfg.P, cfg.w, cfg.Fs, dev)
     pil_idx = torch.as_tensor([f * (Ns + 1) for f in range(fps + 1)],
@@ -92,6 +99,11 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
 
         z_hat = ofdm.qpsk_demap(data.reshape(B, -1, cfg.latent_dim // 2))
         if fused:
+            if fused_core.is_merged(dec_params) != bool(fused_merged):
+                raise ValueError(
+                    f"rx step built with fused_merged={fused_merged}: the "
+                    "weights must come from decoder_weights(..., merged="
+                    f"{bool(fused_merged)})")
             z_hat = z_hat.reshape(B, fps * cfg.Nzmf, cfg.latent_dim)
             return fused_core.fused_decoder_step(dec_params, z_hat, dec_state)
         return decoder(dec_params, z_hat, key=None, state=dec_state)

@@ -86,6 +86,56 @@ def test_encoder_plain_matches_pallas_interpret(tree):
             np.testing.assert_allclose(s.numpy(), r, **TOL)
 
 
+def test_merged_decoder_weights_equal_jax(tree):
+    ours = fc.decoder_weights(tree["decoder"], "cpu", merged=True)
+    ref = jfc.decoder_weights(tree["decoder"], merged=True)
+    assert ours.names == tuple(
+        jfc._fused_weights(tree["decoder"], "decoder", merged=True)[1])
+    assert len(ours.arrays) == len(ref) == 34 and fc.is_merged(ours)
+    for a, r in zip(ours.arrays, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+        assert a.data_ptr() % 16 == 0 and a.untyped_storage().data_ptr() \
+            == ours.buf.untyped_storage().data_ptr()
+    for a, r in zip(fc.decoder_state_zero(B, "cpu", merged=True),
+                    jfc.decoder_state_zero(B, merged=True)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("nz", [3, 6])
+def test_merged_decoder_plain_matches_pallas_interpret(tree, nz):
+    """radae_tpu's chain-merged kernel against the port's merged plain
+    version: features and all 15 state tensors over 3 chained calls."""
+    w = fc.decoder_weights(tree["decoder"], "cpu", merged=True)
+    step = jfc.make_fused_decoder_step(80, 21, B, tile=4, nz=nz,
+                                       interpret=True, merged=True)
+    jw = jfc.decoder_weights(tree["decoder"], merged=True)
+    jstate = jfc.decoder_state_zero(B, merged=True)
+    state = fc.decoder_state_zero(B, "cpu", merged=True)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        z = np.tanh(rng.standard_normal((B, nz, 80))).astype(np.float32)
+        f, state = fc.decoder_merged_step_plain(w, torch.as_tensor(z), state)
+        f_ref, jstate = step(jw, z, *jstate)
+        np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), **TOL)
+        assert len(state) == len(jstate) == 15
+        for s, r in zip(state, jstate):
+            np.testing.assert_allclose(s.numpy(), np.asarray(r), **TOL)
+
+
+def test_merged_and_unmerged_plain_give_the_same_features(tree):
+    w = fc.decoder_weights(tree["decoder"], "cpu")
+    wm = fc.decoder_weights(tree["decoder"], "cpu", merged=True)
+    s, sm = fc.decoder_state_zero(B, "cpu"), fc.decoder_state_zero(
+        B, "cpu", merged=True)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        z = torch.as_tensor(_z(rng))
+        f, s = fc.decoder_step_plain(w, z, s)
+        fm, sm = fc.decoder_merged_step_plain(wm, z, sm)
+        torch.testing.assert_close(fm, f, **TOL)
+        torch.testing.assert_close(sm[:5], s[:5], **TOL)
+
+
 def test_wrappers_run_the_plain_version_on_cpu_without_launching(tree):
     fc.reset_launches()
     w = fc.decoder_weights(tree["decoder"], "cpu")
@@ -94,11 +144,26 @@ def test_wrappers_run_the_plain_version_on_cpu_without_launching(tree):
     f, s = fc.fused_decoder_step(w, z, s0)
     f_ref, s_ref = fc.decoder_step_plain(w, z, s0)
     torch.testing.assert_close(f, f_ref, rtol=0, atol=0)
+    wm = fc.decoder_weights(tree["decoder"], "cpu", merged=True)
+    sm0 = fc.decoder_state_zero(B, "cpu", merged=True)
+    fm, sm = fc.fused_decoder_step(wm, z, sm0)
+    fm_ref, _ = fc.decoder_merged_step_plain(wm, z, sm0)
+    torch.testing.assert_close(fm, fm_ref, rtol=0, atol=0)
+    assert len(sm) == 15
     ew = fc.encoder_weights(tree["encoder"], "cpu")
     x = torch.zeros((B, 12, 21))
     zz, _ = fc.fused_encoder_step(ew, x, fc.encoder_state_zero(B, "cpu"))
     assert tuple(zz.shape) == (B, 3, 80)
-    assert fc.LAUNCHES == {"fused_decoder_step": 0, "fused_encoder_step": 0}
+    from radae_tpu_torch.config import flagship_config
+    cfg = flagship_config()
+    rw = fc.fused_rx_weights(tree["decoder"], cfg, "cpu")
+    rx = torch.zeros((B, (cfg.Ns + 2) * (cfg.M + cfg.Ncp), 2))
+    ff, _ = fc.make_fused_rx_frame_step(cfg, B, device="cpu")(rw, rx, s0)
+    ff_ref, _ = fc.rx_frame_step_plain(rw, rx, s0)
+    torch.testing.assert_close(ff, ff_ref, rtol=0, atol=0)
+    assert fc.LAUNCHES == {"fused_decoder_step": 0,
+                           "fused_decoder_merged_step": 0,
+                           "fused_rx_frame_step": 0, "fused_encoder_step": 0}
 
 
 def test_wrappers_refuse_other_devices(tree):

@@ -58,6 +58,7 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from radae_tpu_torch.config import flagship_config
     from radae_tpu_torch.convert import params_to_torch
     from radae_tpu_torch.models.core import CoreDecoder, CoreEncoder
+    from radae_tpu_torch.ops import fused_core
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = flagship_config()
@@ -67,3 +68,7 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         runtime.make_streaming_tx_step(cfg, CoreEncoder(21, 80, 3), 4)
     with pytest.raises(RuntimeError, match="is_available"):
         params_to_torch({"w": [1.0]})
+    with pytest.raises(RuntimeError, match="is_available"):
+        fused_core.make_fused_rx_frame_step(cfg, 4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        fused_core.decoder_state_zero(4, merged=True)

@@ -96,6 +96,48 @@ def test_rx_step_two_frames_per_step_matches_jax(setup):
     np.testing.assert_allclose(f.numpy(), np.concatenate(ref, 1), **TOL)
 
 
+@pytest.mark.parametrize("fps", [1, 2])
+def test_rx_step_merged_matches_jax(setup, fps):
+    """The port's rx step on the chain-merged decoder (fused_merged=True)
+    against radae_tpu's rx step, frames_per_step 1 (3 chained calls) and 2
+    (one call over two frames)."""
+    tree, _, sig = setup
+    cfg = flagship_config()
+    jrx = jrt.make_streaming_rx_step(jax_flagship_config(), JDecoder(80, 21), B)
+    rx = runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B,
+                                        fused=True, fused_merged=True,
+                                        frames_per_step=fps, device="cpu")
+    w = fc.decoder_weights(tree["decoder"], "cpu", merged=True)
+    st = fc.decoder_state_zero(B, "cpu", merged=True)
+    jst, ref = None, []
+    for k in range(NF):
+        f_k, jst = jrx(tree["decoder"],
+                       sig[:, k * cfg.Nmf:(k + 1) * cfg.Nmf + cfg.M + cfg.Ncp],
+                       jst)
+        ref.append(np.asarray(f_k))
+    win = fps * cfg.Nmf + cfg.M + cfg.Ncp
+    for c in range(NF // fps):
+        f, st = rx(w, torch.as_tensor(sig[:, c * fps * cfg.Nmf:
+                                          c * fps * cfg.Nmf + win]), st)
+        assert len(st) == 15
+        np.testing.assert_allclose(
+            f.numpy(), np.concatenate(ref[c * fps:(c + 1) * fps], 1), **TOL)
+
+
+def test_rx_step_refuses_weights_of_the_other_layout(setup):
+    tree = setup[0]
+    cfg = flagship_config()
+    win = cfg.Nmf + cfg.M + cfg.Ncp
+    for merged in (False, True):
+        rx = runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B,
+                                            fused=True, fused_merged=merged,
+                                            device="cpu")
+        with pytest.raises(ValueError, match="fused_merged"):
+            rx(fc.decoder_weights(tree["decoder"], "cpu", merged=not merged),
+               torch.zeros((B, win, 2)),
+               fc.decoder_state_zero(B, "cpu", merged=not merged))
+
+
 def test_steps_check_their_batch(setup):
     cfg = flagship_config()
     rx = runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B,
