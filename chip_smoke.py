@@ -26,8 +26,14 @@ EQ, coarse magnitude):
      the mean distortion loss is below 0.65, and that streams 0-3 give
      the losses radae_tpu gives on the CPU;
   4. times the three rx steps, the tx step and the four kernels with CUDA
-     events, beside each kernel's plain version and its bound;
+     events around calls issued from the host, beside each kernel's plain
+     version, its bound and its device time in a CUDA graph replay, and
+     prints the weight bytes one encoder launch fetches into the SMs, from
+     the tiling the built library reports;
   5. prints a `kernels` JSON line, and last the `ok` JSON line.
+
+Step 2 also holds the encoder kernel to the same bits on two launches with
+the same input and state (B=2048 and B=37).
 
 Any failure exits non-zero without the `ok` line; so does a machine without
 a CUDA card.
@@ -35,6 +41,7 @@ a CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -103,6 +110,33 @@ def time_ms(fn, n, warmup=3) -> float:
     return t0.elapsed_time(t1) / n
 
 
+def graph_ms(fn, n=20, reps=5) -> float:
+    """Device time of one fn() call: n calls captured in a CUDA graph, the
+    graph replayed reps times between two CUDA events.  Unlike time_ms it
+    leaves out the host's time to issue the calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (n * reps)
+
+
 def demod_flops(cfg) -> float:
     """Flop of one stream's frame front end, counting only what the math
     needs: the DFT of the M kept samples of each symbol row, the 3-tap LS
@@ -128,7 +162,29 @@ def bound(weights, inputs, outputs, nz, batch, extra_flops=0.0):
                                        else "operations")
 
 
-def main() -> int:
+def weight_fetch_bytes(weights, gru_rows, other_rows, block_rows):
+    """Weight bytes one block fetches into its SM per z-step when each weight
+    load feeds `gru_rows` rows in the GRU products (g*_wih, g*_whh) and
+    `other_rows` rows in the others: each matrix is read block_rows / rows
+    times."""
+    return sum(4 * a.numel() * (block_rows // (
+        gru_rows if n.endswith(("_wih", "_whh")) else other_rows))
+        for n, a in zip(weights.names, weights.arrays) if a.dim() == 2)
+
+
+def fetch_line(weights, rows, block_rows, nz, batch, ms) -> str:
+    blocks = -(-batch // block_rows)
+    per = weight_fetch_bytes(weights, *rows, block_rows)
+    total = per * blocks * nz
+    return (f"weight fetch {per} B per block per z-step x {blocks} blocks x "
+            f"nz {nz} = {total / 1e9:.4f} GB a launch, "
+            f"{total / (ms * 1e-3) / 1e12:.2f} TB/s at {ms:.4f} ms")
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(
+        description="Smoke test of radae_tpu_torch on one CUDA card; takes "
+        "no arguments.").parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -244,8 +300,24 @@ def main() -> int:
                 fp, sp = fc.rx_frame_step_plain(rw, rx, sp)
                 held("fused_rx_frame_step", batch, f"call {frame}", (fk,) + sk,
                      (fp,) + sp)
+        # the encoder gives the same bits on two launches (own seed, so the
+        # inputs above and below stay as they were)
+        drng = np.random.default_rng(1)
+        for batch in (B, RAGGED_B):
+            f = torch.as_tensor((0.3 * drng.standard_normal(
+                (batch, 4 * nz, cfg.feature_dim))).astype(np.float32), device=dev)
+            st = tuple(torch.as_tensor((0.5 * drng.standard_normal(
+                tuple(s.shape))).astype(np.float32), device=dev)
+                for s in fc.encoder_state_zero(batch, dev))
+            z1, s1 = fc.fused_encoder_step(ew, f, st, cfg.bottleneck)
+            z2, s2 = fc.fused_encoder_step(ew, f, st, cfg.bottleneck)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip((z1,) + s1, (z2,) + s2)):
+                raise AssertionError(f"fused_encoder_step B={batch}: two "
+                                     "launches on the same input differ")
     print("kernels vs plain (rtol 1e-4, atol 1e-4), max abs err at B=2048: "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    print(f"encoder: two launches bit-identical at B={B} and B={RAGGED_B}")
 
     # -- the serving path on the fixture, three rx paths -------------------
     rx_steps = {
@@ -340,6 +412,8 @@ def main() -> int:
                 lambda: fc.fused_encoder_step(ew, f, es),
                 lambda: fc.encoder_step_plain(ew, f, es), (ew, f, es, 0.0)),
         }
+        lib = _kernels.library("fused_core")
+        enc_rows = (lib.radae_enc_tile_rows(),) * 2
         kernels = []
         for name, (kern, plain, (w, x, st, extra)) in runs.items():
             ms = time_ms(kern, 50)
@@ -347,7 +421,11 @@ def main() -> int:
             out, st1 = plain()
             b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B, extra)
             print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms by {b_by})")
+                  f"bound {b_ms:.4f} ms by {b_by}; "
+                  f"{graph_ms(kern):.4f} ms in a CUDA graph replay)")
+            if name == "fused_encoder_step":
+                print(f"  encoder, {enc_rows[0]}-row tiles: " + fetch_line(
+                    ew, enc_rows, lib.radae_block_rows(), nz, B, ms))
             kernels.append({
                 "name": name, "route": "cuda", "source": SRC,
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -33,12 +33,31 @@
 //     back to device memory inside a launch; the carried state (GRU h, conv
 //     history) is read from device memory at the first step and written at
 //     the end, in the unmerged layout of the plain version;
-//   * every product is x (shared) @ W (L2, pre-transposed (in, out)): a
-//     thread owns a 4-row x 4-column tile, reads W as float4 along `out`
-//     (coalesced), x as float4 along `in` (shared broadcast), and narrow
-//     products split `in` into KS chunks whose partial sums are added in a
-//     fixed order, so every launch gives the same bits;
+//   * every product is x (shared) @ W (L2, pre-transposed (in, out)): in the
+//     decoder kernels a thread owns a 4-row x 4-column tile (2 rows in the
+//     GRU), reads W as float4 along `out` (coalesced), x as float4 along
+//     `in` (shared broadcast), and narrow products split `in` into KS chunks
+//     whose partial sums are added in a fixed order, so every launch gives
+//     the same bits;
 //   * f32 accumulation with expf/tanhf (no fast math).
+//
+// The encoder kernel tiles its products over all of the block's rows.  With
+// 2- and 4-row tiles each block fetched its weights 5.8 times a z-step
+// (21.8 MB instead of 3.7 MB).  Here a thread owns a
+// 16-row x 4-column tile (64 accumulators), so each weight float4 it loads
+// feeds 64 multiply-adds and each weight is fetched once per block; the
+// parallelism comes from K instead: a warp is 4 column quads x 8 K lanes
+// (K interleaved by float4, so 8 lanes read 128 contiguous bytes of an x
+// row), summed by a fixed shuffle butterfly, and products too narrow for
+// 12 warps split K across warps (partials added in chunk order).  The next
+// K step's weights are loaded, without a branch, before this step's
+// multiply-adds.  Every operand of a product is in shared memory: the
+// carried state and the features are staged into the x ring in passes that
+// already sit between two barriers.  What is left, timed on an H100 by
+// tools/enc_variants.py with one cost taken out at a time: the 24
+// barrier-separated phases of a z-step (0.125 ms of the 0.43 ms launch
+// with no product loop in them), then the loops' issue rate; the x loads
+// (0.035 ms) and the weight stream from the L2 (0.009 ms) matter little.
 //
 // The chain-merged decoder has the same products in fewer, wider operands:
 // h @ [whh | glu] (96 x 384) and x @ [tap1 | tap0] (in x 64).  Its state
@@ -83,13 +102,30 @@ constexpr int ENC_NW = 2 + 5 * 7 + 2;
 
 // shared memory: x ring + (decoder) h ring + scratch for gates / partials
 constexpr int DEC_SCR = 2 * R * DEC_G;   // >= every partial buffer below
-constexpr int ENC_SCR = 2 * R * ENC_G;
 constexpr size_t DEC_SMEM =
     sizeof(float) * (2 * R * DEC_X + 2 * 5 * R * DEC_H + DEC_SCR);
-constexpr size_t ENC_SMEM = sizeof(float) * (3 * R * ENC_X + ENC_SCR);
 // widest output of the last product (its 4 partial buffers fit the scratch)
 constexpr int DEC_MAX_OUT = DEC_SCR / (4 * R);   // 144 >= 4 * 21
-constexpr int ENC_MAX_OUT = ENC_SCR / (4 * R);   // 96 >= latent 80
+
+// encoder products (enc_kernel): a thread's tile is ET rows x 4 columns
+constexpr int ET = 16;
+constexpr int ENC_NG = R / ET;                 // row groups a block
+constexpr int NWARP = NT / 32;
+static_assert(ET % 8 == 0 && R % ET == 0, "a lane keeps ET/8 rows after the K sum");
+constexpr int ENC_GS = ENC_G + ENC_H;          // gate sums: r|z, x@n, h@n
+constexpr int ENC_SCR = R * ENC_GS;
+constexpr int ENC_D1_KS = 3, ENC_Z_KS = 2;     // K chunks of dense_1, z_dense
+constexpr int ENC_MAX_OUT = 96;                // >= latent 80
+constexpr int ENC_FOFF = ENC_X - ENC_CO;       // features staged at x[768..]
+constexpr size_t ENC_SMEM = sizeof(float) * (3 * R * ENC_X + ENC_SCR);
+static_assert(ENC_D1_KS * R * ENC_H <= ENC_SCR && 2 * R * ENC_CO <= ENC_SCR &&
+                  ENC_Z_KS * R * ENC_MAX_OUT <= ENC_SCR,
+              "every partial buffer fits the gate scratch");
+static_assert(ENC_SMEM <= 232448, "opt-in shared memory of one block");
+static_assert(R * ENC_H / 4 <= NT && R * ENC_CO / 4 <= NT &&
+                  R * ENC_MAX_OUT / 4 <= NT,
+              "each finish pass is one float4 a thread");
+
 // merged: one x buffer, then per layer h, hh projection, tap projection
 constexpr int DECM_CONV_KS = 6;                  // K chunks of x @ [tap1|tap0]
 constexpr size_t DECM_SMEM =
@@ -580,65 +616,291 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   dec_body(a.d, smem, Src{zsh, FR_NZ * FR_LAT, R - 1}, FR_LAT);
 }
 
+// ---------------------------------------------------------------------------
+// Encoder products, register-tiled over the block's rows (enc_kernel only).
+//
+// A work item is one warp's share of Y = X @ W: a group of 16 columns (quad
+// q = lane & 3 owns columns 4q..4q+3) for ET rows over a K range.  K lane
+// kl = lane >> 2 takes k = k0 + 4*kl + 32*j, so the 8 K lanes read 128
+// contiguous bytes of an x row, and every weight float4 a lane loads feeds
+// ET rows (4*ET multiply-adds).  The 4 quads of a K lane are neighbouring
+// lanes, so a quarter-warp asks for 2 distinct float4 of x (which its 4
+// quads share by broadcast) and 2 weight rows, not 8 of each as with the
+// quads 8 lanes apart: the kernel ran 1.58 times faster so on an H100.
+// kput adds the 8 K lanes' tiles by a fixed butterfly of shuffles; an
+// output whose K is split over items gets its partials added in chunk
+// order by the pass after the barrier.  No atomics, so two launches on the
+// same input give the same bits.
+
+// p ? a : b by selp: a select the compiler keeps in registers (a ternary
+// between two elements of the tile becomes an indexed local-memory read)
+__device__ __forceinline__ float selp(bool p, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %1, 0;\n\t"
+      "selp.f32 %0, %2, %3, q;\n\t}"
+      : "=f"(r)
+      : "r"((int)p), "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float4 sel4(bool p, float4 a, float4 b) {
+  return make_float4(selp(p, a.x, b.x), selp(p, a.y, b.y), selp(p, a.z, b.z),
+                     selp(p, a.w, b.w));
+}
+
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
+  v.x = __shfl_xor_sync(0xffffffffu, v.x, m);
+  v.y = __shfl_xor_sync(0xffffffffu, v.y, m);
+  v.z = __shfl_xor_sync(0xffffffffu, v.z, m);
+  v.w = __shfl_xor_sync(0xffffffffu, v.w, m);
+  return v;
+}
+
+// rows k..k+3 of W at columns c..c+3 (zeros where !v)
+__device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
+                                    bool v) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) wt[m] = v ? ldg4(p + m * out) : z;
+}
+
+// acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
+//           X[r0 + i][k..k+3] . W[k..k+3][c..c+3],
+// X in shared memory with row stride ENC_X (every operand of the encoder's
+// products is there: the carried state is staged in the x ring first).
+// k0 and k1 are multiples of 4.  The next K step's weights are loaded into
+// registers before this step's multiply-adds.
+__device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int r0,
+                                     const float* __restrict__ W, int out,
+                                     int c, int k0, int k1, int kl) {
+  const float* const xr = X + r0 * ENC_X;
+  const bool cv = c < out;
+  const int n = (k1 - k0 + 31) >> 5;
+  int k = k0 + 4 * kl;
+  const float* wp = W + (size_t)k * out + c;
+  float4 wn[4];
+  ldw(wn, wp, out, cv && k < k1);
+#pragma unroll 1   // unrolled by 2: no faster on an H100, twice the code
+  for (int j = 0; j < n; ++j) {
+    const int kx = min(k, k1 - 4);   // lanes past k1 read a valid x, weight 0
+    k += 32;
+    wp += 32 * out;
+    float4 wt[4];
+    // k < k1 only if step j + 1 exists: no branch, so the next step's
+    // loads are issued before this step's multiply-adds
+#pragma unroll
+    for (int m = 0; m < 4; ++m) wt[m] = wn[m];
+    ldw(wn, wp, out, cv && k < k1);
+#pragma unroll
+    for (int i = 0; i < ET; ++i) {
+      const float4 x = ld4(xr + i * ENC_X + kx);
+      fma4(acc[i], x.x, wt[0]);
+      fma4(acc[i], x.y, wt[1]);
+      fma4(acc[i], x.z, wt[2]);
+      fma4(acc[i], x.w, wt[3]);
+    }
+  }
+}
+
+// One level of the K-lane butterfly: lanes keep H rows of the tile, the
+// upper half when up, and add the partner's (lane ^ m) copy of them.
+template <int H>
+__device__ __forceinline__ void kfold(float4 (&acc)[ET], bool up, int m) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float4 send = sel4(up, acc[i], acc[i + H]);
+    const float4 keep = sel4(up, acc[i + H], acc[i]);
+    acc[i] = add4(keep, shfl_xor4(send, m));
+  }
+}
+
+// The end of a work item: the 8 K lanes' tiles are summed (bit lv of kl
+// picks the half kept at level lv), then lane kl stores its ET/8 rows plus
+// `bias` at dst + row * ld when `put`.  Every lane of the warp takes part.
+__device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
+                                     float* dst, int ld, float4 bias,
+                                     bool put) {
+  kfold<ET / 2>(acc, kl & 1, 4);          // K lane kl is lanes 4kl..4kl+3
+  kfold<ET / 4>(acc, (kl >> 1) & 1, 8);
+  kfold<ET / 8>(acc, (kl >> 2) & 1, 16);
+  const int rk = r0 + (ET / 2) * (kl & 1) + (ET / 4) * ((kl >> 1) & 1) +
+                 (ET / 8) * ((kl >> 2) & 1);
+  if (put) {
+#pragma unroll
+    for (int i = 0; i < ET / 8; ++i) st4(dst + (rk + i) * ld, add4(acc[i], bias));
+  }
+}
+
+__device__ __forceinline__ void zero(float4 (&acc)[ET]) {
+#pragma unroll
+  for (int i = 0; i < ET; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// dst[r][0..cols) = src row min(r, rmax) (row stride ld) for the R rows of a
+// block: device memory into the x ring (rows ENC_X apart); cols % 4 == 0
+__device__ __forceinline__ void stage(float* dst, const float* src, int ld,
+                                      int cols, int rmax) {
+  const int nq = cols / 4;
+  for (int it = threadIdx.x; it < R * nq; it += NT) {
+    const int r = it / nq, c = it % nq * 4;
+    st4(dst + r * ENC_X + c, ld4(src + (size_t)min(r, rmax) * ld + c));
+  }
+}
+
+// The encoder stack over a.nz z-steps for the block's R rows.  x[t] of
+// step t lives in ring slot t % 3; the carried state is staged into the
+// slots of x[-1] and x[-2] (h at its GRU window, each conv's history tap
+// as the prefix), and the features of step k at columns ENC_FOFF.. of its
+// own slot, each in a pass that already sits between two barriers.
 __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
   extern __shared__ float4 smem4[];
   float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
   float* const scr = xb + 3 * R * ENC_X;                // gates / partials
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kl = lane >> 2, cq = 4 * (lane & 3);        // K lane, column quad
   const int b0 = blockIdx.x * R;
   const int nv = min(R, a.B - b0);
   const int rmax = nv - 1;
   const float* const w = a.w;
   const int* const off = a.off;
+  const int fld = a.nz * a.in_dim;                      // feature row stride
+  const float* const f0 = a.f + (size_t)b0 * fld;
 
+  // each finish pass is one float4 a thread: its biases are loaded ahead
+  const int t = threadIdx.x, od = a.out_dim;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 d1v = ldg4(w + off[1] + t % (ENC_H / 4) * 4);
+  const float4 obv = ldg4(w + off[ENC_NW - 1] + t % (od / 4) * 4);
+  stage(xb + ENC_FOFF, f0, fld, a.in_dim, rmax);
+  __syncthreads();
   for (int k = 0; k < a.nz; ++k) {
     float* const X = xb + (k % 3) * R * ENC_X;
-    const Src xs{X, ENC_X, R - 1};
+    float* const Xp = xb + ((k + 2) % 3) * R * ENC_X;   // x[k-1]
 
-    // dense_1: X[:, :64] = tanh(f_k @ d1_w + d1_b)
-    const Src fs{a.f + ((size_t)b0 * a.nz + k) * a.in_dim, a.nz * a.in_dim, rmax};
-    const float* d1b = w + off[1];
-    dot<4, 4>(fs, w + off[0], fs, nullptr, a.in_dim, ENC_H, scr,
-              [&](int r, int c, float4 v) {
-                st4(X + r * ENC_X + c, tanh4(add4(v, ldg4(d1b + c))));
-              });
+    // dense_1: X[:, :64] = tanh(f_k @ d1_w + d1_b), K in ENC_D1_KS chunks
+    const int kd = ((a.in_dim + ENC_D1_KS - 1) / ENC_D1_KS + 31) & ~31;
+    for (int u = warp; u < ENC_NG * 4 * ENC_D1_KS; u += NWARP) {
+      const int r0 = u / (4 * ENC_D1_KS) * ET, ch = u / 4 % ENC_D1_KS;
+      const int c = u % 4 * 16 + cq;
+      const int kb = ch * kd, ke = min(a.in_dim, kb + kd);
+      float4 acc[ET];
+      zero(acc);
+      if (kb < ke)
+        tmac(acc, X + ENC_FOFF, r0, w + off[0], ENC_H, c, kb, ke, kl);
+      kput(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H, zero4, true);
+    }
+    __syncthreads();
+    if (t < R * ENC_H / 4) {
+      const int r = t / (ENC_H / 4), c = t % (ENC_H / 4) * 4;
+      float4 v = ld4(scr + r * ENC_H + c);
+#pragma unroll
+      for (int ch = 1; ch < ENC_D1_KS; ++ch)
+        v = add4(v, ld4(scr + (ch * R + r) * ENC_H + c));
+      st4(X + r * ENC_X + c, tanh4(add4(v, d1v)));
+    }
+    if (k == 0) stage(Xp + ENC_H, a.h_in[0] + (size_t)b0 * ENC_H, ENC_H, ENC_H, rmax);
     __syncthreads();
 
     for (int i = 0; i < 5; ++i) {
       const int gin = ENC_H + 160 * i, cin = gin + ENC_H;
       const int d = i == 0 ? 1 : 2;     // conv dilations 1,2,2,2,2
       const int* o = off + 2 + 7 * i;   // wih whh bih bhh cw0 cw1 cb
-      // GRU: X[:, gin:cin] = h' (the encoder appends h itself); the previous
-      // h is the previous step's window (the state at k == 0)
-      const Src hold =
-          k == 0 ? Src{a.h_in[i] + (size_t)b0 * ENC_H, ENC_H, rmax}
-                 : Src{xb + ((k - 1) % 3) * R * ENC_X + gin, ENC_X, R - 1};
-      gru(xs, gin, hold, w + o[0], w + o[1], w + o[2], w + o[3], ENC_H, scr,
-          scr + R * ENC_G,
-          [&](int r, int j, float v) { X[r * ENC_X + gin + j] = v; });
+      const float *wih = w + o[0], *whh = w + o[1];
+      const float *bih = w + o[2], *bhh = w + o[3];
+      float* const Xd = xb + ((k + 3 - d) % 3) * R * ENC_X;  // x[k-d]
+      const float4 cbv = ldg4(w + o[6] + t % (ENC_CO / 4) * 4);
+
+      // GRU gate sums into scr [R][ENC_GS]: columns 0..127 x@wih + h@whh
+      // + bih + bhh of the r and z gates; 128..191 x@wih + bih of the n
+      // gate; 192..255 h@whh + bhh of the n gate.  A unit is one 16-column
+      // group: an r|z item over both products, or the two n items.  The
+      // previous h is x[k-1]'s GRU window.
+      for (int u = warp; u < ENC_NG * 12; u += NWARP) {
+        const int r0 = u / 12 * ET, qg = u % 12, c = qg * 16 + cq;
+        const float4 bi = ldg4(bih + c), bh = ldg4(bhh + c);
+        float4 acc[ET];
+        zero(acc);
+        tmac(acc, X, r0, wih, ENC_G, c, 0, gin, kl);
+        if (qg < 8) {
+          tmac(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
+          kput(acc, kl, r0, scr + c, ENC_GS, add4(bi, bh), true);
+        } else {
+          kput(acc, kl, r0, scr + c, ENC_GS, bi, true);
+          zero(acc);
+          tmac(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
+          kput(acc, kl, r0, scr + ENC_H + c, ENC_GS, bh, true);
+        }
+      }
+      __syncthreads();
+
+      // GRU: X[:, gin:cin] = h' (the encoder appends h itself); at k == 0
+      // the previous h is read from the state, since this pass stages the
+      // conv history over x[-1] (layer 0)
+      const float* hp = k > 0 ? Xp + gin : a.h_in[i] + (size_t)b0 * ENC_H;
+      const int hld = k > 0 ? ENC_X : ENC_H, hmax = k > 0 ? R - 1 : rmax;
+      for (int it = threadIdx.x; it < R * ENC_H; it += NT) {
+        const int r = it / ENC_H, j = it % ENC_H;
+        const float* s = scr + r * ENC_GS;
+        const float rr = sigm(s[j]);
+        const float zz = sigm(s[ENC_H + j]);
+        const float nn = tanhf(s[2 * ENC_H + j] + rr * s[3 * ENC_H + j]);
+        const float h = hp[(size_t)min(r, hmax) * hld + j];
+        X[r * ENC_X + gin + j] = (1.f - zz) * nn + zz * h;
+      }
+      if (k < d)   // conv history tap k of the state = x[k-d]
+        stage(Xd, a.hist_in[i] + ((size_t)b0 * d + k) * cin, d * cin, cin, rmax);
       __syncthreads();
 
       // conv k2, dilation d: X[:, cin:cin+96] =
-      //   tanh(x[t-d][:, :cin] @ cw0 + X[:, :cin] @ cw1 + cb)
-      const Src hist =
-          k >= d ? Src{xb + ((k - d) % 3) * R * ENC_X, ENC_X, R - 1}
-                 : Src{a.hist_in[i] + ((size_t)b0 * d + k) * cin, d * cin, rmax};
-      const float* cb = w + o[6];
-      dot<4, 4>(hist, w + o[4], xs, w + o[5], cin, ENC_CO, scr,
-                [&](int r, int c, float4 v) {
-                  st4(X + r * ENC_X + cin + c, tanh4(add4(v, ldg4(cb + c))));
-                });
+      //   tanh(x[k-d][:, :cin] @ cw0 + X[:, :cin] @ cw1 + cb);
+      // a unit is one 16-column group of one tap, partials [tap][R][96]
+      for (int u = warp; u < ENC_NG * 12; u += NWARP) {
+        const int r0 = u / 12 * ET, tap = u % 12 / 6;
+        const int c = u % 6 * 16 + cq;
+        float4 acc[ET];
+        zero(acc);
+        tmac(acc, tap ? X : Xd, r0, w + o[4 + tap], ENC_CO, c, 0, cin, kl);
+        kput(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO, zero4, true);
+      }
+      __syncthreads();
+      if (t < R * ENC_CO / 4) {
+        const int r = t / (ENC_CO / 4), c = t % (ENC_CO / 4) * 4;
+        const float4 v = add4(ld4(scr + r * ENC_CO + c),
+                              ld4(scr + (R + r) * ENC_CO + c));
+        st4(X + r * ENC_X + cin + c, tanh4(add4(v, cbv)));
+      }
+      if (k == 0 && i < 4)   // the next layer's h state at its GRU window
+        stage(Xp + gin + 160, a.h_in[i + 1] + (size_t)b0 * ENC_H, ENC_H, ENC_H,
+              rmax);
       __syncthreads();
     }
 
-    // z_dense: z[:, k] = X @ out_w + out_b (tanh for bottleneck 1)
-    const float* ob = w + off[ENC_NW - 1];
-    float* const zo = a.z + ((size_t)b0 * a.nz + k) * a.out_dim;
-    const bool th = a.bottleneck == 1;
-    dot<4, 4>(xs, w + off[ENC_NW - 2], xs, nullptr, ENC_X, a.out_dim, scr,
-              [&](int r, int c, float4 v) {
-                v = add4(v, ldg4(ob + c));
-                if (r < nv) st4(zo + (size_t)r * a.nz * a.out_dim + c, th ? tanh4(v) : v);
-              });
+    // z_dense: z[:, k] = X @ out_w + out_b (tanh for bottleneck 1), K in
+    // ENC_Z_KS chunks, partials [chunk][R][out_dim]
+    const int nqg = (od + 15) / 16;
+    const int kz = ((ENC_X + ENC_Z_KS - 1) / ENC_Z_KS + 31) & ~31;
+    for (int u = warp; u < ENC_NG * nqg * ENC_Z_KS; u += NWARP) {
+      const int r0 = u / (nqg * ENC_Z_KS) * ET, ch = u / nqg % ENC_Z_KS;
+      const int c = u % nqg * 16 + cq;
+      const int kb = ch * kz, ke = min(ENC_X, kb + kz);
+      float4 acc[ET];
+      zero(acc);
+      tmac(acc, X, r0, w + off[ENC_NW - 2], od, c, kb, ke, kl);
+      kput(acc, kl, r0, scr + ch * R * od + c, od, zero4, c < od);
+    }
+    __syncthreads();
+    float* const zo = a.z + ((size_t)b0 * a.nz + k) * od;
+    if (t < nv * (od / 4)) {
+      const int r = t / (od / 4), c = t % (od / 4) * 4;
+      float4 v = ld4(scr + r * od + c);
+#pragma unroll
+      for (int ch = 1; ch < ENC_Z_KS; ++ch)
+        v = add4(v, ld4(scr + (ch * R + r) * od + c));
+      v = add4(v, obv);
+      st4(zo + (size_t)r * a.nz * od + c, a.bottleneck == 1 ? tanh4(v) : v);
+    }
+    if (k + 1 < a.nz)   // the next step's features, over x[k-2]
+      stage(xb + ((k + 1) % 3) * R * ENC_X + ENC_FOFF, f0 + (k + 1) * a.in_dim,
+            fld, a.in_dim, rmax);
     __syncthreads();
   }
 
@@ -765,7 +1027,8 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
                              int in_dim, int out_dim, int bottleneck,
                              void* const* state_in, void* const* state_out,
                              void* stream) {
-  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
+  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      out_dim < 4 || out_dim % 4 || in_dim > ENC_X - ENC_FOFF ||
       out_dim > ENC_MAX_OUT)
     return (int)cudaErrorInvalidValue;
   EncArgs a;
@@ -787,5 +1050,10 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
   enc_kernel<<<(B + R - 1) / R, NT, ENC_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
+
+// The tiling, for counting the weight bytes a launch fetches: batch rows a
+// block owns, and rows each weight load feeds in enc_kernel's products.
+int radae_block_rows(void) { return R; }
+int radae_enc_tile_rows(void) { return ET; }
 
 }  // extern "C"

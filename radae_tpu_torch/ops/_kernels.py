@@ -22,11 +22,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of each library's entries: name -> argtypes (restype int,
-# the launch's cudaError_t).  Every entry takes (weights, offsets, n_off,
-# input, output, <sizes>, state_in[], state_out[], stream).
+# C signatures of each library's entries: name -> argtypes (restype int).
+# Every launch entry takes (weights, offsets, n_off, input, output, <sizes>,
+# state_in[], state_out[], stream) and returns the launch's cudaError_t; the
+# entries with no arguments return a constant of the kernels' tiling.
 _SIGNATURES = {
     "fused_core": {
+        "radae_block_rows": [],
+        "radae_enc_tile_rows": [],
         "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                      _P, _P, _P],
         "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _I, _I,

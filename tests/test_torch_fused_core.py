@@ -171,3 +171,18 @@ def test_wrappers_refuse_other_devices(tree):
     z = torch.zeros((B, 3, 80), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fc.fused_decoder_step(w, z, fc.decoder_state_zero(B, "cpu"))
+
+
+@pytest.mark.parametrize("rows, want", [
+    ((2, 4), 21_835_776),    # the first encoder kernel: 2-row GRU, 4-row tiles
+    ((16, 16), 3_738_624),   # one 16-row tile a block: each weight read once
+    ((8, 8), 7_477_248),     # two 8-row tiles a block
+], ids=["rows2-4", "rows16", "rows8"])
+def test_encoder_weight_fetch_bytes(tree, rows, want):
+    """chip_smoke's count of the weight bytes one 16-stream block of the
+    encoder kernel fetches into its SM per z-step, at the flagship widths."""
+    import chip_smoke
+    w = fc.encoder_weights(tree["encoder"], "cpu")
+    assert chip_smoke.weight_fetch_bytes(w, *rows, 16) == want
+    assert chip_smoke.weight_fetch_bytes(w, 16, 16, 16) == 4 * sum(
+        a.numel() for a in w.arrays if a.dim() == 2)
