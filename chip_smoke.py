@@ -28,12 +28,14 @@ EQ, coarse magnitude):
   4. times the three rx steps, the tx step and the four kernels with CUDA
      events around calls issued from the host, beside each kernel's plain
      version, its bound and its device time in a CUDA graph replay, and
-     prints the weight bytes one encoder launch fetches into the SMs, from
-     the tiling the built library reports;
+     prints the weight bytes one encoder and one unmerged decoder launch
+     fetch into the SMs, from the tiling the built library reports;
   5. prints a `kernels` JSON line, and last the `ok` JSON line.
 
-Step 2 also holds the encoder kernel to the same bits on two launches with
-the same input and state (B=2048 and B=37).
+Step 2 also holds the three kernels that tile their products over the
+block's rows (the encoder, the unmerged decoder and the whole-frame rx
+kernel) to the same bits on two launches with the same input and state
+(B=2048 and B=37).
 
 Any failure exits non-zero without the `ok` line; so does a machine without
 a CUDA card.
@@ -300,24 +302,39 @@ def main(argv=None) -> int:
                 fp, sp = fc.rx_frame_step_plain(rw, rx, sp)
                 held("fused_rx_frame_step", batch, f"call {frame}", (fk,) + sk,
                      (fp,) + sp)
-        # the encoder gives the same bits on two launches (own seed, so the
-        # inputs above and below stay as they were)
-        drng = np.random.default_rng(1)
+        # the tile kernels give the same bits on two launches (own seeds, so
+        # the inputs above and below stay as they were)
+        def same_bits(name, batch, call):
+            (o1, s1), (o2, s2) = call(), call()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip((o1,) + s1, (o2,) + s2)):
+                raise AssertionError(f"{name} B={batch}: two launches on the "
+                                     "same input differ")
+
+        def rand_state(rng, state):
+            return tuple(torch.as_tensor((0.5 * rng.standard_normal(
+                tuple(s.shape))).astype(np.float32), device=dev) for s in state)
+
+        drng, rrng = np.random.default_rng(1), np.random.default_rng(2)
         for batch in (B, RAGGED_B):
             f = torch.as_tensor((0.3 * drng.standard_normal(
                 (batch, 4 * nz, cfg.feature_dim))).astype(np.float32), device=dev)
-            st = tuple(torch.as_tensor((0.5 * drng.standard_normal(
-                tuple(s.shape))).astype(np.float32), device=dev)
-                for s in fc.encoder_state_zero(batch, dev))
-            z1, s1 = fc.fused_encoder_step(ew, f, st, cfg.bottleneck)
-            z2, s2 = fc.fused_encoder_step(ew, f, st, cfg.bottleneck)
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip((z1,) + s1, (z2,) + s2)):
-                raise AssertionError(f"fused_encoder_step B={batch}: two "
-                                     "launches on the same input differ")
+            st = rand_state(drng, fc.encoder_state_zero(batch, dev))
+            same_bits("fused_encoder_step", batch,
+                      lambda: fc.fused_encoder_step(ew, f, st, cfg.bottleneck))
+            z = torch.as_tensor(np.tanh(rrng.standard_normal(
+                (batch, nz, cfg.latent_dim))).astype(np.float32), device=dev)
+            ds = rand_state(rrng, fc.decoder_state_zero(batch, dev))
+            same_bits("fused_decoder_step", batch,
+                      lambda: fc.fused_decoder_step(dw, z, ds))
+            rx = sig3[:batch, :win] + torch.as_tensor((RX_NOISE * rrng.standard_normal(
+                (batch, win, 2))).astype(np.float32), device=dev)
+            same_bits("fused_rx_frame_step", batch,
+                      lambda: fc.fused_rx_frame_step(rw, rx, ds))
     print("kernels vs plain (rtol 1e-4, atol 1e-4), max abs err at B=2048: "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-    print(f"encoder: two launches bit-identical at B={B} and B={RAGGED_B}")
+    print(f"encoder, unmerged decoder, frame: two launches bit-identical at "
+          f"B={B} and B={RAGGED_B}")
 
     # -- the serving path on the fixture, three rx paths -------------------
     rx_steps = {
@@ -414,6 +431,7 @@ def main(argv=None) -> int:
         }
         lib = _kernels.library("fused_core")
         enc_rows = (lib.radae_enc_tile_rows(),) * 2
+        dec_rows = (lib.radae_dec_tile_rows(),) * 2
         kernels = []
         for name, (kern, plain, (w, x, st, extra)) in runs.items():
             ms = time_ms(kern, 50)
@@ -426,6 +444,9 @@ def main(argv=None) -> int:
             if name == "fused_encoder_step":
                 print(f"  encoder, {enc_rows[0]}-row tiles: " + fetch_line(
                     ew, enc_rows, lib.radae_block_rows(), nz, B, ms))
+            if name == "fused_decoder_step":
+                print(f"  decoder, {dec_rows[0]}-row tiles: " + fetch_line(
+                    dw, dec_rows, lib.radae_block_rows(), nz, B, ms))
             kernels.append({
                 "name": name, "route": "cuda", "source": SRC,
                 "replaces": REPLACES[name], "launches": launches[name],

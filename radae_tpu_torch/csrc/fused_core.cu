@@ -7,8 +7,9 @@
 //                                       (unmerged f32 form)
 //   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
 //                                       `kernel_merged` (merged=True, f32)
-//   radae_fused_rx_frame_step        <- make_fused_rx_frame_step (f32, the
-//                                       samples read straight from HBM)
+//   radae_fused_rx_frame_step        <- make_fused_rx_frame_step (f32; the
+//                                       samples staged by cp.async, the
+//                                       port's form of its rx_dma copies)
 //   radae_fused_encoder_step         <- make_fused_encoder_step (f32 form)
 // and computes the same functions as the plain PyTorch versions in
 // radae_tpu_torch/ops/fused_core.py (decoder_step_plain,
@@ -31,35 +32,37 @@
 //     shared memory as a ring of per-step buffers, so a conv's delayed input
 //     x[t-d] is the same prefix of an earlier step's buffer and never goes
 //     back to device memory inside a launch; the carried state (GRU h, conv
-//     history) is read from device memory at the first step and written at
-//     the end, in the unmerged layout of the plain version;
-//   * every product is x (shared) @ W (L2, pre-transposed (in, out)): in the
-//     decoder kernels a thread owns a 4-row x 4-column tile (2 rows in the
-//     GRU), reads W as float4 along `out` (coalesced), x as float4 along
-//     `in` (shared broadcast), and narrow products split `in` into KS chunks
-//     whose partial sums are added in a fixed order, so every launch gives
-//     the same bits;
-//   * f32 accumulation with expf/tanhf (no fast math).
+//     history) and the inputs are staged into the rings' dead slots in
+//     passes that already sit between two barriers, and the state is
+//     written at the end, in the unmerged layout of the plain version;
+//   * every product is x (shared) @ W (L2, pre-transposed (in, out)), with
+//     f32 accumulation, expf/tanhf (no fast math), no atomics and every sum
+//     in a fixed order, so two launches on the same input give the same bits.
 //
-// The encoder kernel tiles its products over all of the block's rows.  With
-// 2- and 4-row tiles each block fetched its weights 5.8 times a z-step
-// (21.8 MB instead of 3.7 MB).  Here a thread owns a
-// 16-row x 4-column tile (64 accumulators), so each weight float4 it loads
-// feeds 64 multiply-adds and each weight is fetched once per block; the
-// parallelism comes from K instead: a warp is 4 column quads x 8 K lanes
-// (K interleaved by float4, so 8 lanes read 128 contiguous bytes of an x
-// row), summed by a fixed shuffle butterfly, and products too narrow for
-// 12 warps split K across warps (partials added in chunk order).  The next
-// K step's weights are loaded, without a branch, before this step's
-// multiply-adds.  Every operand of a product is in shared memory: the
-// carried state and the features are staged into the x ring in passes that
-// already sit between two barriers.  What is left, timed on an H100 by
-// tools/enc_variants.py with one cost taken out at a time: the 24
-// barrier-separated phases of a z-step (0.125 ms of the 0.43 ms launch
-// with no product loop in them), then the loops' issue rate; the x loads
-// (0.035 ms) and the weight stream from the L2 (0.009 ms) matter little.
+// The encoder, the unmerged decoder and the frame kernel tile their products
+// over all of the block's rows (tmac + kput).  With 2- and 4-row tiles each
+// block fetched its weights 5.8 (encoder) and 6.9 (decoder) times a z-step.
+// Here a thread owns a 16-row x 4-column tile (64 accumulators), so each
+// weight float4 it loads feeds 64 multiply-adds and each weight is fetched
+// once per block; the parallelism comes from K instead: a warp is 4 column
+// quads x 8 K lanes (K interleaved by float4, so 8 lanes read 128 contiguous
+// bytes of an x row), summed by a fixed shuffle butterfly, and products too
+// narrow for 12 warps split K across warps (partials added in chunk order).
+// The decoder's GRU (H=96: 12 r|z and 6 n column groups) splits K in halves
+// of [x | h], 36 units in 3 even rounds of 12 warps.  The next K step's
+// weights are loaded, without a branch, before this step's multiply-adds.
+// Every operand of a product is in shared memory.  What is left of the
+// encoder, timed on an H100 by tools/enc_variants.py with one cost taken out
+// at a time: the 24 barrier-separated phases of a z-step (0.125 ms of the
+// 0.43 ms launch with no product loop in them), then the loops' issue rate;
+// the x loads (0.035 ms) and the weight stream from the L2 (0.009 ms)
+// matter little.  The decoder has 34 such phases a z-step (0.091 ms of its
+// 0.42 ms launch on an H100 with no product loop in them).
 //
-// The chain-merged decoder has the same products in fewer, wider operands:
+// The chain-merged decoder still uses the row products (mac + dot): a
+// thread owns a 4-row x 4-column tile, reads W as float4 along `out` and x
+// as float4 along `in`, and narrow products split `in` into KS chunks.  It
+// has the same products in fewer, wider operands:
 // h @ [whh | glu] (96 x 384) and x @ [tap1 | tap0] (in x 64).  Its state
 // carries the projections (hh row 288, conv tap 32) instead of the raw
 // conv history, so a block keeps one x buffer, not a ring, and updates h,
@@ -68,16 +71,22 @@
 // 36 KB); each is read before it is overwritten within a layer.
 //
 // The frame kernel runs a demod prologue and then the unmerged decoder body
-// (dec_body, shared with dec_kernel).  The prologue reads the block's 16
-// streams x 6 symbol rows of interleaved IQ straight from HBM as one
-// (96, 384) operand, multiplies by the real (384, 60) DFT block matrix
-// (CP strip folded in as zero rows) to [Yr | Yi], takes the two pilot rows
-// through the (60, 60) LS block matrix, reduces the coarse magnitude over
-// the 30 carriers in a fixed order (one thread a stream), and writes the
-// equalised, scaled data symbols as [re | im] latents (16 x 3 x 80) into
-// shared memory, where the decoder body reads them as its z.  Y and the
-// pilot estimates live in the decoder's gate scratch, idle until the first
-// z-step; the bound is the decoder's plus about 4% for the demod.
+// (dec_body, shared with dec_kernel).  The prologue copies the block's 16
+// streams x 6 symbol rows of interleaved IQ (147,456 contiguous bytes) by
+// cp.async into the decoder's rings, idle until the first z-step, in
+// FR_STAGES = 2 commit groups, so the DFT of the first 48 rows overlaps the
+// copy of the rest.  On an H100 the copy (0.015 ms) is bound by the device
+// memory's rate, since every block copies at the launch's start: one, three
+// or six stages, or plain loads, were no faster (tools/enc_variants.py).
+// The DFT is a tile product of that (96, 384) operand and the real
+// (384, 60) DFT block matrix (CP strip folded in as zero rows) to
+// [Yr | Yi]; the two pilot rows go through the (60, 60) LS block matrix (a
+// row product), the coarse magnitude is reduced over the 30 carriers in a
+// fixed order (one thread a stream), and the equalised, scaled data symbols
+// are written as [re | im] latents (16 x 3 x 80) into shared memory, where
+// the decoder body reads them as its z.  Y and the pilot estimates live in
+// the decoder's scratch; the bound is the decoder's plus about 4% for the
+// demod.
 //
 // Built by radae_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -90,6 +99,12 @@ namespace {
 
 constexpr int R = 16;     // batch rows per block
 constexpr int NT = 384;   // threads per block
+constexpr int NWARP = NT / 32;
+
+// tile products (tmac): a thread's tile is ET rows x 4 columns
+constexpr int ET = 16;
+constexpr int RG = R / ET;                     // row groups a block
+static_assert(ET % 8 == 0 && R % ET == 0, "a lane keeps ET/8 rows after the K sum");
 
 // decoder widths (radae_tpu/models/core.py:41-43)
 constexpr int DEC_H = 96, DEC_G = 3 * DEC_H, DEC_CO = 32, DEC_X = 736;
@@ -100,18 +115,25 @@ constexpr int DEC_GG = DEC_G + DEC_H;          // [whh | glu] columns
 constexpr int ENC_H = 64, ENC_G = 3 * ENC_H, ENC_CO = 96, ENC_X = 864;
 constexpr int ENC_NW = 2 + 5 * 7 + 2;
 
-// shared memory: x ring + (decoder) h ring + scratch for gates / partials
-constexpr int DEC_SCR = 2 * R * DEC_G;   // >= every partial buffer below
-constexpr size_t DEC_SMEM =
-    sizeof(float) * (2 * R * DEC_X + 2 * 5 * R * DEC_H + DEC_SCR);
-// widest output of the last product (its 4 partial buffers fit the scratch)
-constexpr int DEC_MAX_OUT = DEC_SCR / (4 * R);   // 144 >= 4 * 21
+// unmerged decoder (dec_body): x ring + h ring, then the tile products'
+// partial sums, the widest the GRU's two K halves of its gate sums
+constexpr int DEC_RING = 2 * R * DEC_X + 2 * 5 * R * DEC_H;   // floats
+constexpr int DEC_GS = DEC_G + DEC_H;          // gate sums: r|z, x@n, h@n
+constexpr int DEC_RZ = 2 * DEC_H / 16, DEC_NG = DEC_H / 16;  // column groups
+constexpr int DEC_GU = 2 * (DEC_RZ + DEC_NG);  // GRU units: groups x halves
+constexpr int DEC_CONV_KS = 3;                 // K chunks of each conv tap
+constexpr int DEC_TMAX_OUT = 96;               // 6 column groups >= 4 * 21
+constexpr size_t DEC_SMEM = sizeof(float) * (DEC_RING + 2 * R * DEC_GS);
+static_assert(DEC_H % 16 == 0 && DEC_CO % 16 == 0, "whole column groups");
+static_assert(R * DEC_H / 4 == NT && R * DEC_CO / 4 <= NT &&
+                  R * DEC_TMAX_OUT / 4 <= NT,
+              "each finish pass is at most one float4 a thread");
+static_assert(2 * DEC_CONV_KS * R * DEC_CO <= 2 * R * DEC_GS &&
+                  2 * R * DEC_TMAX_OUT <= 2 * R * DEC_GS,
+              "every partial buffer fits the scratch");
+static_assert(DEC_SMEM <= 232448, "opt-in shared memory of one block");
 
-// encoder products (enc_kernel): a thread's tile is ET rows x 4 columns
-constexpr int ET = 16;
-constexpr int ENC_NG = R / ET;                 // row groups a block
-constexpr int NWARP = NT / 32;
-static_assert(ET % 8 == 0 && R % ET == 0, "a lane keeps ET/8 rows after the K sum");
+// encoder products (enc_kernel)
 constexpr int ENC_GS = ENC_G + ENC_H;          // gate sums: r|z, x@n, h@n
 constexpr int ENC_SCR = R * ENC_GS;
 constexpr int ENC_D1_KS = 3, ENC_Z_KS = 2;     // K chunks of dense_1, z_dense
@@ -127,6 +149,9 @@ static_assert(R * ENC_H / 4 <= NT && R * ENC_CO / 4 <= NT &&
               "each finish pass is one float4 a thread");
 
 // merged: one x buffer, then per layer h, hh projection, tap projection
+constexpr int DEC_SCR = 2 * R * DEC_G;           // >= every partial buffer
+// widest output of the last product (its 4 partial buffers fit the scratch)
+constexpr int DEC_MAX_OUT = DEC_SCR / (4 * R);   // 144 >= 4 * 21
 constexpr int DECM_CONV_KS = 6;                  // K chunks of x @ [tap1|tap0]
 constexpr size_t DECM_SMEM =
     sizeof(float) * (R * DEC_X + 5 * R * (DEC_H + DEC_G + DEC_CO) + DEC_SCR);
@@ -139,12 +164,20 @@ static_assert(DECM_SMEM <= 232448, "opt-in shared memory of one block");
 constexpr int FR_NS = 4, FR_NSYM = FR_NS + 2, FR_NC = 30, FR_SAMP = 192;
 constexpr int FR_ROW = 2 * FR_SAMP;            // floats of one symbol row
 constexpr int FR_Y = 2 * FR_NC;                // [Yr | Yi]
+constexpr int FR_STAGES = 2;                   // copy stages (commit groups)
+constexpr int FR_SROWS = R * FR_NSYM / FR_STAGES;  // symbol rows a stage
+constexpr int FR_CG = (FR_Y + 15) / 16;        // column groups of the DFT
 constexpr int FR_NZ = 3, FR_LAT = 80, FR_PZ = FR_LAT / 2;
 constexpr int FR_NW = 4 + DEC_NW + 2;          // Wr Wi Er Ei, decoder, dft_w ls_w
 constexpr size_t FR_SMEM = DEC_SMEM + sizeof(float) * R * FR_NZ * FR_LAT;
 static_assert(FR_NS * FR_NC == FR_NZ * FR_PZ, "data symbols fill the z-steps");
-static_assert(R * FR_NSYM * FR_Y + 2 * R * FR_Y + R <= DEC_SCR,
+static_assert(R * FR_NSYM * FR_ROW <= DEC_RING, "the samples fit the rings");
+static_assert(FR_SROWS * FR_STAGES == R * FR_NSYM && FR_SROWS % ET == 0 &&
+                  FR_STAGES <= 6,
+              "a copy stage holds whole row groups");
+static_assert(R * FR_NSYM * FR_Y + 2 * R * FR_Y + R <= 2 * R * DEC_GS,
               "demod intermediates fit the decoder's scratch");
+static_assert(FR_LAT <= DEC_H, "z is staged in layer 0's GLU window");
 static_assert(FR_SMEM <= 232448, "opt-in shared memory of one block");
 
 struct DecArgs {
@@ -225,6 +258,9 @@ __device__ __forceinline__ void fma4(float4& a, float x, float4 w) {
   a.w = fmaf(x, w.w, a.w);
 }
 
+// ---------------------------------------------------------------------------
+// Row products (the chain-merged decoder and the frame's LS product): a
+// thread owns an RPT-row x 4-column tile over one K chunk.
 // acc[i] += sum_{k0 <= k < k1} X[r0 + i][k] * W[k][c .. c+3]
 template <int RPT>
 __device__ __forceinline__ void mac(float4 (&acc)[RPT], const Src& s, int r0,
@@ -292,114 +328,356 @@ __device__ __forceinline__ void dot(const Src& a, const float* __restrict__ wa,
   }
 }
 
-// One GRU step over R rows (gate blocks r, z, n): xg = x @ wih + bih and
-// hg = h @ whh + bhh into shared scratch, then the gate math; dst(r, j, h')
-// stores the new state.  hold must not alias what dst writes.
-template <class Dst>
-__device__ __forceinline__ void gru(const Src& x, int K, const Src& hold,
-                                    const float* __restrict__ wih,
-                                    const float* __restrict__ whh,
-                                    const float* __restrict__ bih,
-                                    const float* __restrict__ bhh, int H,
-                                    float* xg, float* hg, Dst dst) {
-  const int G = 3 * H, nq = G / 4, n1 = (R / 2) * nq;
-  for (int it = threadIdx.x; it < 2 * n1; it += NT) {
-    const bool hh = it >= n1;          // uniform per warp: n1 % 32 == 0
-    const int j = hh ? it - n1 : it;
-    const int c = (j % nq) * 4, r0 = (j / nq) * 2;
-    float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
-                     make_float4(0.f, 0.f, 0.f, 0.f)};
-    if (hh)
-      mac<2>(acc, hold, r0, whh, G, c, 0, H);
-    else
-      mac<2>(acc, x, r0, wih, G, c, 0, K);
-    const float4 b = ldg4((hh ? bhh : bih) + c);
-    float* o = hh ? hg : xg;
-    st4(o + (size_t)r0 * G + c, add4(acc[0], b));
-    st4(o + (size_t)(r0 + 1) * G + c, add4(acc[1], b));
-  }
-  __syncthreads();
-  for (int it = threadIdx.x; it < R * H; it += NT) {
-    const int r = it / H, j = it % H;
-    const float* a = xg + (size_t)r * G;
-    const float* b = hg + (size_t)r * G;
-    const float rr = sigm(a[j] + b[j]);
-    const float zz = sigm(a[H + j] + b[H + j]);
-    const float nn = tanhf(a[2 * H + j] + rr * b[2 * H + j]);
-    const float hp = hold.p[(size_t)min(r, hold.rmax) * hold.ld + j];
-    dst(r, j, (1.f - zz) * nn + zz * hp);
+// ---------------------------------------------------------------------------
+// Tile products, register-tiled over the block's rows (the encoder, the
+// unmerged decoder and the frame kernel).
+//
+// A work item is one warp's share of Y = X @ W: a group of 16 columns (quad
+// q = lane & 3 owns columns 4q..4q+3) for ET rows over a K range.  K lane
+// kl = lane >> 2 takes k = k0 + 4*kl + 32*j, so the 8 K lanes read 128
+// contiguous bytes of an x row, and every weight float4 a lane loads feeds
+// ET rows (4*ET multiply-adds).  The 4 quads of a K lane are neighbouring
+// lanes, so a quarter-warp asks for 2 distinct float4 of x (which its 4
+// quads share by broadcast) and 2 weight rows, not 8 of each as with the
+// quads 8 lanes apart: the encoder ran 1.58 times faster so on an H100.
+// kput adds the 8 K lanes' tiles by a fixed butterfly of shuffles; an
+// output whose K is split over items gets its partials added in chunk
+// order by the pass after the barrier.  No atomics, so two launches on the
+// same input give the same bits.
+
+// p ? a : b by selp: a select the compiler keeps in registers (a ternary
+// between two elements of the tile becomes an indexed local-memory read)
+__device__ __forceinline__ float selp(bool p, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %1, 0;\n\t"
+      "selp.f32 %0, %2, %3, q;\n\t}"
+      : "=f"(r)
+      : "r"((int)p), "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float4 sel4(bool p, float4 a, float4 b) {
+  return make_float4(selp(p, a.x, b.x), selp(p, a.y, b.y), selp(p, a.z, b.z),
+                     selp(p, a.w, b.w));
+}
+
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
+  v.x = __shfl_xor_sync(0xffffffffu, v.x, m);
+  v.y = __shfl_xor_sync(0xffffffffu, v.y, m);
+  v.z = __shfl_xor_sync(0xffffffffu, v.z, m);
+  v.w = __shfl_xor_sync(0xffffffffu, v.w, m);
+  return v;
+}
+
+// rows k..k+3 of W at columns c..c+3 (zeros where !v)
+__device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
+                                    bool v) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) wt[m] = v ? ldg4(p + m * out) : z;
+}
+
+// acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
+//           X[r0 + i][k..k+3] . W[k..k+3][c..c+3],
+// X in shared memory with row stride LD (every operand of a tile product is
+// there: the carried state and the inputs are staged first).  k0 and k1 are
+// multiples of 4; an empty range adds nothing.  The next K step's weights
+// are loaded into registers before this step's multiply-adds.
+template <int LD>
+__device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int r0,
+                                     const float* __restrict__ W, int out,
+                                     int c, int k0, int k1, int kl) {
+  const float* const xr = X + r0 * LD;
+  const bool cv = c < out;
+  const int n = (k1 - k0 + 31) >> 5;
+  int k = k0 + 4 * kl;
+  const float* wp = W + (size_t)k * out + c;
+  float4 wn[4];
+  ldw(wn, wp, out, cv && k < k1);
+#pragma unroll 1   // unrolled by 2: no faster on an H100, twice the code
+  for (int j = 0; j < n; ++j) {
+    const int kx = min(k, k1 - 4);   // lanes past k1 read a valid x, weight 0
+    k += 32;
+    wp += 32 * out;
+    float4 wt[4];
+    // k < k1 only if step j + 1 exists: no branch, so the next step's
+    // loads are issued before this step's multiply-adds
+#pragma unroll
+    for (int m = 0; m < 4; ++m) wt[m] = wn[m];
+    ldw(wn, wp, out, cv && k < k1);
+#pragma unroll
+    for (int i = 0; i < ET; ++i) {
+      const float4 x = ld4(xr + i * LD + kx);
+      fma4(acc[i], x.x, wt[0]);
+      fma4(acc[i], x.y, wt[1]);
+      fma4(acc[i], x.z, wt[2]);
+      fma4(acc[i], x.w, wt[3]);
+    }
   }
 }
 
+// One level of the K-lane butterfly: lanes keep H rows of the tile, the
+// upper half when up, and add the partner's (lane ^ m) copy of them.
+template <int H>
+__device__ __forceinline__ void kfold(float4 (&acc)[ET], bool up, int m) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float4 send = sel4(up, acc[i], acc[i + H]);
+    const float4 keep = sel4(up, acc[i + H], acc[i]);
+    acc[i] = add4(keep, shfl_xor4(send, m));
+  }
+}
+
+// The end of a work item: the 8 K lanes' tiles are summed (bit lv of kl
+// picks the half kept at level lv), then lane kl stores its ET/8 rows plus
+// `bias` at dst + row * ld when `put`.  Every lane of the warp takes part.
+__device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
+                                     float* dst, int ld, float4 bias,
+                                     bool put) {
+  kfold<ET / 2>(acc, kl & 1, 4);          // K lane kl is lanes 4kl..4kl+3
+  kfold<ET / 4>(acc, (kl >> 1) & 1, 8);
+  kfold<ET / 8>(acc, (kl >> 2) & 1, 16);
+  const int rk = r0 + (ET / 2) * (kl & 1) + (ET / 4) * ((kl >> 1) & 1) +
+                 (ET / 8) * ((kl >> 2) & 1);
+  if (put) {
+#pragma unroll
+    for (int i = 0; i < ET / 8; ++i) st4(dst + (rk + i) * ld, add4(acc[i], bias));
+  }
+}
+
+__device__ __forceinline__ void zero(float4 (&acc)[ET]) {
+#pragma unroll
+  for (int i = 0; i < ET; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// dst[r][0..cols) = src row min(r, rmax) (row stride ld) for the R rows of a
+// block, into shared memory with rows LD apart; cols % 4 == 0
+template <int LD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int ld,
+                                      int cols, int rmax) {
+  const int nq = cols / 4;
+  for (int it = threadIdx.x; it < R * nq; it += NT) {
+    const int r = it / nq, c = it % nq * 4;
+    st4(dst + r * LD + c, ld4(src + (size_t)min(r, rmax) * ld + c));
+  }
+}
+
+// Y = X @ W (K x out, X rows LD apart) for the block's rows, as items of one
+// row group, one 16-column group and one K chunk (kc wide, a multiple of
+// 32), taken by the warps in turn.  Chunk ch's partial goes to
+// part[ch][R][out], with bias (when not null) added to chunk 0; the pass
+// after the barrier adds the chunks in order.
+template <int LD>
+__device__ __forceinline__ void tprod(const float* X, const float* __restrict__ W,
+                                      int K, int out, int ng, int ks,
+                                      const float* __restrict__ bias,
+                                      float* part, int warp, int kl, int cq) {
+  const int kc = ((K + ks - 1) / ks + 31) & ~31;
+  for (int u = warp; u < RG * ng * ks; u += NWARP) {
+    const int r0 = u / (ng * ks) * ET, v = u % (ng * ks);
+    const int ch = v / ng, c = v % ng * 16 + cq;
+    const int kb = ch * kc, ke = min(K, kb + kc);
+    const float4 b = ch == 0 && bias && c < out
+                         ? ldg4(bias + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 acc[ET];
+    zero(acc);
+    tmac<LD>(acc, X, r0, W, out, c, kb, ke, kl);
+    kput(acc, kl, r0, part + ch * R * out + c, out, b, c < out);
+  }
+}
+
+// 16 bytes device -> shared memory, asynchronously (cp.async, L2 only)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n (0..5) of this thread's newest commit groups are
+// pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: cp_async_wait_n<0>(); break;
+    case 1: cp_async_wait_n<1>(); break;
+    case 2: cp_async_wait_n<2>(); break;
+    case 3: cp_async_wait_n<3>(); break;
+    case 4: cp_async_wait_n<4>(); break;
+    default: cp_async_wait_n<5>(); break;
+  }
+}
+
+// h' of one GRU unit from its gate sums (biases included) and the old h
+__device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
+                                       float h) {
+  const float nn = tanhf(nx + sigm(r) * nh);
+  const float zz = sigm(z);
+  return (1.f - zz) * nn + zz * h;
+}
+
 // The unmerged decoder stack over a.nz z-steps for the block's R rows
-// (dec_kernel's and rx_frame_kernel's body).  Step k reads its latents from
-// the rows of z0 shifted by k * zstep floats; smem holds DEC_SMEM bytes.
+// (dec_kernel's and rx_frame_kernel's body), every product a tile product on
+// operands in shared memory.  Step k's latents are the rows of zs shifted by
+// k * zstep floats (device or shared memory); they are staged into columns
+// DEC_H.. of x[k]'s ring slot, which layer 0's GLU overwrites later.  The
+// carried h goes into the h ring's slot of step -1 before the first step,
+// and layer i's conv history over the prefix of x[-1] just before its conv
+// at the first step (the next layer overwrites it with its own).  Each
+// staging pass sits between two barriers that are there anyway.  smem holds
+// DEC_SMEM bytes.
 __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
-                                         const Src& z0, int zstep) {
+                                         const Src& zs, int zstep) {
   float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
-  float* const scr = hb + 2 * 5 * R * DEC_H;            // gates / partials
+  float* const scr = smem + DEC_RING;                   // partial sums
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int kl = lane >> 2, cq = 4 * (lane & 3);        // K lane, column quad
   const int b0 = blockIdx.x * R;
   const int nv = min(R, a.B - b0);
   const int rmax = nv - 1;
   const float* const w = a.w;
   const int* const off = a.off;
+  const int od = a.out_dim;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the float4 of a DEC_H-wide finish pass that is this thread's
+  const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
+
+  for (int i = 0; i < 5; ++i)
+    stage<DEC_H>(hb + (5 + i) * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H,
+                 DEC_H, DEC_H, rmax);
+  stage<DEC_X>(xb + DEC_H, zs.p, zs.ld, a.in_dim, zs.rmax);
+  __syncthreads();
 
   for (int k = 0; k < a.nz; ++k) {
     const int cur = k & 1, prv = cur ^ 1;
     float* const X = xb + cur * R * DEC_X;
-    const float* const Xp = xb + prv * R * DEC_X;
-    const Src xs{X, DEC_X, R - 1};
+    float* const Xp = xb + prv * R * DEC_X;
 
-    // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b)
-    const Src zs{z0.p + (size_t)k * zstep, z0.ld, z0.rmax};
-    const float* d1b = w + off[1];
-    dot<4, 4>(zs, w + off[0], zs, nullptr, a.in_dim, DEC_H, scr,
-              [&](int r, int c, float4 v) {
-                st4(X + r * DEC_X + c, tanh4(add4(v, ldg4(d1b + c))));
-              });
+    // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
+    tprod<DEC_X>(X + DEC_H, w + off[0], a.in_dim, DEC_H, DEC_NG, 2, w + off[1],
+                 scr, warp, kl, cq);
+    __syncthreads();
+    st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
+                                        ld4(scr + (R + fr) * DEC_H + fc))));
     __syncthreads();
 
     for (int i = 0; i < 5; ++i) {
       const int gin = DEC_H + 128 * i, cin = gin + DEC_H;
       const int* o = off + 2 + 8 * i;   // wih whh bih bhh glu cw0 cw1 cb
+      const float *wih = w + o[0], *whh = w + o[1];
+      const float *bih = w + o[2], *bhh = w + o[3];
       float* const hc = hb + (cur * 5 + i) * R * DEC_H;
-      const Src hold = k == 0 ? Src{a.h_in[i] + (size_t)b0 * DEC_H, DEC_H, rmax}
-                              : Src{hb + (prv * 5 + i) * R * DEC_H, DEC_H, R - 1};
-      gru(xs, gin, hold, w + o[0], w + o[1], w + o[2], w + o[3], DEC_H, scr,
-          scr + R * DEC_G, [&](int r, int j, float v) { hc[r * DEC_H + j] = v; });
+      const float* const hp = hb + (prv * 5 + i) * R * DEC_H;
+
+      // GRU gate sums in two K halves of [X[:, :gin] | h_prev] (the half
+      // boundary kh = cin/2 <= gin), partials [half][R][DEC_GS]: columns
+      // 0..191 x@wih + h@whh of the r and z gates, 192..287 x@wih of n,
+      // 288..383 h@whh of n (half 1 only).  bih (+ bhh for r, z) rides on
+      // half 0, bhh of n on half 1.  A unit is one 16-column group over one
+      // half: 12 r|z groups x 2, then 6 n groups x 2, 36 units in 3 rounds.
+      const int kh = cin / 2;
+      for (int u = warp; u < RG * DEC_GU; u += NWARP) {
+        const int r0 = u / DEC_GU * ET, v = u % DEC_GU;
+        const bool rz = v < 2 * DEC_RZ;
+        const int hf = rz ? v / DEC_RZ : (v - 2 * DEC_RZ) / DEC_NG;
+        const int c = (rz ? v % DEC_RZ : DEC_RZ + (v - 2 * DEC_RZ) % DEC_NG) * 16 + cq;
+        float4 bx = zero4;
+        if (hf == 0) bx = rz ? add4(ldg4(bih + c), ldg4(bhh + c)) : ldg4(bih + c);
+        const float4 bh = hf == 1 && !rz ? ldg4(bhh + c) : zero4;
+        float* const p = scr + hf * R * DEC_GS + c;
+        float4 acc[ET];
+        zero(acc);
+        tmac<DEC_X>(acc, X, r0, wih, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
+        if (rz && hf) tmac<DEC_H>(acc, hp, r0, whh, DEC_G, c, 0, DEC_H, kl);
+        kput(acc, kl, r0, p, DEC_GS, bx, true);
+        if (!rz && hf) {
+          zero(acc);
+          tmac<DEC_H>(acc, hp, r0, whh, DEC_G, c, 0, DEC_H, kl);
+          kput(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
+        }
+      }
       __syncthreads();
 
-      // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w)
-      const Src hs{hc, DEC_H, R - 1};
-      dot<4, 4>(hs, w + o[4], hs, nullptr, DEC_H, DEC_H, scr,
-                [&](int r, int c, float4 v) {
-                  const float4 h = ld4(hc + r * DEC_H + c);
-                  st4(X + r * DEC_X + gin + c,
-                      make_float4(h.x * sigm(v.x), h.y * sigm(v.y),
-                                  h.z * sigm(v.z), h.w * sigm(v.w)));
-                });
+      // GRU: the new h into the h ring; at the first step this layer's conv
+      // history goes over the prefix of x[-1]
+      {
+        const float* const p0 = scr + fr * DEC_GS + fc;
+        const float* const p1 = p0 + R * DEC_GS;
+        const float4 gr = add4(ld4(p0), ld4(p1));
+        const float4 gz = add4(ld4(p0 + DEC_H), ld4(p1 + DEC_H));
+        const float4 gx = add4(ld4(p0 + 2 * DEC_H), ld4(p1 + 2 * DEC_H));
+        const float4 gh = ld4(p1 + 3 * DEC_H);
+        const float4 h = ld4(hp + fr * DEC_H + fc);
+        st4(hc + fr * DEC_H + fc,
+            make_float4(gru_h(gr.x, gz.x, gx.x, gh.x, h.x),
+                        gru_h(gr.y, gz.y, gx.y, gh.y, h.y),
+                        gru_h(gr.z, gz.z, gx.z, gh.z, h.z),
+                        gru_h(gr.w, gz.w, gx.w, gh.w, h.w)));
+      }
+      if (k == 0)
+        stage<DEC_X>(Xp, a.hist_in[i] + (size_t)b0 * cin, cin, cin, rmax);
       __syncthreads();
 
-      // conv k2: X[:, cin:cin+32] = tanh(hist @ cw0 + X[:, :cin] @ cw1 + cb);
-      // the history is the previous step's prefix (the state at k == 0)
-      const Src hist = k == 0 ? Src{a.hist_in[i] + (size_t)b0 * cin, cin, rmax}
-                              : Src{Xp, DEC_X, R - 1};
-      const float* cb = w + o[7];
-      dot<4, 12>(hist, w + o[5], xs, w + o[6], cin, DEC_CO, scr,
-                 [&](int r, int c, float4 v) {
-                   st4(X + r * DEC_X + cin + c, tanh4(add4(v, ldg4(cb + c))));
-                 });
+      // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
+      tprod<DEC_H>(hc, w + o[4], DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp,
+                   kl, cq);
+      __syncthreads();
+      {
+        const float4 v = add4(ld4(scr + fr * DEC_H + fc),
+                              ld4(scr + (R + fr) * DEC_H + fc));
+        const float4 h = ld4(hc + fr * DEC_H + fc);
+        st4(X + fr * DEC_X + gin + fc,
+            make_float4(h.x * sigm(v.x), h.y * sigm(v.y), h.z * sigm(v.z),
+                        h.w * sigm(v.w)));
+      }
+      __syncthreads();
+
+      // conv k2: X[:, cin:cin+32] = tanh(x[k-1][:, :cin] @ cw0 +
+      // X[:, :cin] @ cw1 + cb); an item is one 16-column group of one tap
+      // over one of its DEC_CONV_KS K chunks, partials [tap][chunk][R][32],
+      // cb on the first
+      const int kc = ((cin + DEC_CONV_KS - 1) / DEC_CONV_KS + 31) & ~31;
+      constexpr int CG = DEC_CO / 16, CU = 2 * DEC_CONV_KS * CG;
+      for (int u = warp; u < RG * CU; u += NWARP) {
+        const int r0 = u / CU * ET, v = u % CU;
+        const int ch = v / CG, tap = ch / DEC_CONV_KS, c = v % CG * 16 + cq;
+        const int kb = ch % DEC_CONV_KS * kc, ke = min(cin, kb + kc);
+        const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
+        float4 acc[ET];
+        zero(acc);
+        tmac<DEC_X>(acc, tap ? X : Xp, r0, w + o[5 + tap], DEC_CO, c, kb, ke, kl);
+        kput(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO, b, true);
+      }
+      __syncthreads();
+      if (t < R * DEC_CO / 4) {
+        const int r = t / (DEC_CO / 4), c = t % (DEC_CO / 4) * 4;
+        float4 v = ld4(scr + r * DEC_CO + c);
+#pragma unroll
+        for (int ch = 1; ch < 2 * DEC_CONV_KS; ++ch)
+          v = add4(v, ld4(scr + (ch * R + r) * DEC_CO + c));
+        st4(X + r * DEC_X + cin + c, tanh4(v));
+      }
       __syncthreads();
     }
 
-    // output: feats[:, k] = X @ out_w + out_b
-    const float* ob = w + off[DEC_NW - 1];
-    float* const fo = a.feats + ((size_t)b0 * a.nz + k) * a.out_dim;
-    dot<4, 4>(xs, w + off[DEC_NW - 2], xs, nullptr, DEC_X, a.out_dim, scr,
-              [&](int r, int c, float4 v) {
-                if (r < nv) st4(fo + (size_t)r * a.nz * a.out_dim + c, add4(v, ldg4(ob + c)));
-              });
+    // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
+    tprod<DEC_X>(X, w + off[DEC_NW - 2], DEC_X, od, (od + 15) / 16, 2,
+                 w + off[DEC_NW - 1], scr, warp, kl, cq);
+    __syncthreads();
+    if (t < nv * (od / 4)) {
+      const int r = t / (od / 4), c = t % (od / 4) * 4;
+      st4(a.feats + (((size_t)b0 + r) * a.nz + k) * od + c,
+          add4(ld4(scr + r * od + c), ld4(scr + (R + r) * od + c)));
+    }
+    if (k + 1 < a.nz)   // the next step's latents, over x[k-1]
+      stage<DEC_X>(Xp + DEC_H, zs.p + (size_t)(k + 1) * zstep, zs.ld,
+                   a.in_dim, zs.rmax);
     __syncthreads();
   }
 
@@ -550,22 +828,52 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
   }
 }
 
+
 __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  // the decoder's gate scratch holds the demod intermediates until z is made
-  float* const Y = smem + 2 * R * DEC_X + 2 * 5 * R * DEC_H;  // [R][NSYM][Y]
+  // the decoder's rings hold the samples and its scratch the demod
+  // intermediates until z is made
+  float* const S = smem;                                      // [R*NSYM][ROW]
+  float* const Y = smem + DEC_RING;                           // [R][NSYM][Y]
   float* const hp0 = Y + R * FR_NSYM * FR_Y;                  // [R][Y]
   float* const hp1 = hp0 + R * FR_Y;                          // [R][Y]
   float* const inv_mag = hp1 + R * FR_Y;                      // [R]
   float* const zsh = smem + DEC_SMEM / sizeof(float);         // [R][NZ*LAT]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kl = lane >> 2, cq = 4 * (lane & 3);
   const int b0 = blockIdx.x * R;
   const int nv = min(R, a.d.B - b0);
 
-  // strip_cp + DFT of every symbol row: (R*NSYM, 384) @ dft_w -> [Yr | Yi]
-  const Src rows{a.rx + (size_t)b0 * FR_NSYM * FR_ROW, FR_ROW, nv * FR_NSYM - 1};
-  dot<4, 1, R * FR_NSYM>(rows, a.dft_w, rows, nullptr, FR_ROW, FR_Y, nullptr,
-                         [&](int r, int c, float4 v) { st4(Y + r * FR_Y + c, v); });
+  // the block's samples (R streams x NSYM symbol rows, contiguous in device
+  // memory; streams past B repeat the last one) into the rings by cp.async,
+  // in FR_STAGES commit groups of FR_SROWS rows
+  const float* const rx = a.rx + (size_t)b0 * FR_NSYM * FR_ROW;
+  for (int s = 0; s < FR_STAGES; ++s) {
+    for (int it = threadIdx.x; it < FR_SROWS * (FR_ROW / 4); it += NT) {
+      const int q = s * FR_SROWS + it / (FR_ROW / 4), c = it % (FR_ROW / 4) * 4;
+      const int r = min(q / FR_NSYM, nv - 1);
+      cp_async16(S + q * FR_ROW + c,
+                 rx + ((size_t)r * FR_NSYM + q % FR_NSYM) * FR_ROW + c);
+    }
+    cp_async_commit();
+  }
+
+  // strip_cp + DFT of every symbol row: (R*NSYM, 384) @ dft_w -> [Yr | Yi],
+  // a stage's products as soon as its rows have landed, so they overlap
+  // the later stages' copies
+  for (int s = 0; s < FR_STAGES; ++s) {
+    cp_async_wait(FR_STAGES - 1 - s);
+    __syncthreads();
+    for (int u = warp; u < FR_SROWS / ET * FR_CG; u += NWARP) {
+      const int r0 = s * FR_SROWS + u / FR_CG * ET, c = u % FR_CG * 16 + cq;
+      float4 acc[ET];
+      zero(acc);
+      tmac<FR_ROW>(acc, S, r0, a.dft_w, FR_Y, c, 0, FR_ROW, kl);
+      kput(acc, kl, r0, Y + c, FR_Y, make_float4(0.f, 0.f, 0.f, 0.f),
+           c < FR_Y);
+    }
+  }
   __syncthreads();
 
   // LS channel estimates of the two pilot rows: [Yr | Yi] @ ls_w
@@ -616,136 +924,6 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   dec_body(a.d, smem, Src{zsh, FR_NZ * FR_LAT, R - 1}, FR_LAT);
 }
 
-// ---------------------------------------------------------------------------
-// Encoder products, register-tiled over the block's rows (enc_kernel only).
-//
-// A work item is one warp's share of Y = X @ W: a group of 16 columns (quad
-// q = lane & 3 owns columns 4q..4q+3) for ET rows over a K range.  K lane
-// kl = lane >> 2 takes k = k0 + 4*kl + 32*j, so the 8 K lanes read 128
-// contiguous bytes of an x row, and every weight float4 a lane loads feeds
-// ET rows (4*ET multiply-adds).  The 4 quads of a K lane are neighbouring
-// lanes, so a quarter-warp asks for 2 distinct float4 of x (which its 4
-// quads share by broadcast) and 2 weight rows, not 8 of each as with the
-// quads 8 lanes apart: the kernel ran 1.58 times faster so on an H100.
-// kput adds the 8 K lanes' tiles by a fixed butterfly of shuffles; an
-// output whose K is split over items gets its partials added in chunk
-// order by the pass after the barrier.  No atomics, so two launches on the
-// same input give the same bits.
-
-// p ? a : b by selp: a select the compiler keeps in registers (a ternary
-// between two elements of the tile becomes an indexed local-memory read)
-__device__ __forceinline__ float selp(bool p, float a, float b) {
-  float r;
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %1, 0;\n\t"
-      "selp.f32 %0, %2, %3, q;\n\t}"
-      : "=f"(r)
-      : "r"((int)p), "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float4 sel4(bool p, float4 a, float4 b) {
-  return make_float4(selp(p, a.x, b.x), selp(p, a.y, b.y), selp(p, a.z, b.z),
-                     selp(p, a.w, b.w));
-}
-
-__device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
-  v.x = __shfl_xor_sync(0xffffffffu, v.x, m);
-  v.y = __shfl_xor_sync(0xffffffffu, v.y, m);
-  v.z = __shfl_xor_sync(0xffffffffu, v.z, m);
-  v.w = __shfl_xor_sync(0xffffffffu, v.w, m);
-  return v;
-}
-
-// rows k..k+3 of W at columns c..c+3 (zeros where !v)
-__device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
-                                    bool v) {
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int m = 0; m < 4; ++m) wt[m] = v ? ldg4(p + m * out) : z;
-}
-
-// acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
-//           X[r0 + i][k..k+3] . W[k..k+3][c..c+3],
-// X in shared memory with row stride ENC_X (every operand of the encoder's
-// products is there: the carried state is staged in the x ring first).
-// k0 and k1 are multiples of 4.  The next K step's weights are loaded into
-// registers before this step's multiply-adds.
-__device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int r0,
-                                     const float* __restrict__ W, int out,
-                                     int c, int k0, int k1, int kl) {
-  const float* const xr = X + r0 * ENC_X;
-  const bool cv = c < out;
-  const int n = (k1 - k0 + 31) >> 5;
-  int k = k0 + 4 * kl;
-  const float* wp = W + (size_t)k * out + c;
-  float4 wn[4];
-  ldw(wn, wp, out, cv && k < k1);
-#pragma unroll 1   // unrolled by 2: no faster on an H100, twice the code
-  for (int j = 0; j < n; ++j) {
-    const int kx = min(k, k1 - 4);   // lanes past k1 read a valid x, weight 0
-    k += 32;
-    wp += 32 * out;
-    float4 wt[4];
-    // k < k1 only if step j + 1 exists: no branch, so the next step's
-    // loads are issued before this step's multiply-adds
-#pragma unroll
-    for (int m = 0; m < 4; ++m) wt[m] = wn[m];
-    ldw(wn, wp, out, cv && k < k1);
-#pragma unroll
-    for (int i = 0; i < ET; ++i) {
-      const float4 x = ld4(xr + i * ENC_X + kx);
-      fma4(acc[i], x.x, wt[0]);
-      fma4(acc[i], x.y, wt[1]);
-      fma4(acc[i], x.z, wt[2]);
-      fma4(acc[i], x.w, wt[3]);
-    }
-  }
-}
-
-// One level of the K-lane butterfly: lanes keep H rows of the tile, the
-// upper half when up, and add the partner's (lane ^ m) copy of them.
-template <int H>
-__device__ __forceinline__ void kfold(float4 (&acc)[ET], bool up, int m) {
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float4 send = sel4(up, acc[i], acc[i + H]);
-    const float4 keep = sel4(up, acc[i + H], acc[i]);
-    acc[i] = add4(keep, shfl_xor4(send, m));
-  }
-}
-
-// The end of a work item: the 8 K lanes' tiles are summed (bit lv of kl
-// picks the half kept at level lv), then lane kl stores its ET/8 rows plus
-// `bias` at dst + row * ld when `put`.  Every lane of the warp takes part.
-__device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
-                                     float* dst, int ld, float4 bias,
-                                     bool put) {
-  kfold<ET / 2>(acc, kl & 1, 4);          // K lane kl is lanes 4kl..4kl+3
-  kfold<ET / 4>(acc, (kl >> 1) & 1, 8);
-  kfold<ET / 8>(acc, (kl >> 2) & 1, 16);
-  const int rk = r0 + (ET / 2) * (kl & 1) + (ET / 4) * ((kl >> 1) & 1) +
-                 (ET / 8) * ((kl >> 2) & 1);
-  if (put) {
-#pragma unroll
-    for (int i = 0; i < ET / 8; ++i) st4(dst + (rk + i) * ld, add4(acc[i], bias));
-  }
-}
-
-__device__ __forceinline__ void zero(float4 (&acc)[ET]) {
-#pragma unroll
-  for (int i = 0; i < ET; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// dst[r][0..cols) = src row min(r, rmax) (row stride ld) for the R rows of a
-// block: device memory into the x ring (rows ENC_X apart); cols % 4 == 0
-__device__ __forceinline__ void stage(float* dst, const float* src, int ld,
-                                      int cols, int rmax) {
-  const int nq = cols / 4;
-  for (int it = threadIdx.x; it < R * nq; it += NT) {
-    const int r = it / nq, c = it % nq * 4;
-    st4(dst + r * ENC_X + c, ld4(src + (size_t)min(r, rmax) * ld + c));
-  }
-}
-
 // The encoder stack over a.nz z-steps for the block's R rows.  x[t] of
 // step t lives in ring slot t % 3; the carried state is staged into the
 // slots of x[-1] and x[-2] (h at its GRU window, each conv's history tap
@@ -770,7 +948,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   const float4 d1v = ldg4(w + off[1] + t % (ENC_H / 4) * 4);
   const float4 obv = ldg4(w + off[ENC_NW - 1] + t % (od / 4) * 4);
-  stage(xb + ENC_FOFF, f0, fld, a.in_dim, rmax);
+  stage<ENC_X>(xb + ENC_FOFF, f0, fld, a.in_dim, rmax);
   __syncthreads();
   for (int k = 0; k < a.nz; ++k) {
     float* const X = xb + (k % 3) * R * ENC_X;
@@ -778,14 +956,14 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
 
     // dense_1: X[:, :64] = tanh(f_k @ d1_w + d1_b), K in ENC_D1_KS chunks
     const int kd = ((a.in_dim + ENC_D1_KS - 1) / ENC_D1_KS + 31) & ~31;
-    for (int u = warp; u < ENC_NG * 4 * ENC_D1_KS; u += NWARP) {
+    for (int u = warp; u < RG * 4 * ENC_D1_KS; u += NWARP) {
       const int r0 = u / (4 * ENC_D1_KS) * ET, ch = u / 4 % ENC_D1_KS;
       const int c = u % 4 * 16 + cq;
       const int kb = ch * kd, ke = min(a.in_dim, kb + kd);
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        tmac(acc, X + ENC_FOFF, r0, w + off[0], ENC_H, c, kb, ke, kl);
+        tmac<ENC_X>(acc, X + ENC_FOFF, r0, w + off[0], ENC_H, c, kb, ke, kl);
       kput(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H, zero4, true);
     }
     __syncthreads();
@@ -797,7 +975,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
         v = add4(v, ld4(scr + (ch * R + r) * ENC_H + c));
       st4(X + r * ENC_X + c, tanh4(add4(v, d1v)));
     }
-    if (k == 0) stage(Xp + ENC_H, a.h_in[0] + (size_t)b0 * ENC_H, ENC_H, ENC_H, rmax);
+    if (k == 0) stage<ENC_X>(Xp + ENC_H, a.h_in[0] + (size_t)b0 * ENC_H, ENC_H, ENC_H, rmax);
     __syncthreads();
 
     for (int i = 0; i < 5; ++i) {
@@ -814,19 +992,19 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       // gate; 192..255 h@whh + bhh of the n gate.  A unit is one 16-column
       // group: an r|z item over both products, or the two n items.  The
       // previous h is x[k-1]'s GRU window.
-      for (int u = warp; u < ENC_NG * 12; u += NWARP) {
+      for (int u = warp; u < RG * 12; u += NWARP) {
         const int r0 = u / 12 * ET, qg = u % 12, c = qg * 16 + cq;
         const float4 bi = ldg4(bih + c), bh = ldg4(bhh + c);
         float4 acc[ET];
         zero(acc);
-        tmac(acc, X, r0, wih, ENC_G, c, 0, gin, kl);
+        tmac<ENC_X>(acc, X, r0, wih, ENC_G, c, 0, gin, kl);
         if (qg < 8) {
-          tmac(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
+          tmac<ENC_X>(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
           kput(acc, kl, r0, scr + c, ENC_GS, add4(bi, bh), true);
         } else {
           kput(acc, kl, r0, scr + c, ENC_GS, bi, true);
           zero(acc);
-          tmac(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
+          tmac<ENC_X>(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
           kput(acc, kl, r0, scr + ENC_H + c, ENC_GS, bh, true);
         }
       }
@@ -847,18 +1025,18 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
         X[r * ENC_X + gin + j] = (1.f - zz) * nn + zz * h;
       }
       if (k < d)   // conv history tap k of the state = x[k-d]
-        stage(Xd, a.hist_in[i] + ((size_t)b0 * d + k) * cin, d * cin, cin, rmax);
+        stage<ENC_X>(Xd, a.hist_in[i] + ((size_t)b0 * d + k) * cin, d * cin, cin, rmax);
       __syncthreads();
 
       // conv k2, dilation d: X[:, cin:cin+96] =
       //   tanh(x[k-d][:, :cin] @ cw0 + X[:, :cin] @ cw1 + cb);
       // a unit is one 16-column group of one tap, partials [tap][R][96]
-      for (int u = warp; u < ENC_NG * 12; u += NWARP) {
+      for (int u = warp; u < RG * 12; u += NWARP) {
         const int r0 = u / 12 * ET, tap = u % 12 / 6;
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        tmac(acc, tap ? X : Xd, r0, w + o[4 + tap], ENC_CO, c, 0, cin, kl);
+        tmac<ENC_X>(acc, tap ? X : Xd, r0, w + o[4 + tap], ENC_CO, c, 0, cin, kl);
         kput(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO, zero4, true);
       }
       __syncthreads();
@@ -869,7 +1047,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
         st4(X + r * ENC_X + cin + c, tanh4(add4(v, cbv)));
       }
       if (k == 0 && i < 4)   // the next layer's h state at its GRU window
-        stage(Xp + gin + 160, a.h_in[i + 1] + (size_t)b0 * ENC_H, ENC_H, ENC_H,
+        stage<ENC_X>(Xp + gin + 160, a.h_in[i + 1] + (size_t)b0 * ENC_H, ENC_H, ENC_H,
               rmax);
       __syncthreads();
     }
@@ -878,13 +1056,13 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
     // ENC_Z_KS chunks, partials [chunk][R][out_dim]
     const int nqg = (od + 15) / 16;
     const int kz = ((ENC_X + ENC_Z_KS - 1) / ENC_Z_KS + 31) & ~31;
-    for (int u = warp; u < ENC_NG * nqg * ENC_Z_KS; u += NWARP) {
+    for (int u = warp; u < RG * nqg * ENC_Z_KS; u += NWARP) {
       const int r0 = u / (nqg * ENC_Z_KS) * ET, ch = u / nqg % ENC_Z_KS;
       const int c = u % nqg * 16 + cq;
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      tmac(acc, X, r0, w + off[ENC_NW - 2], od, c, kb, ke, kl);
+      tmac<ENC_X>(acc, X, r0, w + off[ENC_NW - 2], od, c, kb, ke, kl);
       kput(acc, kl, r0, scr + ch * R * od + c, od, zero4, c < od);
     }
     __syncthreads();
@@ -899,7 +1077,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       st4(zo + (size_t)r * a.nz * od + c, a.bottleneck == 1 ? tanh4(v) : v);
     }
     if (k + 1 < a.nz)   // the next step's features, over x[k-2]
-      stage(xb + ((k + 1) % 3) * R * ENC_X + ENC_FOFF, f0 + (k + 1) * a.in_dim,
+      stage<ENC_X>(xb + ((k + 1) % 3) * R * ENC_X + ENC_FOFF, f0 + (k + 1) * a.in_dim,
             fld, a.in_dim, rmax);
     __syncthreads();
   }
@@ -935,8 +1113,8 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
                              const void* z, void* feats, int B, int nz,
                              int in_dim, int out_dim, void* const* state_in,
                              void* const* state_out, void* stream) {
-  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
-      out_dim > DEC_MAX_OUT)
+  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT)
     return (int)cudaErrorInvalidValue;
   DecArgs a;
   a.w = static_cast<const float*>(w);
@@ -993,7 +1171,8 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
                               float mag_k, int coarse_mag,
                               void* const* state_in, void* const* state_out,
                               void* stream) {
-  if (n_off != FR_NW || B < 1 || out_dim % 4 || out_dim > DEC_MAX_OUT)
+  if (n_off != FR_NW || B < 1 || out_dim < 4 || out_dim % 4 ||
+      out_dim > DEC_TMAX_OUT)
     return (int)cudaErrorInvalidValue;
   FrameArgs a;
   const float* wf = static_cast<const float*>(w);
@@ -1052,8 +1231,10 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
 }
 
 // The tiling, for counting the weight bytes a launch fetches: batch rows a
-// block owns, and rows each weight load feeds in enc_kernel's products.
+// block owns, and rows each weight load feeds in enc_kernel's and in
+// dec_kernel's (and rx_frame_kernel's decoder) products.
 int radae_block_rows(void) { return R; }
 int radae_enc_tile_rows(void) { return ET; }
+int radae_dec_tile_rows(void) { return ET; }
 
 }  // extern "C"

@@ -30,6 +30,7 @@ _SIGNATURES = {
     "fused_core": {
         "radae_block_rows": [],
         "radae_enc_tile_rows": [],
+        "radae_dec_tile_rows": [],
         "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                      _P, _P, _P],
         "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _I, _I,

@@ -173,16 +173,21 @@ def test_wrappers_refuse_other_devices(tree):
         fc.fused_decoder_step(w, z, fc.decoder_state_zero(B, "cpu"))
 
 
-@pytest.mark.parametrize("rows, want", [
-    ((2, 4), 21_835_776),    # the first encoder kernel: 2-row GRU, 4-row tiles
-    ((16, 16), 3_738_624),   # one 16-row tile a block: each weight read once
-    ((8, 8), 7_477_248),     # two 8-row tiles a block
-], ids=["rows2-4", "rows16", "rows8"])
-def test_encoder_weight_fetch_bytes(tree, rows, want):
+@pytest.mark.parametrize("side, rows, want", [
+    ("encoder", (2, 4), 21_835_776),    # the first kernels: 2-row GRU, 4-row tiles
+    ("encoder", (16, 16), 3_738_624),   # one 16-row tile a block: each weight read once
+    ("encoder", (8, 8), 7_477_248),     # two 8-row tiles a block
+    ("decoder", (2, 4), 24_786_944),
+    ("decoder", (16, 16), 3_616_256),
+    ("decoder", (8, 8), 7_232_512),
+], ids=["rows2-4", "rows16", "rows8", "dec-rows2-4", "dec-rows16", "dec-rows8"])
+def test_encoder_weight_fetch_bytes(tree, side, rows, want):
     """chip_smoke's count of the weight bytes one 16-stream block of the
-    encoder kernel fetches into its SM per z-step, at the flagship widths."""
+    encoder kernel, or of the unmerged decoder kernel, fetches into its SM
+    per z-step, at the flagship widths."""
     import chip_smoke
-    w = fc.encoder_weights(tree["encoder"], "cpu")
+    w = (fc.encoder_weights if side == "encoder" else fc.decoder_weights)(
+        tree[side], "cpu")
     assert chip_smoke.weight_fetch_bytes(w, *rows, 16) == want
     assert chip_smoke.weight_fetch_bytes(w, 16, 16, 16) == 4 * sum(
         a.numel() for a in w.arrays if a.dim() == 2)

@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Time forms of the encoder kernel (enc_kernel) against each other on one
-CUDA card, in turns, in one run.
+"""Time forms of one tile kernel (the encoder enc_kernel, the unmerged
+decoder dec_kernel or the whole-frame rx_frame_kernel) against each other on
+one CUDA card, in turns, in one run.
 
-    python3 tools/enc_variants.py [--src NAME=PATH ...] [--out DIR] [--reps N]
+    python3 tools/enc_variants.py [--kernel enc|dec|frame] [--src NAME=PATH ...]
+                                  [--out DIR] [--reps N]
 
 Builds radae_tpu_torch/csrc/fused_core.cu as it is and, beside it, one copy
-for each form in FORMS (the source with a few text changes) and for each
-other copy of the source named by --src, for example an earlier commit's:
+for each form in FORMS that applies to the kernel (the source with a few
+text changes) and for each other copy of the source named by --src, for
+example an earlier commit's:
 
     git show <commit>:radae_tpu_torch/csrc/fused_core.cu > build/parent.cu
-    python3 tools/enc_variants.py --src parent=build/parent.cu
+    python3 tools/enc_variants.py --kernel dec --src parent=build/parent.cu
 
-Each form's encoder runs through fused_encoder_step on the flagship weights
-at B=2048, one frame (nz=3) a call.  The checked forms are held against
-encoder_step_plain (rtol 1e-4, atol 1e-4); the forms that take a cost out
-on purpose give wrong results and are timed only.  For each form it prints
-the ptxas line, the max abs err, whether two launches give the same bits,
-the device time (CUDA graph replays; the forms in turns, the order reversed
-every round) and the weight bytes a launch fetches into the SMs, and it
-writes them to DIR/enc_variants.json (default build/enc_variants).
+Each form's kernel runs through its wrapper (fused_encoder_step,
+fused_decoder_step or fused_rx_frame_step) on the flagship weights at
+B=2048, one frame (nz=3) a call, with random inputs and state from a seed.
+The checked forms are held against the plain version (rtol 1e-4, atol
+1e-4); the forms that take a cost out on purpose give wrong results and are
+timed only.  For each form it prints the ptxas line of the kernel, the max
+abs err, whether two launches give the same bits, the device time (CUDA
+graph replays; the forms in turns, the order reversed every round) and the
+weight bytes a launch fetches into the SMs (the encoder's or the decoder's
+weights), and it writes them to DIR/<kernel>_variants.json (default DIR
+build/enc_variants).
 
-The text changes name lines of the source: when the kernel changes, a form
+The text changes name lines of the source: when the kernels change, a form
 that no longer applies stops the run with its name.
 """
 
@@ -30,6 +36,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from unittest import mock
@@ -39,18 +46,25 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (TOL, card_line, check_close, graph_ms,  # noqa: E402
-                        max_err, weight_fetch_bytes)
+from chip_smoke import (RX_NOISE, TOL, card_line, check_close,  # noqa: E402
+                        graph_ms, max_err, weight_fetch_bytes)
 
 B = 2048
-PR2_ROWS = (2, 4)   # rows a weight load feeds in a source that does not say:
-                    # the first encoder kernel (2 in the GRU products, 4 else)
+FIRST_ROWS = (2, 4)  # rows a weight load feeds in a source that does not say:
+                     # the first kernels (2 in the GRU products, 4 else)
+# --kernel -> (name of the __global__ function, wrapper, library entry of its
+# tile rows)
+KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
+           "dec": ("dec_kernel", "fused_decoder_step", "radae_dec_tile_rows"),
+           "frame": ("rx_frame_kernel", "fused_rx_frame_step",
+                     "radae_dec_tile_rows")}
+ALL = tuple(KERNELS)
 
 # the weight loads staged by cp.async in a 2-stage ring of 16-byte slots, one
 # a lane and weight row, behind the scratch (4 KB a warp)
 _CP_ASYNC_HELPERS = r"""
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool v) {
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
+                                            bool v) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(v ? 16 : 0) : "memory");
@@ -71,14 +85,14 @@ _CPASYNC = [
      " + NWARP * 1024);"),
     (r"""  float4 wn[4];
   ldw(wn, wp, out, cv && k < k1);""", r"""  for (int m = 0; m < 4; ++m)
-    cp_async16(ring_slot(0, m), cv && k < k1 ? wp + m * out : W, cv && k < k1);
+    cp_async16z(ring_slot(0, m), cv && k < k1 ? wp + m * out : W, cv && k < k1);
   asm volatile("cp.async.commit_group;\n" ::: "memory");"""),
     (r"""#pragma unroll
     for (int m = 0; m < 4; ++m) wt[m] = wn[m];
     ldw(wn, wp, out, cv && k < k1);""", r"""#pragma unroll
     for (int m = 0; m < 4; ++m)
-      cp_async16(ring_slot((j + 1) & 1, m), cv && k < k1 ? wp + m * out : W,
-                 cv && k < k1);
+      cp_async16z(ring_slot((j + 1) & 1, m), cv && k < k1 ? wp + m * out : W,
+                  cv && k < k1);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 #pragma unroll
@@ -91,36 +105,90 @@ _CPASYNC = [
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }""")]
-# name -> (held against the plain version, [(text of the source, replacement)])
+# name -> (kernels it applies to, held against the plain version,
+#          [(text of the source, replacement)]); tmac and kput are shared, so
+# the forms that change them apply to all three kernels
 FORMS = {
-    "rows8": (True, _ROWS8),              # 8-row tiles, 2 row groups a block
-    "cpasync": (True, _CPASYNC),          # weights through a cp.async ring
-    "rows8_cpasync": (True, _ROWS8 + _CPASYNC),
-    "quads8apart": (True, [               # a K lane's 4 column quads 8 lanes apart
+    "rows8": (ALL, True, _ROWS8),         # 8-row tiles, 2 row groups a block
+    "cpasync": (("enc",), True, _CPASYNC),  # weights through a cp.async ring
+    "rows8_cpasync": (("enc",), True, _ROWS8 + _CPASYNC),
+    "quads8apart": (ALL, True, [          # a K lane's 4 column quads 8 lanes apart
         ("const int kl = lane >> 2, cq = 4 * (lane & 3);",
          "const int kl = lane & 7, cq = 4 * (lane >> 3);"),
         ("(acc, kl & 1, 4)", "(acc, kl & 1, 1)"),
         ("(acc, (kl >> 1) & 1, 8)", "(acc, (kl >> 1) & 1, 2)"),
         ("(acc, (kl >> 2) & 1, 16)", "(acc, (kl >> 2) & 1, 4)")]),
-    "unroll2": (True, [("#pragma unroll 1 ", "#pragma unroll 2 ")]),
-    "noxload": (False, [                  # x from registers: no shared x loads
-        ("const float4 x = ld4(xr + i * ENC_X + kx);",
+    "unroll2": (ALL, True, [("#pragma unroll 1 ", "#pragma unroll 2 ")]),
+    "syncload": (("frame",), True, [      # the samples by plain loads and stores
+        ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n"
+         "               \"l\"(src)\n"
+         "               : \"memory\");\n",
+         "  (void)d;\n  st4(dst, ld4(src));\n")]),
+    "noxload": (ALL, False, [             # x from registers: no shared x loads
+        ("const float4 x = ld4(xr + i * LD + kx);",
          "const float4 x = wt[i & 3];")]),
-    "wfixed": (False, [                   # every K step reloads the first one's
+    "wfixed": (ALL, False, [              # every K step reloads the first one's
         ("    wp += 32 * out;\n", "")]),  # weights (from L1)
-    "noproducts": (False, [               # no product loops: barriers, sums,
-        ("  const float* const xr = X + r0 * ENC_X;\n",  # gates, staging only
-         "  return;\n  const float* const xr = X + r0 * ENC_X;\n")]),
+    "stages1": (("frame",), True, [       # the DFT after the whole copy
+        ("constexpr int FR_STAGES = 2;", "constexpr int FR_STAGES = 1;")]),
+    "stages3": (("frame",), True, [
+        ("constexpr int FR_STAGES = 2;", "constexpr int FR_STAGES = 3;")]),
+    "stages6": (("frame",), True, [       # one stage a 16-row group
+        ("constexpr int FR_STAGES = 2;", "constexpr int FR_STAGES = 6;")]),
+    "nocopy": (("frame",), False, [       # no sample copy: stale operands
+        ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n",
+         "  if (d == 0xffffffffu) asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n")]),
+    "nodft": (("frame",), False, [        # no DFT product loop
+        ("      tmac<FR_ROW>(acc, S, r0, a.dft_w, FR_Y, c, 0, FR_ROW, kl);\n", "")]),
+    "nols": (("frame",), False, [         # no LS products
+        ("  dot<1, 1>(p0, a.ls_w,", "  if (a.d.B < 0) dot<1, 1>(p0, a.ls_w,"),
+        ("  dot<1, 1>(p1, a.ls_w,", "  if (a.d.B < 0) dot<1, 1>(p1, a.ls_w,")]),
+    "noprologue": (("frame",), False, [   # the decoder body alone
+        ("  const float* const rx = a.rx + (size_t)b0 * FR_NSYM * FR_ROW;\n",
+         "  if (a.d.B < 0) {\n"
+         "  const float* const rx = a.rx + (size_t)b0 * FR_NSYM * FR_ROW;\n"),
+        ("  dec_body(a.d, smem, Src{zsh,", "  }\n  dec_body(a.d, smem, Src{zsh,")]),
+    "noz": (("dec",), False, [            # latents never staged: stale operands
+        ("  stage<DEC_X>(xb + DEC_H, zs.p, zs.ld, a.in_dim, zs.rmax);\n", ""),
+        ("      stage<DEC_X>(Xp + DEC_H, zs.p + (size_t)(k + 1) * zstep, zs.ld,\n"
+         "                   a.in_dim, zs.rmax);\n", "      ;\n")]),
+    "frsmem": (("dec",), True, [          # the frame kernel's shared memory size
+        ("      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DEC_SMEM);",
+         "      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FR_SMEM);"),
+        ("  dec_kernel<<<(B + R - 1) / R, NT, DEC_SMEM,",
+         "  dec_kernel<<<(B + R - 1) / R, NT, FR_SMEM,")]),
+    "noproducts": (ALL, False, [          # no product loops: barriers, sums,
+        ("  const float* const xr = X + r0 * LD;\n",  # gates, staging only
+         "  return;\n  const float* const xr = X + r0 * LD;\n")]),
 }
 
 
-def write_form(src_text, name, out_dir) -> str:
+def sass(lib_path, kname, cuobjdump):
+    """The kernel's SASS, without addresses, encodings and the
+    source-dependent mangled names (None without cuobjdump)."""
+    if not os.path.exists(cuobjdump):
+        return None
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    body = [b for b in out.split("Function : ")[1:]
+            if kname in b.splitlines()[0]]
+    if len(body) != 1:
+        return None
+    lines = []
+    for x in body[0].splitlines()[1:]:
+        x = re.sub(r"/\*\s*[0-9a-fx]+\s*\*/", "", x).strip()
+        if x and not x.startswith("...."):
+            lines.append(re.sub(r"_ZN\w+", "<name>", x))
+    return lines
+
+
+def write_form(src_text, name, out_dir, kernel) -> str:
     text = src_text
-    for old, new in FORMS[name][1]:
+    for old, new in FORMS[name][2]:
         if old not in text:
             raise ValueError(f"form {name}: {old!r} is not in the source")
         text = text.replace(old, new)
-    path = os.path.join(out_dir, f"enc_{name}.cu")
+    path = os.path.join(out_dir, f"{kernel}_{name}.cu")
     with open(path, "w") as fh:
         fh.write(text)
     return path
@@ -128,91 +196,145 @@ def write_form(src_text, name, out_dir) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=KERNELS, default="enc")
+    ap.add_argument("--forms", default=None, metavar="NAME,...",
+                    help="the forms to build (default: all that apply)")
     ap.add_argument("--src", action="append", default=[], metavar="NAME=PATH",
                     help="another copy of csrc/fused_core.cu to time")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "enc_variants"))
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
+    kernel = args.kernel
+    kname, wrapper, rows_entry = KERNELS[kernel]
+    forms = [n for n, (ks, _, _) in FORMS.items() if kernel in ks]
+    if args.forms is not None:
+        asked = [n for n in args.forms.split(",") if n]
+        bad = [n for n in asked if n not in forms]
+        if bad:
+            ap.error(f"forms {bad} do not apply to --kernel {kernel}")
+        forms = asked
     import torch
     if not torch.cuda.is_available():
         print("enc_variants: no CUDA card", file=sys.stderr)
         return 1
     from radae_tpu_torch.config import flagship_config
-    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.convert import load_checkpoint, params_to_torch
+    from radae_tpu_torch.models.core import CoreEncoder
     from radae_tpu_torch.ops import _kernels
     from radae_tpu_torch.ops import fused_core as fc
+    from radae_tpu_torch.runtime import make_streaming_tx_step
 
     card = card_line()
-    print(f"card: {card}")
+    print(f"card: {card}; kernel {kname}")
     os.makedirs(args.out, exist_ok=True)
     committed = str(_kernels.SRC_DIR / "fused_core.cu")
     with open(committed) as fh:
         text = fh.read()
     srcs = {"committed": committed}
-    srcs.update({n: write_form(text, n, args.out) for n in FORMS})
+    srcs.update({n: write_form(text, n, args.out, kernel) for n in forms})
     srcs.update(s.split("=", 1) for s in args.src)
 
     procs = {}
     for v, src in srcs.items():          # one nvcc a form, all at once
-        with open(os.path.join(args.out, f"enc_{v}.log"), "w") as log:
+        with open(os.path.join(args.out, f"{kernel}_{v}.log"), "w") as log:
             procs[v] = subprocess.Popen(
                 [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o",
-                 os.path.join(args.out, f"libenc_{v}.so"), src],
+                 os.path.join(args.out, f"lib{kernel}_{v}.so"), src],
                 stdout=log, stderr=subprocess.STDOUT)
     libs, info = {}, {}
     for v, proc in procs.items():
         status = proc.wait()
-        with open(os.path.join(args.out, f"enc_{v}.log")) as fh:
+        with open(os.path.join(args.out, f"{kernel}_{v}.log")) as fh:
             lines = fh.read().splitlines()
         if status != 0:
             raise RuntimeError(f"nvcc failed for {v}:\n" + "\n".join(lines))
         at = [i for i, x in enumerate(lines)
-              if "entry function" in x and "enc_kernel" in x]
+              if "entry function" in x and kname in x]
         ptxas = [x.strip() for x in lines[at[0]:at[0] + 4]
                  if "registers" in x or "spill" in x] if at else []
-        lib = ctypes.CDLL(os.path.join(args.out, f"libenc_{v}.so"))
+        lib = ctypes.CDLL(os.path.join(args.out, f"lib{kernel}_{v}.so"))
         for fn, argtypes in _kernels._SIGNATURES["fused_core"].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         libs[v] = lib
-        rows = ((lib.radae_enc_tile_rows(),) * 2
-                if hasattr(lib, "radae_enc_tile_rows") else PR2_ROWS)
+        rows = ((getattr(lib, rows_entry)(),) * 2
+                if hasattr(lib, rows_entry) else FIRST_ROWS)
+        code = sass(os.path.join(args.out, f"lib{kernel}_{v}.so"), kname,
+                    os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump"))
+        if code:
+            with open(os.path.join(args.out, f"{kernel}_{v}.sass"), "w") as fh:
+                fh.write("\n".join(code) + "\n")
+        if v == "committed":
+            ref_sass = code
         info[v] = {"ptxas": ptxas, "rows": rows,
-                   "checked": FORMS[v][0] if v in FORMS else True}
-        print(f"{v}: ptxas {ptxas}")
+                   "checked": FORMS[v][1] if v in FORMS else True,
+                   "sass_lines": len(code) if code else None,
+                   "same_sass": (code == ref_sass) if code and ref_sass else None}
+        print(f"{v}: ptxas {ptxas}, {info[v]['sass_lines']} SASS "
+              f"instructions, the same as committed's: {info[v]['same_sass']}")
 
     cfg = flagship_config()
     tree, _ = load_checkpoint(os.path.join(ROOT, "fixtures",
                                            "model_fs_flagship.npz"))
     dev = torch.device("cuda")
-    ew = fc.encoder_weights(tree["encoder"], dev)
     gen = np.random.default_rng(0)
     nz = cfg.Nzmf
-    f = torch.as_tensor((0.3 * gen.standard_normal(
-        (B, 4 * nz, cfg.feature_dim))).astype(np.float32), device=dev)
-    es = tuple(torch.as_tensor((0.5 * gen.standard_normal(tuple(s.shape)))
+
+    def rand(shape, scale):
+        return torch.as_tensor((scale * gen.standard_normal(shape))
                                .astype(np.float32), device=dev)
-               for s in fc.encoder_state_zero(B, dev))
+
+    if kernel == "enc":
+        w = fetch_w = fc.encoder_weights(tree["encoder"], dev)
+        x = rand((B, 4 * nz, cfg.feature_dim), 0.3)
+        state = fc.encoder_state_zero(B, dev)
+        args_k = (cfg.bottleneck,)
+        plain = fc.encoder_step_plain
+    else:
+        state = fc.decoder_state_zero(B, dev)
+        args_k = ()
+        if kernel == "dec":
+            w = fetch_w = fc.decoder_weights(tree["decoder"], dev)
+            x = torch.tanh(rand((B, nz, cfg.latent_dim), 1.0))
+            plain = fc.decoder_step_plain
+        else:       # a received frame: the plain tx step's samples + noise
+            w = fc.fused_rx_weights(tree["decoder"], cfg, dev)
+            fetch_w = w.decoder
+            tx = make_streaming_tx_step(cfg, CoreEncoder(
+                cfg.feature_dim, cfg.latent_dim, cfg.bottleneck), B,
+                device=dev)
+            enc_p = params_to_torch(tree, dev)["encoder"]
+            sig = torch.cat([tx(enc_p, rand((B, 4 * nz, cfg.feature_dim),
+                                            0.3), None)[0]
+                             for _ in range(2)], dim=1)
+            n = (cfg.Ns + 2) * (cfg.M + cfg.Ncp)
+            x = (sig[:, :n] + rand((B, n, 2), RX_NOISE)).contiguous()
+            plain = fc.rx_frame_step_plain
+    state = tuple(rand(tuple(s.shape), 0.5) for s in state)
     block_rows = libs["committed"].radae_block_rows()
     blocks = -(-B // block_rows)
 
     def run(v):
         with mock.patch.object(_kernels, "library", lambda name: libs[v]):
-            return fc.fused_encoder_step(ew, f, es, cfg.bottleneck)
+            return getattr(fc, wrapper)(w, x, state, *args_k)
 
     with torch.no_grad():
-        zp, sp = fc.encoder_step_plain(ew, f, es, cfg.bottleneck)
-        want = (zp,) + sp
+        op, sp = plain(w, x, state, *args_k)
+        want = (op,) + sp
         for v in libs:
-            (z1, s1), (z2, s2) = run(v), run(v)
+            (o1, s1), (o2, s2) = run(v), run(v)
             torch.cuda.synchronize()
-            got = (z1,) + s1
+            got = (o1,) + s1
             if info[v]["checked"]:
                 check_close(f"form {v}", got, want, TOL)
             info[v]["max_abs_err"] = max_err(got, want)
             info[v]["same_bits"] = all(
-                torch.equal(x, y) for x, y in zip(got, (z2,) + s2))
+                torch.equal(a, b) for a, b in zip(got, (o2,) + s2))
+            if v == "committed":
+                ref_out = got
+            info[v]["bits_as_committed"] = all(
+                torch.equal(a, b) for a, b in zip(got, ref_out))
         times = {v: [] for v in libs}
         order = list(libs)
         for r in range(args.reps):
@@ -220,21 +342,21 @@ def main(argv=None) -> int:
                 times[v].append(graph_ms(lambda: run(v)))
     for v in libs:
         ms = sum(times[v]) / args.reps
-        fetch = weight_fetch_bytes(ew, *info[v]["rows"], block_rows) \
+        fetch = weight_fetch_bytes(fetch_w, *info[v]["rows"], block_rows) \
             * blocks * nz
         info[v].update(ms=ms, runs=times[v], weight_bytes_per_launch=fetch,
                        weight_tb_s=fetch / (ms * 1e-3) / 1e12)
         print(f"{v}: {ms:.4f} ms (rounds {[round(t, 4) for t in times[v]]}), "
               f"err {info[v]['max_abs_err']:.3g}"
               f"{'' if info[v]['checked'] else ' (not checked)'}, same bits "
-              f"{info[v]['same_bits']}, weights {fetch / 1e9:.4f} GB a launch "
+              f"{info[v]['same_bits']} (as committed's: "
+              f"{info[v]['bits_as_committed']}), weights {fetch / 1e9:.4f} GB a launch "
               f"({info[v]['weight_tb_s']:.2f} TB/s)")
-    with open(os.path.join(args.out, "enc_variants.json"), "w") as fh:
-        json.dump({"card": card, "batch": B, "nz": nz, "forms": info}, fh,
-                  indent=1)
+    with open(os.path.join(args.out, f"{kernel}_variants.json"), "w") as fh:
+        json.dump({"card": card, "kernel": kname, "batch": B, "nz": nz,
+                   "forms": info}, fh, indent=1)
     print(card)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())
