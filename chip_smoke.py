@@ -14,7 +14,10 @@ EQ, coarse magnitude):
      decoder and the encoder at B=2048 with one frame (3 latent steps) a
      call and at a ragged B=37 with one and with two frames a call; the
      whole-frame rx kernel at B=2048 and B=37, one frame a call, on
-     fixture tx frames with Gaussian noise;
+     fixture tx frames with Gaussian noise, for the flagship modem and for
+     the latent-40 one (Nc=15, fixtures/model_l40.npz); and a modem
+     geometry past the frame kernel's limits (latent 112) raises without
+     launching;
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, three times:
@@ -27,15 +30,15 @@ EQ, coarse magnitude):
      the losses radae_tpu gives on the CPU;
   4. times the three rx steps, the tx step and the four kernels with CUDA
      events around calls issued from the host, beside each kernel's plain
-     version, its bound and its device time in a CUDA graph replay, and
-     prints the weight bytes one encoder and one unmerged decoder launch
-     fetch into the SMs, from the tiling the built library reports;
+     version, its bound and its device time in a CUDA graph replay (and
+     the frame kernel at latent 40 too), and prints the weight bytes one
+     encoder, one unmerged and one chain-merged decoder launch fetch into
+     the SMs, from the tiling the built library reports;
   5. prints a `kernels` JSON line, and last the `ok` JSON line.
 
-Step 2 also holds the three kernels that tile their products over the
-block's rows (the encoder, the unmerged decoder and the whole-frame rx
-kernel) to the same bits on two launches with the same input and state
-(B=2048 and B=37).
+Step 2 also holds the four kernels, which all tile their products over
+the block's rows, to the same bits on two launches with the same input and
+state (B=2048 and B=37).
 
 Any failure exits non-zero without the `ok` line; so does a machine without
 a CUDA card.
@@ -200,6 +203,7 @@ def main(argv=None) -> int:
     from radae_tpu_torch.ops import _kernels
     from radae_tpu_torch.ops import fused_core as fc
     from radae_tpu_torch.runtime import make_streaming_rx_step, make_streaming_tx_step
+    from radae_tpu_torch.ops.fused_core import FRAME_LIMITS
 
     dev = torch.device("cuda")
     card = card_line()
@@ -221,6 +225,12 @@ def main(argv=None) -> int:
     dwm = fc.decoder_weights(tree["decoder"], dev, merged=True)
     rw = fc.fused_rx_weights(tree["decoder"], cfg, dev)
     ew = fc.encoder_weights(tree["encoder"], dev)
+    # the latent-40 modem (Nc=15: [Yr | Yi] padded from 30 to 32 columns)
+    cfg40 = flagship_config(latent_dim=40)
+    tree40, _ = load_checkpoint(os.path.join(HERE, "fixtures", "model_l40.npz"))
+    rw40 = fc.fused_rx_weights(tree40["decoder"], cfg40, dev)
+    model40 = (cfg40, CoreEncoder(cfg40.feature_dim, cfg40.latent_dim,
+                                  cfg40.bottleneck), params_to_torch(tree40, dev))
     gen = np.random.default_rng(0)
     nz = cfg.Nzmf
     Nmf, win = cfg.Nmf, cfg.Nmf + cfg.M + cfg.Ncp
@@ -239,11 +249,13 @@ def main(argv=None) -> int:
     feats[:, :, NUM_USED_FEATURES] = -1.0          # auxdata column
     feats = torch.as_tensor(feats, device=dev)
 
-    def tx_signal(fused, n_frames=N_FRAMES):
+    def tx_signal(fused, n_frames=N_FRAMES, model=None):
         """n_frames of tx samples (B, n*Nmf + M+Ncp, 2), zero-padded so the
-        last frame has its closing pilot window."""
-        tx = make_streaming_tx_step(cfg, enc, B, fused=fused, device=dev)
-        ep = ew if fused else params["encoder"]
+        last frame has its closing pilot window; model (cfg, encoder,
+        params) for the plain step, the flagship by default."""
+        c, e, p = model or (cfg, enc, params)
+        tx = make_streaming_tx_step(c, e, B, fused=fused, device=dev)
+        ep = ew if fused else p["encoder"]
         es = fc.encoder_state_zero(B, dev) if fused else None
         sig = []
         for k in range(n_frames):
@@ -291,17 +303,47 @@ def main(argv=None) -> int:
                 zp, ep = fc.encoder_step_plain(ew, f, ep, cfg.bottleneck)
                 held("fused_encoder_step", batch, what, (zk,) + ek, (zp,) + ep)
         sig3 = tx_signal(False, 3)
-        for batch in (B, RAGGED_B):
-            step = fc.make_fused_rx_frame_step(cfg, batch, dev)
-            sk = sp = fc.decoder_state_zero(batch, dev)
-            for frame in range(3):
-                rx = sig3[:batch, frame * Nmf:frame * Nmf + win] + torch.as_tensor(
-                    (RX_NOISE * gen.standard_normal((batch, win, 2))).astype(
-                        np.float32), device=dev)
-                fk, sk = step(rw, rx, sk)
-                fp, sp = fc.rx_frame_step_plain(rw, rx, sp)
-                held("fused_rx_frame_step", batch, f"call {frame}", (fk,) + sk,
-                     (fp,) + sp)
+        sig40 = tx_signal(False, 3, model40)
+        err40 = 0.0
+        for c, w, sig in ((cfg, rw, sig3), (cfg40, rw40, sig40)):
+            for batch in (B, RAGGED_B):
+                step = fc.make_fused_rx_frame_step(c, batch, dev)
+                sk = sp = fc.decoder_state_zero(batch, dev)
+                for frame in range(3):
+                    rx = sig[:batch, frame * Nmf:frame * Nmf + win] + torch.as_tensor(
+                        (RX_NOISE * gen.standard_normal((batch, win, 2))).astype(
+                            np.float32), device=dev)
+                    fk, sk = step(w, rx, sk)
+                    fp, sp = fc.rx_frame_step_plain(w, rx, sp)
+                    if w is rw:
+                        held("fused_rx_frame_step", batch, f"call {frame}",
+                             (fk,) + sk, (fp,) + sp)
+                    else:
+                        torch.cuda.synchronize()
+                        check_close(f"fused_rx_frame_step latent 40 B={batch} "
+                                    f"call {frame}", (fk,) + sk, (fp,) + sp, TOL)
+                        err40 = max(err40, max_err((fk,) + sk, (fp,) + sp))
+        # a modem geometry past the kernel's limits raises and launches
+        # nothing: latent 112 (Nc=42) leaves no room for z in layer 0's GLU
+        # window
+        cfg112 = flagship_config(latent_dim=112)
+        d112 = dict(tree["decoder"])
+        d112["dense_1"] = dict(d112["dense_1"], w=np.pad(
+            np.asarray(d112["dense_1"]["w"]), ((0, 0), (0, 112 - cfg.latent_dim))))
+        rw112 = fc.fused_rx_weights(d112, cfg112, dev)
+        n_before = fc.LAUNCHES["fused_rx_frame_step"]
+        try:
+            fc.fused_rx_frame_step(rw112, torch.zeros(
+                (RAGGED_B, (cfg112.Ns + 2) * (cfg112.M + cfg112.Ncp), 2),
+                device=dev), fc.decoder_state_zero(RAGGED_B, dev))
+        except ValueError as e:
+            if FRAME_LIMITS[5] not in str(e):
+                raise
+            refused = str(e)
+        else:
+            raise AssertionError("fused_rx_frame_step ran latent 112")
+        if fc.LAUNCHES["fused_rx_frame_step"] != n_before:
+            raise AssertionError("a refused frame geometry was launched")
         # the tile kernels give the same bits on two launches (own seeds, so
         # the inputs above and below stay as they were)
         def same_bits(name, batch, call):
@@ -327,14 +369,19 @@ def main(argv=None) -> int:
             ds = rand_state(rrng, fc.decoder_state_zero(batch, dev))
             same_bits("fused_decoder_step", batch,
                       lambda: fc.fused_decoder_step(dw, z, ds))
+            dms = rand_state(rrng, fc.decoder_state_zero(batch, dev, merged=True))
+            same_bits("fused_decoder_merged_step", batch,
+                      lambda: fc.fused_decoder_step(dwm, z, dms))
             rx = sig3[:batch, :win] + torch.as_tensor((RX_NOISE * rrng.standard_normal(
                 (batch, win, 2))).astype(np.float32), device=dev)
             same_bits("fused_rx_frame_step", batch,
                       lambda: fc.fused_rx_frame_step(rw, rx, ds))
     print("kernels vs plain (rtol 1e-4, atol 1e-4), max abs err at B=2048: "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-    print(f"encoder, unmerged decoder, frame: two launches bit-identical at "
-          f"B={B} and B={RAGGED_B}")
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; frame kernel at latent 40, B={B} and B={RAGGED_B}: {err40:.3g}")
+    print(f"refused without a launch: {refused}")
+    print(f"all four kernels: two launches bit-identical at B={B} and "
+          f"B={RAGGED_B}")
 
     # -- the serving path on the fixture, three rx paths -------------------
     rx_steps = {
@@ -447,6 +494,19 @@ def main(argv=None) -> int:
             if name == "fused_decoder_step":
                 print(f"  decoder, {dec_rows[0]}-row tiles: " + fetch_line(
                     dw, dec_rows, lib.radae_block_rows(), nz, B, ms))
+            if name == "fused_decoder_merged_step":
+                print(f"  merged decoder, {dec_rows[0]}-row tiles: " + fetch_line(
+                    dwm, dec_rows, lib.radae_block_rows(), nz, B, ms))
+            if name == "fused_rx_frame_step":     # the latent-40 modem
+                rx40 = sig40[:, :win].contiguous()
+                k40 = lambda: fc.fused_rx_frame_step(rw40, rx40, ds)
+                ms40 = time_ms(k40, 50)
+                out40, st40 = fc.rx_frame_step_plain(rw40, rx40, ds)
+                b40, by40 = bound(rw40.decoder, (rx40,) + ds, (out40,) + st40,
+                                  nz, B, demod_flops(cfg40) * B)
+                print(f"  latent 40 (Nc=15): {ms40:.4f} ms (bound {b40:.4f} ms "
+                      f"by {by40}; {graph_ms(k40):.4f} ms in a CUDA graph "
+                      f"replay)")
             kernels.append({
                 "name": name, "route": "cuda", "source": SRC,
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -39,9 +39,9 @@
 //     f32 accumulation, expf/tanhf (no fast math), no atomics and every sum
 //     in a fixed order, so two launches on the same input give the same bits.
 //
-// The encoder, the unmerged decoder and the frame kernel tile their products
-// over all of the block's rows (tmac + kput).  With 2- and 4-row tiles each
-// block fetched its weights 5.8 (encoder) and 6.9 (decoder) times a z-step.
+// Every kernel tiles its products over all of the block's rows (tmac +
+// kput).  With 2- and 4-row tiles each block fetched its weights 5.8
+// (encoder), 6.9 (decoder) and 6.2 (chain-merged decoder) times a z-step.
 // Here a thread owns a 16-row x 4-column tile (64 accumulators), so each
 // weight float4 it loads feeds 64 multiply-adds and each weight is fetched
 // once per block; the parallelism comes from K instead: a warp is 4 column
@@ -59,31 +59,41 @@
 // matter little.  The decoder has 34 such phases a z-step (0.091 ms of its
 // 0.42 ms launch on an H100 with no product loop in them).
 //
-// The chain-merged decoder still uses the row products (mac + dot): a
-// thread owns a 4-row x 4-column tile, reads W as float4 along `out` and x
-// as float4 along `in`, and narrow products split `in` into KS chunks.  It
-// has the same products in fewer, wider operands:
-// h @ [whh | glu] (96 x 384) and x @ [tap1 | tap0] (in x 64).  Its state
-// carries the projections (hh row 288, conv tap 32) instead of the raw
-// conv history, so a block keeps one x buffer, not a ring, and updates h,
-// the hh projection and the tap projection in place in shared memory
-// (217,088 B: x 47 KB, h 30 KB, hh projections 92 KB, taps 10 KB, scratch
-// 36 KB); each is read before it is overwritten within a layer.
+// The chain-merged decoder has the same products in fewer, wider operands:
+// h @ [whh | glu] (96 x 384) and x @ [tap1 | tap0] (in x 64), 17 dependent
+// products a z-step instead of 27.  Its state carries the projections (hh
+// row 288, conv tap 32) instead of the raw conv history, so a block keeps
+// one x buffer, not a ring, and updates h, the hh projection and the tap
+// projection in place in shared memory (223,488 B: x 47 KB, h 30 KB, hh
+// projections 92 KB, taps 10 KB, scratch 36 KB, the biases of the gate and
+// conv passes 6 KB); each is read before it is overwritten within a layer.
+// Its x @ wih splits K in halves (18 column groups x 2, 36 units in 3
+// rounds); h @ [whh | glu] keeps K = 96 whole (24 units in 2 rounds: a K
+// split would need 72 KB of partials) and stores its hh columns straight
+// into the projection and its GLU columns, gated, into x, so it needs no
+// scratch and no finish pass.  Its phases' slowest warps walk as many K
+// steps as the unmerged decoder's, in 5 fewer phases a z-step but with 5
+// more work items (3 + 2 + 1 a layer against 3 + 1 + 1).
 //
 // The frame kernel runs a demod prologue and then the unmerged decoder body
-// (dec_body, shared with dec_kernel).  The prologue copies the block's 16
-// streams x 6 symbol rows of interleaved IQ (147,456 contiguous bytes) by
-// cp.async into the decoder's rings, idle until the first z-step, in
-// FR_STAGES = 2 commit groups, so the DFT of the first 48 rows overlaps the
-// copy of the rest.  On an H100 the copy (0.015 ms) is bound by the device
-// memory's rate, since every block copies at the launch's start: one, three
-// or six stages, or plain loads, were no faster (tools/enc_variants.py).
-// The DFT is a tile product of that (96, 384) operand and the real
-// (384, 60) DFT block matrix (CP strip folded in as zero rows) to
-// [Yr | Yi]; the two pilot rows go through the (60, 60) LS block matrix (a
-// row product), the coarse magnitude is reduced over the 30 carriers in a
-// fixed order (one thread a stream), and the equalised, scaled data symbols
-// are written as [re | im] latents (16 x 3 x 80) into shared memory, where
+// (dec_body, shared with dec_kernel).  Its modem geometry (Ns data rows,
+// Nc carriers, M+Ncp samples a row, latent, nz) comes with the launch, so it
+// runs every config the reference's frame step takes within the limits that
+// radae_fused_rx_frame_step checks (frame_limit).  The prologue copies the
+// block's 16 streams x (Ns+2) symbol rows of interleaved IQ (147,456
+// contiguous bytes for the flagship modem) by cp.async into the decoder's
+// rings, idle until the first z-step, in FR_STAGES = 2 commit groups, so
+// the DFT of the first half of the rows overlaps the copy of the rest.  On
+// an H100 the copy (0.015 ms) is bound by the device memory's rate, since
+// every block copies at the launch's start: one, three or six stages, or
+// plain loads, were no faster (tools/enc_variants.py).  The DFT is a tile
+// product of that (16(Ns+2), 2(M+Ncp)) operand and the real DFT block
+// matrix (CP strip folded in as zero rows) to [Yr | Yi | 0], 2Nc columns
+// padded to a multiple of 4 with zero columns; the two pilot rows go
+// through the LS block matrix (a row product, zero rows and columns at the
+// pad), the coarse magnitude is reduced over the Nc carriers in a fixed
+// order (one thread a stream), and the equalised, scaled data symbols are
+// written as [re | im] latents (16 x nz x latent) into shared memory, where
 // the decoder body reads them as its z.  Y and the pilot estimates live in
 // the decoder's scratch; the bound is the decoder's plus about 4% for the
 // demod.
@@ -148,37 +158,77 @@ static_assert(R * ENC_H / 4 <= NT && R * ENC_CO / 4 <= NT &&
                   R * ENC_MAX_OUT / 4 <= NT,
               "each finish pass is one float4 a thread");
 
-// merged: one x buffer, then per layer h, hh projection, tap projection
-constexpr int DEC_SCR = 2 * R * DEC_G;           // >= every partial buffer
-// widest output of the last product (its 4 partial buffers fit the scratch)
-constexpr int DEC_MAX_OUT = DEC_SCR / (4 * R);   // 144 >= 4 * 21
-constexpr int DECM_CONV_KS = 6;                  // K chunks of x @ [tap1|tap0]
+// merged (dec_merged_kernel): one x buffer, then per layer h, hh
+// projection, tap projection, then the products' partial sums (the widest:
+// x @ wih's two K halves), then per layer bhh and the conv bias
+constexpr int DEC_SCR = 2 * R * DEC_G;
+constexpr int DECM_BIAS = DEC_G + DEC_CO;        // bhh | cb of a layer
+constexpr int DEC_MAX_OUT = DEC_SCR / (2 * R);   // output's 2 K halves fit
+constexpr int DECM_GGC = DEC_GG / 16;            // column groups of [whh | glu]
+constexpr int DECM_CONV_KS = 3;                  // K chunks of x @ [tap1|tap0]
 constexpr size_t DECM_SMEM =
-    sizeof(float) * (R * DEC_X + 5 * R * (DEC_H + DEC_G + DEC_CO) + DEC_SCR);
-static_assert(DECM_CONV_KS * R * 2 * DEC_CO + R * 2 * DEC_CO <= DEC_SCR,
-              "conv partials + staging fit the scratch");
+    sizeof(float) * (R * DEC_X + 5 * R * (DEC_H + DEC_G + DEC_CO) + DEC_SCR +
+                     5 * DECM_BIAS);
+static_assert(DEC_G % 16 == 0, "hh and GLU columns are whole column groups");
+static_assert(DECM_CONV_KS * R * 2 * DEC_CO <= DEC_SCR &&
+                  2 * R * DEC_H <= DEC_SCR,
+              "every partial buffer fits the scratch");
 static_assert(DECM_SMEM <= 232448, "opt-in shared memory of one block");
 
-// frame kernel geometry (flagship modem: Ns=4 data rows between two pilot
-// rows, Nc=30 carriers, M+Ncp=192 samples a symbol, 3 z-steps of latent 80)
-constexpr int FR_NS = 4, FR_NSYM = FR_NS + 2, FR_NC = 30, FR_SAMP = 192;
-constexpr int FR_ROW = 2 * FR_SAMP;            // floats of one symbol row
-constexpr int FR_Y = 2 * FR_NC;                // [Yr | Yi]
-constexpr int FR_STAGES = 2;                   // copy stages (commit groups)
-constexpr int FR_SROWS = R * FR_NSYM / FR_STAGES;  // symbol rows a stage
-constexpr int FR_CG = (FR_Y + 15) / 16;        // column groups of the DFT
-constexpr int FR_NZ = 3, FR_LAT = 80, FR_PZ = FR_LAT / 2;
+// frame kernel (rx_frame_kernel): the modem geometry of one frame
+struct FrameGeo {
+  int ns;      // data symbol rows between the two pilot rows
+  int nc;      // carriers
+  int samp;    // samples a symbol row (M + Ncp)
+  int lat;     // latent width of a z-step
+  int nz;      // z-steps a frame
+  int yw;      // floats of a [Yr | Yi] row: 2 nc padded to a multiple of 4
+  int stages;  // copy stages (commit groups)
+};
+constexpr int FR_STAGES = 2;                   // copy stages where they hold
+                                               // whole row groups, else 1
+// the flagship modem: Ns=4 data rows between two pilot rows, Nc=30
+// carriers, M+Ncp=192 samples a symbol, 3 z-steps of latent 80
+__host__ __device__ constexpr FrameGeo flagship_geo() {
+  return FrameGeo{4, 30, 192, 80, 3, 60, FR_STAGES};
+}
 constexpr int FR_NW = 4 + DEC_NW + 2;          // Wr Wi Er Ei, decoder, dft_w ls_w
-constexpr size_t FR_SMEM = DEC_SMEM + sizeof(float) * R * FR_NZ * FR_LAT;
-static_assert(FR_NS * FR_NC == FR_NZ * FR_PZ, "data symbols fill the z-steps");
-static_assert(R * FR_NSYM * FR_ROW <= DEC_RING, "the samples fit the rings");
-static_assert(FR_SROWS * FR_STAGES == R * FR_NSYM && FR_SROWS % ET == 0 &&
-                  FR_STAGES <= 6,
-              "a copy stage holds whole row groups");
-static_assert(R * FR_NSYM * FR_Y + 2 * R * FR_Y + R <= 2 * R * DEC_GS,
-              "demod intermediates fit the decoder's scratch");
-static_assert(FR_LAT <= DEC_H, "z is staged in layer 0's GLU window");
-static_assert(FR_SMEM <= 232448, "opt-in shared memory of one block");
+
+// shared memory of a frame launch: the decoder's, then the z rows
+__host__ __device__ constexpr size_t frame_smem(const FrameGeo& g) {
+  return DEC_SMEM + sizeof(float) * R * g.nz * g.lat;
+}
+static_assert(frame_smem(flagship_geo()) <= 232448, "the flagship modem fits");
+
+// The geometry of Ns, Nc, M+Ncp, latent and nz, with the padded Y width and
+// the copy stages (FR_STAGES where each holds whole row groups, else 1)
+FrameGeo frame_geo(int ns, int nc, int samp, int lat, int nz) {
+  const int rows = R * (ns + 2);
+  const bool split = rows % FR_STAGES == 0 && rows / FR_STAGES % ET == 0;
+  return FrameGeo{ns, nc, samp, lat, nz, (2 * nc + 3) & ~3,
+                  split ? FR_STAGES : 1};
+}
+
+// 0 when the frame kernel takes geometry g, else the number of the first
+// limit g breaks (radae_tpu_torch/ops/fused_core.py names each):
+//   1 Ns, Nc, nz >= 1, M+Ncp even, latent a positive multiple of 4
+//   2 the data symbols fill the z-steps: Ns Nc = nz latent / 2
+//   3 the samples fit the decoder's rings
+//   4 the demod intermediates fit the decoder's scratch
+//   5 latent <= DEC_H: z is staged in layer 0's GLU window
+//   6 the z rows after the decoder's shared memory fit the block's
+int frame_limit(const FrameGeo& g) {
+  const int nsym = g.ns + 2;
+  if (g.ns < 1 || g.nc < 1 || g.nz < 1 || g.samp < 2 || g.samp % 2 ||
+      g.lat < 4 || g.lat % 4)
+    return 1;
+  if (2 * g.ns * g.nc != g.nz * g.lat) return 2;
+  if (R * nsym * 2 * g.samp > DEC_RING) return 3;
+  if (R * nsym * g.yw + 2 * R * g.yw + R > 2 * R * DEC_GS) return 4;
+  if (g.lat > DEC_H) return 5;
+  if (frame_smem(g) > 232448) return 6;
+  return 0;
+}
 
 struct DecArgs {
   const float* w;
@@ -208,9 +258,10 @@ struct DecMergedArgs {
 
 struct FrameArgs {
   DecArgs d;          // the decoder (d.z unused: z is made in shared memory)
-  const float* rx;    // (B, FR_NSYM * FR_SAMP, 2) interleaved IQ
-  const float* dft_w; // (FR_ROW, FR_Y)
-  const float* ls_w;  // (FR_Y, FR_Y)
+  FrameGeo g;
+  const float* rx;    // (B, (ns + 2) * samp, 2) interleaved IQ
+  const float* dft_w; // (2 samp, yw)
+  const float* ls_w;  // (yw, yw)
   float mag_k;
   int coarse_mag;
 };
@@ -259,78 +310,35 @@ __device__ __forceinline__ void fma4(float4& a, float x, float4 w) {
 }
 
 // ---------------------------------------------------------------------------
-// Row products (the chain-merged decoder and the frame's LS product): a
-// thread owns an RPT-row x 4-column tile over one K chunk.
-// acc[i] += sum_{k0 <= k < k1} X[r0 + i][k] * W[k][c .. c+3]
-template <int RPT>
-__device__ __forceinline__ void mac(float4 (&acc)[RPT], const Src& s, int r0,
-                                    const float* __restrict__ W, int out,
-                                    int c, int k0, int k1) {
-  const float* xr[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) xr[i] = s.p + (size_t)min(r0 + i, s.rmax) * s.ld;
-  const float* wp = W + (size_t)k0 * out + c;
-  for (int k = k0; k < k1; k += 4, wp += 4 * out) {
-    const float4 w0 = ldg4(wp), w1 = ldg4(wp + out);
-    const float4 w2 = ldg4(wp + 2 * out), w3 = ldg4(wp + 3 * out);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float4 x = ld4(xr[i] + k);
-      fma4(acc[i], x.x, w0);
-      fma4(acc[i], x.y, w1);
-      fma4(acc[i], x.z, w2);
-      fma4(acc[i], x.w, w3);
+// Y = A @ W (K x out, K a multiple of 4) over the block's R rows of A (the
+// frame's LS product of its two pilot rows): a thread owns a row x 4-column
+// tile and walks K in order, reading W as float4 along `out` and A as
+// float4 along K; epi(r, c, Y[r][c..c+3]) consumes the result.  All threads
+// call it; the caller syncs before the result is read.
+template <class Epi>
+__device__ __forceinline__ void rowprod(const Src& a, const float* __restrict__ W,
+                                        int K, int out, Epi epi) {
+  const int nq = out >> 2;
+  for (int it = threadIdx.x; it < R * nq; it += NT) {
+    const int r = it / nq, c = it % nq * 4;
+    const float* const x = a.p + (size_t)min(r, a.rmax) * a.ld;
+    const float* wp = W + c;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < K; k += 4, wp += 4 * out) {
+      const float4 w0 = ldg4(wp), w1 = ldg4(wp + out);
+      const float4 w2 = ldg4(wp + 2 * out), w3 = ldg4(wp + 3 * out);
+      const float4 xv = ld4(x + k);
+      fma4(acc, xv.x, w0);
+      fma4(acc, xv.y, w1);
+      fma4(acc, xv.z, w2);
+      fma4(acc, xv.w, w3);
     }
-  }
-}
-
-// Y = A @ Wa (+ Bm @ Wb when wb != nullptr) over ROWS rows; A and Bm have K
-// columns, Y has `out` columns; epi(r, c, Y[r][c..c+3]) consumes the result.
-// Work items: KS chunks of the (virtually concatenated) K axis x ROWS/RPT row
-// groups x out/4 column quads.  With KS > 1 the partial sums go to `part`
-// (KS*ROWS*out floats) and are added in chunk order.  All threads must call
-// it; the caller syncs before the result is read.
-template <int RPT, int KS, int ROWS = R, class Epi>
-__device__ __forceinline__ void dot(const Src& a, const float* __restrict__ wa,
-                                    const Src& bm, const float* __restrict__ wb,
-                                    int K, int out, float* part, Epi epi) {
-  const int nq = out >> 2, ng = ROWS / RPT;
-  const int ktot = wb ? 2 * K : K;
-  const int kc = ((ktot + KS - 1) / KS + 3) & ~3;
-  const int n = KS * ng * nq;
-  for (int it = threadIdx.x; it < n; it += NT) {
-    const int cq = it % nq, g = (it / nq) % ng, ks = it / (nq * ng);
-    const int c = cq * 4, r0 = g * RPT;
-    const int kb = ks * kc, ke = min(ktot, kb + kc);
-    float4 acc[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (kb < K) mac<RPT>(acc, a, r0, wa, out, c, kb, min(ke, K));
-    if (wb && ke > K) mac<RPT>(acc, bm, r0, wb, out, c, max(kb, K) - K, ke - K);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      if (KS == 1)
-        epi(r0 + i, c, acc[i]);
-      else
-        st4(part + ((size_t)ks * ROWS + r0 + i) * out + c, acc[i]);
-    }
-  }
-  if (KS > 1) {
-    __syncthreads();
-    for (int it = threadIdx.x; it < ROWS * nq; it += NT) {
-      const int r = it / nq, c = (it % nq) * 4;
-      float4 s = ld4(part + (size_t)r * out + c);
-#pragma unroll
-      for (int ks = 1; ks < KS; ++ks)
-        s = add4(s, ld4(part + ((size_t)ks * ROWS + r) * out + c));
-      epi(r, c, s);
-    }
+    epi(r, c, acc);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Tile products, register-tiled over the block's rows (the encoder, the
-// unmerged decoder and the frame kernel).
+// Tile products, register-tiled over the block's rows (every kernel).
 //
 // A work item is one warp's share of Y = X @ W: a group of 16 columns (quad
 // q = lane & 3 owns columns 4q..4q+3) for ET rows over a K range.  K lane
@@ -378,15 +386,15 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
 
 // acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
 //           X[r0 + i][k..k+3] . W[k..k+3][c..c+3],
-// X in shared memory with row stride LD (every operand of a tile product is
-// there: the carried state and the inputs are staged first).  k0 and k1 are
-// multiples of 4; an empty range adds nothing.  The next K step's weights
-// are loaded into registers before this step's multiply-adds.
-template <int LD>
-__device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int r0,
-                                     const float* __restrict__ W, int out,
-                                     int c, int k0, int k1, int kl) {
-  const float* const xr = X + r0 * LD;
+// X in shared memory with row stride ld, a constant but for the frame
+// kernel's sample rows (every operand of a tile product is there: the
+// carried state and the inputs are staged first).  k0 and k1 are multiples
+// of 4; an empty range adds nothing.  The next K step's weights are loaded
+// into registers before this step's multiply-adds.
+__device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
+                                     int r0, const float* __restrict__ W,
+                                     int out, int c, int k0, int k1, int kl) {
+  const float* const xr = X + r0 * ld;
   const bool cv = c < out;
   const int n = (k1 - k0 + 31) >> 5;
   int k = k0 + 4 * kl;
@@ -406,7 +414,7 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int r0,
     ldw(wn, wp, out, cv && k < k1);
 #pragma unroll
     for (int i = 0; i < ET; ++i) {
-      const float4 x = ld4(xr + i * LD + kx);
+      const float4 x = ld4(xr + i * ld + kx);
       fma4(acc[i], x.x, wt[0]);
       fma4(acc[i], x.y, wt[1]);
       fma4(acc[i], x.z, wt[2]);
@@ -427,17 +435,23 @@ __device__ __forceinline__ void kfold(float4 (&acc)[ET], bool up, int m) {
   }
 }
 
-// The end of a work item: the 8 K lanes' tiles are summed (bit lv of kl
-// picks the half kept at level lv), then lane kl stores its ET/8 rows plus
-// `bias` at dst + row * ld when `put`.  Every lane of the warp takes part.
-__device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
-                                     float* dst, int ld, float4 bias,
-                                     bool put) {
+// The 8 K lanes' tiles of a work item summed (bit lv of kl picks the half
+// kept at level lv): lane kl is left with rows rk..rk+ET/8-1 of the item in
+// acc[0..ET/8), and rk is returned.  Every lane of the warp takes part.
+__device__ __forceinline__ int ksum(float4 (&acc)[ET], int kl, int r0) {
   kfold<ET / 2>(acc, kl & 1, 4);          // K lane kl is lanes 4kl..4kl+3
   kfold<ET / 4>(acc, (kl >> 1) & 1, 8);
   kfold<ET / 8>(acc, (kl >> 2) & 1, 16);
-  const int rk = r0 + (ET / 2) * (kl & 1) + (ET / 4) * ((kl >> 1) & 1) +
-                 (ET / 8) * ((kl >> 2) & 1);
+  return r0 + (ET / 2) * (kl & 1) + (ET / 4) * ((kl >> 1) & 1) +
+         (ET / 8) * ((kl >> 2) & 1);
+}
+
+// The end of a work item: ksum, then lane kl stores its ET/8 rows plus
+// `bias` at dst + row * ld when `put`.
+__device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
+                                     float* dst, int ld, float4 bias,
+                                     bool put) {
+  const int rk = ksum(acc, kl, r0);
   if (put) {
 #pragma unroll
     for (int i = 0; i < ET / 8; ++i) st4(dst + (rk + i) * ld, add4(acc[i], bias));
@@ -461,13 +475,13 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
   }
 }
 
-// Y = X @ W (K x out, X rows LD apart) for the block's rows, as items of one
+// Y = X @ W (K x out, X rows ld apart) for the block's rows, as items of one
 // row group, one 16-column group and one K chunk (kc wide, a multiple of
 // 32), taken by the warps in turn.  Chunk ch's partial goes to
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
 // after the barrier adds the chunks in order.
-template <int LD>
-__device__ __forceinline__ void tprod(const float* X, const float* __restrict__ W,
+__device__ __forceinline__ void tprod(const float* X, int ld,
+                                      const float* __restrict__ W,
                                       int K, int out, int ng, int ks,
                                       const float* __restrict__ bias,
                                       float* part, int warp, int kl, int cq) {
@@ -481,7 +495,7 @@ __device__ __forceinline__ void tprod(const float* X, const float* __restrict__ 
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 acc[ET];
     zero(acc);
-    tmac<LD>(acc, X, r0, W, out, c, kb, ke, kl);
+    tmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
     kput(acc, kl, r0, part + ch * R * out + c, out, b, c < out);
   }
 }
@@ -560,8 +574,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<DEC_X>(X + DEC_H, w + off[0], a.in_dim, DEC_H, DEC_NG, 2, w + off[1],
-                 scr, warp, kl, cq);
+    tprod(X + DEC_H, DEC_X, w + off[0], a.in_dim, DEC_H, DEC_NG, 2, w + off[1],
+          scr, warp, kl, cq);
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -593,12 +607,12 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
         float* const p = scr + hf * R * DEC_GS + c;
         float4 acc[ET];
         zero(acc);
-        tmac<DEC_X>(acc, X, r0, wih, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
-        if (rz && hf) tmac<DEC_H>(acc, hp, r0, whh, DEC_G, c, 0, DEC_H, kl);
+        tmac(acc, X, DEC_X, r0, wih, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
+        if (rz && hf) tmac(acc, hp, DEC_H, r0, whh, DEC_G, c, 0, DEC_H, kl);
         kput(acc, kl, r0, p, DEC_GS, bx, true);
         if (!rz && hf) {
           zero(acc);
-          tmac<DEC_H>(acc, hp, r0, whh, DEC_G, c, 0, DEC_H, kl);
+          tmac(acc, hp, DEC_H, r0, whh, DEC_G, c, 0, DEC_H, kl);
           kput(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
         }
       }
@@ -625,8 +639,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod<DEC_H>(hc, w + o[4], DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp,
-                   kl, cq);
+      tprod(hc, DEC_H, w + o[4], DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp,
+            kl, cq);
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -651,7 +665,7 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        tmac<DEC_X>(acc, tap ? X : Xp, r0, w + o[5 + tap], DEC_CO, c, kb, ke, kl);
+        tmac(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap], DEC_CO, c, kb, ke, kl);
         kput(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO, b, true);
       }
       __syncthreads();
@@ -667,8 +681,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<DEC_X>(X, w + off[DEC_NW - 2], DEC_X, od, (od + 15) / 16, 2,
-                 w + off[DEC_NW - 1], scr, warp, kl, cq);
+    tprod(X, DEC_X, w + off[DEC_NW - 2], DEC_X, od, (od + 15) / 16, 2,
+          w + off[DEC_NW - 1], scr, warp, kl, cq);
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -703,43 +717,59 @@ __global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
   dec_body(a, reinterpret_cast<float*>(smem4), z0, a.in_dim);
 }
 
+// The chain-merged decoder stack (radae_tpu's `kernel_merged`) over a.nz
+// z-steps for the block's R rows, every product a tile product on operands
+// in shared memory.  One x buffer: step k's latents are staged into layer
+// 0's GLU window X[:, DEC_H..] (before the first step, then in the output
+// pass of step k-1, after the output product has read X), where dense_1
+// reads them.  h, the hh projection and the tap projection are carried in
+// shared memory and updated in place.  smem holds DECM_SMEM bytes.
 __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
   float* const gp = hs + 5 * R * DEC_H;                 // [5][R][DEC_G]
   float* const pp = gp + 5 * R * DEC_G;                 // [5][R][DEC_CO]
-  float* const scr = pp + 5 * R * DEC_CO;               // gates / partials
-  float* const cc = scr + DECM_CONV_KS * R * 2 * DEC_CO;  // [R][2*DEC_CO]
+  float* const scr = pp + 5 * R * DEC_CO;               // partial sums
+  float* const bs = scr + DEC_SCR;                      // [5][DECM_BIAS]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int kl = lane >> 2, cq = 4 * (lane & 3);        // K lane, column quad
   const int b0 = blockIdx.x * R;
   const int nv = min(R, a.B - b0);
   const int rmax = nv - 1;
   const float* const w = a.w;
   const int* const off = a.off;
-  const Src xs{X, DEC_X, R - 1};
+  const int od = a.out_dim;
+  const int zld = a.nz * a.in_dim;                      // latent row stride
+  const float* const z0 = a.z + (size_t)b0 * zld;
+  // the float4 of a DEC_H-wide finish pass that is this thread's
+  const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
 
-  // carried state -> shared memory (rows past B repeat the last one)
   for (int i = 0; i < 5; ++i) {
-    for (int it = threadIdx.x; it < R * DEC_H; it += NT)
-      hs[i * R * DEC_H + it] =
-          a.h_in[i][((size_t)b0 + min(it / DEC_H, rmax)) * DEC_H + it % DEC_H];
-    for (int it = threadIdx.x; it < R * DEC_G; it += NT)
-      gp[i * R * DEC_G + it] =
-          a.hgp_in[i][((size_t)b0 + min(it / DEC_G, rmax)) * DEC_G + it % DEC_G];
-    for (int it = threadIdx.x; it < R * DEC_CO; it += NT)
-      pp[i * R * DEC_CO + it] =
-          a.hpp_in[i][((size_t)b0 + min(it / DEC_CO, rmax)) * DEC_CO + it % DEC_CO];
+    stage<DEC_H>(hs + i * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H, DEC_H,
+                 DEC_H, rmax);
+    stage<DEC_G>(gp + i * R * DEC_G, a.hgp_in[i] + (size_t)b0 * DEC_G, DEC_G,
+                 DEC_G, rmax);
+    stage<DEC_CO>(pp + i * R * DEC_CO, a.hpp_in[i] + (size_t)b0 * DEC_CO,
+                  DEC_CO, DEC_CO, rmax);
+    // bhh and cb, which the gate and conv passes add (read from the L2
+    // there, they cost 4% of the launch on an H100; the products' biases
+    // ride on their first K chunk)
+    for (int it = t; it < DECM_BIAS / 4; it += NT)
+      st4(bs + i * DECM_BIAS + 4 * it,
+          it < DEC_G / 4 ? ldg4(w + off[5 + 6 * i] + 4 * it)
+                         : ldg4(w + off[7 + 6 * i] + 4 * it - DEC_G));
   }
+  stage<DEC_X>(X + DEC_H, z0, zld, a.in_dim, rmax);
   __syncthreads();
 
   for (int k = 0; k < a.nz; ++k) {
-    // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b)
-    const Src zs{a.z + ((size_t)b0 * a.nz + k) * a.in_dim, a.nz * a.in_dim, rmax};
-    const float* d1b = w + off[1];
-    dot<4, 4>(zs, w + off[0], zs, nullptr, a.in_dim, DEC_H, scr,
-              [&](int r, int c, float4 v) {
-                st4(X + r * DEC_X + c, tanh4(add4(v, ldg4(d1b + c))));
-              });
+    // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
+    tprod(X + DEC_H, DEC_X, w + off[0], a.in_dim, DEC_H, DEC_NG, 2, w + off[1],
+          scr, warp, kl, cq);
+    __syncthreads();
+    st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
+                                        ld4(scr + (R + fr) * DEC_H + fc))));
     __syncthreads();
 
     for (int i = 0; i < 5; ++i) {
@@ -748,180 +778,212 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
       float* const h = hs + i * R * DEC_H;
       float* const hg = gp + i * R * DEC_G;
       float* const hp = pp + i * R * DEC_CO;
+      const float* const bb = bs + i * DECM_BIAS;      // bhh | cb
 
-      // xg = X[:, :gin] @ wih + bih, summed in place over partial 0
-      const float* bih = w + o[2];
-      dot<2, 2>(xs, w + o[0], xs, nullptr, gin, DEC_G, scr,
-                [&](int r, int c, float4 v) {
-                  st4(scr + r * DEC_G + c, add4(v, ldg4(bih + c)));
-                });
+      // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
+      // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
+      tprod(X, DEC_X, w + o[0], gin, DEC_G, DEC_G / 16, 2, w + o[2], scr, warp,
+            kl, cq);
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
-      const float* bhh = w + o[3];
-      for (int it = threadIdx.x; it < R * DEC_H; it += NT) {
-        const int r = it / DEC_H, j = it % DEC_H;
-        const float* xg = scr + r * DEC_G;
-        const float* g = hg + r * DEC_G;
-        const float rr = sigm(xg[j] + (g[j] + __ldg(bhh + j)));
-        const float zz = sigm(xg[DEC_H + j] + (g[DEC_H + j] + __ldg(bhh + DEC_H + j)));
-        const float nn = tanhf(xg[2 * DEC_H + j] +
-                               rr * (g[2 * DEC_H + j] + __ldg(bhh + 2 * DEC_H + j)));
-        float* const hr = h + r * DEC_H + j;
-        *hr = (1.f - zz) * nn + zz * *hr;
+      {
+        const float* const p0 = scr + fr * DEC_G + fc;
+        const float* const p1 = p0 + R * DEC_G;
+        const float* const g = hg + fr * DEC_G + fc;
+        const float* const bhh = bb + fc;
+        const float4 xr = add4(ld4(p0), ld4(p1));
+        const float4 xz = add4(ld4(p0 + DEC_H), ld4(p1 + DEC_H));
+        const float4 xn = add4(ld4(p0 + 2 * DEC_H), ld4(p1 + 2 * DEC_H));
+        const float4 gr = add4(ld4(g), ld4(bhh));
+        const float4 gz = add4(ld4(g + DEC_H), ld4(bhh + DEC_H));
+        const float4 gn = add4(ld4(g + 2 * DEC_H), ld4(bhh + 2 * DEC_H));
+        float* const hr = h + fr * DEC_H + fc;
+        const float4 hv = ld4(hr);
+        st4(hr, make_float4(gru_h(xr.x + gr.x, xz.x + gz.x, xn.x, gn.x, hv.x),
+                            gru_h(xr.y + gr.y, xz.y + gz.y, xn.y, gn.y, hv.y),
+                            gru_h(xr.z + gr.z, xz.z + gz.z, xn.z, gn.z, hv.z),
+                            gru_h(xr.w + gr.w, xz.w + gz.w, xn.w, gn.w, hv.w)));
       }
       __syncthreads();
 
-      // h @ [whh | glu]: the next step's hh projection, and the GLU output
-      // X[:, gin:cin] = h * sigmoid(h @ glu)
-      const Src hsrc{h, DEC_H, R - 1};
-      dot<4, 1>(hsrc, w + o[1], hsrc, nullptr, DEC_H, DEC_GG, nullptr,
-                [&](int r, int c, float4 v) {
-                  if (c < DEC_G) {
-                    st4(hg + r * DEC_G + c, v);
-                  } else {
-                    const float4 hv = ld4(h + r * DEC_H + c - DEC_G);
-                    st4(X + r * DEC_X + gin + c - DEC_G,
-                        make_float4(hv.x * sigm(v.x), hv.y * sigm(v.y),
-                                    hv.z * sigm(v.z), hv.w * sigm(v.w)));
-                  }
-                });
+      // h @ [whh | glu], K = 96 whole: 24 units in 2 rounds.  The 18 hh
+      // groups are the next step's projection (read above); the 6 GLU
+      // groups give X[:, gin:cin] = h * sigmoid(h @ glu)
+      for (int u = warp; u < RG * DECM_GGC; u += NWARP) {
+        const int r0 = u / DECM_GGC * ET, c = u % DECM_GGC * 16 + cq;
+        float4 acc[ET];
+        zero(acc);
+        tmac(acc, h, DEC_H, r0, w + o[1], DEC_GG, c, 0, DEC_H, kl);
+        const int rk = ksum(acc, kl, r0);
+        if (c < DEC_G) {
+#pragma unroll
+          for (int j = 0; j < ET / 8; ++j) st4(hg + (rk + j) * DEC_G + c, acc[j]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < ET / 8; ++j) {
+            const float4 v = acc[j], hv = ld4(h + (rk + j) * DEC_H + c - DEC_G);
+            st4(X + (rk + j) * DEC_X + gin + c - DEC_G,
+                make_float4(hv.x * sigm(v.x), hv.y * sigm(v.y),
+                            hv.z * sigm(v.z), hv.w * sigm(v.w)));
+          }
+        }
+      }
       __syncthreads();
 
-      // X[:, :cin] @ [tap1 | tap0] -> staging cc, then
-      // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
-      // half of cc is the next step's projection
-      dot<4, DECM_CONV_KS>(xs, w + o[4], xs, nullptr, cin, 2 * DEC_CO, scr,
-                           [&](int r, int c, float4 v) {
-                             st4(cc + r * 2 * DEC_CO + c, v);
-                           });
+      // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
+      // chunks, partials [chunk][R][64]
+      tprod(X, DEC_X, w + o[4], cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
+            nullptr, scr, warp, kl, cq);
       __syncthreads();
-      const float* cb = w + o[5];
-      for (int it = threadIdx.x; it < R * (DEC_CO / 4); it += NT) {
-        const int r = it / (DEC_CO / 4), c = (it % (DEC_CO / 4)) * 4;
-        float* const p = hp + r * DEC_CO + c;
-        const float* t = cc + r * 2 * DEC_CO;
+      // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
+      // half of cc is the next step's projection (each float4 of it read
+      // and written by one thread)
+      if (t < R * DEC_CO / 4) {
+        const int r = t / (DEC_CO / 4), c = t % (DEC_CO / 4) * 4;
+        const float* const p = scr + r * 2 * DEC_CO + c;
+        float4 y = ld4(p), q = ld4(p + DEC_CO);
+#pragma unroll
+        for (int ch = 1; ch < DECM_CONV_KS; ++ch) {
+          y = add4(y, ld4(p + ch * R * 2 * DEC_CO));
+          q = add4(q, ld4(p + ch * R * 2 * DEC_CO + DEC_CO));
+        }
+        float* const hq = hp + r * DEC_CO + c;
         st4(X + r * DEC_X + cin + c,
-            tanh4(add4(add4(ld4(p), ld4(t + c)), ldg4(cb + c))));
-        st4(p, ld4(t + DEC_CO + c));
+            tanh4(add4(add4(ld4(hq), y), ld4(bb + DEC_G + c))));
+        st4(hq, q);
       }
       __syncthreads();
     }
 
-    // output: feats[:, k] = X @ out_w + out_b
-    const float* ob = w + off[DEC_NWM - 1];
-    float* const fo = a.feats + ((size_t)b0 * a.nz + k) * a.out_dim;
-    dot<4, 4>(xs, w + off[DEC_NWM - 2], xs, nullptr, DEC_X, a.out_dim, scr,
-              [&](int r, int c, float4 v) {
-                if (r < nv) st4(fo + (size_t)r * a.nz * a.out_dim + c, add4(v, ldg4(ob + c)));
-              });
+    // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
+    tprod(X, DEC_X, w + off[DEC_NWM - 2], DEC_X, od, (od + 15) / 16, 2,
+          w + off[DEC_NWM - 1], scr, warp, kl, cq);
+    __syncthreads();
+    for (int it = t; it < nv * (od / 4); it += NT) {
+      const int r = it / (od / 4), c = it % (od / 4) * 4;
+      st4(a.feats + (((size_t)b0 + r) * a.nz + k) * od + c,
+          add4(ld4(scr + r * od + c), ld4(scr + (R + r) * od + c)));
+    }
+    if (k + 1 < a.nz)   // the next step's latents, into layer 0's GLU window
+      stage<DEC_X>(X + DEC_H, z0 + (size_t)(k + 1) * a.in_dim, zld, a.in_dim,
+                   rmax);
     __syncthreads();
   }
 
   for (int i = 0; i < 5; ++i) {
-    for (int it = threadIdx.x; it < nv * DEC_H; it += NT)
-      a.h_out[i][(size_t)b0 * DEC_H + it] = hs[i * R * DEC_H + it];
-    for (int it = threadIdx.x; it < nv * DEC_G; it += NT)
-      a.hgp_out[i][(size_t)b0 * DEC_G + it] = gp[i * R * DEC_G + it];
-    for (int it = threadIdx.x; it < nv * DEC_CO; it += NT)
-      a.hpp_out[i][(size_t)b0 * DEC_CO + it] = pp[i * R * DEC_CO + it];
+    const size_t o = (size_t)b0;
+    for (int it = t; it < nv * DEC_H / 4; it += NT)
+      st4(a.h_out[i] + o * DEC_H + 4 * it, ld4(hs + i * R * DEC_H + 4 * it));
+    for (int it = t; it < nv * DEC_G / 4; it += NT)
+      st4(a.hgp_out[i] + o * DEC_G + 4 * it, ld4(gp + i * R * DEC_G + 4 * it));
+    for (int it = t; it < nv * DEC_CO / 4; it += NT)
+      st4(a.hpp_out[i] + o * DEC_CO + 4 * it, ld4(pp + i * R * DEC_CO + 4 * it));
   }
 }
 
-
+// The whole rx frame for the block's R streams: demod prologue, then
+// dec_body on the latents it leaves in shared memory.  FIX: the flagship
+// modem's geometry as constants (flagship_geo), else the launch's (a.g);
+// the flagship through the FIX=false instance ran 3.5% slower on an H100
+// (tools/enc_variants.py --kernel frame, form frgeneric).
+template <bool FIX>
 __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   extern __shared__ float4 smem4[];
+  const FrameGeo g = FIX ? flagship_geo() : a.g;
+  const int nsym = g.ns + 2, row = 2 * g.samp, yw = g.yw;
+  const int srows = R * nsym / g.stages;          // symbol rows a stage
+  const int cg = (yw + 15) / 16;                  // column groups of the DFT
+  const int pz = g.lat / 2;                       // symbols a z-step
   float* const smem = reinterpret_cast<float*>(smem4);
   // the decoder's rings hold the samples and its scratch the demod
   // intermediates until z is made
-  float* const S = smem;                                      // [R*NSYM][ROW]
-  float* const Y = smem + DEC_RING;                           // [R][NSYM][Y]
-  float* const hp0 = Y + R * FR_NSYM * FR_Y;                  // [R][Y]
-  float* const hp1 = hp0 + R * FR_Y;                          // [R][Y]
-  float* const inv_mag = hp1 + R * FR_Y;                      // [R]
-  float* const zsh = smem + DEC_SMEM / sizeof(float);         // [R][NZ*LAT]
+  float* const S = smem;                                      // [R*nsym][row]
+  float* const Y = smem + DEC_RING;                           // [R][nsym][yw]
+  float* const hp0 = Y + R * nsym * yw;                       // [R][yw]
+  float* const hp1 = hp0 + R * yw;                            // [R][yw]
+  float* const inv_mag = hp1 + R * yw;                        // [R]
+  float* const zsh = smem + DEC_SMEM / sizeof(float);         // [R][nz*lat]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kl = lane >> 2, cq = 4 * (lane & 3);
   const int b0 = blockIdx.x * R;
   const int nv = min(R, a.d.B - b0);
 
-  // the block's samples (R streams x NSYM symbol rows, contiguous in device
+  // the block's samples (R streams x nsym symbol rows, contiguous in device
   // memory; streams past B repeat the last one) into the rings by cp.async,
-  // in FR_STAGES commit groups of FR_SROWS rows
-  const float* const rx = a.rx + (size_t)b0 * FR_NSYM * FR_ROW;
-  for (int s = 0; s < FR_STAGES; ++s) {
-    for (int it = threadIdx.x; it < FR_SROWS * (FR_ROW / 4); it += NT) {
-      const int q = s * FR_SROWS + it / (FR_ROW / 4), c = it % (FR_ROW / 4) * 4;
-      const int r = min(q / FR_NSYM, nv - 1);
-      cp_async16(S + q * FR_ROW + c,
-                 rx + ((size_t)r * FR_NSYM + q % FR_NSYM) * FR_ROW + c);
+  // in g.stages commit groups of srows rows
+  const float* const rx = a.rx + (size_t)b0 * nsym * row;
+  for (int s = 0; s < g.stages; ++s) {
+    for (int it = threadIdx.x; it < srows * (row / 4); it += NT) {
+      const int q = s * srows + it / (row / 4), c = it % (row / 4) * 4;
+      const int r = min(q / nsym, nv - 1);
+      cp_async16(S + q * row + c, rx + ((size_t)r * nsym + q % nsym) * row + c);
     }
     cp_async_commit();
   }
 
-  // strip_cp + DFT of every symbol row: (R*NSYM, 384) @ dft_w -> [Yr | Yi],
+  // strip_cp + DFT of every symbol row: (R*nsym, row) @ dft_w -> [Yr | Yi],
   // a stage's products as soon as its rows have landed, so they overlap
   // the later stages' copies
-  for (int s = 0; s < FR_STAGES; ++s) {
-    cp_async_wait(FR_STAGES - 1 - s);
+  for (int s = 0; s < g.stages; ++s) {
+    cp_async_wait(g.stages - 1 - s);
     __syncthreads();
-    for (int u = warp; u < FR_SROWS / ET * FR_CG; u += NWARP) {
-      const int r0 = s * FR_SROWS + u / FR_CG * ET, c = u % FR_CG * 16 + cq;
+    for (int u = warp; u < srows / ET * cg; u += NWARP) {
+      const int r0 = s * srows + u / cg * ET, c = u % cg * 16 + cq;
       float4 acc[ET];
       zero(acc);
-      tmac<FR_ROW>(acc, S, r0, a.dft_w, FR_Y, c, 0, FR_ROW, kl);
-      kput(acc, kl, r0, Y + c, FR_Y, make_float4(0.f, 0.f, 0.f, 0.f),
-           c < FR_Y);
+      tmac(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl);
+      kput(acc, kl, r0, Y + c, yw, make_float4(0.f, 0.f, 0.f, 0.f), c < yw);
     }
   }
   __syncthreads();
 
   // LS channel estimates of the two pilot rows: [Yr | Yi] @ ls_w
-  const Src p0{Y, FR_NSYM * FR_Y, R - 1};
-  const Src p1{Y + (FR_NSYM - 1) * FR_Y, FR_NSYM * FR_Y, R - 1};
-  dot<1, 1>(p0, a.ls_w, p0, nullptr, FR_Y, FR_Y, nullptr,
-            [&](int r, int c, float4 v) { st4(hp0 + r * FR_Y + c, v); });
-  dot<1, 1>(p1, a.ls_w, p1, nullptr, FR_Y, FR_Y, nullptr,
-            [&](int r, int c, float4 v) { st4(hp1 + r * FR_Y + c, v); });
+  const Src p0{Y, nsym * yw, R - 1};
+  const Src p1{Y + (nsym - 1) * yw, nsym * yw, R - 1};
+  rowprod(p0, a.ls_w, yw, yw,
+          [&](int r, int c, float4 v) { st4(hp0 + r * yw + c, v); });
+  rowprod(p1, a.ls_w, yw, yw,
+          [&](int r, int c, float4 v) { st4(hp1 + r * yw + c, v); });
   __syncthreads();
 
   // coarse magnitude: the mean over the carriers, summed in carrier order
   if (threadIdx.x < R) {
-    const int r = threadIdx.x;
+    const int r = threadIdx.x, nc = g.nc;
     float im = 1.f;
     if (a.coarse_mag) {
-      const float* q0 = hp0 + r * FR_Y;
-      const float* q1 = hp1 + r * FR_Y;
+      const float* q0 = hp0 + r * yw;
+      const float* q1 = hp1 + r * yw;
       float s = 0.f;
-      for (int c = 0; c < FR_NC; ++c)
-        s += q0[c] * q0[c] + q0[FR_NC + c] * q0[FR_NC + c] +
-             q1[c] * q1[c] + q1[FR_NC + c] * q1[FR_NC + c];
-      im = 1.f / ((sqrtf(0.5f * (s / FR_NC)) + 1e-6f) * a.mag_k);
+      for (int c = 0; c < nc; ++c)
+        s += q0[c] * q0[c] + q0[nc + c] * q0[nc + c] +
+             q1[c] * q1[c] + q1[nc + c] * q1[nc + c];
+      im = 1.f / ((sqrtf(0.5f * (s / nc)) + 1e-6f) * a.mag_k);
     }
     inv_mag[r] = im;
   }
   __syncthreads();
 
   // linear pilot interpolation + phase EQ + magnitude, demapped into the
-  // z-steps' [re(40) | im(40)] latents (data symbol m = (s-1)*Nc + c)
-  for (int it = threadIdx.x; it < R * FR_NS * FR_NC; it += NT) {
-    const int r = it / (FR_NS * FR_NC), m = it % (FR_NS * FR_NC);
-    const int s = m / FR_NC + 1, c = m % FR_NC;
-    const float t = (float)s / (FR_NS + 1), u = 1.f - t;
-    const float* q0 = hp0 + r * FR_Y;
-    const float* q1 = hp1 + r * FR_Y;
+  // z-steps' [re(pz) | im(pz)] latents (data symbol m = (s-1)*Nc + c)
+  for (int it = threadIdx.x; it < R * g.ns * g.nc; it += NT) {
+    const int r = it / (g.ns * g.nc), m = it % (g.ns * g.nc);
+    const int s = m / g.nc + 1, c = m % g.nc;
+    const float t = (float)s / (g.ns + 1), u = 1.f - t;
+    const float* q0 = hp0 + r * yw;
+    const float* q1 = hp1 + r * yw;
     const float hr = q0[c] * u + q1[c] * t;
-    const float hi = q0[FR_NC + c] * u + q1[FR_NC + c] * t;
+    const float hi = q0[g.nc + c] * u + q1[g.nc + c] * t;
     const float scale = rsqrtf(hr * hr + hi * hi + 1e-12f) * inv_mag[r];
-    const float* y = Y + (r * FR_NSYM + s) * FR_Y;
-    const float yr = y[c], yi = y[FR_NC + c];
-    float* const zk = zsh + r * FR_NZ * FR_LAT + (m / FR_PZ) * FR_LAT + m % FR_PZ;
+    const float* y = Y + (r * nsym + s) * yw;
+    const float yr = y[c], yi = y[g.nc + c];
+    float* const zk = zsh + r * g.nz * g.lat + (m / pz) * g.lat + m % pz;
     zk[0] = (yr * hr + yi * hi) * scale;
-    zk[FR_PZ] = (yi * hr - yr * hi) * scale;
+    zk[pz] = (yi * hr - yr * hi) * scale;
   }
   __syncthreads();
 
-  dec_body(a.d, smem, Src{zsh, FR_NZ * FR_LAT, R - 1}, FR_LAT);
+  dec_body(a.d, smem, Src{zsh, g.nz * g.lat, R - 1}, g.lat);
 }
 
 // The encoder stack over a.nz z-steps for the block's R rows.  x[t] of
@@ -963,7 +1025,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        tmac<ENC_X>(acc, X + ENC_FOFF, r0, w + off[0], ENC_H, c, kb, ke, kl);
+        tmac(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], ENC_H, c, kb, ke, kl);
       kput(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H, zero4, true);
     }
     __syncthreads();
@@ -997,14 +1059,14 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
         const float4 bi = ldg4(bih + c), bh = ldg4(bhh + c);
         float4 acc[ET];
         zero(acc);
-        tmac<ENC_X>(acc, X, r0, wih, ENC_G, c, 0, gin, kl);
+        tmac(acc, X, ENC_X, r0, wih, ENC_G, c, 0, gin, kl);
         if (qg < 8) {
-          tmac<ENC_X>(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
+          tmac(acc, Xp + gin, ENC_X, r0, whh, ENC_G, c, 0, ENC_H, kl);
           kput(acc, kl, r0, scr + c, ENC_GS, add4(bi, bh), true);
         } else {
           kput(acc, kl, r0, scr + c, ENC_GS, bi, true);
           zero(acc);
-          tmac<ENC_X>(acc, Xp + gin, r0, whh, ENC_G, c, 0, ENC_H, kl);
+          tmac(acc, Xp + gin, ENC_X, r0, whh, ENC_G, c, 0, ENC_H, kl);
           kput(acc, kl, r0, scr + ENC_H + c, ENC_GS, bh, true);
         }
       }
@@ -1036,7 +1098,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        tmac<ENC_X>(acc, tap ? X : Xd, r0, w + o[4 + tap], ENC_CO, c, 0, cin, kl);
+        tmac(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap], ENC_CO, c, 0, cin, kl);
         kput(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO, zero4, true);
       }
       __syncthreads();
@@ -1062,7 +1124,7 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      tmac<ENC_X>(acc, X, r0, w + off[ENC_NW - 2], od, c, kb, ke, kl);
+      tmac(acc, X, ENC_X, r0, w + off[ENC_NW - 2], od, c, kb, ke, kl);
       kput(acc, kl, r0, scr + ch * R * od + c, od, zero4, c < od);
     }
     __syncthreads();
@@ -1140,8 +1202,8 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
                                     int in_dim, int out_dim,
                                     void* const* state_in,
                                     void* const* state_out, void* stream) {
-  if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim % 4 || out_dim % 4 ||
-      out_dim > DEC_MAX_OUT)
+  if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_MAX_OUT)
     return (int)cudaErrorInvalidValue;
   DecMergedArgs a;
   a.w = static_cast<const float*>(w);
@@ -1166,13 +1228,19 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
   return (int)cudaGetLastError();
 }
 
+int radae_rx_frame_limit(int ns, int nc, int samp, int latent, int nz) {
+  return frame_limit(frame_geo(ns, nc, samp, latent, nz));
+}
+
 int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
                               const void* rx, void* feats, int B, int out_dim,
-                              float mag_k, int coarse_mag,
+                              float mag_k, int coarse_mag, int ns, int nc,
+                              int samp, int latent, int nz,
                               void* const* state_in, void* const* state_out,
                               void* stream) {
+  const FrameGeo g = frame_geo(ns, nc, samp, latent, nz);
   if (n_off != FR_NW || B < 1 || out_dim < 4 || out_dim % 4 ||
-      out_dim > DEC_TMAX_OUT)
+      out_dim > DEC_TMAX_OUT || frame_limit(g))
     return (int)cudaErrorInvalidValue;
   FrameArgs a;
   const float* wf = static_cast<const float*>(w);
@@ -1180,7 +1248,7 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
   for (int i = 0; i < DEC_NW; ++i) a.d.off[i] = off[4 + i];
   a.d.z = nullptr;
   a.d.feats = static_cast<float*>(feats);
-  a.d.B = B; a.d.nz = FR_NZ; a.d.in_dim = FR_LAT; a.d.out_dim = out_dim;
+  a.d.B = B; a.d.nz = nz; a.d.in_dim = latent; a.d.out_dim = out_dim;
   for (int i = 0; i < 5; ++i) {
     a.d.h_in[i] = static_cast<const float*>(state_in[i]);
     a.d.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
@@ -1190,14 +1258,23 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
   a.rx = static_cast<const float*>(rx);
   a.dft_w = wf + off[4 + DEC_NW];
   a.ls_w = wf + off[4 + DEC_NW + 1];
+  a.g = g;
   a.mag_k = mag_k;
   a.coarse_mag = coarse_mag;
+  const FrameGeo f = flagship_geo();
+  const bool fix = ns == f.ns && nc == f.nc && samp == f.samp &&
+                   latent == f.lat && nz == f.nz;
+  const size_t smem = frame_smem(g);
   cudaError_t e = cudaFuncSetAttribute(
-      rx_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FR_SMEM);
+      fix ? rx_frame_kernel<true> : rx_frame_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  rx_frame_kernel<<<(B + R - 1) / R, NT, FR_SMEM,
-                    static_cast<cudaStream_t>(stream)>>>(a);
+  if (fix)
+    rx_frame_kernel<true><<<(B + R - 1) / R, NT, smem,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    rx_frame_kernel<false><<<(B + R - 1) / R, NT, smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1231,8 +1308,9 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
 }
 
 // The tiling, for counting the weight bytes a launch fetches: batch rows a
-// block owns, and rows each weight load feeds in enc_kernel's and in
-// dec_kernel's (and rx_frame_kernel's decoder) products.
+// block owns, and rows each weight load feeds in enc_kernel's and in the
+// decoders' (dec_kernel, dec_merged_kernel, rx_frame_kernel's decoder)
+// products.
 int radae_block_rows(void) { return R; }
 int radae_enc_tile_rows(void) { return ET; }
 int radae_dec_tile_rows(void) { return ET; }

@@ -25,7 +25,8 @@ _F = ctypes.c_float
 # C signatures of each library's entries: name -> argtypes (restype int).
 # Every launch entry takes (weights, offsets, n_off, input, output, <sizes>,
 # state_in[], state_out[], stream) and returns the launch's cudaError_t; the
-# entries with no arguments return a constant of the kernels' tiling.
+# entries with no arguments return a constant of the kernels' tiling, and
+# radae_rx_frame_limit the frame kernel's limit a modem geometry breaks.
 _SIGNATURES = {
     "fused_core": {
         "radae_block_rows": [],
@@ -35,8 +36,9 @@ _SIGNATURES = {
                                      _P, _P, _P],
         "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _I, _I,
                                             _I, _P, _P, _P],
+        "radae_rx_frame_limit": [_I, _I, _I, _I, _I],
         "radae_fused_rx_frame_step": [_P, _P, _I, _P, _P, _I, _I, _F, _I,
-                                      _P, _P, _P],
+                                      _I, _I, _I, _I, _I, _P, _P, _P],
         "radae_fused_encoder_step": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                      _P, _P, _P],
     },

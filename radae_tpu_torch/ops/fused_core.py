@@ -203,6 +203,12 @@ def rx_demod_consts(cfg, device="cuda"):
                  for x in (Wbig.real, Wbig.imag, E.real, E.imag))
 
 
+def _frame_y_width(nc: int) -> int:
+    """Floats of the frame kernel's [Yr | Yi] row: 2Nc rounded up to a
+    multiple of 4."""
+    return -(-2 * nc // 4) * 4
+
+
 class RxFrameWeights(NamedTuple):
     """`fused_rx_weights`: one buffer holding Wr, Wi, Er, Ei, the 44
     unmerged decoder arrays with dense_1's rows permuted, and the two
@@ -213,6 +219,14 @@ class RxFrameWeights(NamedTuple):
     samp: int           # samples a symbol row: M + Ncp
     mag_k: float        # coarse-magnitude scale: |P0| / pilot_gain at bottleneck 3
     coarse_mag: bool
+
+    @property
+    def geometry(self) -> Tuple[int, int, int, int, int]:
+        """(Ns, Nc, M+Ncp, latent, nz): the modem geometry the frame
+        kernel is launched with."""
+        ns, nc = self.n_sym - 2, self.w.arrays[0].shape[1]
+        latent = self.w.arrays[4].shape[0]
+        return ns, nc, self.samp, latent, 2 * ns * nc // latent
 
     @property
     def decoder(self) -> PackedWeights:
@@ -226,19 +240,23 @@ def fused_rx_weights(params, cfg, device="cuda") -> RxFrameWeights:
     """Demod constants + decoder weights for the frame step.  dense_1's
     rows are permuted so the step feeds [re(0..L/2-1), im(0..L/2-1)]
     instead of the interleaved QPSK demap (the interleave is folded into
-    the product).  Two more arrays give the kernel its layout:
-      dft_w (2(M+Ncp), 2Nc): interleaved IQ of a symbol row -> [Yr | Yi];
-      ls_w (2Nc, 2Nc): [Yr | Yi] of a pilot row -> [hr | hi]."""
+    the product).  Two more arrays give the kernel its layout, with 2Nc
+    padded to yw, a multiple of 4 (the kernel's float4 columns):
+      dft_w (2(M+Ncp), yw): interleaved IQ of a symbol row -> [Yr | Yi | 0];
+      ls_w (yw, yw): [Yr | Yi | 0] of a pilot row -> [hr | hi | 0] (zero
+      rows and columns at the pad)."""
     Wr, Wi, Er, Ei = (t.numpy() for t in rx_demod_consts(cfg, "cpu"))
     arrs, names = _fused_arrays(params, "decoder")
     L = arrs[0].shape[0]
     perm = np.concatenate([np.arange(0, L, 2), np.arange(1, L, 2)])
     arrs[0] = np.ascontiguousarray(arrs[0][perm])
     S, Nc = Wr.shape
-    dft_w = np.zeros((2 * S, 2 * Nc), np.float32)
+    yw = _frame_y_width(Nc)
+    dft_w = np.zeros((2 * S, yw), np.float32)
     dft_w[0::2, :Nc], dft_w[1::2, :Nc] = Wr, -Wi
-    dft_w[0::2, Nc:], dft_w[1::2, Nc:] = Wi, Wr
-    ls_w = np.block([[Er, Ei], [-Ei, Er]]).astype(np.float32)
+    dft_w[0::2, Nc:2 * Nc], dft_w[1::2, Nc:2 * Nc] = Wi, Wr
+    ls_w = np.zeros((yw, yw), np.float32)
+    ls_w[:2 * Nc, :2 * Nc] = np.block([[Er, Ei], [-Ei, Er]])
     packed = _pack([Wr, Wi, Er, Ei] + arrs + [dft_w, ls_w],
                    ["Wr", "Wi", "Er", "Ei"] + names + ["dft_w", "ls_w"],
                    device)
@@ -454,12 +472,28 @@ def fused_decoder_step(weights: PackedWeights, z, state):
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
 
 
+# the frame kernel's limits on the modem geometry, by the number
+# radae_rx_frame_limit (csrc/fused_core.cu `frame_limit`) returns
+FRAME_LIMITS = {
+    1: "Ns, Nc and nz at least 1, M+Ncp even, latent a positive multiple "
+       "of 4",
+    2: "the data symbols fill the z-steps (Ns*Nc == nz*latent/2)",
+    3: "the block's samples (16 streams x (Ns+2) rows x 2(M+Ncp) floats) "
+       "fit the decoder's rings",
+    4: "the demod intermediates (16 streams x (Ns+4) rows of [Yr | Yi], 2Nc "
+       "padded to a multiple of 4) fit the decoder's scratch",
+    5: "latent at most 96 (z is staged in layer 0's GLU window)",
+    6: "the z rows (16 x nz x latent floats) fit the block's shared memory "
+       "after the decoder's",
+}
+
+
 def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state):
     """Whole rx frame: rx_packed (B, (Ns+2)(M+Ncp), 2) -> (features
     (B, 4*nz, F), new unmerged decoder state).  CPU tensors take
     `rx_frame_step_plain`; CUDA tensors launch the kernel
-    (radae_fused_rx_frame_step), which is built for the flagship modem
-    geometry (Ns=4, Nc=30, M+Ncp=192, latent 80)."""
+    (radae_fused_rx_frame_step) with the weights' modem geometry, or raise
+    naming the kernel's limit it breaks (FRAME_LIMITS)."""
     if rx_packed.device.type == "cpu":
         return rx_frame_step_plain(weights, rx_packed, state)
     if rx_packed.device.type != "cuda":
@@ -468,24 +502,29 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state):
     dev = rx_packed.device
     w = weights.w
     B = rx_packed.shape[0]
+    ns, nc, samp, latent, nz = weights.geometry
     if (w.buf.device != dev or len(w.arrays) != 4 + N_DEC + 2
-            or tuple(w.arrays[0].shape) != (192, 30) or weights.n_sym != 6
-            or tuple(w.arrays[4].shape) != (80, 96)):
+            or tuple(w.arrays[-2].shape) != (2 * samp, _frame_y_width(nc))):
         raise ValueError("fused_rx_frame_step: the kernel takes "
                          "fused_rx_weights(params, cfg, device="
-                         f"{str(dev)!r}) of the flagship modem geometry")
-    rx = _ready(rx_packed, (B, weights.n_sym * weights.samp, 2), dev,
-                "rx_packed")
+                         f"{str(dev)!r})")
+    lib = _kernels.library("fused_core")
+    limit = lib.radae_rx_frame_limit(ns, nc, samp, latent, nz)
+    if limit:
+        raise ValueError(
+            f"fused_rx_frame_step: the modem geometry (Ns={ns}, Nc={nc}, "
+            f"M+Ncp={samp}, latent={latent}, nz={nz}) is past the frame "
+            f"kernel's limit: {FRAME_LIMITS[limit]}")
+    rx = _ready(rx_packed, (B, weights.n_sym * samp, 2), dev, "rx_packed")
     shapes = _dec_state_shapes(B)
     state = _ready_state(state, shapes, dev)
     out_dim = weights.decoder.arrays[-1].shape[0]
-    nz = 3
     feats = torch.empty((B, nz, out_dim), device=dev)
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    lib = _kernels.library("fused_core")
     status = _launch(lib.radae_fused_rx_frame_step, w, rx, feats, state,
                      new_state, (B, out_dim, ctypes.c_float(weights.mag_k),
-                                 int(weights.coarse_mag)))
+                                 int(weights.coarse_mag), ns, nc, samp,
+                                 latent, nz))
     _kernels.check(status, "radae_fused_rx_frame_step")
     LAUNCHES["fused_rx_frame_step"] += 1
     F = out_dim // FRAMES_PER_STEP

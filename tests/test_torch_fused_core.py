@@ -180,14 +180,20 @@ def test_wrappers_refuse_other_devices(tree):
     ("decoder", (2, 4), 24_786_944),
     ("decoder", (16, 16), 3_616_256),
     ("decoder", (8, 8), 7_232_512),
-], ids=["rows2-4", "rows16", "rows8", "dec-rows2-4", "dec-rows16", "dec-rows8"])
+    ("merged", (2, 4), 22_575_104),     # PR 2's merged kernel: dot<2, 2> on wih
+    ("merged", (16, 16), 3_616_256),    # the same 904,064 floats as unmerged
+], ids=["rows2-4", "rows16", "rows8", "dec-rows2-4", "dec-rows16", "dec-rows8",
+        "decm-rows2-4", "decm-rows16"])
 def test_encoder_weight_fetch_bytes(tree, side, rows, want):
     """chip_smoke's count of the weight bytes one 16-stream block of the
-    encoder kernel, or of the unmerged decoder kernel, fetches into its SM
-    per z-step, at the flagship widths."""
+    encoder kernel, of the unmerged or of the chain-merged decoder kernel,
+    fetches into its SM per z-step, at the flagship widths."""
     import chip_smoke
-    w = (fc.encoder_weights if side == "encoder" else fc.decoder_weights)(
-        tree[side], "cpu")
+    if side == "merged":
+        w = fc.decoder_weights(tree["decoder"], "cpu", merged=True)
+    else:
+        w = (fc.encoder_weights if side == "encoder" else fc.decoder_weights)(
+            tree[side], "cpu")
     assert chip_smoke.weight_fetch_bytes(w, *rows, 16) == want
     assert chip_smoke.weight_fetch_bytes(w, 16, 16, 16) == 4 * sum(
         a.numel() for a in w.arrays if a.dim() == 2)

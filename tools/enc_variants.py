@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time forms of one tile kernel (the encoder enc_kernel, the unmerged
-decoder dec_kernel or the whole-frame rx_frame_kernel) against each other on
-one CUDA card, in turns, in one run.
+decoder dec_kernel, the chain-merged decoder dec_merged_kernel or the
+whole-frame rx_frame_kernel) against each other on one CUDA card, in turns,
+in one run.
 
-    python3 tools/enc_variants.py [--kernel enc|dec|frame] [--src NAME=PATH ...]
-                                  [--out DIR] [--reps N]
+    python3 tools/enc_variants.py [--kernel enc|dec|decm|frame]
+                                  [--src NAME=PATH[@G,O] ...] [--out DIR]
+                                  [--reps N]
 
 Builds radae_tpu_torch/csrc/fused_core.cu as it is and, beside it, one copy
 for each form in FORMS that applies to the kernel (the source with a few
@@ -14,9 +16,14 @@ example an earlier commit's:
     git show <commit>:radae_tpu_torch/csrc/fused_core.cu > build/parent.cu
     python3 tools/enc_variants.py --kernel dec --src parent=build/parent.cu
 
+`@G,O` gives the rows each weight load feeds in that copy's GRU products
+and in its others, where its library does not say (the chain-merged decoder
+before its 16-row tiles: `@2,4`).
+
 Each form's kernel runs through its wrapper (fused_encoder_step,
-fused_decoder_step or fused_rx_frame_step) on the flagship weights at
-B=2048, one frame (nz=3) a call, with random inputs and state from a seed.
+fused_decoder_step, the latter with the merged weights for decm, or
+fused_rx_frame_step) on the flagship weights at B=2048, one frame (nz=3) a
+call, with random inputs and state from a seed.
 The checked forms are held against the plain version (rtol 1e-4, atol
 1e-4); the forms that take a cost out on purpose give wrong results and are
 timed only.  For each form it prints the ptxas line of the kernel, the max
@@ -53,9 +60,12 @@ B = 2048
 FIRST_ROWS = (2, 4)  # rows a weight load feeds in a source that does not say:
                      # the first kernels (2 in the GRU products, 4 else)
 # --kernel -> (name of the __global__ function, wrapper, library entry of its
-# tile rows)
+# tile rows); the frame kernel has two instances (the flagship geometry as
+# constants, and from the launch), whose ptxas lines and SASS go together
 KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
            "dec": ("dec_kernel", "fused_decoder_step", "radae_dec_tile_rows"),
+           "decm": ("dec_merged_kernel", "fused_decoder_step",
+                    "radae_dec_tile_rows"),
            "frame": ("rx_frame_kernel", "fused_rx_frame_step",
                      "radae_dec_tile_rows")}
 ALL = tuple(KERNELS)
@@ -125,7 +135,7 @@ FORMS = {
          "               : \"memory\");\n",
          "  (void)d;\n  st4(dst, ld4(src));\n")]),
     "noxload": (ALL, False, [             # x from registers: no shared x loads
-        ("const float4 x = ld4(xr + i * LD + kx);",
+        ("const float4 x = ld4(xr + i * ld + kx);",
          "const float4 x = wt[i & 3];")]),
     "wfixed": (ALL, False, [              # every K step reloads the first one's
         ("    wp += 32 * out;\n", "")]),  # weights (from L1)
@@ -139,14 +149,14 @@ FORMS = {
         ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n",
          "  if (d == 0xffffffffu) asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n")]),
     "nodft": (("frame",), False, [        # no DFT product loop
-        ("      tmac<FR_ROW>(acc, S, r0, a.dft_w, FR_Y, c, 0, FR_ROW, kl);\n", "")]),
+        ("      tmac(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl);\n", "")]),
     "nols": (("frame",), False, [         # no LS products
-        ("  dot<1, 1>(p0, a.ls_w,", "  if (a.d.B < 0) dot<1, 1>(p0, a.ls_w,"),
-        ("  dot<1, 1>(p1, a.ls_w,", "  if (a.d.B < 0) dot<1, 1>(p1, a.ls_w,")]),
+        ("  rowprod(p0, a.ls_w,", "  if (a.d.B < 0) rowprod(p0, a.ls_w,"),
+        ("  rowprod(p1, a.ls_w,", "  if (a.d.B < 0) rowprod(p1, a.ls_w,")]),
     "noprologue": (("frame",), False, [   # the decoder body alone
-        ("  const float* const rx = a.rx + (size_t)b0 * FR_NSYM * FR_ROW;\n",
+        ("  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n",
          "  if (a.d.B < 0) {\n"
-         "  const float* const rx = a.rx + (size_t)b0 * FR_NSYM * FR_ROW;\n"),
+         "  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n"),
         ("  dec_body(a.d, smem, Src{zsh,", "  }\n  dec_body(a.d, smem, Src{zsh,")]),
     "noz": (("dec",), False, [            # latents never staged: stale operands
         ("  stage<DEC_X>(xb + DEC_H, zs.p, zs.ld, a.in_dim, zs.rmax);\n", ""),
@@ -154,13 +164,55 @@ FORMS = {
          "                   a.in_dim, zs.rmax);\n", "      ;\n")]),
     "frsmem": (("dec",), True, [          # the frame kernel's shared memory size
         ("      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DEC_SMEM);",
-         "      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FR_SMEM);"),
+         "      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,"
+         " (int)frame_smem(flagship_geo()));"),
         ("  dec_kernel<<<(B + R - 1) / R, NT, DEC_SMEM,",
-         "  dec_kernel<<<(B + R - 1) / R, NT, FR_SMEM,")]),
+         "  dec_kernel<<<(B + R - 1) / R, NT, frame_smem(flagship_geo()),")]),
+    "frgeneric": (("frame",), True, [     # the flagship through the instance
+        ("  const bool fix = ns == f.ns",   # that reads the geometry at launch
+         "  const bool fix = f.ns < 0 && ns == f.ns")]),
+    "conv6": (("decm",), True, [          # x @ [tap1|tap0] in 6 K chunks:
+        ("constexpr int DECM_CONV_KS = 3;",  # 24 units, 2 rounds
+         "constexpr int DECM_CONV_KS = 6;")]),
+    "biasl2": (("decm",), True, [         # bhh and cb read from the L2 in
+        ("        const float* const bhh = bb + fc;\n",  # the gate and conv
+         "        const float* const bhh = w + o[3] + fc;\n"),  # passes
+        ("        const float4 gr = add4(ld4(g), ld4(bhh));\n"
+         "        const float4 gz = add4(ld4(g + DEC_H), ld4(bhh + DEC_H));\n"
+         "        const float4 gn = add4(ld4(g + 2 * DEC_H), ld4(bhh + 2 * DEC_H));\n",
+         "        const float4 gr = add4(ld4(g), ldg4(bhh));\n"
+         "        const float4 gz = add4(ld4(g + DEC_H), ldg4(bhh + DEC_H));\n"
+         "        const float4 gn = add4(ld4(g + 2 * DEC_H), ldg4(bhh + 2 * DEC_H));\n"),
+        ("tanh4(add4(add4(ld4(hq), y), ld4(bb + DEC_G + c))));",
+         "tanh4(add4(add4(ld4(hq), y), ldg4(w + o[5] + c))));")]),
+    "ghhalf": (("decm",), False, [        # h @ [whh | glu]: one round of 12
+        ("  for (int u = warp; u < RG * DECM_GGC; u += NWARP) {",  # units, not 2
+         "  for (int u = warp; u < RG * DECM_GGC / 2; u += NWARP) {")]),
     "noproducts": (ALL, False, [          # no product loops: barriers, sums,
-        ("  const float* const xr = X + r0 * LD;\n",  # gates, staging only
-         "  return;\n  const float* const xr = X + r0 * LD;\n")]),
+        ("  const float* const xr = X + r0 * ld;\n",  # gates, staging only
+         "  return;\n  const float* const xr = X + r0 * ld;\n")]),
 }
+
+
+class FixedGeometryFrame:
+    """A library built from a source whose frame kernel fixed the flagship
+    modem's geometry at compile time (before radae_rx_frame_limit): takes
+    the entry's arguments of today and drops the geometry."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.radae_fused_rx_frame_step.argtypes = [P, P, I, P, P, I, I, F, I,
+                                                  P, P, P]
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def radae_rx_frame_limit(self, *geometry):
+        return 0
+
+    def radae_fused_rx_frame_step(self, *args):
+        return self._lib.radae_fused_rx_frame_step(*args[:9], *args[14:])
 
 
 def sass(lib_path, kname, cuobjdump):
@@ -172,13 +224,14 @@ def sass(lib_path, kname, cuobjdump):
                          text=True, check=True).stdout
     body = [b for b in out.split("Function : ")[1:]
             if kname in b.splitlines()[0]]
-    if len(body) != 1:
+    if not body:
         return None
     lines = []
-    for x in body[0].splitlines()[1:]:
-        x = re.sub(r"/\*\s*[0-9a-fx]+\s*\*/", "", x).strip()
-        if x and not x.startswith("...."):
-            lines.append(re.sub(r"_ZN\w+", "<name>", x))
+    for b in sorted(body, key=lambda b: b.splitlines()[0]):
+        for x in b.splitlines()[1:]:
+            x = re.sub(r"/\*\s*[0-9a-fx]+\s*\*/", "", x).strip()
+            if x and not x.startswith("...."):
+                lines.append(re.sub(r"_ZN\w+", "<name>", x))
     return lines
 
 
@@ -199,8 +252,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", choices=KERNELS, default="enc")
     ap.add_argument("--forms", default=None, metavar="NAME,...",
                     help="the forms to build (default: all that apply)")
-    ap.add_argument("--src", action="append", default=[], metavar="NAME=PATH",
-                    help="another copy of csrc/fused_core.cu to time")
+    ap.add_argument("--src", action="append", default=[],
+                    metavar="NAME=PATH[@G,O]",
+                    help="another copy of csrc/fused_core.cu to time (@G,O: "
+                    "rows a weight load feeds in its GRU and other products)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "enc_variants"))
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
@@ -232,7 +287,13 @@ def main(argv=None) -> int:
         text = fh.read()
     srcs = {"committed": committed}
     srcs.update({n: write_form(text, n, args.out, kernel) for n in forms})
-    srcs.update(s.split("=", 1) for s in args.src)
+    src_rows = {}
+    for s in args.src:
+        name, path = s.split("=", 1)
+        if "@" in path:
+            path, rows = path.rsplit("@", 1)
+            src_rows[name] = tuple(int(r) for r in rows.split(","))
+        srcs[name] = path
 
     procs = {}
     for v, src in srcs.items():          # one nvcc a form, all at once
@@ -250,16 +311,18 @@ def main(argv=None) -> int:
             raise RuntimeError(f"nvcc failed for {v}:\n" + "\n".join(lines))
         at = [i for i, x in enumerate(lines)
               if "entry function" in x and kname in x]
-        ptxas = [x.strip() for x in lines[at[0]:at[0] + 4]
-                 if "registers" in x or "spill" in x] if at else []
+        ptxas = [x.strip() for i in at for x in lines[i:i + 4]
+                 if "registers" in x or "spill" in x]
         lib = ctypes.CDLL(os.path.join(args.out, f"lib{kernel}_{v}.so"))
         for fn, argtypes in _kernels._SIGNATURES["fused_core"].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
+        if kernel == "frame" and not hasattr(lib, "radae_rx_frame_limit"):
+            lib = FixedGeometryFrame(lib)
         libs[v] = lib
-        rows = ((getattr(lib, rows_entry)(),) * 2
-                if hasattr(lib, rows_entry) else FIRST_ROWS)
+        rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
+                                   if hasattr(lib, rows_entry) else FIRST_ROWS)
         code = sass(os.path.join(args.out, f"lib{kernel}_{v}.so"), kname,
                     os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump"))
         if code:
@@ -292,12 +355,14 @@ def main(argv=None) -> int:
         args_k = (cfg.bottleneck,)
         plain = fc.encoder_step_plain
     else:
-        state = fc.decoder_state_zero(B, dev)
+        state = fc.decoder_state_zero(B, dev, merged=kernel == "decm")
         args_k = ()
-        if kernel == "dec":
-            w = fetch_w = fc.decoder_weights(tree["decoder"], dev)
+        if kernel in ("dec", "decm"):
+            w = fetch_w = fc.decoder_weights(tree["decoder"], dev,
+                                             merged=kernel == "decm")
             x = torch.tanh(rand((B, nz, cfg.latent_dim), 1.0))
-            plain = fc.decoder_step_plain
+            plain = (fc.decoder_merged_step_plain if kernel == "decm"
+                     else fc.decoder_step_plain)
         else:       # a received frame: the plain tx step's samples + noise
             w = fc.fused_rx_weights(tree["decoder"], cfg, dev)
             fetch_w = w.decoder
