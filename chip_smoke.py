@@ -28,17 +28,35 @@ EQ, coarse magnitude):
      the features match the same path with the plain layers (1e-3), that
      the mean distortion loss is below 0.65, and that streams 0-3 give
      the losses radae_tpu gives on the CPU;
-  4. times the three rx steps, the tx step and the four kernels with CUDA
-     events around calls issued from the host, beside each kernel's plain
-     version, its bound and its device time in a CUDA graph replay (and
-     the frame kernel at latent 40 too), and prints the weight bytes one
-     encoder, one unmerged and one chain-merged decoder launch fetch into
-     the SMs, from the tiling the built library reports;
-  5. prints a `kernels` JSON line, and last the `ok` JSON line.
+  4. drives the batch serving pair on the fixture: 2048 feature streams
+     through 20 steps of the int8 encoder kernel (make_streaming_tx_step,
+     fused_quant="int8"), the end-of-over frame appended, each stream
+     delayed, frequency-shifted and given noise (pair_channel), then
+     make_batched_receiver(n_windows=12, refine=True, eoo=True, fused=True,
+     fused_quant="int8") with the int8 unmerged decoder kernel, and again
+     with the int8 chain-merged one; each run starts with the launch counts
+     at 0 and checks its kernels launched once a frame.  Every stream must
+     acquire and find its EOO frame, the mean distortion loss of the frames
+     before the EOO must be below 0.65 and within 0.01 of the f32-kernel
+     receiver's, and streams 0-3 must give the tmax, fmax and loss that
+     radae_tpu gives on the CPU (tools/batch_pair_reference.py); then the
+     port's tx_batch --fused and rx_batch CLIs on three fixture files;
+  5. times the three rx steps, the tx step and the seven kernel forms (the
+     four f32 kernels and the int8 encoder, decoder and merged decoder)
+     with CUDA events around calls issued from the host, beside each
+     kernel's plain version, its bound and its device time in a CUDA graph
+     replay (and the frame kernel at latent 40 too), and prints the weight
+     bytes one encoder, one unmerged and one chain-merged decoder launch
+     fetch into the SMs, f32 and int8, from the tiling the built library
+     reports; and the batch pair's ms per frame and audio-s/s, its
+     acquisition apart from its decode;
+  6. prints a `kernels` JSON line, and last the `ok` JSON line.
 
-Step 2 also holds the four kernels, which all tile their products over
-the block's rows, to the same bits on two launches with the same input and
-state (B=2048 and B=37).
+Step 2 also holds the int8 instances of the encoder and both decoders
+against their plain int8 versions the same way, once with a quant_exclude
+set that keeps some matrices in f32, and holds all seven kernel forms, which
+all tile their products over the block's rows, to the same bits on two
+launches with the same input and state (B=2048 and B=37).
 
 Any failure exits non-zero without the `ok` line; so does a machine without
 a CUDA card.
@@ -47,6 +65,8 @@ a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -60,12 +80,24 @@ B = 2048                 # serving batch: independent streams
 RAGGED_B = 37            # not a multiple of the kernels' 16-row block
 N_FRAMES = 20            # 120 ms modem frames per stream in phase 3
 ROW_STEP = 37            # stream b starts at feature row b*37 (wrapped)
+NUM_USED = 20            # feature columns used (data/io.py)
 TOL = dict(rtol=1e-4, atol=1e-4)
 E2E_TOL = 1e-3
 LOSS_LIMIT = 0.65
 # per-stream distortion loss of streams 0-3 through radae_tpu's
 # make_streaming_tx_step/make_streaming_rx_step on the CPU, same inputs
 JAX_LOSS_0_3 = [0.332894, 0.566543, 0.52081007, 0.49320942]
+# the batch pair (phase 4): acquisition windows, the channel's SNR in 3 kHz
+# and noise seed, and streams 0-3 through radae_tpu's tx (int8 encoder) and
+# make_batched_receiver (int8 decoder) on the CPU, same inputs
+# (tools/batch_pair_reference.py): tmax, fmax (Hz), loss
+PAIR_WINDOWS = 12
+PAIR_SNR_DB = 15.0
+PAIR_SEED = 3
+JAX_PAIR_0_3 = {"tmax": [1952, 2083, 2214, 2345],
+                "fmax": [-40.0, -27.0, -14.0, -1.0],
+                "loss": [0.39535508, 0.57686758, 0.5337739, 0.54245061]}
+PAIR_TOL = 1e-3          # on fmax (Hz) and loss against radae_tpu
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores (SXM data sheet)
 H100_BYTES_S = 3.35e12   # HBM3
 RX_NOISE = 0.1           # std of the Gaussian noise on the frame-kernel check
@@ -75,7 +107,74 @@ TPU_SRC = "radae_tpu/ops/fused_core.py"
 REPLACES = {"fused_decoder_step": f"{TPU_SRC}:344",
             "fused_decoder_merged_step": f"{TPU_SRC}:273",
             "fused_rx_frame_step": f"{TPU_SRC}:543",
-            "fused_encoder_step": f"{TPU_SRC}:785"}
+            "fused_encoder_step": f"{TPU_SRC}:785",
+            "fused_decoder_step_int8": f"{TPU_SRC}:344",
+            "fused_decoder_merged_step_int8": f"{TPU_SRC}:273",
+            "fused_encoder_step_int8": f"{TPU_SRC}:785"}
+# a quant_exclude set per int8 form that keeps some matrices in f32
+MIXED = {"fused_decoder_step_int8": ("whh", "out_w"),
+         "fused_decoder_merged_step_int8": ("wgg",),
+         "fused_encoder_step_int8": ("whh", "d1_w")}
+
+
+def stream_features(raw, n_streams, n_frames, feature_dim):
+    """(n_streams, 12 n_frames, feature_dim) features of the fixture: stream
+    b starts at row b*37 (wrapped), the auxdata column at -1."""
+    T = 12 * n_frames
+    feats = np.zeros((n_streams, T, feature_dim), np.float32)
+    for b in range(n_streams):
+        o = (b * ROW_STEP) % (len(raw) - T)
+        feats[b, :, :NUM_USED] = raw[o:o + T, :NUM_USED]
+    feats[:, :, NUM_USED] = -1.0
+    return feats
+
+
+def pair_offsets(b):
+    """Stream b's start (samples) and frequency offset (Hz) in the pair."""
+    return (b * 131) % 800, float((b * 13) % 81 - 40)
+
+
+def pair_buffer_len(cfg, n_frames):
+    """Samples of the receiver's buffer: the acquisition windows and the
+    decode of n_frames after the last window (as tools/rx_batch.py)."""
+    return max((PAIR_WINDOWS + 1) * cfg.Nmf + cfg.M + cfg.Ncp,
+               PAIR_WINDOWS * cfg.Nmf + (n_frames + 1) * cfg.Nmf + cfg.Ncp
+               + cfg.M)
+
+
+def pair_channel(over, cfg, T):
+    """Received buffers (n, T, 2) f32 from the overs (n, L, 2): stream b
+    delayed and shifted by pair_offsets(b), then complex Gaussian noise at
+    PAIR_SNR_DB in 3 kHz from the over's own power (seed PAIR_SEED, so the
+    first rows are the same for any n)."""
+    n, L = over.shape[:2]
+    x = (over[..., 0] + 1j * over[..., 1]).astype(np.complex64)
+    out = np.zeros((n, T), np.complex64)
+    t = np.arange(L)
+    for b in range(n):
+        pad, foff = pair_offsets(b)
+        out[b, pad:pad + L] = x[b] * np.exp(2j * np.pi * foff * t / cfg.Fs)
+    sigma = np.sqrt((np.abs(x) ** 2).mean(axis=1)
+                    / 10 ** (PAIR_SNR_DB / 10) * cfg.Fs / 3000 / 2)
+    noise = np.random.default_rng(PAIR_SEED).standard_normal(
+        (n, T, 2)).astype(np.float32)
+    out += (sigma[:, None] * (noise[..., 0] + 1j * noise[..., 1])).astype(
+        np.complex64)
+    return np.stack([out.real, out.imag], -1).astype(np.float32)
+
+
+def pair_losses(loss_fn, sent, got, win, n_data):
+    """Per-stream distortion loss of the frames decoded before the EOO:
+    decoded frame j is sent frame j + win (sent (n, 12 n_data, F), got
+    (n, frames, 12, F), both numpy or both torch on the CPU)."""
+    got = got.reshape(got.shape[0], -1, got.shape[-1])
+    out = np.zeros(len(win))
+    for w in sorted(set(int(x) for x in win)):
+        idx = np.flatnonzero(np.asarray(win) == w)
+        n = 12 * (n_data - w)
+        out[idx] = np.asarray(loss_fn(sent[idx][:, 12 * w:12 * n_data],
+                                      got[idx][:, :n]))
+    return out
 
 
 def card_line() -> str:
@@ -142,6 +241,19 @@ def graph_ms(fn, n=20, reps=5) -> float:
     return t0.elapsed_time(t1) / (n * reps)
 
 
+def host_ms(fn, reps=2) -> float:
+    """Mean time of fn() on the host's clock, from its start to the end of
+    its device work (after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
 def demod_flops(cfg) -> float:
     """Flop of one stream's frame front end, counting only what the math
     needs: the DFT of the M kept samples of each symbol row, the 3-tap LS
@@ -170,9 +282,9 @@ def bound(weights, inputs, outputs, nz, batch, extra_flops=0.0):
 def weight_fetch_bytes(weights, gru_rows, other_rows, block_rows):
     """Weight bytes one block fetches into its SM per z-step when each weight
     load feeds `gru_rows` rows in the GRU products (g*_wih, g*_whh) and
-    `other_rows` rows in the others: each matrix is read block_rows / rows
-    times."""
-    return sum(4 * a.numel() * (block_rows // (
+    `other_rows` rows in the others: each matrix (f32 or int8) is read
+    block_rows / rows times."""
+    return sum(a.element_size() * a.numel() * (block_rows // (
         gru_rows if n.endswith(("_wih", "_whh")) else other_rows))
         for n, a in zip(weights.names, weights.arrays) if a.dim() == 2)
 
@@ -198,12 +310,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from radae_tpu_torch.config import flagship_config
     from radae_tpu_torch.convert import load_checkpoint, params_to_torch
-    from radae_tpu_torch.data.io import NB_TOTAL_FEATURES, NUM_USED_FEATURES, read_f32
+    from radae_tpu_torch.data.io import NB_TOTAL_FEATURES, read_f32
     from radae_tpu_torch.models.core import CoreDecoder, CoreEncoder, distortion_loss
     from radae_tpu_torch.ops import _kernels
     from radae_tpu_torch.ops import fused_core as fc
-    from radae_tpu_torch.runtime import make_streaming_rx_step, make_streaming_tx_step
+    from radae_tpu_torch.runtime import (make_batched_receiver, make_streaming_rx_step,
+                                         make_streaming_tx_step)
+    from radae_tpu_torch.ops.acquisition_op import make_detect_pilots_windowed, make_refine
     from radae_tpu_torch.ops.fused_core import FRAME_LIMITS
+    from radae_tpu_torch.tools import rx_batch, tx_batch
 
     dev = torch.device("cuda")
     card = card_line()
@@ -225,6 +340,19 @@ def main(argv=None) -> int:
     dwm = fc.decoder_weights(tree["decoder"], dev, merged=True)
     rw = fc.fused_rx_weights(tree["decoder"], cfg, dev)
     ew = fc.encoder_weights(tree["encoder"], dev)
+    # the int8 forms: radae_tpu's _fused_weights(quant="int8"), and a set that
+    # keeps the MIXED matrices in f32
+    packs = {"fused_decoder_step_int8": lambda **k: fc.decoder_weights(
+                 tree["decoder"], dev, quant="int8", **k),
+             "fused_decoder_merged_step_int8": lambda **k: fc.decoder_weights(
+                 tree["decoder"], dev, merged=True, quant="int8", **k),
+             "fused_encoder_step_int8": lambda **k: fc.encoder_weights(
+                 tree["encoder"], dev, quant="int8", **k)}
+    q8 = {name: (pack(), pack(quant_exclude=MIXED[name]))
+          for name, pack in packs.items()}
+    dwq, dwmq, ewq = (q8[n][0] for n in ("fused_decoder_step_int8",
+                                         "fused_decoder_merged_step_int8",
+                                         "fused_encoder_step_int8"))
     # the latent-40 modem (Nc=15: [Yr | Yi] padded from 30 to 32 columns)
     cfg40 = flagship_config(latent_dim=40)
     tree40, _ = load_checkpoint(os.path.join(HERE, "fixtures", "model_l40.npz"))
@@ -242,12 +370,8 @@ def main(argv=None) -> int:
     raw = read_f32(os.path.join(HERE, "fixtures", "speech_feats.f32"),
                    NB_TOTAL_FEATURES)
     T = N_FRAMES * nz * 4
-    feats = np.zeros((B, T, cfg.feature_dim), np.float32)
-    for b in range(B):
-        o = (b * ROW_STEP) % (len(raw) - T)
-        feats[b, :, :NUM_USED_FEATURES] = raw[o:o + T, :NUM_USED_FEATURES]
-    feats[:, :, NUM_USED_FEATURES] = -1.0          # auxdata column
-    feats = torch.as_tensor(feats, device=dev)
+    feats = torch.as_tensor(stream_features(raw, B, N_FRAMES, cfg.feature_dim),
+                            device=dev)
 
     def tx_signal(fused, n_frames=N_FRAMES, model=None):
         """n_frames of tx samples (B, n*Nmf + M+Ncp, 2), zero-padded so the
@@ -280,6 +404,22 @@ def main(argv=None) -> int:
         if batch == B:
             errs[name] = max(errs[name], max_err(got, want))
 
+    def kernel_form(name, rng):
+        """(kernel call, plain call, zero state, input draw) of the encoder
+        or a decoder form, each call taking its weights."""
+        if name.startswith("fused_encoder_step"):
+            return (lambda w, x, s: fc.fused_encoder_step(w, x, s, cfg.bottleneck),
+                    lambda w, x, s: fc.encoder_step_plain(w, x, s, cfg.bottleneck),
+                    lambda b: fc.encoder_state_zero(b, dev),
+                    lambda b, n: torch.as_tensor((0.3 * rng.standard_normal(
+                        (b, 4 * n, cfg.feature_dim))).astype(np.float32), device=dev))
+        plain = (fc.decoder_merged_step_plain if "merged" in name
+                 else fc.decoder_step_plain)
+        return (fc.fused_decoder_step, plain,
+                lambda b: fc.decoder_state_zero(b, dev, merged="merged" in name),
+                lambda b, n: torch.as_tensor(np.tanh(rng.standard_normal(
+                    (b, n, cfg.latent_dim))).astype(np.float32), device=dev))
+
     with torch.no_grad():
         for batch, steps in ((B, nz), (RAGGED_B, nz), (RAGGED_B, 2 * nz)):
             sk = sp = fc.decoder_state_zero(batch, dev)
@@ -302,6 +442,22 @@ def main(argv=None) -> int:
                 zk, ek = fc.fused_encoder_step(ew, f, ek, cfg.bottleneck)
                 zp, ep = fc.encoder_step_plain(ew, f, ep, cfg.bottleneck)
                 held("fused_encoder_step", batch, what, (zk,) + ek, (zp,) + ep)
+        # the int8 forms against their plain int8 versions, the MIXED set
+        # once at B=2048 (own seed: the f32 checks' inputs stay as they were)
+        qrng = np.random.default_rng(4)
+        for name, (wq, wmix) in q8.items():
+            kern, plain, zero_state, draw = kernel_form(name, qrng)
+            for batch, steps in ((B, nz), (RAGGED_B, nz), (RAGGED_B, 2 * nz)):
+                sets = ((wq, ""), (wmix, f" {MIXED[name]} in f32")) \
+                    if batch == B else ((wq, ""),)
+                for w, mixed in sets:
+                    sk = sp = zero_state(batch)
+                    for frame in range(3):
+                        x = draw(batch, steps)
+                        ok_, sk = kern(w, x, sk)
+                        op, sp = plain(w, x, sp)
+                        held(name, batch, f"nz={steps}{mixed} call {frame}",
+                             (ok_,) + sk, (op,) + sp)
         sig3 = tx_signal(False, 3)
         sig40 = tx_signal(False, 3, model40)
         err40 = 0.0
@@ -358,6 +514,7 @@ def main(argv=None) -> int:
                 tuple(s.shape))).astype(np.float32), device=dev) for s in state)
 
         drng, rrng = np.random.default_rng(1), np.random.default_rng(2)
+        qbrng = np.random.default_rng(5)
         for batch in (B, RAGGED_B):
             f = torch.as_tensor((0.3 * drng.standard_normal(
                 (batch, 4 * nz, cfg.feature_dim))).astype(np.float32), device=dev)
@@ -376,11 +533,15 @@ def main(argv=None) -> int:
                 (batch, win, 2))).astype(np.float32), device=dev)
             same_bits("fused_rx_frame_step", batch,
                       lambda: fc.fused_rx_frame_step(rw, rx, ds))
+            for name, (wq, _) in q8.items():
+                kern, _, zero_state, draw = kernel_form(name, qbrng)
+                x, st = draw(batch, nz), rand_state(qbrng, zero_state(batch))
+                same_bits(name, batch, lambda: kern(wq, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4), max abs err at B=2048: "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + f"; frame kernel at latent 40, B={B} and B={RAGGED_B}: {err40:.3g}")
     print(f"refused without a launch: {refused}")
-    print(f"all four kernels: two launches bit-identical at B={B} and "
+    print(f"all seven kernel forms: two launches bit-identical at B={B} and "
           f"B={RAGGED_B}")
 
     # -- the serving path on the fixture, three rx paths -------------------
@@ -437,6 +598,124 @@ def main(argv=None) -> int:
               f"vs plain max abs err {e2e_err:.3g}, mean loss {mean_loss:.4f}, "
               f"streams 0-3 {[round(x, 4) for x in loss[:4].tolist()]} "
               f"(radae_tpu {JAX_LOSS_0_3}, max diff {ref_err:.2g})")
+
+    # -- the batch serving pair: int8 tx, the whole-over int8 receiver -----
+    T_pair = pair_buffer_len(cfg, N_FRAMES)
+    txq = make_streaming_tx_step(cfg, enc, B, fused=True, fused_quant="int8",
+                                 device=dev)
+    eoo = cfg.eoo.flatten().astype(np.complex64)
+    eoo = torch.as_tensor(np.stack([eoo.real, eoo.imag], -1), device=dev)
+
+    def tx_pair():
+        """N_FRAMES int8 tx steps of every stream, the EOO frame appended."""
+        es, out = fc.encoder_state_zero(B, dev), []
+        for k in range(N_FRAMES):
+            s, es = txq(ewq, feats[:, 12 * k:12 * (k + 1)], es)
+            out.append(s)
+        return torch.cat(out + [eoo.expand(B, -1, -1)], dim=1)
+
+    def receiver(weights, **kw):
+        return make_batched_receiver(cfg, dec, B, N_FRAMES,
+                                     n_windows=PAIR_WINDOWS, refine=True,
+                                     eoo=True, fused=True, device=dev, **kw)
+
+    rx_q = receiver(dwq, fused_quant="int8")
+    with torch.no_grad():
+        fc.reset_launches()
+        buf = pair_channel(tx_pair().cpu().numpy(), cfg, T_pair)
+        buf = torch.as_tensor(buf, device=dev)
+        pair = {"int8": rx_q(dwq, buf)}
+        torch.cuda.synchronize()
+        want = {"fused_encoder_step_int8": N_FRAMES,
+                "fused_decoder_step_int8": N_FRAMES}
+        counts = dict(fc.LAUNCHES)
+        if any(counts[n] != c for n, c in want.items()):
+            raise AssertionError(f"batch pair: kernels launched {counts}, "
+                                 f"not {want}")
+        launches.update({n: counts[n] for n in want})
+        fc.reset_launches()
+        pair["int8 merged"] = receiver(dwmq, fused_quant="int8",
+                                       fused_merged=True)(dwmq, buf)
+        torch.cuda.synchronize()
+        n_m = fc.LAUNCHES["fused_decoder_merged_step_int8"]
+        if n_m != N_FRAMES:
+            raise AssertionError(f"batch pair, merged int8: kernels launched "
+                                 f"{dict(fc.LAUNCHES)}")
+        launches["fused_decoder_merged_step_int8"] = n_m
+        pair["f32"] = receiver(dw)(dw, buf)
+        torch.cuda.synchronize()
+    feats_cpu = feats.cpu()
+    losses = {}
+    for what, out in pair.items():
+        out = {k: v.cpu() for k, v in out.items()}
+        wins = out["win"].numpy()
+        if not bool(out["candidate"].all()):
+            raise AssertionError(f"batch pair {what}: "
+                                 f"{int((~out['candidate']).sum())} streams "
+                                 "did not acquire")
+        if not (bool(out["eoo_detected"].all()) and np.array_equal(
+                out["eoo_frame"].numpy(), N_FRAMES - wins)):
+            raise AssertionError(f"batch pair {what}: EOO frames "
+                                 f"{out['eoo_frame'][:8].tolist()} against "
+                                 f"{(N_FRAMES - wins)[:8].tolist()}")
+        f = out["features"]
+        if tuple(f.shape) != (B, N_FRAMES, 12, cfg.feature_dim) or not bool(
+                torch.isfinite(f).all()):
+            raise AssertionError(f"batch pair {what}: bad features, shape "
+                                 f"{tuple(f.shape)}")
+        losses[what] = pair_losses(distortion_loss, feats_cpu, f, wins, N_FRAMES)
+        pair[what] = out
+    q, m = pair["int8"], pair["int8 merged"]
+    merged_err = float((q["features"] - m["features"]).abs().max())
+    if merged_err > E2E_TOL or not torch.equal(q["tmax"], m["tmax"]):
+        raise AssertionError(f"batch pair: merged int8 vs int8 features "
+                             f"max abs err {merged_err:.3g}")
+    mean_q, mean_f = losses["int8"].mean(), losses["f32"].mean()
+    if not (mean_q < LOSS_LIMIT and abs(mean_q - mean_f) < 0.01):
+        raise AssertionError(f"batch pair: mean loss {mean_q:.4f} (limit "
+                             f"{LOSS_LIMIT}), f32-kernel receiver {mean_f:.4f}")
+    got = {"tmax": q["tmax"][:4].tolist(), "fmax": q["fmax"][:4].tolist(),
+           "loss": losses["int8"][:4].tolist()}
+    diffs = {k: float(np.abs(np.subtract(got[k], JAX_PAIR_0_3[k])).max())
+             for k in got}
+    if diffs["tmax"] != 0 or diffs["fmax"] > PAIR_TOL or diffs["loss"] > PAIR_TOL:
+        raise AssertionError(f"batch pair streams 0-3: {got} against "
+                             f"radae_tpu {JAX_PAIR_0_3}")
+    print(f"batch pair B={B} x {N_FRAMES} frames + EOO, {PAIR_SNR_DB} dB: all "
+          f"streams acquired (windows {sorted(set(q['win'].tolist()))}), EOO "
+          f"found; mean loss int8 {mean_q:.4f}, f32 kernels {mean_f:.4f}, "
+          f"merged int8 {losses['int8 merged'].mean():.4f} (features vs int8 "
+          f"{merged_err:.3g}); streams 0-3 {got}, max diff against radae_tpu "
+          f"{diffs}")
+
+    # -- the two CLIs on three fixture files -------------------------------
+    cli = os.path.join(HERE, "build", "chip_smoke_cli")
+    os.makedirs(cli, exist_ok=True)
+    ckpt = os.path.join(HERE, "fixtures", "model_fs_flagship.npz")
+    files = []
+    for k, n in enumerate((8, 6, 10)):
+        f36 = np.zeros((12 * n, 36), np.float32)
+        f36[:, :NUM_USED] = raw[300 * k:300 * k + 12 * n, :NUM_USED]
+        files.append(os.path.join(cli, f"s{k}.f32"))
+        f36.tofile(files[-1])
+    fc.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as o:
+        tx_batch.main([ckpt, os.path.join(cli, "iq")] + files + ["--fused"])
+    tx_lines = o.getvalue()
+    if fc.LAUNCHES["fused_encoder_step_int8"] != 10:
+        raise AssertionError(f"tx_batch --fused: {dict(fc.LAUNCHES)}")
+    iq = [os.path.join(cli, "iq", f"s{k}_iq.f32") for k in range(3)]
+    with contextlib.redirect_stdout(io.StringIO()) as o:
+        rx_batch.main([ckpt, os.path.join(cli, "out")] + iq)
+    rx_lines = o.getvalue()
+    for k, line in enumerate(rx_lines.splitlines()):
+        fh = np.fromfile(os.path.join(cli, "out", f"s{k}_iq_feat.f32"),
+                         np.float32)
+        if "acquired 1" not in line or "eoo_frame  -1" in line or not len(
+                fh) or not np.isfinite(fh).all():
+            raise AssertionError(f"rx_batch: {line}")
+    print("tx_batch --fused: " + "; ".join(tx_lines.splitlines()))
+    print("rx_batch: " + "; ".join(rx_lines.splitlines()))
     print(f"launches on the main paths: {launches}")
 
     # -- timing -----------------------------------------------------------
@@ -475,6 +754,16 @@ def main(argv=None) -> int:
             "fused_encoder_step": (
                 lambda: fc.fused_encoder_step(ew, f, es),
                 lambda: fc.encoder_step_plain(ew, f, es), (ew, f, es, 0.0)),
+            "fused_decoder_step_int8": (
+                lambda: fc.fused_decoder_step(dwq, z, ds),
+                lambda: fc.decoder_step_plain(dwq, z, ds), (dwq, z, ds, 0.0)),
+            "fused_decoder_merged_step_int8": (
+                lambda: fc.fused_decoder_step(dwmq, z, dsm),
+                lambda: fc.decoder_merged_step_plain(dwmq, z, dsm),
+                (dwmq, z, dsm, 0.0)),
+            "fused_encoder_step_int8": (
+                lambda: fc.fused_encoder_step(ewq, f, es),
+                lambda: fc.encoder_step_plain(ewq, f, es), (ewq, f, es, 0.0)),
         }
         lib = _kernels.library("fused_core")
         enc_rows = (lib.radae_enc_tile_rows(),) * 2
@@ -488,15 +777,15 @@ def main(argv=None) -> int:
             print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms by {b_by}; "
                   f"{graph_ms(kern):.4f} ms in a CUDA graph replay)")
-            if name == "fused_encoder_step":
+            if name.startswith("fused_encoder_step"):
                 print(f"  encoder, {enc_rows[0]}-row tiles: " + fetch_line(
-                    ew, enc_rows, lib.radae_block_rows(), nz, B, ms))
-            if name == "fused_decoder_step":
+                    w, enc_rows, lib.radae_block_rows(), nz, B, ms))
+            if name.startswith("fused_decoder_step"):
                 print(f"  decoder, {dec_rows[0]}-row tiles: " + fetch_line(
-                    dw, dec_rows, lib.radae_block_rows(), nz, B, ms))
-            if name == "fused_decoder_merged_step":
+                    w, dec_rows, lib.radae_block_rows(), nz, B, ms))
+            if name.startswith("fused_decoder_merged_step"):
                 print(f"  merged decoder, {dec_rows[0]}-row tiles: " + fetch_line(
-                    dwm, dec_rows, lib.radae_block_rows(), nz, B, ms))
+                    w, dec_rows, lib.radae_block_rows(), nz, B, ms))
             if name == "fused_rx_frame_step":     # the latent-40 modem
                 rx40 = sig40[:, :win].contiguous()
                 k40 = lambda: fc.fused_rx_frame_step(rw40, rx40, ds)
@@ -512,6 +801,27 @@ def main(argv=None) -> int:
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+
+        # the batch pair: the int8 tx loop, the receiver, and the receiver's
+        # acquisition (windowed detector + refine) and decode (its N_FRAMES
+        # int8 rx steps) apart
+        tx_ms = host_ms(tx_pair) / N_FRAMES
+        rx_ms = host_ms(lambda: rx_q(dwq, buf)) / N_FRAMES
+        detect = make_detect_pilots_windowed(cfg, PAIR_WINDOWS, device=dev)
+        fine = make_refine(cfg, device=dev)
+        xr, xi = buf[..., 0], buf[..., 1]
+        acq_ms = host_ms(lambda: fine(xr, xi, *detect(buf)[1:3]))
+        step_q = make_streaming_rx_step(cfg, dec, B, fused=True,
+                                        fused_quant="int8", device=dev)
+        dec_ms = host_ms(lambda: rx_run(step_q, dwq, fc.decoder_state_zero(
+            B, dev), buf)) / N_FRAMES
+        print(f"batch pair B={B}: tx (int8 encoder) {tx_ms:.4f} ms/frame, "
+              f"{B * frame_s / (tx_ms / 1e3):.0f} audio-s/s; receiver "
+              f"{rx_ms:.4f} ms/frame, {B * frame_s / (rx_ms / 1e3):.0f} "
+              f"audio-s/s over {N_FRAMES} frames: acquisition {acq_ms:.4f} ms "
+              f"a buffer ({acq_ms / N_FRAMES:.4f} ms/frame), decode "
+              f"{dec_ms:.4f} ms/frame (host clock)")
 
     print(card_line())
     print(json.dumps({"kernels": kernels}))

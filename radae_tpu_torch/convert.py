@@ -13,6 +13,8 @@ torch tensors with the same keys and layouts:
   decoder/conv{i}, decoder/output
 
 so both packages compute the same function from one npz.
+`load_torch_checkpoint` reads a reference .pth checkpoint into the same
+tree (`radae_tpu/convert.py:18-99`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,81 @@ import numpy as np
 import torch
 
 from . import resolve_device
+
+
+def _strip_prefix(k: str) -> str:
+    for pre in ("core_encoder.module.", "core_decoder.module.",
+                "core_encoder.", "core_decoder.", "module."):
+        if k.startswith(pre):
+            return k[len(pre):]
+    return k
+
+
+def _split_enc_dec(state_dict) -> Dict[str, Dict[str, np.ndarray]]:
+    enc, dec = {}, {}
+    for k, v in state_dict.items():
+        arr = np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                         dtype=np.float32)
+        if k.startswith("core_encoder"):
+            enc[_strip_prefix(k)] = arr
+        elif k.startswith("core_decoder"):
+            dec[_strip_prefix(k)] = arr
+    return {"encoder": enc, "decoder": dec}
+
+
+def _convert_side(sd: Dict[str, np.ndarray], side: str) -> Dict[str, Any]:
+    """One flat torch-named dict -> a params subtree."""
+    p: Dict[str, Any] = {}
+
+    def dense(name):
+        return {"w": sd[f"{name}.weight"], "b": sd[f"{name}.bias"]}
+
+    p["dense_1"] = dense("dense_1")
+    for i in range(1, 6):
+        g = f"gru{i}"
+        # streaming checkpoints nest the GRU one level deeper (gru{i}.gru.*)
+        base = g if f"{g}.weight_ih_l0" in sd else f"{g}.gru"
+        p[g] = {
+            "w_ih": sd[f"{base}.weight_ih_l0"],
+            "w_hh": sd[f"{base}.weight_hh_l0"],
+            "b_ih": sd[f"{base}.bias_ih_l0"],
+            "b_hh": sd[f"{base}.bias_hh_l0"],
+        }
+        c = f"conv{i}"
+        p[c] = {"w": sd[f"{c}.conv.weight"], "b": sd[f"{c}.conv.bias"]}
+        if side == "decoder":
+            glu = f"glu{i}"
+            if f"{glu}.gate.parametrizations.weight.original0" in sd:
+                g0 = sd[f"{glu}.gate.parametrizations.weight.original0"]
+                v = sd[f"{glu}.gate.parametrizations.weight.original1"]
+                p[glu] = {"g": g0.reshape(-1), "v": v}
+            elif f"{glu}.gate.weight_g" in sd:   # legacy weight_norm naming
+                p[glu] = {"g": sd[f"{glu}.gate.weight_g"].reshape(-1),
+                          "v": sd[f"{glu}.gate.weight_v"]}
+            else:                                 # already-fused weight
+                w = sd[f"{glu}.gate.weight"]
+                p[glu] = {"g": np.linalg.norm(w, axis=1), "v": w}
+    p["output" if side == "decoder" else "z_dense"] = dense(
+        "output" if side == "decoder" else "z_dense")
+    return p
+
+
+def torch_state_dict_to_params(state_dict) -> Dict[str, Any]:
+    """Reference torch state_dict (`core_encoder.` / `core_decoder.`
+    prefixes, weight-norm GLU gates) -> params tree of numpy arrays."""
+    split = _split_enc_dec(state_dict)
+    out: Dict[str, Any] = {}
+    for side, sd in split.items():
+        if sd:
+            out[side] = _convert_side(sd, side)
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """Load a reference .pth checkpoint into a params tree of numpy."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    return torch_state_dict_to_params(sd)
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:

@@ -4,13 +4,15 @@
 //
 // Replaces the Pallas TPU kernels in radae_tpu/ops/fused_core.py:
 //   radae_fused_decoder_step         <- make_fused_decoder_step, body `kernel`
-//                                       (unmerged f32 form)
+//                                       (unmerged; f32 and quant="int8")
 //   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
-//                                       `kernel_merged` (merged=True, f32)
+//                                       `kernel_merged` (merged=True; f32
+//                                       and quant="int8")
 //   radae_fused_rx_frame_step        <- make_fused_rx_frame_step (f32; the
 //                                       samples staged by cp.async, the
 //                                       port's form of its rx_dma copies)
-//   radae_fused_encoder_step         <- make_fused_encoder_step (f32 form)
+//   radae_fused_encoder_step         <- make_fused_encoder_step (f32 and
+//                                       quant="int8")
 // and computes the same functions as the plain PyTorch versions in
 // radae_tpu_torch/ops/fused_core.py (decoder_step_plain,
 // decoder_merged_step_plain, rx_frame_step_plain, encoder_step_plain).
@@ -98,6 +100,25 @@
 // the decoder's scratch; the bound is the decoder's plus about 4% for the
 // demod.
 //
+// int8 weights.  The encoder and both decoders have a second instance (the
+// template argument Q) for the weights of radae_tpu's `_fused_weights(
+// quant="int8")`: every matrix int8, one byte a weight, with a per-output-
+// column f32 scale row, but those its quant_exclude keeps in f32 (a unit
+// scale row each), so the kind is a flag per matrix, the same for a whole
+// work item (warp-uniform).  tmac reads the 4 int8 weights of a row segment
+// as one 32-bit load and converts them to f32 before the same multiply-adds
+// (f32 activations and sums, as the TPU kernel's dot after its astype);
+// the scale multiplies the product on its output, the K lanes' summed tile,
+// before the bias (kputq, and the merged kernel's GLU epilogue).  A K chunk's
+// partial is scaled on its own, and the chunks are added after the barrier:
+// the same sum as scaling their total.  The GRU's r|z items, which add x @
+// wih and h @ whh in one tile in f32, put the h product into partials of
+// its own, since the two have different scales (12 KB more shared memory
+// for the decoder, 8 KB for the encoder).  The weights a launch fetches are
+// a quarter of the f32 instance's; the multiply-adds are the same, so the
+// bound is the same.  The frame kernel stays f32: radae_tpu's frame kernel
+// has no quant.
+//
 // Built by radae_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes: plain C entries, pointers and the stream passed as
@@ -120,10 +141,29 @@ static_assert(ET % 8 == 0 && R % ET == 0, "a lane keeps ET/8 rows after the K su
 constexpr int DEC_H = 96, DEC_G = 3 * DEC_H, DEC_CO = 32, DEC_X = 736;
 constexpr int DEC_NW = 2 + 5 * 8 + 2;
 constexpr int DEC_NWM = 2 + 5 * 6 + 2;         // chain-merged layout
+constexpr int DEC_NS = 1 + 5 * 5 + 1;          // int8 scale rows, unmerged
+constexpr int DECM_NS = 1 + 5 * 3 + 1;         //   and merged
 constexpr int DEC_GG = DEC_G + DEC_H;          // [whh | glu] columns
 // encoder widths (radae_tpu/models/core.py:37-39)
 constexpr int ENC_H = 64, ENC_G = 3 * ENC_H, ENC_CO = 96, ENC_X = 864;
 constexpr int ENC_NW = 2 + 5 * 7 + 2;
+constexpr int ENC_NS = 1 + 5 * 4 + 1;          // int8 scale rows
+
+// The arrays of a layout that are matrices: d1_w, out_w and per layer the
+// bits of `layer` from array 2 + per * i on (an int8 launch may mark only
+// these as int8)
+constexpr unsigned long long mat_mask(int nw, int per, unsigned long long layer) {
+  unsigned long long m = 1ull | 1ull << (nw - 2);
+  for (int i = 0; i < 5; ++i) m |= layer << (2 + per * i);
+  return m;
+}
+constexpr int popcount(unsigned long long m) { return m ? (int)(m & 1) + popcount(m >> 1) : 0; }
+constexpr unsigned long long DEC_MATS = mat_mask(DEC_NW, 8, 0x73);   // wih whh glu cw0 cw1
+constexpr unsigned long long DECM_MATS = mat_mask(DEC_NWM, 6, 0x13); // wih wgg cw
+constexpr unsigned long long ENC_MATS = mat_mask(ENC_NW, 7, 0x33);   // wih whh cw0 cw1
+static_assert(popcount(DEC_MATS) == DEC_NS && popcount(DECM_MATS) == DECM_NS &&
+                  popcount(ENC_MATS) == ENC_NS,
+              "a scale row per matrix");
 
 // unmerged decoder (dec_body): x ring + h ring, then the tile products'
 // partial sums, the widest the GRU's two K halves of its gate sums
@@ -134,6 +174,8 @@ constexpr int DEC_GU = 2 * (DEC_RZ + DEC_NG);  // GRU units: groups x halves
 constexpr int DEC_CONV_KS = 3;                 // K chunks of each conv tap
 constexpr int DEC_TMAX_OUT = 96;               // 6 column groups >= 4 * 21
 constexpr size_t DEC_SMEM = sizeof(float) * (DEC_RING + 2 * R * DEC_GS);
+// the int8 instance adds the r|z groups' h @ whh partials [R][2 DEC_H]
+constexpr size_t DEC_SMEM_Q = DEC_SMEM + sizeof(float) * R * 2 * DEC_H;
 static_assert(DEC_H % 16 == 0 && DEC_CO % 16 == 0, "whole column groups");
 static_assert(R * DEC_H / 4 == NT && R * DEC_CO / 4 <= NT &&
                   R * DEC_TMAX_OUT / 4 <= NT,
@@ -141,7 +183,7 @@ static_assert(R * DEC_H / 4 == NT && R * DEC_CO / 4 <= NT &&
 static_assert(2 * DEC_CONV_KS * R * DEC_CO <= 2 * R * DEC_GS &&
                   2 * R * DEC_TMAX_OUT <= 2 * R * DEC_GS,
               "every partial buffer fits the scratch");
-static_assert(DEC_SMEM <= 232448, "opt-in shared memory of one block");
+static_assert(DEC_SMEM_Q <= 232448, "opt-in shared memory of one block");
 
 // encoder products (enc_kernel)
 constexpr int ENC_GS = ENC_G + ENC_H;          // gate sums: r|z, x@n, h@n
@@ -150,10 +192,12 @@ constexpr int ENC_D1_KS = 3, ENC_Z_KS = 2;     // K chunks of dense_1, z_dense
 constexpr int ENC_MAX_OUT = 96;                // >= latent 80
 constexpr int ENC_FOFF = ENC_X - ENC_CO;       // features staged at x[768..]
 constexpr size_t ENC_SMEM = sizeof(float) * (3 * R * ENC_X + ENC_SCR);
+// the int8 instance adds the r|z groups' h @ whh partials [R][2 ENC_H]
+constexpr size_t ENC_SMEM_Q = ENC_SMEM + sizeof(float) * R * 2 * ENC_H;
 static_assert(ENC_D1_KS * R * ENC_H <= ENC_SCR && 2 * R * ENC_CO <= ENC_SCR &&
                   ENC_Z_KS * R * ENC_MAX_OUT <= ENC_SCR,
               "every partial buffer fits the gate scratch");
-static_assert(ENC_SMEM <= 232448, "opt-in shared memory of one block");
+static_assert(ENC_SMEM_Q <= 232448, "opt-in shared memory of one block");
 static_assert(R * ENC_H / 4 <= NT && R * ENC_CO / 4 <= NT &&
                   R * ENC_MAX_OUT / 4 <= NT,
               "each finish pass is one float4 a thread");
@@ -278,6 +322,17 @@ struct EncArgs {
   float* hist_out[5];
 };
 
+// The int8 instances' second kernel argument (the f32 ones ignore it, and
+// the frame kernel has none): bit j of i8 set when array j is int8, and the
+// start in w of each of the NS scale rows.  The kernels take it as
+// __grid_constant__, so that indexing soff reads the parameter in place
+// (without, each thread copied it to local memory first).
+template <int NS>
+struct QuantArgs {
+  unsigned long long i8;
+  int soff[NS];
+};
+
 // A row-major operand: row r is p + min(r, rmax) * ld (rmax clamps the
 // ragged batch edge for operands read from device memory).
 struct Src {
@@ -297,6 +352,14 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
 }
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+// 4 int8 weights of a row segment, one 32-bit load, as floats
+__device__ __forceinline__ float4 ldq4(const signed char* p) {
+  const char4 q = __ldg(reinterpret_cast<const char4*>(p));
+  return make_float4(q.x, q.y, q.z, q.w);
 }
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float4 tanh4(float4 v) {
@@ -376,12 +439,18 @@ __device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
   return v;
 }
 
-// rows k..k+3 of W at columns c..c+3 (zeros where !v)
+// rows k..k+3 of W at columns c..c+3 (zeros where !v), f32 or int8
 __device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
                                     bool v) {
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int m = 0; m < 4; ++m) wt[m] = v ? ldg4(p + m * out) : z;
+}
+__device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
+                                    int out, bool v) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) wt[m] = v ? ldq4(p + m * out) : z;
 }
 
 // acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
@@ -390,15 +459,16 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
 // kernel's sample rows (every operand of a tile product is there: the
 // carried state and the inputs are staged first).  k0 and k1 are multiples
 // of 4; an empty range adds nothing.  The next K step's weights are loaded
-// into registers before this step's multiply-adds.
+// into registers before this step's multiply-adds.  W is f32 or int8 (T).
+template <class T>
 __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
-                                     int r0, const float* __restrict__ W,
+                                     int r0, const T* __restrict__ W,
                                      int out, int c, int k0, int k1, int kl) {
   const float* const xr = X + r0 * ld;
   const bool cv = c < out;
   const int n = (k1 - k0 + 31) >> 5;
   int k = k0 + 4 * kl;
-  const float* wp = W + (size_t)k * out + c;
+  const T* wp = W + (size_t)k * out + c;
   float4 wn[4];
   ldw(wn, wp, out, cv && k < k1);
 #pragma unroll 1   // unrolled by 2: no faster on an H100, twice the code
@@ -458,6 +528,42 @@ __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
   }
 }
 
+// tmac on the matrix at W, int8 when Q (an int8 instance) and q (its kind)
+template <bool Q>
+__device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
+                                     int r0, const float* W, bool q, int out,
+                                     int c, int k0, int k1, int kl) {
+  if (Q && q)
+    tmac(acc, X, ld, r0, reinterpret_cast<const signed char*>(W), out, c, k0,
+         k1, kl);
+  else
+    tmac(acc, X, ld, r0, W, out, c, k0, k1, kl);
+}
+
+// The scale row sc at columns c..c+3 in an int8 instance (ones otherwise)
+template <bool Q>
+__device__ __forceinline__ float4 scl(const float* sc, int c, int out) {
+  return Q && c < out ? ldg4(sc + c) : make_float4(1.f, 1.f, 1.f, 1.f);
+}
+
+// kput, in an int8 instance with the summed tile times the column scale s
+// before the bias
+template <bool Q>
+__device__ __forceinline__ void kputq(float4 (&acc)[ET], int kl, int r0,
+                                      float* dst, int ld, float4 s,
+                                      float4 bias, bool put) {
+  if (!Q) {
+    kput(acc, kl, r0, dst, ld, bias, put);
+    return;
+  }
+  const int rk = ksum(acc, kl, r0);
+  if (put) {
+#pragma unroll
+    for (int i = 0; i < ET / 8; ++i)
+      st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));
+  }
+}
+
 __device__ __forceinline__ void zero(float4 (&acc)[ET]) {
 #pragma unroll
   for (int i = 0; i < ET; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -479,10 +585,12 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // row group, one 16-column group and one K chunk (kc wide, a multiple of
 // 32), taken by the warps in turn.  Chunk ch's partial goes to
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
-// after the barrier adds the chunks in order.
-__device__ __forceinline__ void tprod(const float* X, int ld,
-                                      const float* __restrict__ W,
-                                      int K, int out, int ng, int ks,
+// after the barrier adds the chunks in order.  In an int8 instance W is
+// int8 when q, and each partial is scaled by the row sc.
+template <bool Q>
+__device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
+                                      bool q, const float* sc, int K, int out,
+                                      int ng, int ks,
                                       const float* __restrict__ bias,
                                       float* part, int warp, int kl, int cq) {
   const int kc = ((K + ks - 1) / ks + 31) & ~31;
@@ -495,8 +603,9 @@ __device__ __forceinline__ void tprod(const float* X, int ld,
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 acc[ET];
     zero(acc);
-    tmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
-    kput(acc, kl, r0, part + ch * R * out + c, out, b, c < out);
+    wmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+    kputq<Q>(acc, kl, r0, part + ch * R * out + c, out, scl<Q>(sc, c, out), b,
+             c < out);
   }
 }
 
@@ -544,12 +653,16 @@ __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
 // and layer i's conv history over the prefix of x[-1] just before its conv
 // at the first step (the next layer overwrites it with its own).  Each
 // staging pass sits between two barriers that are there anyway.  smem holds
-// DEC_SMEM bytes.
-__device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
-                                         const Src& zs, int zstep) {
+// DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).
+template <bool Q>
+__device__ __forceinline__ void dec_body(const DecArgs& a,
+                                         const QuantArgs<DEC_NS>& qa,
+                                         float* smem, const Src& zs,
+                                         int zstep) {
   float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
   float* const scr = smem + DEC_RING;                   // partial sums
+  float* const hz = scr + 2 * R * DEC_GS;               // Q: r|z h @ whh
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int kl = lane >> 2, cq = 4 * (lane & 3);        // K lane, column quad
   const int b0 = blockIdx.x * R;
@@ -561,6 +674,12 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
+  // Q: array j's kind and scale row si (scale rows in the order of
+  // radae_tpu's kernel: d1, per layer wih whh glu cw0 cw1, out)
+  const unsigned long long i8 = qa.i8;
+  const int* const soff = qa.soff;
+  auto q8 = [=](int j) { return Q && (i8 >> j & 1); };
+  auto sc = [=](int si) { return Q ? w + soff[si] : nullptr; };
 
   for (int i = 0; i < 5; ++i)
     stage<DEC_H>(hb + (5 + i) * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H,
@@ -574,8 +693,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod(X + DEC_H, DEC_X, w + off[0], a.in_dim, DEC_H, DEC_NG, 2, w + off[1],
-          scr, warp, kl, cq);
+    tprod<Q>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
+             DEC_NG, 2, w + off[1], scr, warp, kl, cq);
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -584,6 +703,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
     for (int i = 0; i < 5; ++i) {
       const int gin = DEC_H + 128 * i, cin = gin + DEC_H;
       const int* o = off + 2 + 8 * i;   // wih whh bih bhh glu cw0 cw1 cb
+      const int j0 = 2 + 8 * i;       // o's first array (int8 kinds)
+      const bool qi = q8(j0), qh = q8(j0 + 1);
+      const float *si = sc(1 + 5 * i), *sh = sc(2 + 5 * i);
       const float *wih = w + o[0], *whh = w + o[1];
       const float *bih = w + o[2], *bhh = w + o[3];
       float* const hc = hb + (cur * 5 + i) * R * DEC_H;
@@ -595,6 +717,7 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
       // 288..383 h@whh of n (half 1 only).  bih (+ bhh for r, z) rides on
       // half 0, bhh of n on half 1.  A unit is one 16-column group over one
       // half: 12 r|z groups x 2, then 6 n groups x 2, 36 units in 3 rounds.
+      // Q: the r|z groups' h@whh go to hz [R][192], scaled on their own.
       const int kh = cin / 2;
       for (int u = warp; u < RG * DEC_GU; u += NWARP) {
         const int r0 = u / DEC_GU * ET, v = u % DEC_GU;
@@ -605,8 +728,22 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
         if (hf == 0) bx = rz ? add4(ldg4(bih + c), ldg4(bhh + c)) : ldg4(bih + c);
         const float4 bh = hf == 1 && !rz ? ldg4(bhh + c) : zero4;
         float* const p = scr + hf * R * DEC_GS + c;
+        const float4 gi = scl<Q>(si, c, DEC_G), gh = scl<Q>(sh, c, DEC_G);
+        // (bh is zero for the r|z groups)
         float4 acc[ET];
         zero(acc);
+        if (Q) {
+          wmac<Q>(acc, X, DEC_X, r0, wih, qi, DEC_G, c, hf ? kh : 0,
+                  hf ? gin : kh, kl);
+          kputq<Q>(acc, kl, r0, p, DEC_GS, gi, bx, true);
+          if (hf) {
+            zero(acc);
+            wmac<Q>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
+            kputq<Q>(acc, kl, r0, rz ? hz + c : p + DEC_H, rz ? 2 * DEC_H : DEC_GS,
+                     gh, bh, true);
+          }
+          continue;
+        }
         tmac(acc, X, DEC_X, r0, wih, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
         if (rz && hf) tmac(acc, hp, DEC_H, r0, whh, DEC_G, c, 0, DEC_H, kl);
         kput(acc, kl, r0, p, DEC_GS, bx, true);
@@ -623,8 +760,13 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
       {
         const float* const p0 = scr + fr * DEC_GS + fc;
         const float* const p1 = p0 + R * DEC_GS;
-        const float4 gr = add4(ld4(p0), ld4(p1));
-        const float4 gz = add4(ld4(p0 + DEC_H), ld4(p1 + DEC_H));
+        float4 gr = add4(ld4(p0), ld4(p1));
+        float4 gz = add4(ld4(p0 + DEC_H), ld4(p1 + DEC_H));
+        if (Q) {
+          const float* const pz = hz + fr * 2 * DEC_H + fc;
+          gr = add4(gr, ld4(pz));
+          gz = add4(gz, ld4(pz + DEC_H));
+        }
         const float4 gx = add4(ld4(p0 + 2 * DEC_H), ld4(p1 + 2 * DEC_H));
         const float4 gh = ld4(p1 + 3 * DEC_H);
         const float4 h = ld4(hp + fr * DEC_H + fc);
@@ -639,8 +781,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod(hc, DEC_H, w + o[4], DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp,
-            kl, cq);
+      tprod<Q>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i), DEC_H, DEC_H,
+               DEC_NG, 2, nullptr, scr, warp, kl, cq);
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -665,8 +807,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        tmac(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap], DEC_CO, c, kb, ke, kl);
-        kput(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO, b, true);
+        wmac<Q>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap], q8(j0 + 5 + tap),
+                DEC_CO, c, kb, ke, kl);
+        kputq<Q>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
+                 scl<Q>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
       }
       __syncthreads();
       if (t < R * DEC_CO / 4) {
@@ -681,8 +825,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod(X, DEC_X, w + off[DEC_NW - 2], DEC_X, od, (od + 15) / 16, 2,
-          w + off[DEC_NW - 1], scr, warp, kl, cq);
+    tprod<Q>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2), sc(DEC_NS - 1),
+             DEC_X, od, (od + 15) / 16, 2, w + off[DEC_NW - 1], scr, warp, kl,
+             cq);
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -709,12 +854,14 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, float* smem,
   }
 }
 
-__global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
+template <bool Q>
+__global__ void __launch_bounds__(NT)
+    dec_kernel(const DecArgs a, const __grid_constant__ QuantArgs<DEC_NS> qa) {
   extern __shared__ float4 smem4[];
   const int b0 = blockIdx.x * R;
   const Src z0{a.z + (size_t)b0 * a.nz * a.in_dim, a.nz * a.in_dim,
                min(R, a.B - b0) - 1};
-  dec_body(a, reinterpret_cast<float*>(smem4), z0, a.in_dim);
+  dec_body<Q>(a, qa, reinterpret_cast<float*>(smem4), z0, a.in_dim);
 }
 
 // The chain-merged decoder stack (radae_tpu's `kernel_merged`) over a.nz
@@ -723,8 +870,12 @@ __global__ void __launch_bounds__(NT) dec_kernel(const DecArgs a) {
 // 0's GLU window X[:, DEC_H..] (before the first step, then in the output
 // pass of step k-1, after the output product has read X), where dense_1
 // reads them.  h, the hh projection and the tap projection are carried in
-// shared memory and updated in place.  smem holds DECM_SMEM bytes.
-__global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
+// shared memory and updated in place.  smem holds DECM_SMEM bytes.  In the
+// int8 instance (Q) the carried projections are the scaled ones, as in the
+// TPU kernel: bhh is added where they are used.
+template <bool Q>
+__global__ void __launch_bounds__(NT)
+    dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ QuantArgs<DECM_NS> qa) {
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
@@ -744,6 +895,11 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
   const float* const z0 = a.z + (size_t)b0 * zld;
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
+  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out)
+  const unsigned long long i8 = qa.i8;
+  const int* const soff = qa.soff;
+  auto q8 = [=](int j) { return Q && (i8 >> j & 1); };
+  auto sc = [=](int si) { return Q ? w + soff[si] : nullptr; };
 
   for (int i = 0; i < 5; ++i) {
     stage<DEC_H>(hs + i * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H, DEC_H,
@@ -765,8 +921,8 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
 
   for (int k = 0; k < a.nz; ++k) {
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod(X + DEC_H, DEC_X, w + off[0], a.in_dim, DEC_H, DEC_NG, 2, w + off[1],
-          scr, warp, kl, cq);
+    tprod<Q>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
+             DEC_NG, 2, w + off[1], scr, warp, kl, cq);
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -775,6 +931,7 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
     for (int i = 0; i < 5; ++i) {
       const int gin = DEC_H + 128 * i, cin = gin + DEC_H;
       const int* o = off + 2 + 6 * i;   // wih wgg bih bhh cw cb
+      const int j0 = 2 + 6 * i;       // o's first array (int8 kinds)
       float* const h = hs + i * R * DEC_H;
       float* const hg = gp + i * R * DEC_G;
       float* const hp = pp + i * R * DEC_CO;
@@ -782,8 +939,8 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
 
       // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
       // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
-      tprod(X, DEC_X, w + o[0], gin, DEC_G, DEC_G / 16, 2, w + o[2], scr, warp,
-            kl, cq);
+      tprod<Q>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin, DEC_G,
+               DEC_G / 16, 2, w + o[2], scr, warp, kl, cq);
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
@@ -809,13 +966,20 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
 
       // h @ [whh | glu], K = 96 whole: 24 units in 2 rounds.  The 18 hh
       // groups are the next step's projection (read above); the 6 GLU
-      // groups give X[:, gin:cin] = h * sigmoid(h @ glu)
+      // groups give X[:, gin:cin] = h * sigmoid(h @ glu); Q: both scaled
+      const bool qg = q8(j0 + 1);
+      const float* const sgg = sc(2 + 3 * i);
       for (int u = warp; u < RG * DECM_GGC; u += NWARP) {
         const int r0 = u / DECM_GGC * ET, c = u % DECM_GGC * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        tmac(acc, h, DEC_H, r0, w + o[1], DEC_GG, c, 0, DEC_H, kl);
+        wmac<Q>(acc, h, DEC_H, r0, w + o[1], qg, DEC_GG, c, 0, DEC_H, kl);
         const int rk = ksum(acc, kl, r0);
+        if (Q) {
+          const float4 s4 = ldg4(sgg + c);
+#pragma unroll
+          for (int j = 0; j < ET / 8; ++j) acc[j] = mul4(acc[j], s4);
+        }
         if (c < DEC_G) {
 #pragma unroll
           for (int j = 0; j < ET / 8; ++j) st4(hg + (rk + j) * DEC_G + c, acc[j]);
@@ -833,8 +997,8 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
 
       // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
       // chunks, partials [chunk][R][64]
-      tprod(X, DEC_X, w + o[4], cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
-            nullptr, scr, warp, kl, cq);
+      tprod<Q>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i), cin, 2 * DEC_CO,
+               2 * DEC_CO / 16, DECM_CONV_KS, nullptr, scr, warp, kl, cq);
       __syncthreads();
       // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
       // half of cc is the next step's projection (each float4 of it read
@@ -857,8 +1021,9 @@ __global__ void __launch_bounds__(NT) dec_merged_kernel(const DecMergedArgs a) {
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod(X, DEC_X, w + off[DEC_NWM - 2], DEC_X, od, (od + 15) / 16, 2,
-          w + off[DEC_NWM - 1], scr, warp, kl, cq);
+    tprod<Q>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2), sc(DECM_NS - 1),
+             DEC_X, od, (od + 15) / 16, 2, w + off[DEC_NWM - 1], scr, warp, kl,
+             cq);
     __syncthreads();
     for (int it = t; it < nv * (od / 4); it += NT) {
       const int r = it / (od / 4), c = it % (od / 4) * 4;
@@ -983,18 +1148,23 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   }
   __syncthreads();
 
-  dec_body(a.d, smem, Src{zsh, g.nz * g.lat, R - 1}, g.lat);
+  dec_body<false>(a.d, QuantArgs<DEC_NS>{}, smem,
+                  Src{zsh, g.nz * g.lat, R - 1}, g.lat);
 }
 
 // The encoder stack over a.nz z-steps for the block's R rows.  x[t] of
 // step t lives in ring slot t % 3; the carried state is staged into the
 // slots of x[-1] and x[-2] (h at its GRU window, each conv's history tap
 // as the prefix), and the features of step k at columns ENC_FOFF.. of its
-// own slot, each in a pass that already sits between two barriers.
-__global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
+// own slot, each in a pass that already sits between two barriers.  Q: the
+// int8 instance (ENC_SMEM_Q bytes of shared memory).
+template <bool Q>
+__global__ void __launch_bounds__(NT)
+    enc_kernel(const EncArgs a, const __grid_constant__ QuantArgs<ENC_NS> qa) {
   extern __shared__ float4 smem4[];
   float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
   float* const scr = xb + 3 * R * ENC_X;                // gates / partials
+  float* const ez = scr + ENC_SCR;                      // Q: r|z h @ whh
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kl = lane >> 2, cq = 4 * (lane & 3);        // K lane, column quad
   const int b0 = blockIdx.x * R;
@@ -1010,6 +1180,11 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   const float4 d1v = ldg4(w + off[1] + t % (ENC_H / 4) * 4);
   const float4 obv = ldg4(w + off[ENC_NW - 1] + t % (od / 4) * 4);
+  // Q: array j's kind and scale row si (d1, per layer wih whh cw0 cw1, out)
+  const unsigned long long i8 = qa.i8;
+  const int* const soff = qa.soff;
+  auto q8 = [=](int j) { return Q && (i8 >> j & 1); };
+  auto sc = [=](int si) { return Q ? w + soff[si] : nullptr; };
   stage<ENC_X>(xb + ENC_FOFF, f0, fld, a.in_dim, rmax);
   __syncthreads();
   for (int k = 0; k < a.nz; ++k) {
@@ -1025,8 +1200,10 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        tmac(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], ENC_H, c, kb, ke, kl);
-      kput(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H, zero4, true);
+        wmac<Q>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], q8(0), ENC_H, c, kb,
+                ke, kl);
+      kputq<Q>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
+               scl<Q>(sc(0), c, ENC_H), zero4, true);
     }
     __syncthreads();
     if (t < R * ENC_H / 4) {
@@ -1044,6 +1221,9 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       const int gin = ENC_H + 160 * i, cin = gin + ENC_H;
       const int d = i == 0 ? 1 : 2;     // conv dilations 1,2,2,2,2
       const int* o = off + 2 + 7 * i;   // wih whh bih bhh cw0 cw1 cb
+      const int j0 = 2 + 7 * i;       // o's first array (int8 kinds)
+      const bool qi = q8(j0), qh = q8(j0 + 1);
+      const float *si = sc(1 + 4 * i), *sh = sc(2 + 4 * i);
       const float *wih = w + o[0], *whh = w + o[1];
       const float *bih = w + o[2], *bhh = w + o[3];
       float* const Xd = xb + ((k + 3 - d) % 3) * R * ENC_X;  // x[k-d]
@@ -1053,12 +1233,25 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       // + bih + bhh of the r and z gates; 128..191 x@wih + bih of the n
       // gate; 192..255 h@whh + bhh of the n gate.  A unit is one 16-column
       // group: an r|z item over both products, or the two n items.  The
-      // previous h is x[k-1]'s GRU window.
+      // previous h is x[k-1]'s GRU window.  Q: an r|z item puts its h@whh
+      // into ez [R][128], scaled on its own.
       for (int u = warp; u < RG * 12; u += NWARP) {
         const int r0 = u / 12 * ET, qg = u % 12, c = qg * 16 + cq;
         const float4 bi = ldg4(bih + c), bh = ldg4(bhh + c);
+        const float4 gi = scl<Q>(si, c, ENC_G), gh = scl<Q>(sh, c, ENC_G);
         float4 acc[ET];
         zero(acc);
+        if (Q) {
+          const bool rz = qg < 8;
+          wmac<Q>(acc, X, ENC_X, r0, wih, qi, ENC_G, c, 0, gin, kl);
+          kputq<Q>(acc, kl, r0, scr + c, ENC_GS, gi, rz ? add4(bi, bh) : bi,
+                   true);
+          zero(acc);
+          wmac<Q>(acc, Xp + gin, ENC_X, r0, whh, qh, ENC_G, c, 0, ENC_H, kl);
+          kputq<Q>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
+                   rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
+          continue;
+        }
         tmac(acc, X, ENC_X, r0, wih, ENC_G, c, 0, gin, kl);
         if (qg < 8) {
           tmac(acc, Xp + gin, ENC_X, r0, whh, ENC_G, c, 0, ENC_H, kl);
@@ -1080,8 +1273,13 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       for (int it = threadIdx.x; it < R * ENC_H; it += NT) {
         const int r = it / ENC_H, j = it % ENC_H;
         const float* s = scr + r * ENC_GS;
-        const float rr = sigm(s[j]);
-        const float zz = sigm(s[ENC_H + j]);
+        float gr = s[j], gz = s[ENC_H + j];
+        if (Q) {
+          gr += ez[r * 2 * ENC_H + j];
+          gz += ez[r * 2 * ENC_H + ENC_H + j];
+        }
+        const float rr = sigm(gr);
+        const float zz = sigm(gz);
         const float nn = tanhf(s[2 * ENC_H + j] + rr * s[3 * ENC_H + j]);
         const float h = hp[(size_t)min(r, hmax) * hld + j];
         X[r * ENC_X + gin + j] = (1.f - zz) * nn + zz * h;
@@ -1098,8 +1296,10 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        tmac(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap], ENC_CO, c, 0, cin, kl);
-        kput(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO, zero4, true);
+        wmac<Q>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap], q8(j0 + 4 + tap),
+                ENC_CO, c, 0, cin, kl);
+        kputq<Q>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
+                 scl<Q>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
       }
       __syncthreads();
       if (t < R * ENC_CO / 4) {
@@ -1124,8 +1324,10 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      tmac(acc, X, ENC_X, r0, w + off[ENC_NW - 2], od, c, kb, ke, kl);
-      kput(acc, kl, r0, scr + ch * R * od + c, od, zero4, c < od);
+      wmac<Q>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], q8(ENC_NW - 2), od, c, kb,
+              ke, kl);
+      kputq<Q>(acc, kl, r0, scr + ch * R * od + c, od,
+               scl<Q>(sc(ENC_NS - 1), c, od), zero4, c < od);
     }
     __syncthreads();
     float* const zo = a.z + ((size_t)b0 * a.nz + k) * od;
@@ -1164,21 +1366,54 @@ __global__ void __launch_bounds__(NT) enc_kernel(const EncArgs a) {
   }
 }
 
+// The int8 mask of a launch (bit j: array j is int8) from its kinds[n]
+// (1: int8), and its scale offsets into soff_out; false unless the launch is
+// one that an instance takes: no scale rows and no int8 array (f32), or ns
+// scale rows and int8 at matrices only (int8)
+template <int NS>
+bool quant_args(const int* kinds, int n, const int* soff, int n_soff,
+                unsigned long long mats, QuantArgs<NS>& q) {
+  if (n_soff != 0 && n_soff != NS) return false;
+  q.i8 = 0;
+  for (int j = 0; j < n; ++j)
+    if (kinds[j]) q.i8 |= 1ull << j;
+  for (int j = 0; j < NS; ++j) q.soff[j] = n_soff ? soff[j] : 0;
+  return (q.i8 & ~mats) == 0 && (n_soff > 0 || q.i8 == 0);
+}
+
+// Set the kernel's shared memory and launch it on the stream
+template <class K, class A, class Q>
+int launch(K kernel, size_t smem, int B, void* stream, const A& a,
+           const Q& q) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(B + R - 1) / R, NT, smem, static_cast<cudaStream_t>(stream)>>>(a, q);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every entry takes (weights, offsets[n_off], n_off, input, output, sizes...,
-// state_in[], state_out[], stream) and returns the launch's cudaError_t.
+// state_in[], state_out[], stream) and returns the launch's cudaError_t.  The
+// decoders and the encoder take, after n_off, each array's kind (kinds[n_off],
+// 1 for an int8 matrix) and the offsets of the scale rows (soff[n_soff]):
+// n_soff = 0 launches the f32 instance, the layout's number of matrices the
+// int8 one.
 
 int radae_fused_decoder_step(const void* w, const int* off, int n_off,
+                             const int* kinds, const int* soff, int n_soff,
                              const void* z, void* feats, int B, int nz,
                              int in_dim, int out_dim, void* const* state_in,
                              void* const* state_out, void* stream) {
-  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
-      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT)
-    return (int)cudaErrorInvalidValue;
   DecArgs a;
+  QuantArgs<DEC_NS> q;
+  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT ||
+      !quant_args(kinds, n_off, soff, n_soff, DEC_MATS, q))
+    return (int)cudaErrorInvalidValue;
   a.w = static_cast<const float*>(w);
   for (int i = 0; i < DEC_NW; ++i) a.off[i] = off[i];
   a.z = static_cast<const float*>(z);
@@ -1190,22 +1425,22 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DEC_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dec_kernel<<<(B + R - 1) / R, NT, DEC_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return n_soff ? launch(dec_kernel<true>, DEC_SMEM_Q, B, stream, a, q)
+                : launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
 }
 
 int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
-                                    const void* z, void* feats, int B, int nz,
-                                    int in_dim, int out_dim,
+                                    const int* kinds, const int* soff,
+                                    int n_soff, const void* z, void* feats,
+                                    int B, int nz, int in_dim, int out_dim,
                                     void* const* state_in,
                                     void* const* state_out, void* stream) {
-  if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
-      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_MAX_OUT)
-    return (int)cudaErrorInvalidValue;
   DecMergedArgs a;
+  QuantArgs<DECM_NS> q;
+  if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_MAX_OUT ||
+      !quant_args(kinds, n_off, soff, n_soff, DECM_MATS, q))
+    return (int)cudaErrorInvalidValue;
   a.w = static_cast<const float*>(w);
   for (int i = 0; i < DEC_NWM; ++i) a.off[i] = off[i];
   a.z = static_cast<const float*>(z);
@@ -1219,13 +1454,8 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
     a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
     a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      dec_merged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DECM_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dec_merged_kernel<<<(B + R - 1) / R, NT, DECM_SMEM,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return n_soff ? launch(dec_merged_kernel<true>, DECM_SMEM, B, stream, a, q)
+                : launch(dec_merged_kernel<false>, DECM_SMEM, B, stream, a, q);
 }
 
 int radae_rx_frame_limit(int ns, int nc, int samp, int latent, int nz) {
@@ -1279,15 +1509,18 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
 }
 
 int radae_fused_encoder_step(const void* w, const int* off, int n_off,
+                             const int* kinds, const int* soff, int n_soff,
                              const void* f, void* z, int B, int nz,
                              int in_dim, int out_dim, int bottleneck,
                              void* const* state_in, void* const* state_out,
                              void* stream) {
+  EncArgs a;
+  QuantArgs<ENC_NS> q;
   if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
       out_dim < 4 || out_dim % 4 || in_dim > ENC_X - ENC_FOFF ||
-      out_dim > ENC_MAX_OUT)
+      out_dim > ENC_MAX_OUT ||
+      !quant_args(kinds, n_off, soff, n_soff, ENC_MATS, q))
     return (int)cudaErrorInvalidValue;
-  EncArgs a;
   a.w = static_cast<const float*>(w);
   for (int i = 0; i < ENC_NW; ++i) a.off[i] = off[i];
   a.f = static_cast<const float*>(f);
@@ -1300,11 +1533,8 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      enc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ENC_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  enc_kernel<<<(B + R - 1) / R, NT, ENC_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return n_soff ? launch(enc_kernel<true>, ENC_SMEM_Q, B, stream, a, q)
+                : launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
 }
 
 // The tiling, for counting the weight bytes a launch fetches: batch rows a

@@ -23,24 +23,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of each library's entries: name -> argtypes (restype int).
-# Every launch entry takes (weights, offsets, n_off, input, output, <sizes>,
-# state_in[], state_out[], stream) and returns the launch's cudaError_t; the
-# entries with no arguments return a constant of the kernels' tiling, and
-# radae_rx_frame_limit the frame kernel's limit a modem geometry breaks.
+# Every launch entry takes (weights, offsets, n_off, [kinds, scale offsets,
+# n_scales,] input, output, <sizes>, state_in[], state_out[], stream) and
+# returns the launch's cudaError_t (the bracketed three: the entries with an
+# int8 instance); the entries with no arguments return a constant of the
+# kernels' tiling, and radae_rx_frame_limit the frame kernel's limit a
+# modem geometry breaks.
 _SIGNATURES = {
     "fused_core": {
         "radae_block_rows": [],
         "radae_enc_tile_rows": [],
         "radae_dec_tile_rows": [],
-        "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                     _P, _P, _P],
-        "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _I, _I,
-                                            _I, _P, _P, _P],
+        "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+                                     _I, _I, _P, _P, _P],
+        "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _P, _P,
+                                            _I, _I, _I, _I, _P, _P, _P],
         "radae_rx_frame_limit": [_I, _I, _I, _I, _I],
         "radae_fused_rx_frame_step": [_P, _P, _I, _P, _P, _I, _I, _F, _I,
                                       _I, _I, _I, _I, _I, _P, _P, _P],
-        "radae_fused_encoder_step": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                                     _P, _P, _P],
+        "radae_fused_encoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+                                     _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -1,7 +1,8 @@
 """Fused core codec steps: the whole recurrent encoder or decoder stack for
 nz latent steps in one CUDA kernel, and the whole rx frame (OFDM demod,
 LS pilot EQ, coarse magnitude, demap and decoder) in one more (port of
-`radae_tpu/ops/fused_core.py`, f32 forms).
+`radae_tpu/ops/fused_core.py`: the f32 forms, and the int8 forms of the
+encoder and both decoders).
 
 `fused_decoder_step` / `fused_encoder_step` / `fused_rx_frame_step` launch
 the hand-written kernels of `csrc/fused_core.cu` for CUDA tensors and run
@@ -12,6 +13,10 @@ is no fallback: a CUDA tensor goes to the kernel or the call raises.
 
 Weights are packed once, pre-transposed to (in, out), into one contiguous
 f32 buffer; the kernel takes the buffer plus the offset of each array.
+With quant="int8" every matrix (but those `quant_exclude` names) is stored
+as int8, one byte a weight, with a per-output-column f32 scale row
+appended to the buffer; each product is dequantized on its output,
+(x @ q) * scale + bias, as in radae_tpu's `_fused_weights`.
 The decoder comes in two layouts (`decoder_weights(merged=...)`):
   unmerged: per layer wih, whh, bih, bhh, glu, conv tap 0, tap 1, bias;
   merged:   per layer wih, wgg = [whh | glu], bih, bhh, cw = [tap1 | tap0],
@@ -33,7 +38,7 @@ states are not interchangeable.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,10 +50,13 @@ from .. import resolve_device
 from . import _kernels
 from .pilots import LOCAL_PATH_DELAY_S, ls_pmat, window3_index
 
-# kernel launches per kernel since the last reset_launches()
+# kernel launches per kernel form since the last reset_launches()
 LAUNCHES = {"fused_decoder_step": 0, "fused_decoder_merged_step": 0,
-            "fused_rx_frame_step": 0, "fused_encoder_step": 0}
+            "fused_rx_frame_step": 0, "fused_encoder_step": 0,
+            "fused_decoder_step_int8": 0, "fused_decoder_merged_step_int8": 0,
+            "fused_encoder_step_int8": 0}
 N_DEC, N_DEC_MERGED, N_ENC = 2 + 5 * 8 + 2, 2 + 5 * 6 + 2, 2 + 5 * 7 + 2
+QUANTS = (None, "int8")
 
 
 def reset_launches():
@@ -57,11 +65,23 @@ def reset_launches():
 
 
 class PackedWeights(NamedTuple):
-    """Weights of one fused stack in one contiguous f32 buffer."""
+    """Weights of one fused stack in one contiguous f32 buffer.  An int8
+    matrix takes a quarter of the floats it would take in f32; its view
+    is int8."""
     buf: torch.Tensor            # (n,) float32
-    offsets: Tuple[int, ...]     # start of each array in buf (16-byte aligned)
+    offsets: Tuple[int, ...]     # start of each array in buf, in floats
+                                 # (16-byte aligned)
     arrays: Tuple[torch.Tensor, ...]   # views of buf, in kernel order
     names: Tuple[str, ...]
+    # quant="int8": one (1, out) f32 scale row per matrix, in array order
+    # (a unit row for a matrix kept in f32 by quant_exclude), and their
+    # starts in buf
+    scales: Tuple[torch.Tensor, ...] = ()
+    scale_offsets: Tuple[int, ...] = ()
+
+    @property
+    def quant(self) -> Optional[str]:
+        return "int8" if self.scales else None
 
 
 def _np(a) -> np.ndarray:
@@ -70,18 +90,56 @@ def _np(a) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
-def _fused_arrays(params: Dict[str, Any], side: str, merged=False):
+def _quantize_int8(w: np.ndarray):
+    """int8 matrix and (1, out) f32 scales, radae_tpu's `_fused_weights`
+    search: per output column, the scale of least squared error among
+    absmax/127 and 8 smaller candidates."""
+    s0 = np.maximum(np.abs(w).max(axis=0) / 127.0, 1e-12)
+    cands = s0[None, :] * np.concatenate(
+        [[1.0], 0.64 + 0.045 * np.arange(8)])[:, None]
+    best_s, best_m = None, None
+    for s in cands:
+        q = np.clip(np.round(w / s), -127, 127)
+        m = ((q * s - w) ** 2).sum(axis=0)
+        if best_s is None:
+            best_s, best_m = s.copy(), m
+        else:
+            take = m < best_m
+            best_s[take] = s[take]
+            best_m = np.minimum(best_m, m)
+    q = np.clip(np.round(w / best_s), -127, 127).astype(np.int8)
+    return q, np.asarray(best_s[None, :], np.float32)
+
+
+def _fused_arrays(params: Dict[str, Any], side: str, merged=False,
+                  quant=None, quant_exclude=()):
     """Flatten a decoder/encoder param tree (numpy or torch leaves) into the
-    order of radae_tpu's `_fused_weights` (f32): d1_w, d1_b, per layer
-    g_wih, g_whh, g_bih, g_bhh, [glu_w,] c_w0, c_w1, c_b (merged, decoder
-    only: g_wih, g_wgg, g_bih, g_bhh, c_w, c_b), then out_w, out_b.
-    Matrices are transposed to (in, out).  Returns (arrays, names)."""
+    order of radae_tpu's `_fused_weights`: d1_w, d1_b, per layer g_wih,
+    g_whh, g_bih, g_bhh, [glu_w,] c_w0, c_w1, c_b (merged, decoder only:
+    g_wih, g_wgg, g_bih, g_bhh, c_w, c_b), then out_w, out_b.  Matrices
+    are transposed to (in, out).  quant="int8" stores each matrix as int8
+    with a scale row, but those whose name ends with a `quant_exclude`
+    suffix, which stay f32 with a unit scale row; a suffix that matches
+    no name raises.  Returns (arrays, names, scales); scales is [] unless
+    quant."""
     if merged and side != "decoder":
         raise ValueError("the merged layout is decoder-only")
-    arrs, names = [], []
+    if quant not in QUANTS:
+        raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+    arrs, names, scales = [], [], []
+    matched = set()
 
     def add(name, a):
-        arrs.append(np.ascontiguousarray(a, np.float32))
+        a = np.ascontiguousarray(a, np.float32)
+        if a.ndim >= 2 and quant == "int8":
+            excl = [x for x in quant_exclude if name.endswith(x)]
+            if excl:
+                matched.update(excl)
+                scales.append(np.ones((1, a.shape[1]), np.float32))
+            else:
+                a, sc = _quantize_int8(a)
+                scales.append(sc)
+        arrs.append(a)
         names.append(name)
 
     def addT(name, a):
@@ -110,33 +168,55 @@ def _fused_arrays(params: Dict[str, Any], side: str, merged=False):
         add(f"c{i}_b", _np(params[f"conv{i}"]["b"]))
     out = params["output" if side == "decoder" else "z_dense"]
     addT("out_w", out["w"]); add("out_b", _np(out["b"]))
-    return arrs, names
+    unmatched = set(quant_exclude) - matched
+    if quant == "int8" and unmatched:
+        raise ValueError(
+            f"quant_exclude suffixes matched no weight name: "
+            f"{sorted(unmatched)}; names are {names}")
+    return arrs, names, scales
 
 
-def _pack(arrs, names, device) -> PackedWeights:
-    """Copy arrays into one f32 buffer on `device`, every start 16-byte
-    aligned."""
+def _pack(arrs, names, device, scales=()) -> PackedWeights:
+    """Copy arrays (f32 or int8) and then the scale rows into one f32
+    buffer on `device`, every start 16-byte aligned."""
     offsets, n = [], 0
-    for a in arrs:
+    for a in list(arrs) + list(scales):
         offsets.append(n)
-        n += -(-a.size // 4) * 4          # keep every start 16-byte aligned
-    flat = np.zeros(n, np.float32)
-    for o, a in zip(offsets, arrs):
-        flat[o:o + a.size] = a.ravel()
-    buf = torch.as_tensor(flat, device=resolve_device(device))
-    views = tuple(buf[o:o + a.size].view(a.shape)
-                  for o, a in zip(offsets, arrs))
-    return PackedWeights(buf, tuple(offsets), views, tuple(names))
+        n += -(-a.nbytes // 16) * 4       # floats, a multiple of 16 bytes
+    flat = np.zeros(4 * n, np.uint8)
+    for o, a in zip(offsets, list(arrs) + list(scales)):
+        flat[4 * o:4 * o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).ravel()
+    buf = torch.as_tensor(flat.view(np.float32), device=resolve_device(device))
+    buf8 = buf.view(torch.int8)
+
+    def view(o, a):
+        if a.dtype == np.int8:
+            return buf8[4 * o:4 * o + a.size].view(a.shape)
+        return buf[o:o + a.size].view(a.shape)
+
+    views = tuple(view(o, a) for o, a in zip(offsets, list(arrs) + list(scales)))
+    k = len(arrs)
+    return PackedWeights(buf, tuple(offsets[:k]), views[:k], tuple(names),
+                         views[k:], tuple(offsets[k:]))
 
 
-def decoder_weights(params, device="cuda", merged=False) -> PackedWeights:
+def decoder_weights(params, device="cuda", merged=False, quant=None,
+                    quant_exclude=()) -> PackedWeights:
     """The decoder's fused weights, unmerged (44 arrays) or chain-merged
-    (34 arrays, radae_tpu's `decoder_weights(merged=True)`)."""
-    return _pack(*_fused_arrays(params, "decoder", merged), device)
+    (34 arrays, radae_tpu's `decoder_weights(merged=True)`); quant="int8"
+    adds 27 (unmerged) or 17 (merged) scale rows."""
+    arrs, names, scales = _fused_arrays(params, "decoder", merged, quant,
+                                        quant_exclude)
+    return _pack(arrs, names, device, scales)
 
 
-def encoder_weights(params, device="cuda") -> PackedWeights:
-    return _pack(*_fused_arrays(params, "encoder"), device)
+def encoder_weights(params, device="cuda", quant=None,
+                    quant_exclude=()) -> PackedWeights:
+    """The encoder's fused weights (39 arrays); quant="int8" adds 22 scale
+    rows."""
+    arrs, names, scales = _fused_arrays(params, "encoder", False, quant,
+                                        quant_exclude)
+    return _pack(arrs, names, device, scales)
 
 
 def is_merged(weights: PackedWeights) -> bool:
@@ -246,7 +326,7 @@ def fused_rx_weights(params, cfg, device="cuda") -> RxFrameWeights:
       ls_w (yw, yw): [Yr | Yi | 0] of a pilot row -> [hr | hi | 0] (zero
       rows and columns at the pad)."""
     Wr, Wi, Er, Ei = (t.numpy() for t in rx_demod_consts(cfg, "cpu"))
-    arrs, names = _fused_arrays(params, "decoder")
+    arrs, names, _ = _fused_arrays(params, "decoder")
     L = arrs[0].shape[0]
     perm = np.concatenate([np.arange(0, L, 2), np.arange(1, L, 2)])
     arrs[0] = np.ascontiguousarray(arrs[0][perm])
@@ -270,9 +350,20 @@ def fused_rx_weights(params, cfg, device="cuda") -> RxFrameWeights:
 # plain PyTorch versions (the kernels' reference)
 # ---------------------------------------------------------------------------
 
-def _gru_step(w_ih, b_ih, w_hh, b_hh, x, h):
-    xg = x @ w_ih + b_ih
-    hg = h @ w_hh + b_hh
+def _products(weights: PackedWeights):
+    """mm(x, j) = x @ arrays[j], dequantized on its output as radae_tpu's
+    int8 `dot` does, (x @ q) * scale, when the weights are int8 (a matrix
+    kept in f32 by quant_exclude is multiplied by its unit scale row)."""
+    arrays = weights.arrays
+    if not weights.scales:
+        return lambda x, j: x @ arrays[j]
+    rows = iter(weights.scales)
+    sc = [next(rows) if a.dim() == 2 else None for a in arrays]
+    return lambda x, j: (x @ arrays[j].float()) * sc[j]
+
+
+def _gru_step(xg, hg, h):
+    """h' from the gate sums xg = x @ w_ih + b_ih and hg = h @ w_hh + b_hh."""
     H = h.shape[-1]
     r = torch.sigmoid(xg[:, :H] + hg[:, :H])
     z = torch.sigmoid(xg[:, H:2 * H] + hg[:, H:2 * H])
@@ -282,20 +373,21 @@ def _gru_step(w_ih, b_ih, w_hh, b_hh, x, h):
 
 def decoder_step_plain(weights: PackedWeights, z, state):
     """z (B, nz, latent) -> (features (B, 4*nz, F), new_state)."""
-    w = weights.arrays
+    w, mm = weights.arrays, _products(weights)
     B, nz, _ = z.shape
     h, hist = list(state[:5]), list(state[5:])
     outs = []
     for step in range(nz):
-        x = torch.tanh(z[:, step] @ w[0] + w[1])
+        x = torch.tanh(mm(z[:, step], 0) + w[1])
         for i in range(5):
-            wih, whh, bih, bhh, gluw, cw0, cw1, cb = w[2 + 8 * i:10 + 8 * i]
-            h[i] = _gru_step(wih, bih, whh, bhh, x, h[i])
-            x = torch.cat([x, h[i] * torch.sigmoid(h[i] @ gluw)], dim=-1)
-            yc = torch.tanh(hist[i] @ cw0 + x @ cw1 + cb)
+            j = 2 + 8 * i      # wih whh bih bhh glu cw0 cw1 cb
+            h[i] = _gru_step(mm(x, j) + w[j + 2], mm(h[i], j + 1) + w[j + 3],
+                             h[i])
+            x = torch.cat([x, h[i] * torch.sigmoid(mm(h[i], j + 4))], dim=-1)
+            yc = torch.tanh(mm(hist[i], j + 5) + mm(x, j + 6) + w[j + 7])
             hist[i] = x
             x = torch.cat([x, yc], dim=-1)
-        outs.append(x @ w[-2] + w[-1])
+        outs.append(mm(x, len(w) - 2) + w[-1])
     feats = torch.stack(outs, dim=1)
     F = feats.shape[-1] // FRAMES_PER_STEP
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(h + hist)
@@ -306,30 +398,26 @@ def decoder_merged_step_plain(weights: PackedWeights, z, state):
     latent) -> (features (B, 4*nz, F), new 15-tensor state).  hg is the
     carried hh projection plus b_hh; h @ [whh | glu] gives the next
     step's projection and this step's GLU gate; x @ [tap1 | tap0] gives
-    this step's tap 1 and the next step's tap 0 (no bias until used)."""
-    w = weights.arrays
+    this step's tap 1 and the next step's tap 0 (no bias until used; with
+    int8 weights the carried projections are the dequantized ones)."""
+    w, mm = weights.arrays, _products(weights)
     B, nz, _ = z.shape
     h, hgp, hpp = list(state[:5]), list(state[5:10]), list(state[10:])
     outs = []
     for step in range(nz):
-        x = torch.tanh(z[:, step] @ w[0] + w[1])
+        x = torch.tanh(mm(z[:, step], 0) + w[1])
         for i in range(5):
-            wih, wgg, bih, bhh, cw, cb = w[2 + 6 * i:8 + 6 * i]
-            H, co = h[i].shape[-1], cb.shape[0]
-            xg = x @ wih + bih
-            hg = hgp[i] + bhh
-            r = torch.sigmoid(xg[:, :H] + hg[:, :H])
-            zz = torch.sigmoid(xg[:, H:2 * H] + hg[:, H:2 * H])
-            n = torch.tanh(xg[:, 2 * H:] + r * hg[:, 2 * H:])
-            h[i] = (1.0 - zz) * n + zz * h[i]
-            gh = h[i] @ wgg
+            j = 2 + 6 * i      # wih wgg bih bhh cw cb
+            H, co = h[i].shape[-1], w[j + 5].shape[0]
+            h[i] = _gru_step(mm(x, j) + w[j + 2], hgp[i] + w[j + 3], h[i])
+            gh = mm(h[i], j + 1)
             hgp[i] = gh[:, :3 * H]
             x = torch.cat([x, h[i] * torch.sigmoid(gh[:, 3 * H:])], dim=-1)
-            cc = x @ cw
-            yc = torch.tanh(hpp[i] + cc[:, :co] + cb)
+            cc = mm(x, j + 4)
+            yc = torch.tanh(hpp[i] + cc[:, :co] + w[j + 5])
             hpp[i] = cc[:, co:]
             x = torch.cat([x, yc], dim=-1)
-        outs.append(x @ w[-2] + w[-1])
+        outs.append(mm(x, len(w) - 2) + w[-1])
     feats = torch.stack(outs, dim=1)
     F = feats.shape[-1] // FRAMES_PER_STEP
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(h + hgp + hpp)
@@ -381,22 +469,23 @@ def rx_frame_step_plain(weights: RxFrameWeights, rx_packed, state):
 
 def encoder_step_plain(weights: PackedWeights, feats, state, bottleneck=3):
     """feats (B, 4*nz, F) -> (z (B, nz, latent), new_state)."""
-    w = weights.arrays
+    w, mm = weights.arrays, _products(weights)
     B, T, F = feats.shape
     nz = T // FRAMES_PER_STEP
     f = feats.reshape(B, nz, FRAMES_PER_STEP * F)
     h, hist = list(state[:5]), list(state[5:])
     outs = []
     for step in range(nz):
-        x = torch.tanh(f[:, step] @ w[0] + w[1])
+        x = torch.tanh(mm(f[:, step], 0) + w[1])
         for i in range(5):
-            wih, whh, bih, bhh, cw0, cw1, cb = w[2 + 7 * i:9 + 7 * i]
-            h[i] = _gru_step(wih, bih, whh, bhh, x, h[i])
+            j = 2 + 7 * i      # wih whh bih bhh cw0 cw1 cb
+            h[i] = _gru_step(mm(x, j) + w[j + 2], mm(h[i], j + 1) + w[j + 3],
+                             h[i])
             x = torch.cat([x, h[i]], dim=-1)
-            yc = torch.tanh(hist[i][:, 0] @ cw0 + x @ cw1 + cb)
+            yc = torch.tanh(mm(hist[i][:, 0], j + 4) + mm(x, j + 5) + w[j + 6])
             hist[i] = torch.cat([hist[i][:, 1:], x[:, None]], dim=1)
             x = torch.cat([x, yc], dim=-1)
-        zk = x @ w[-2] + w[-1]
+        zk = mm(x, len(w) - 2) + w[-1]
         outs.append(torch.tanh(zk) if bottleneck == 1 else zk)
     return torch.stack(outs, dim=1), tuple(h + hist)
 
@@ -420,13 +509,43 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-def _launch(fn, weights: PackedWeights, x, out, state, new_state, args):
+def _launch(fn, weights: PackedWeights, x, out, state, new_state, args,
+            kinds=True):
+    """Call a C entry on torch's current stream.  kinds: the entry takes,
+    after the offsets, each array's kind (1 for an int8 matrix) and the
+    scale rows' offsets (none: the f32 instance)."""
     offs = (ctypes.c_int * len(weights.offsets))(*weights.offsets)
+    head = [weights.buf.data_ptr(), ctypes.addressof(offs), len(weights.offsets)]
+    if kinds:
+        k = (ctypes.c_int * len(weights.arrays))(
+            *[int(a.dtype == torch.int8) for a in weights.arrays])
+        so = (ctypes.c_int * max(1, len(weights.scale_offsets)))(
+            *weights.scale_offsets)
+        head += [ctypes.addressof(k), ctypes.addressof(so),
+                 len(weights.scale_offsets)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        return fn(weights.buf.data_ptr(), ctypes.addressof(offs),
-                  len(weights.offsets), x.data_ptr(), out.data_ptr(), *args,
-                  _ptrs(state), _ptrs(new_state), stream)
+        return fn(*head, x.data_ptr(), out.data_ptr(), *args, _ptrs(state),
+                  _ptrs(new_state), stream)
+
+
+def _check_kinds(weights: PackedWeights, what: str, n_arrays: int):
+    """Raise unless the weights are what the kernel takes: n_arrays f32
+    arrays, or int8 and f32 matrices with one scale row each and f32
+    vectors."""
+    ok = len(weights.arrays) == n_arrays and all(
+        a.dtype == torch.float32 or (a.dtype == torch.int8 and a.dim() == 2
+                                     and weights.scales)
+        for a in weights.arrays)
+    if weights.scales:
+        ok = ok and len(weights.scales) == sum(a.dim() == 2
+                                               for a in weights.arrays)
+    if not ok:
+        kinds = sorted({str(a.dtype) for a in weights.arrays})
+        raise ValueError(f"{what}: the kernel takes f32 or int8 weights from "
+                         f"the packing functions, got {len(weights.arrays)} "
+                         f"arrays of {kinds} with {len(weights.scales)} "
+                         "scale rows")
 
 
 def _ready_state(state, shapes, dev):
@@ -441,8 +560,9 @@ def fused_decoder_step(weights: PackedWeights, z, state):
     """Decoder stack for nz z-steps: z (B, nz, latent) ->
     (features (B, 4*nz, F), new_state).  The weights' layout picks the
     form: unmerged (`decoder_weights`) or chain-merged
-    (`decoder_weights(merged=True)`, with the 15-tensor merged state).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (`decoder_weights(merged=True)`, with the 15-tensor merged state), and
+    their kind the instance: f32 or int8 (`quant="int8"`).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel
     (radae_fused_decoder_step or radae_fused_decoder_merged_step)."""
     merged = is_merged(weights)
     if z.device.type == "cpu":
@@ -457,17 +577,18 @@ def fused_decoder_step(weights: PackedWeights, z, state):
                                                                 N_DEC_MERGED):
         raise ValueError("fused_decoder_step: weights must come from "
                          f"decoder_weights(params, device={str(dev)!r})")
+    _check_kinds(weights, "fused_decoder_step", len(weights.arrays))
     z = _ready(z, (B, nz, latent), dev, "z")
     shapes = _dec_state_shapes(B, merged)
     state = _ready_state(state, shapes, dev)
     feats = torch.empty((B, nz, out_dim), device=dev)
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    name = "fused_decoder_merged_step" if merged else "fused_decoder_step"
-    fn = getattr(_kernels.library("fused_core"), "radae_" + name)
+    entry = "fused_decoder_merged_step" if merged else "fused_decoder_step"
+    fn = getattr(_kernels.library("fused_core"), "radae_" + entry)
     status = _launch(fn, weights, z, feats, state, new_state,
-                     (B, nz, latent, out_dim))
-    _kernels.check(status, "radae_" + name)
-    LAUNCHES[name] += 1
+                       (B, nz, latent, out_dim))
+    _kernels.check(status, "radae_" + entry)
+    LAUNCHES[entry + ("_int8" if weights.quant else "")] += 1
     F = out_dim // FRAMES_PER_STEP
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
 
@@ -524,7 +645,7 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state):
     status = _launch(lib.radae_fused_rx_frame_step, w, rx, feats, state,
                      new_state, (B, out_dim, ctypes.c_float(weights.mag_k),
                                  int(weights.coarse_mag), ns, nc, samp,
-                                 latent, nz))
+                                 latent, nz), kinds=False)
     _kernels.check(status, "radae_fused_rx_frame_step")
     LAUNCHES["fused_rx_frame_step"] += 1
     F = out_dim // FRAMES_PER_STEP
@@ -569,6 +690,7 @@ def make_fused_rx_frame_step(cfg, batch: int, device="cuda"):
 
 def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3):
     """Encoder stack: feats (B, 4*nz, F) -> (z (B, nz, latent), new_state).
+    The weights' kind picks the instance: f32 or int8 (`quant="int8"`).
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (radae_fused_encoder_step)."""
     if feats.device.type == "cpu":
@@ -582,9 +704,10 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3):
         raise ValueError(f"fused_encoder_step: {T} frames is not a multiple "
                          f"of {FRAMES_PER_STEP}")
     latent = weights.arrays[-1].shape[0]
-    if weights.buf.device != dev or len(weights.arrays) != N_ENC:
+    if weights.buf.device != dev:
         raise ValueError("fused_encoder_step: weights must come from "
                          f"encoder_weights(params, device={str(dev)!r})")
+    _check_kinds(weights, "fused_encoder_step", N_ENC)
     x = _ready(feats, (B, T, F), dev, "feats")
     shapes = ([(B, gh) for _, gh in _ENC_GRU_DIMS]
               + [(B, d, cin) for cin, _, d in _ENC_CONV_DIMS])
@@ -593,8 +716,8 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3):
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
     lib = _kernels.library("fused_core")
     status = _launch(lib.radae_fused_encoder_step, weights, x, z, state,
-                     new_state, (B, nz, FRAMES_PER_STEP * F, latent,
-                                 int(bottleneck)))
+                       new_state, (B, nz, FRAMES_PER_STEP * F, latent,
+                                   int(bottleneck)))
     _kernels.check(status, "radae_fused_encoder_step")
-    LAUNCHES["fused_encoder_step"] += 1
+    LAUNCHES["fused_encoder_step" + ("_int8" if weights.quant else "")] += 1
     return z, tuple(new_state)

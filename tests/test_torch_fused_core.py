@@ -163,7 +163,10 @@ def test_wrappers_run_the_plain_version_on_cpu_without_launching(tree):
     torch.testing.assert_close(ff, ff_ref, rtol=0, atol=0)
     assert fc.LAUNCHES == {"fused_decoder_step": 0,
                            "fused_decoder_merged_step": 0,
-                           "fused_rx_frame_step": 0, "fused_encoder_step": 0}
+                           "fused_rx_frame_step": 0, "fused_encoder_step": 0,
+                           "fused_decoder_step_int8": 0,
+                           "fused_decoder_merged_step_int8": 0,
+                           "fused_encoder_step_int8": 0}
 
 
 def test_wrappers_refuse_other_devices(tree):

@@ -7,6 +7,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -72,3 +73,35 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         fused_core.make_fused_rx_frame_step(cfg, 4)
     with pytest.raises(RuntimeError, match="is_available"):
         fused_core.decoder_state_zero(4, merged=True)
+
+
+
+def test_batch_serving_entry_points_default_to_the_card(monkeypatch,
+                                                        tmp_path):
+    from radae_tpu_torch import runtime
+    from radae_tpu_torch.config import flagship_config
+    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.models.core import CoreDecoder
+    from radae_tpu_torch.ops import acquisition_op, fused_core
+    from radae_tpu_torch.tools import rx_batch, tx_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = flagship_config()
+    tree, _ = load_checkpoint(str(ROOT / "fixtures" / "model_fs_flagship.npz"))
+    feat = tmp_path / "f.f32"
+    np.zeros((24, 36), np.float32).tofile(feat)
+    for make in (
+            lambda: runtime.make_batched_receiver(cfg, CoreDecoder(80, 21),
+                                                  4, 2),
+            lambda: acquisition_op.make_detect_pilots(cfg),
+            lambda: acquisition_op.make_detect_pilots_windowed(cfg, 2),
+            lambda: acquisition_op.make_refine(cfg),
+            lambda: fused_core.encoder_weights(tree["encoder"], quant="int8"),
+            lambda: tx_batch.main([str(ROOT / "fixtures" /
+                                       "model_fs_flagship.npz"),
+                                   str(tmp_path), str(feat), "--fused"]),
+            lambda: rx_batch.main([str(ROOT / "fixtures" /
+                                       "model_fs_flagship.npz"),
+                                   str(tmp_path), str(feat)])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()

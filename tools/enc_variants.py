@@ -5,6 +5,7 @@ whole-frame rx_frame_kernel) against each other on one CUDA card, in turns,
 in one run.
 
     python3 tools/enc_variants.py [--kernel enc|dec|decm|frame]
+                                  [--quant int8] [--forms A,B]
                                   [--src NAME=PATH[@G,O] ...] [--out DIR]
                                   [--reps N]
 
@@ -34,7 +35,12 @@ weights), and it writes them to DIR/<kernel>_variants.json (default DIR
 build/enc_variants).
 
 The text changes name lines of the source: when the kernels change, a form
-that no longer applies stops the run with its name.
+that no longer applies stops the run with its name.  The encoder and both
+decoders have an int8 instance beside the f32 one; the tool times and
+compares the f32 instance (a --src library whose entries predate the int8
+arguments is called through `F32OnlyEntries`), or with --quant int8 the
+int8 instance on the int8 weights (`quant="int8"`), whose own forms are
+named int8_*.
 """
 
 from __future__ import annotations
@@ -60,14 +66,19 @@ B = 2048
 FIRST_ROWS = (2, 4)  # rows a weight load feeds in a source that does not say:
                      # the first kernels (2 in the GRU products, 4 else)
 # --kernel -> (name of the __global__ function, wrapper, library entry of its
-# tile rows); the frame kernel has two instances (the flagship geometry as
-# constants, and from the launch), whose ptxas lines and SASS go together
-KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
-           "dec": ("dec_kernel", "fused_decoder_step", "radae_dec_tile_rows"),
+# tile rows, the mangled-name part of the instance left out); the frame
+# kernel has two instances (the flagship geometry as constants, and from the
+# launch), whose ptxas lines and SASS go together; of the others, the int8
+# instance (template argument true: "ILb1EE") is left out, or with --quant
+# int8 the f32 one ("ILb0EE")
+KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows",
+                   "ILb1EE"),
+           "dec": ("dec_kernel", "fused_decoder_step", "radae_dec_tile_rows",
+                   "ILb1EE"),
            "decm": ("dec_merged_kernel", "fused_decoder_step",
-                    "radae_dec_tile_rows"),
+                    "radae_dec_tile_rows", "ILb1EE"),
            "frame": ("rx_frame_kernel", "fused_rx_frame_step",
-                     "radae_dec_tile_rows")}
+                     "radae_dec_tile_rows", None)}
 ALL = tuple(KERNELS)
 
 # the weight loads staged by cp.async in a 2-stage ring of 16-byte slots, one
@@ -128,6 +139,44 @@ FORMS = {
         ("(acc, kl & 1, 4)", "(acc, kl & 1, 1)"),
         ("(acc, (kl >> 1) & 1, 8)", "(acc, (kl >> 1) & 1, 2)"),
         ("(acc, (kl >> 2) & 1, 16)", "(acc, (kl >> 2) & 1, 4)")]),
+    # int8 instance: the scale float4 loaded after the K-lane sum, not
+    # before the K loop with the bias (4 registers free in the loop)
+    "int8_scalelate": (("enc", "dec", "decm"), True, [
+        ("""                                      float* dst, int ld, float4 s,
+                                      float4 bias, bool put) {""",
+         """                                      float* dst, int ld, const float* sp,
+                                      float4 bias, bool put) {"""),
+        ("""  const int rk = ksum(acc, kl, r0);
+  if (put) {
+#pragma unroll
+    for (int i = 0; i < ET / 8; ++i)
+      st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));""",
+         """  const int rk = ksum(acc, kl, r0);
+  if (put) {
+    const float4 s = ldg4(sp);
+#pragma unroll
+    for (int i = 0; i < ET / 8; ++i)
+      st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));"""),
+        ("scl<Q>(sc, c, out), b,", "Q ? sc + c : nullptr, b,"),
+        ("const float4 gi = scl<Q>(si, c, DEC_G), gh = scl<Q>(sh, c, DEC_G);",
+         "const float *gi = Q ? si + c : nullptr, *gh = Q ? sh + c : nullptr;"),
+        ("const float4 gi = scl<Q>(si, c, ENC_G), gh = scl<Q>(sh, c, ENC_G);",
+         "const float *gi = Q ? si + c : nullptr, *gh = Q ? sh + c : nullptr;"),
+        ("scl<Q>(sc(4 + 5 * i + tap), c, DEC_CO)",
+         "Q ? sc(4 + 5 * i + tap) + c : nullptr"),
+        ("scl<Q>(sc(0), c, ENC_H)", "Q ? sc(0) + c : nullptr"),
+        ("scl<Q>(sc(3 + 4 * i + tap), c, ENC_CO)",
+         "Q ? sc(3 + 4 * i + tap) + c : nullptr"),
+        ("scl<Q>(sc(ENC_NS - 1), c, od)", "Q ? sc(ENC_NS - 1) + c : nullptr")]),
+    # int8 instance: QuantArgs without __grid_constant__, so each thread
+    # copies it to local memory to index soff
+    "int8_qalocal": (("enc", "dec", "decm"), True, [
+        ("const __grid_constant__ QuantArgs<DEC_NS> qa)",
+         "const QuantArgs<DEC_NS> qa)"),
+        ("const __grid_constant__ QuantArgs<DECM_NS> qa)",
+         "const QuantArgs<DECM_NS> qa)"),
+        ("const __grid_constant__ QuantArgs<ENC_NS> qa)",
+         "const QuantArgs<ENC_NS> qa)")]),
     "unroll2": (ALL, True, [("#pragma unroll 1 ", "#pragma unroll 2 ")]),
     "syncload": (("frame",), True, [      # the samples by plain loads and stores
         ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n"
@@ -157,17 +206,14 @@ FORMS = {
         ("  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n",
          "  if (a.d.B < 0) {\n"
          "  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n"),
-        ("  dec_body(a.d, smem, Src{zsh,", "  }\n  dec_body(a.d, smem, Src{zsh,")]),
+        ("  dec_body<false>(a.d,", "  }\n  dec_body<false>(a.d,")]),
     "noz": (("dec",), False, [            # latents never staged: stale operands
         ("  stage<DEC_X>(xb + DEC_H, zs.p, zs.ld, a.in_dim, zs.rmax);\n", ""),
         ("      stage<DEC_X>(Xp + DEC_H, zs.p + (size_t)(k + 1) * zstep, zs.ld,\n"
          "                   a.in_dim, zs.rmax);\n", "      ;\n")]),
     "frsmem": (("dec",), True, [          # the frame kernel's shared memory size
-        ("      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DEC_SMEM);",
-         "      dec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,"
-         " (int)frame_smem(flagship_geo()));"),
-        ("  dec_kernel<<<(B + R - 1) / R, NT, DEC_SMEM,",
-         "  dec_kernel<<<(B + R - 1) / R, NT, frame_smem(flagship_geo()),")]),
+        ("launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q)",
+         "launch(dec_kernel<false>, frame_smem(flagship_geo()), B, stream, a, q)")]),
     "frgeneric": (("frame",), True, [     # the flagship through the instance
         ("  const bool fix = ns == f.ns",   # that reads the geometry at launch
          "  const bool fix = f.ns < 0 && ns == f.ns")]),
@@ -215,15 +261,37 @@ class FixedGeometryFrame:
         return self._lib.radae_fused_rx_frame_step(*args[:9], *args[14:])
 
 
-def sass(lib_path, kname, cuobjdump):
+class F32OnlyEntries:
+    """A library built from a source whose decoder and encoder entries
+    predate the int8 instances: takes the entries' arguments of today and
+    drops the kinds and scale offsets (an f32 launch has none)."""
+
+    ENTRIES = ("radae_fused_decoder_step", "radae_fused_decoder_merged_step",
+               "radae_fused_encoder_step")
+
+    def __init__(self, lib, signatures):
+        self._lib = lib
+        for fn in self.ENTRIES:
+            getattr(lib, fn).argtypes = signatures[fn][:3] + signatures[fn][6:]
+
+    def __getattr__(self, name):
+        if name in self.ENTRIES:
+            fn = getattr(self._lib, name)
+            return lambda *args: fn(*args[:3], *args[6:])
+        return getattr(self._lib, name)
+
+
+def sass(lib_path, kname, cuobjdump, skip=None):
     """The kernel's SASS, without addresses, encodings and the
-    source-dependent mangled names (None without cuobjdump)."""
+    source-dependent mangled names, leaving out the instances whose name
+    holds `skip` (None without cuobjdump)."""
     if not os.path.exists(cuobjdump):
         return None
     out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                          text=True, check=True).stdout
     body = [b for b in out.split("Function : ")[1:]
-            if kname in b.splitlines()[0]]
+            if kname in b.splitlines()[0]
+            and not (skip and skip in b.splitlines()[0])]
     if not body:
         return None
     lines = []
@@ -250,8 +318,12 @@ def write_form(src_text, name, out_dir, kernel) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=KERNELS, default="enc")
+    ap.add_argument("--quant", choices=["int8"], default=None,
+                    help="time the int8 instance on int8 weights (enc, dec, "
+                    "decm)")
     ap.add_argument("--forms", default=None, metavar="NAME,...",
-                    help="the forms to build (default: all that apply)")
+                    help="the forms to build (default: all that apply, the "
+                    "int8_* ones with --quant int8 only)")
     ap.add_argument("--src", action="append", default=[],
                     metavar="NAME=PATH[@G,O]",
                     help="another copy of csrc/fused_core.cu to time (@G,O: "
@@ -260,7 +332,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     kernel = args.kernel
-    kname, wrapper, rows_entry = KERNELS[kernel]
+    kname, wrapper, rows_entry, skip = KERNELS[kernel]
+    tag = kernel + ("_int8" if args.quant else "")   # output file names
+    if args.quant:
+        if kernel == "frame":
+            ap.error("the frame kernel has no int8 instance")
+        skip = "ILb0EE"
     forms = [n for n, (ks, _, _) in FORMS.items() if kernel in ks]
     if args.forms is not None:
         asked = [n for n in args.forms.split(",") if n]
@@ -268,6 +345,8 @@ def main(argv=None) -> int:
         if bad:
             ap.error(f"forms {bad} do not apply to --kernel {kernel}")
         forms = asked
+    else:
+        forms = [n for n in forms if n.startswith("int8_") == bool(args.quant)]
     import torch
     if not torch.cuda.is_available():
         print("enc_variants: no CUDA card", file=sys.stderr)
@@ -286,7 +365,7 @@ def main(argv=None) -> int:
     with open(committed) as fh:
         text = fh.read()
     srcs = {"committed": committed}
-    srcs.update({n: write_form(text, n, args.out, kernel) for n in forms})
+    srcs.update({n: write_form(text, n, args.out, tag) for n in forms})
     src_rows = {}
     for s in args.src:
         name, path = s.split("=", 1)
@@ -297,36 +376,41 @@ def main(argv=None) -> int:
 
     procs = {}
     for v, src in srcs.items():          # one nvcc a form, all at once
-        with open(os.path.join(args.out, f"{kernel}_{v}.log"), "w") as log:
+        with open(os.path.join(args.out, f"{tag}_{v}.log"), "w") as log:
             procs[v] = subprocess.Popen(
                 [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o",
-                 os.path.join(args.out, f"lib{kernel}_{v}.so"), src],
+                 os.path.join(args.out, f"lib{tag}_{v}.so"), src],
                 stdout=log, stderr=subprocess.STDOUT)
     libs, info = {}, {}
     for v, proc in procs.items():
         status = proc.wait()
-        with open(os.path.join(args.out, f"{kernel}_{v}.log")) as fh:
+        with open(os.path.join(args.out, f"{tag}_{v}.log")) as fh:
             lines = fh.read().splitlines()
         if status != 0:
             raise RuntimeError(f"nvcc failed for {v}:\n" + "\n".join(lines))
         at = [i for i, x in enumerate(lines)
-              if "entry function" in x and kname in x]
+              if "entry function" in x and kname in x
+              and not (skip and skip in x)]
         ptxas = [x.strip() for i in at for x in lines[i:i + 4]
                  if "registers" in x or "spill" in x]
-        lib = ctypes.CDLL(os.path.join(args.out, f"lib{kernel}_{v}.so"))
+        lib = ctypes.CDLL(os.path.join(args.out, f"lib{tag}_{v}.so"))
         for fn, argtypes in _kernels._SIGNATURES["fused_core"].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         if kernel == "frame" and not hasattr(lib, "radae_rx_frame_limit"):
             lib = FixedGeometryFrame(lib)
+        with open(srcs[v]) as fh:
+            if "n_soff" not in fh.read():
+                lib = F32OnlyEntries(lib, _kernels._SIGNATURES["fused_core"])
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
-        code = sass(os.path.join(args.out, f"lib{kernel}_{v}.so"), kname,
-                    os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump"))
+        code = sass(os.path.join(args.out, f"lib{tag}_{v}.so"), kname,
+                    os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump"),
+                    skip)
         if code:
-            with open(os.path.join(args.out, f"{kernel}_{v}.sass"), "w") as fh:
+            with open(os.path.join(args.out, f"{tag}_{v}.sass"), "w") as fh:
                 fh.write("\n".join(code) + "\n")
         if v == "committed":
             ref_sass = code
@@ -349,7 +433,8 @@ def main(argv=None) -> int:
                                .astype(np.float32), device=dev)
 
     if kernel == "enc":
-        w = fetch_w = fc.encoder_weights(tree["encoder"], dev)
+        w = fetch_w = fc.encoder_weights(tree["encoder"], dev,
+                                         quant=args.quant)
         x = rand((B, 4 * nz, cfg.feature_dim), 0.3)
         state = fc.encoder_state_zero(B, dev)
         args_k = (cfg.bottleneck,)
@@ -359,7 +444,8 @@ def main(argv=None) -> int:
         args_k = ()
         if kernel in ("dec", "decm"):
             w = fetch_w = fc.decoder_weights(tree["decoder"], dev,
-                                             merged=kernel == "decm")
+                                             merged=kernel == "decm",
+                                             quant=args.quant)
             x = torch.tanh(rand((B, nz, cfg.latent_dim), 1.0))
             plain = (fc.decoder_merged_step_plain if kernel == "decm"
                      else fc.decoder_step_plain)
@@ -417,8 +503,9 @@ def main(argv=None) -> int:
               f"{info[v]['same_bits']} (as committed's: "
               f"{info[v]['bits_as_committed']}), weights {fetch / 1e9:.4f} GB a launch "
               f"({info[v]['weight_tb_s']:.2f} TB/s)")
-    with open(os.path.join(args.out, f"{kernel}_variants.json"), "w") as fh:
-        json.dump({"card": card, "kernel": kname, "batch": B, "nz": nz,
+    with open(os.path.join(args.out, f"{tag}_variants.json"), "w") as fh:
+        json.dump({"card": card, "kernel": kname, "quant": args.quant,
+                   "batch": B, "nz": nz,
                    "forms": info}, fh, indent=1)
     print(card)
     return 0
