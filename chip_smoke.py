@@ -17,17 +17,29 @@ EQ, coarse magnitude):
      fixture tx frames with Gaussian noise, for the flagship modem and for
      the latent-40 one (Nc=15, fixtures/model_l40.npz); and a modem
      geometry past the frame kernel's limits (latent 112) raises without
-     launching;
+     launching.  Likewise the instances with bf16 products of all four
+     bodies on each weight kind (f32, bf16 and int8; the frame kernel on
+     f32 and bf16) and the chain-merged decoder on the padded layout
+     (merged="pad": f32 and int8 weights with f32 products, and all three
+     with bf16 products), 16 forms more; the padded ones with f32 products
+     at 1e-4, the bf16-product ones within 2e-3 but for at most 1e-3 of a
+     run's elements (bf16 input flips), each tensor's max and mean error
+     within BF16_MAX and BF16_MEAN of its scale (readings in PERF.md);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
-     then the frame-aligned rx windows through 20 rx steps, three times:
-     the composite rx step on the unmerged decoder kernel, the same step
-     on the chain-merged kernel (fused_merged=True), and the whole-frame
-     kernel (make_fused_rx_frame_step).  Each run starts with the launch
-     counts at 0; each checks that its kernels launched once a frame, that
-     the features match the same path with the plain layers (1e-3), that
-     the mean distortion loss is below 0.65, and that streams 0-3 give
-     the losses radae_tpu gives on the CPU;
+     then the frame-aligned rx windows through 20 rx steps, on each rx
+     path: the composite rx step on the unmerged decoder kernel, the same
+     step on the chain-merged kernel (fused_merged=True), the whole-frame
+     kernel (make_fused_rx_frame_step), and a path for each of the 16 forms
+     above: the rx step or the frame step with its fused_merged,
+     fused_quant and fused_dtype; the encoder's bf16-product forms each
+     through 20 tx steps around the instance, decoded by the composite
+     step.  Each run starts with the launch counts at 0 and checks that its
+     kernels, and no other, launched once a frame, and that the mean
+     distortion loss is below 0.65; the f32 paths also that the features
+     match the same path with the plain layers (1e-3) and that streams 0-3
+     give the losses radae_tpu gives on the CPU, the int8 and bf16 ones
+     that their loss is within 0.01 of the f32 kernels';
   4. drives the batch serving pair on the fixture: 2048 feature streams
      through 20 steps of the int8 encoder kernel (make_streaming_tx_step,
      fused_quant="int8"), the end-of-over frame appended, each stream
@@ -39,24 +51,30 @@ EQ, coarse magnitude):
      acquire and find its EOO frame, the mean distortion loss of the frames
      before the EOO must be below 0.65 and within 0.01 of the f32-kernel
      receiver's, and streams 0-3 must give the tmax, fmax and loss that
-     radae_tpu gives on the CPU (tools/batch_pair_reference.py); then the
-     port's tx_batch --fused and rx_batch CLIs on three fixture files;
-  5. times the three rx steps, the tx step and the seven kernel forms (the
-     four f32 kernels and the int8 encoder, decoder and merged decoder)
+     radae_tpu gives on the CPU (tools/batch_pair_reference.py); the int8
+     receiver once more with bf16 products (fused_dtype), held like the
+     merged one; then the port's tx_batch --fused and rx_batch CLIs on
+     three fixture files; then the port's benchmark as a user runs it,
+     `python -m radae_tpu_torch.bench` (its one line must carry a value
+     from a fused rung at B >= 2048), and its run_bench for the modes that
+     are not on its ladder, at B=2048;
+  5. times the rx steps, the tx step and the 23 kernel forms (FORMS)
      with CUDA events around calls issued from the host, beside each
-     kernel's plain version, its bound and its device time in a CUDA graph
-     replay (and the frame kernel at latent 40 too), and prints the weight
-     bytes one encoder, one unmerged and one chain-merged decoder launch
-     fetch into the SMs, f32 and int8, from the tiling the built library
-     reports; and the batch pair's ms per frame and audio-s/s, its
-     acquisition apart from its decode;
+     kernel's plain version, its bound (each product at the f32 rate, or
+     at the tensor cores' bf16 rate where both its operands are bf16) and
+     its device time in a CUDA graph replay (and the frame kernel at
+     latent 40 too), and prints the
+     weight bytes one encoder, one unmerged and one chain-merged decoder
+     launch fetch into the SMs, f32, bf16 and int8, from the tiling the
+     built library reports; and the batch pair's ms per frame and
+     audio-s/s, its acquisition apart from its decode;
   6. prints a `kernels` JSON line, and last the `ok` JSON line.
 
 Step 2 also holds the int8 instances of the encoder and both decoders
 against their plain int8 versions the same way, once with a quant_exclude
-set that keeps some matrices in f32, and holds all seven kernel forms, which
-all tile their products over the block's rows, to the same bits on two
-launches with the same input and state (B=2048 and B=37).
+set that keeps some matrices in f32, and holds all 23 kernel forms,
+which all tile their products over the block's rows, to the same bits on
+two launches with the same input and state (B=2048 and B=37).
 
 Any failure exits non-zero without the `ok` line; so does a machine without
 a CUDA card.
@@ -99,18 +117,52 @@ JAX_PAIR_0_3 = {"tmax": [1952, 2083, 2214, 2345],
                 "loss": [0.39535508, 0.57686758, 0.5337739, 0.54245061]}
 PAIR_TOL = 1e-3          # on fmax (Hz) and loss against radae_tpu
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores (SXM data sheet)
+H100_BF16_FLOPS = 989e12  # bf16 products with f32 sums, tensor cores (dense)
 H100_BYTES_S = 3.35e12   # HBM3
 RX_NOISE = 0.1           # std of the Gaussian noise on the frame-kernel check
 SRC = "radae_tpu_torch/csrc/fused_core.cu"
 TPU_SRC = "radae_tpu/ops/fused_core.py"
-# kernel -> (replaced TPU kernel body, file:line)
-REPLACES = {"fused_decoder_step": f"{TPU_SRC}:344",
-            "fused_decoder_merged_step": f"{TPU_SRC}:273",
-            "fused_rx_frame_step": f"{TPU_SRC}:543",
-            "fused_encoder_step": f"{TPU_SRC}:785",
-            "fused_decoder_step_int8": f"{TPU_SRC}:344",
-            "fused_decoder_merged_step_int8": f"{TPU_SRC}:273",
-            "fused_encoder_step_int8": f"{TPU_SRC}:785"}
+# wrapper -> the TPU kernel body it replaces, file:line
+BODIES = {"fused_decoder_step": f"{TPU_SRC}:344",
+          "fused_decoder_merged_step": f"{TPU_SRC}:273",
+          "fused_rx_frame_step": f"{TPU_SRC}:543",
+          "fused_encoder_step": f"{TPU_SRC}:785"}
+# the forms of the kernels (fused_core.LAUNCHES keys, every one a wrapper
+# can launch) that this script checks, drives on a main path and times:
+# f32 and int8, then the bf16-product instances on f32, int8 and bf16
+# weights, and the padded chain-merged decoder with f32 and bf16 products
+FORMS = ("fused_decoder_step", "fused_decoder_merged_step",
+         "fused_rx_frame_step", "fused_encoder_step",
+         "fused_decoder_step_int8", "fused_decoder_merged_step_int8",
+         "fused_encoder_step_int8",
+         "fused_decoder_step_bf16", "fused_decoder_step_bf16w_bf16",
+         "fused_decoder_step_int8_bf16", "fused_decoder_merged_step_bf16",
+         "fused_decoder_merged_step_bf16w_bf16",
+         "fused_decoder_merged_step_int8_bf16",
+         "fused_rx_frame_step_bf16", "fused_rx_frame_step_bf16w_bf16",
+         "fused_encoder_step_bf16", "fused_encoder_step_bf16w_bf16",
+         "fused_encoder_step_int8_bf16",
+         "fused_decoder_merged_step_pad", "fused_decoder_merged_step_pad_int8",
+         "fused_decoder_merged_step_pad_bf16",
+         "fused_decoder_merged_step_pad_bf16w_bf16",
+         "fused_decoder_merged_step_pad_int8_bf16")
+# bf16 products against their plain version: an input of a product that
+# sits on a bf16 rounding boundary rounds the other way under another f32
+# sum order, and the recurrence carries the flip.  So at most BF16_FLIPS of
+# a run's elements (3 chained calls, every tensor) may miss BF16_TOL, and
+# each tensor's max and mean abs error stay within BF16_MAX and BF16_MEAN of
+# max(1, its mean magnitude); each limit about 3 times the largest reading
+# on an H100 (PERF.md: flips 2.7e-4, max 0.0115, the frame forms 0.0199,
+# which also round the samples and the DFT, mean 1.9e-4)
+BF16_TOL = dict(rtol=2e-3, atol=2e-3)
+BF16_FLIPS = 1e-3
+BF16_MAX = {"fused_rx_frame_step": 0.06, "": 0.03}
+BF16_MEAN = 1e-3
+# the port's benchmark: its budget, and run_bench's modes that are not on its
+# ladder, run at B with BENCH_SCAN chained frames
+BENCH_BUDGET_S = 300
+OFF_LADDER = ("int8bf16", "padf32", "padi8", "frame", "frame_vmem")
+BENCH_SCAN = 64
 # a quant_exclude set per int8 form that keeps some matrices in f32
 MIXED = {"fused_decoder_step_int8": ("whh", "out_w"),
          "fused_decoder_merged_step_int8": ("wgg",),
@@ -198,6 +250,20 @@ def check_close(what, got, want, tol):
                 f"outside {tol}")
 
 
+def bf16_errs(got, want):
+    """Per tensor of a bf16-product call: (elements past BF16_TOL, elements,
+    max abs err / scale, mean abs err / scale), scale = max(1, mean
+    |want|)."""
+    out = []
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        scale = max(float(w.abs().mean()), 1.0)
+        out.append((int((err > BF16_TOL["atol"] + BF16_TOL["rtol"] * w.abs())
+                        .sum()), err.numel(), float(err.max()) / scale,
+                    float(err.mean()) / scale))
+    return out
+
+
 def time_ms(fn, n, warmup=3) -> float:
     """Mean device time of fn() over n calls, by CUDA events."""
     import torch
@@ -254,27 +320,34 @@ def host_ms(fn, reps=2) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def demod_flops(cfg) -> float:
+def demod_flops(cfg):
     """Flop of one stream's frame front end, counting only what the math
-    needs: the DFT of the M kept samples of each symbol row, the 3-tap LS
-    fit of the two pilot rows, the coarse magnitude over the carriers and
-    the interpolation + EQ of every data symbol (8 flop a complex
-    multiply-add)."""
+    needs, as (DFT, the rest): the DFT of the M kept samples of each symbol
+    row, then the 3-tap LS fit of the two pilot rows, the coarse magnitude
+    over the carriers and the interpolation + EQ of every data symbol (8
+    flop a complex multiply-add)."""
     n_sym, Nc = cfg.Ns + 2, cfg.Nc
-    return float(8 * n_sym * cfg.M * Nc + 8 * 2 * 3 * Nc + 8 * Nc
-                 + 22 * cfg.Ns * Nc)
+    return (float(8 * n_sym * cfg.M * Nc),
+            float(8 * 2 * 3 * Nc + 8 * Nc + 22 * cfg.Ns * Nc))
 
 
-def bound(weights, inputs, outputs, nz, batch, extra_flops=0.0):
+def bound(weights, inputs, outputs, nz, batch, bf16=None, extra=(0.0, 0.0)):
     """Least time for one launch: each input read once and each output
-    written once at the HBM rate, or 2 flop per weight-matrix element per
-    z-step per stream (+ extra_flops) at the f32 rate, whichever is
-    larger."""
+    written once at the HBM rate, or the operations at the peak rate of
+    their operands' type, whichever is larger.  2 flop per weight-matrix
+    element per z-step per stream, at the tensor cores' bf16 rate where
+    both operands of the product are bf16 (bf16[j] for weights.arrays[j])
+    and else at the f32 rate outside the tensor cores, plus extra = (f32
+    flop, bf16 flop); the two kinds' times add.  (The padded layout's bound
+    is the merged weights': its zero rows are not work.)"""
     nbytes = 4 * (weights.buf.numel() + sum(t.numel() for t in inputs)
                   + sum(t.numel() for t in outputs))
-    flops = 2.0 * sum(a.numel() for a in weights.arrays if a.dim() == 2) \
-        * nz * batch + extra_flops
-    t_bytes, t_ops = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+    flops = [extra[0], extra[1]]
+    for j, a in enumerate(weights.arrays):
+        if a.dim() == 2:
+            flops[bool(bf16 and bf16[j])] += 2.0 * a.numel() * nz * batch
+    t_bytes = nbytes / H100_BYTES_S
+    t_ops = flops[0] / H100_F32_FLOPS + flops[1] / H100_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -319,6 +392,7 @@ def main(argv=None) -> int:
     from radae_tpu_torch.ops.acquisition_op import make_detect_pilots_windowed, make_refine
     from radae_tpu_torch.ops.fused_core import FRAME_LIMITS
     from radae_tpu_torch.tools import rx_batch, tx_batch
+    from radae_tpu_torch import bench
 
     dev = torch.device("cuda")
     card = card_line()
@@ -353,6 +427,48 @@ def main(argv=None) -> int:
     dwq, dwmq, ewq = (q8[n][0] for n in ("fused_decoder_step_int8",
                                          "fused_decoder_merged_step_int8",
                                          "fused_encoder_step_int8"))
+    bf = torch.bfloat16
+    # the new forms: name -> (weights, the weights its bound counts): bf16
+    # products on f32, bf16 and int8 weights, and the padded chain-merged
+    # layout (bounded by the merged layout's weights)
+    def dec_w(**k):
+        return fc.decoder_weights(tree["decoder"], dev, **k)
+
+    dwb, dwmb = dec_w(dtype=bf), dec_w(merged=True, dtype=bf)
+    rwb = fc.fused_rx_weights(tree["decoder"], cfg, dev, dtype=bf)
+    dwp, dwpq = dec_w(merged="pad"), dec_w(merged="pad", quant="int8")
+    new_w = {"fused_decoder_step_bf16": (dw, dw),
+             "fused_decoder_step_bf16w_bf16": (dwb, dwb),
+             "fused_decoder_step_int8_bf16": (dwq, dwq),
+             "fused_decoder_merged_step_bf16": (dwm, dwm),
+             "fused_decoder_merged_step_bf16w_bf16": (dwmb, dwmb),
+             "fused_decoder_merged_step_int8_bf16": (dwmq, dwmq),
+             "fused_rx_frame_step_bf16": (rw, rw.decoder),
+             "fused_rx_frame_step_bf16w_bf16": (rwb, rwb.decoder),
+             "fused_encoder_step_bf16": (ew, ew),
+             "fused_encoder_step_bf16w_bf16": (
+                 fc.encoder_weights(tree["encoder"], dev, dtype=bf),) * 2,
+             "fused_encoder_step_int8_bf16": (ewq, ewq),
+             "fused_decoder_merged_step_pad": (dwp, dwm),
+             "fused_decoder_merged_step_pad_int8": (dwpq, dwmq),
+             "fused_decoder_merged_step_pad_bf16": (dwp, dwm),
+             "fused_decoder_merged_step_pad_bf16w_bf16": (
+                 dec_w(merged="pad", dtype=bf), dwmb),
+             "fused_decoder_merged_step_pad_int8_bf16": (dwpq, dwmq)}
+    if set(FORMS) != set(fc.LAUNCHES) or set(FORMS[7:]) != set(new_w):
+        raise AssertionError("FORMS must hold every form a wrapper launches: "
+                             f"{sorted(set(fc.LAUNCHES) ^ set(FORMS))}")
+
+    def bf16_mask(name, w):
+        """Per array of w: both operands of its product bf16 in form name
+        (the rounding rule of the form's body, fc._rounds)."""
+        if not name.endswith("_bf16"):
+            return None
+        rule = ("all" if "rx_frame" in name else
+                "none" if "merged" in name else "gru")
+        return [r or a.dtype == bf for a, r in
+                zip(w.arrays, fc._rounds(w, bf, rule))]
+
     # the latent-40 modem (Nc=15: [Yr | Yi] padded from 30 to 32 columns)
     cfg40 = flagship_config(latent_dim=40)
     tree40, _ = load_checkpoint(os.path.join(HERE, "fixtures", "model_l40.npz"))
@@ -373,14 +489,21 @@ def main(argv=None) -> int:
     feats = torch.as_tensor(stream_features(raw, B, N_FRAMES, cfg.feature_dim),
                             device=dev)
 
-    def tx_signal(fused, n_frames=N_FRAMES, model=None):
+    def tx_signal(fused, n_frames=N_FRAMES, model=None, bf16_weights=None):
         """n_frames of tx samples (B, n*Nmf + M+Ncp, 2), zero-padded so the
         last frame has its closing pilot window; model (cfg, encoder,
-        params) for the plain step, the flagship by default."""
+        params) for the plain step, the flagship by default.  bf16_weights
+        (with fused=False): the plain step's encoder is the encoder kernel's
+        bf16-product instance on these weights (radae_tpu's tx step has no
+        compute_dtype; its encoder factory has)."""
         c, e, p = model or (cfg, enc, params)
-        tx = make_streaming_tx_step(c, e, B, fused=fused, device=dev)
         ep = ew if fused else p["encoder"]
         es = fc.encoder_state_zero(B, dev) if fused else None
+        if bf16_weights is not None:
+            e = lambda w, x, key, state: fc.fused_encoder_step(
+                w, x, state, c.bottleneck, bf)
+            ep, es = bf16_weights, fc.encoder_state_zero(B, dev)
+        tx = make_streaming_tx_step(c, e, B, fused=fused, device=dev)
         sig = []
         for k in range(n_frames):
             s, es = tx(ep, feats[:, 12 * k:12 * (k + 1)], es)
@@ -397,27 +520,56 @@ def main(argv=None) -> int:
 
     # -- kernels against their plain versions -----------------------------
     errs = {name: 0.0 for name in fc.LAUNCHES}
+    # bf16-product forms: (name, batch) -> [elements past BF16_TOL,
+    # elements]; name -> the largest max and mean err / scale of a tensor
+    flips, bf16_read = {}, {}
 
     def held(name, batch, what, got, want):
         torch.cuda.synchronize()
-        check_close(f"{name} B={batch} {what}", got, want, TOL)
+        if name.endswith("_bf16"):
+            lim = BF16_MAX["fused_rx_frame_step" if "rx_frame" in name else ""]
+            f = flips.setdefault((name, batch), [0, 0])
+            r = bf16_read.setdefault(name, [0.0, 0.0])
+            for i, (n_over, n, mx, mean) in enumerate(bf16_errs(got, want)):
+                f[0] += n_over
+                f[1] += n
+                r[0], r[1] = max(r[0], mx), max(r[1], mean)
+                if not (mx < lim and mean < BF16_MEAN):
+                    raise AssertionError(
+                        f"{name} B={batch} {what}[{i}]: max abs err {mx:.3g} "
+                        f"and mean {mean:.3g} of the scale, limits {lim} and "
+                        f"{BF16_MEAN}")
+        else:
+            check_close(f"{name} B={batch} {what}", got, want, TOL)
         if batch == B:
             errs[name] = max(errs[name], max_err(got, want))
 
     def kernel_form(name, rng):
         """(kernel call, plain call, zero state, input draw) of the encoder
-        or a decoder form, each call taking its weights."""
+        or a decoder form (and, once sig3 is made, of a frame form),
+        each call taking its weights; the draw takes the batch, the z-steps
+        and the call's number."""
+        cd = bf if name.endswith("_bf16") else torch.float32
         if name.startswith("fused_encoder_step"):
-            return (lambda w, x, s: fc.fused_encoder_step(w, x, s, cfg.bottleneck),
-                    lambda w, x, s: fc.encoder_step_plain(w, x, s, cfg.bottleneck),
+            return (lambda w, x, s: fc.fused_encoder_step(w, x, s, cfg.bottleneck, cd),
+                    lambda w, x, s: fc.encoder_step_plain(w, x, s, cfg.bottleneck, cd),
                     lambda b: fc.encoder_state_zero(b, dev),
-                    lambda b, n: torch.as_tensor((0.3 * rng.standard_normal(
+                    lambda b, n, k=0: torch.as_tensor((0.3 * rng.standard_normal(
                         (b, 4 * n, cfg.feature_dim))).astype(np.float32), device=dev))
-        plain = (fc.decoder_merged_step_plain if "merged" in name
+        if name.startswith("fused_rx_frame_step"):
+            return (lambda w, x, s: fc.fused_rx_frame_step(w, x, s, cd),
+                    lambda w, x, s: fc.rx_frame_step_plain(w, x, s, cd),
+                    lambda b: fc.decoder_state_zero(b, dev),
+                    lambda b, n, k=0: sig3[:b, k * Nmf:k * Nmf + win] + torch.as_tensor(
+                        (RX_NOISE * rng.standard_normal((b, win, 2))).astype(
+                            np.float32), device=dev))
+        merged = "pad" if "_pad" in name else "merged" in name
+        plain = (fc.decoder_merged_step_plain if merged
                  else fc.decoder_step_plain)
-        return (fc.fused_decoder_step, plain,
-                lambda b: fc.decoder_state_zero(b, dev, merged="merged" in name),
-                lambda b, n: torch.as_tensor(np.tanh(rng.standard_normal(
+        return (lambda w, x, s: fc.fused_decoder_step(w, x, s, cd),
+                lambda w, x, s: plain(w, x, s, cd),
+                lambda b: fc.decoder_state_zero(b, dev, merged=merged),
+                lambda b, n, k=0: torch.as_tensor(np.tanh(rng.standard_normal(
                     (b, n, cfg.latent_dim))).astype(np.float32), device=dev))
 
     with torch.no_grad():
@@ -479,6 +631,25 @@ def main(argv=None) -> int:
                         check_close(f"fused_rx_frame_step latent 40 B={batch} "
                                     f"call {frame}", (fk,) + sk, (fp,) + sp, TOL)
                         err40 = max(err40, max_err((fk,) + sk, (fp,) + sp))
+        # the new forms against their plain versions (own seed): the frame
+        # form one frame a call, the others one and two frames
+        nrng = np.random.default_rng(6)
+        for name, (w, _) in new_w.items():
+            kern, plain, zero_state, draw = kernel_form(name, nrng)
+            runs_ = ((B, nz), (RAGGED_B, nz)) + (
+                () if "frame" in name else ((RAGGED_B, 2 * nz),))
+            for batch, steps in runs_:
+                sk = sp = zero_state(batch)
+                for frame in range(3):
+                    x = draw(batch, steps, frame)
+                    ok_, sk = kern(w, x, sk)
+                    op, sp = plain(w, x, sp)
+                    held(name, batch, f"nz={steps} call {frame}",
+                         (ok_,) + sk, (op,) + sp)
+        for (name, batch), (n_over, n) in flips.items():
+            if n_over > BF16_FLIPS * n:
+                raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
+                                     f"elements past {BF16_TOL}")
         # a modem geometry past the kernel's limits raises and launches
         # nothing: latent 112 (Nc=42) leaves no room for z in layer 0's GLU
         # window
@@ -537,59 +708,105 @@ def main(argv=None) -> int:
                 kern, _, zero_state, draw = kernel_form(name, qbrng)
                 x, st = draw(batch, nz), rand_state(qbrng, zero_state(batch))
                 same_bits(name, batch, lambda: kern(wq, x, st))
-    print("kernels vs plain (rtol 1e-4, atol 1e-4), max abs err at B=2048: "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            for name, (w, _) in new_w.items():
+                kern, _, zero_state, draw = kernel_form(name, qbrng)
+                x, st = draw(batch, nz), rand_state(qbrng, zero_state(batch))
+                same_bits(name, batch, lambda: kern(w, x, st))
+    print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
+          f"{BF16_TOL} but for at most {BF16_FLIPS} of a run's elements, "
+          f"max and mean err within {BF16_MAX} and {BF16_MEAN} of the scale),"
+          " max abs err at B=2048: "
+          + ", ".join(f"{k} {errs[k]:.3g}" for k in FORMS)
           + f"; frame kernel at latent 40, B={B} and B={RAGGED_B}: {err40:.3g}")
+    for name, r in bf16_read.items():
+        print(f"  {name}: past {BF16_TOL} " + ", ".join(
+            f"B={b} {flips[name, b][0]} of {flips[name, b][1]} "
+            f"({flips[name, b][0] / flips[name, b][1]:.3g})"
+            for b in (B, RAGGED_B)) + f"; largest max err {r[0]:.3g} and "
+            f"mean {r[1]:.3g} of the scale")
     print(f"refused without a launch: {refused}")
-    print(f"all seven kernel forms: two launches bit-identical at B={B} and "
-          f"B={RAGGED_B}")
+    print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
+          f"and B={RAGGED_B}")
 
-    # -- the serving path on the fixture, three rx paths -------------------
+    # -- the serving path on the fixture: the rx paths ----------------------
+    # path -> (step, weights, zero state, the forms it launches, encoder
+    # weights).  Every path decodes the f32 tx signal that the composite path
+    # makes (its tx step runs the encoder kernel), but those of the encoder's
+    # bf16-product forms: each makes its signal with the tx step around that
+    # instance (on the encoder weights) and decodes it with the composite
+    # step.  The f32 paths are held to the plain layers and to radae_tpu's
+    # losses, the int8 and bf16 ones to the f32 loss.
+    zero, zero_m = (lambda: fc.decoder_state_zero(B, dev)), (
+        lambda: fc.decoder_state_zero(B, dev, merged=True))
+    composite = make_streaming_rx_step(cfg, dec, B, fused=True, device=dev)
     rx_steps = {
-        "composite": (make_streaming_rx_step(cfg, dec, B, fused=True, device=dev),
-                      dw, lambda: fc.decoder_state_zero(B, dev),
-                      ("fused_decoder_step",)),
+        "composite": (composite, dw, zero, ("fused_decoder_step",), None),
         "merged": (make_streaming_rx_step(cfg, dec, B, fused=True,
                                           fused_merged=True, device=dev),
-                   dwm, lambda: fc.decoder_state_zero(B, dev, merged=True),
-                   ("fused_decoder_merged_step",)),
-        "frame": (fc.make_fused_rx_frame_step(cfg, B, dev), rw,
-                  lambda: fc.decoder_state_zero(B, dev),
-                  ("fused_rx_frame_step",)),
-    }
+                   dwm, zero_m, ("fused_decoder_merged_step",), None),
+        "frame": (fc.make_fused_rx_frame_step(cfg, B, dev), rw, zero,
+                  ("fused_rx_frame_step",), None)}
+    for name, (w, _) in new_w.items():      # a path for each new form
+        merged = "pad" if "_pad" in name else "merged" in name
+        cd = bf if name.endswith("_bf16") else None
+        if name.startswith("fused_encoder_step"):
+            rx_steps[name] = (composite, dw, zero,
+                              (name, "fused_decoder_step"), w)
+        elif name.startswith("fused_rx_frame_step"):
+            rx_steps[name] = (fc.make_fused_rx_frame_step(
+                cfg, B, dev, compute_dtype=cd), w, zero, (name,), None)
+        else:
+            rx_steps[name] = (make_streaming_rx_step(
+                cfg, dec, B, fused=True, fused_merged=merged,
+                fused_quant="int8" if "_int8" in name else None,
+                fused_dtype=cd, device=dev), w, zero_m if merged else zero,
+                (name,), None)
+    f32_paths = [p for p, v in rx_steps.items()
+                 if not any(k in v[3][0] for k in ("_int8", "_bf16"))]
     launches, outs = {}, {}
     with torch.no_grad():
-        for path, (step, w, state0, names) in rx_steps.items():
+        for path, (step, w, state0, names, enc_w) in rx_steps.items():
             fc.reset_launches()
             if path == "composite":          # the tx step runs on this path
                 sig = tx_signal(True)
                 names = names + ("fused_encoder_step",)
-            outs[path] = rx_run(step, w, state0(), sig)
+            outs[path] = rx_run(step, w, state0(), sig if enc_w is None else
+                                tx_signal(False, bf16_weights=enc_w))
             torch.cuda.synchronize()
             counts = dict(fc.LAUNCHES)
             bad = {n: counts[n] for n in names if counts[n] != N_FRAMES}
-            if bad:
-                raise AssertionError(f"{path} path: kernels launched {bad} "
-                                     f"times, not {N_FRAMES}: {counts}")
+            if bad or sum(counts.values()) != len(names) * N_FRAMES:
+                raise AssertionError(f"{path} path: kernels launched "
+                                     f"{ {n: c for n, c in counts.items() if c} }, "
+                                     f"not {N_FRAMES} of each of {names}")
             for n in names:
                 launches[n] = counts[n]
         f_plain = rx_run(make_streaming_rx_step(cfg, dec, B, device=dev),
                          params["decoder"], None, tx_signal(False))
         torch.cuda.synchronize()
+    mean_f32 = None
     for path, f_out in outs.items():
         if tuple(f_out.shape) != (B, T, cfg.feature_dim) or not bool(
                 torch.isfinite(f_out).all()):
             raise AssertionError(f"{path} path: bad features, shape "
                                  f"{tuple(f_out.shape)}")
-        e2e_err = float((f_out - f_plain).abs().max())
-        if e2e_err > E2E_TOL:
-            raise AssertionError(f"{path} path vs plain: max abs err "
-                                 f"{e2e_err:.3g} > {E2E_TOL}")
         loss = distortion_loss(feats, f_out)
         mean_loss = float(loss.mean())
         if not mean_loss < LOSS_LIMIT:
             raise AssertionError(f"{path} path: mean distortion loss "
                                  f"{mean_loss:.4f} >= {LOSS_LIMIT}")
+        if path not in f32_paths:            # int8 or bf16: the f32 loss
+            if abs(mean_loss - mean_f32) > 0.01:
+                raise AssertionError(f"{path} path: mean loss {mean_loss:.4f} "
+                                     f"against the f32 kernels' {mean_f32:.4f}")
+            print(f"serving path B={B} x {N_FRAMES} frames, rx {path}: mean "
+                  f"loss {mean_loss:.4f} (f32 kernels {mean_f32:.4f})")
+            continue
+        mean_f32 = mean_f32 if mean_f32 is not None else mean_loss
+        e2e_err = float((f_out - f_plain).abs().max())
+        if e2e_err > E2E_TOL:
+            raise AssertionError(f"{path} path vs plain: max abs err "
+                                 f"{e2e_err:.3g} > {E2E_TOL}")
         ref_err = float(np.abs(loss[:4].cpu().numpy() - JAX_LOSS_0_3).max())
         if ref_err > 1e-3:
             raise AssertionError(f"{path} path: streams 0-3 loss "
@@ -642,6 +859,16 @@ def main(argv=None) -> int:
             raise AssertionError(f"batch pair, merged int8: kernels launched "
                                  f"{dict(fc.LAUNCHES)}")
         launches["fused_decoder_merged_step_int8"] = n_m
+        # int8 weights with bf16 products (bench.py's int8bf16)
+        fc.reset_launches()
+        pair["int8 bf16"] = receiver(dwq, fused_quant="int8",
+                                     fused_dtype=bf)(dwq, buf)
+        torch.cuda.synchronize()
+        n_b = fc.LAUNCHES["fused_decoder_step_int8_bf16"]
+        if n_b != N_FRAMES or sum(fc.LAUNCHES.values()) != N_FRAMES:
+            raise AssertionError(f"batch pair, int8 bf16: kernels launched "
+                                 f"{ {n: c for n, c in fc.LAUNCHES.items() if c} }")
+        launches["fused_decoder_step_int8_bf16"] = n_b
         pair["f32"] = receiver(dw)(dw, buf)
         torch.cuda.synchronize()
     feats_cpu = feats.cpu()
@@ -671,9 +898,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"batch pair: merged int8 vs int8 features "
                              f"max abs err {merged_err:.3g}")
     mean_q, mean_f = losses["int8"].mean(), losses["f32"].mean()
-    if not (mean_q < LOSS_LIMIT and abs(mean_q - mean_f) < 0.01):
-        raise AssertionError(f"batch pair: mean loss {mean_q:.4f} (limit "
-                             f"{LOSS_LIMIT}), f32-kernel receiver {mean_f:.4f}")
+    mean_qb = losses["int8 bf16"].mean()
+    if not (mean_q < LOSS_LIMIT and abs(mean_q - mean_f) < 0.01
+            and mean_qb < LOSS_LIMIT and abs(mean_qb - mean_f) < 0.01):
+        raise AssertionError(f"batch pair: mean loss {mean_q:.4f}, int8 bf16 "
+                             f"{mean_qb:.4f} (limit {LOSS_LIMIT}), f32-kernel "
+                             f"receiver {mean_f:.4f}")
     got = {"tmax": q["tmax"][:4].tolist(), "fmax": q["fmax"][:4].tolist(),
            "loss": losses["int8"][:4].tolist()}
     diffs = {k: float(np.abs(np.subtract(got[k], JAX_PAIR_0_3[k])).max())
@@ -685,8 +915,9 @@ def main(argv=None) -> int:
           f"streams acquired (windows {sorted(set(q['win'].tolist()))}), EOO "
           f"found; mean loss int8 {mean_q:.4f}, f32 kernels {mean_f:.4f}, "
           f"merged int8 {losses['int8 merged'].mean():.4f} (features vs int8 "
-          f"{merged_err:.3g}); streams 0-3 {got}, max diff against radae_tpu "
-          f"{diffs}")
+          f"{merged_err:.3g}), int8 with bf16 products {mean_qb:.4f} "
+          f"(windows {sorted(set(pair['int8 bf16']['win'].tolist()))}); "
+          f"streams 0-3 {got}, max diff against radae_tpu {diffs}")
 
     # -- the two CLIs on three fixture files -------------------------------
     cli = os.path.join(HERE, "build", "chip_smoke_cli")
@@ -718,6 +949,32 @@ def main(argv=None) -> int:
     print("rx_batch: " + "; ".join(rx_lines.splitlines()))
     print(f"launches on the main paths: {launches}")
 
+    # -- the port's benchmark, as a user runs it, then its other modes ------
+    t0 = time.time()
+    env = dict(os.environ, BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    env.pop("BENCH_PLATFORM", None)
+    run = subprocess.run([sys.executable, "-m", "radae_tpu_torch.bench"],
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=BENCH_BUDGET_S + 60)
+    lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+    for ln in run.stderr.splitlines():
+        if ln.startswith(("rung ", "discarding")):
+            print(f"bench {ln}")
+    res = json.loads(lines[-1]) if len(lines) == 1 else {}
+    rung = dict(kv.split("=") for kv in str(res.get("config", "")).split(",")
+                if "=" in kv)
+    if not (res.get("value", 0) > 0 and "error" not in res
+            and int(rung.get("B", 0)) >= B and rung.get("fused") != "False"):
+        raise AssertionError(f"radae_tpu_torch.bench: {run.stdout!r} "
+                             f"{run.stderr[-2000:]!r}")
+    print(f"bench ({time.time() - t0:.1f} s): {lines[0]}")
+    with torch.no_grad():
+        for mode in OFF_LADDER:
+            t0 = time.time()
+            v = bench.run_bench(B, fused=mode, scan=BENCH_SCAN)
+            print(f"bench run_bench B={B}, fused={mode}, scan={BENCH_SCAN}: "
+                  f"{v:.1f} audio-s/s ({time.time() - t0:.1f} s)")
+
     # -- timing -----------------------------------------------------------
     frame_s = cfg.Tmf                               # 0.12 s of audio
     with torch.no_grad():
@@ -728,7 +985,9 @@ def main(argv=None) -> int:
         tx_ms = time_ms(lambda: tx(ew, f12, es), 20)
         print(f"tx step B={B}: {tx_ms:.4f} ms/frame, "
               f"{B * frame_s / (tx_ms / 1e3):.0f} audio-s/s")
-        for path, (step, w, state0, _) in rx_steps.items():
+        for path, (step, w, state0, _, enc_w) in rx_steps.items():
+            if enc_w is not None:            # the composite step again
+                continue
             st = state0()
             ms = time_ms(lambda: step(w, rx_win, st), 20)
             print(f"rx step {path} B={B}: {ms:.4f} ms/frame, "
@@ -739,32 +998,50 @@ def main(argv=None) -> int:
         f = feats[:, :4 * nz].contiguous()
         ds, dsm = fc.decoder_state_zero(B, dev), fc.decoder_state_zero(
             B, dev, merged=True)
+
+        def demod(name):
+            """The frame front end's (f32, bf16) flop at B streams: the bf16
+            frame forms round both operands of the DFT."""
+            dft, rest = (B * n for n in demod_flops(cfg))
+            return (rest, dft) if name.endswith("_bf16") else (dft + rest, 0.0)
+
+        none = (0.0, 0.0)
         runs = {   # kernel -> (kernel call, plain call, bound args)
             "fused_decoder_step": (
                 lambda: fc.fused_decoder_step(dw, z, ds),
-                lambda: fc.decoder_step_plain(dw, z, ds), (dw, z, ds, 0.0)),
+                lambda: fc.decoder_step_plain(dw, z, ds), (dw, z, ds, none)),
             "fused_decoder_merged_step": (
                 lambda: fc.fused_decoder_step(dwm, z, dsm),
                 lambda: fc.decoder_merged_step_plain(dwm, z, dsm),
-                (dwm, z, dsm, 0.0)),
+                (dwm, z, dsm, none)),
             "fused_rx_frame_step": (
                 lambda: fc.fused_rx_frame_step(rw, rx_win, ds),
                 lambda: fc.rx_frame_step_plain(rw, rx_win, ds),
-                (rw.decoder, rx_win, ds, demod_flops(cfg) * B)),
+                (rw.decoder, rx_win, ds, demod("fused_rx_frame_step"))),
             "fused_encoder_step": (
                 lambda: fc.fused_encoder_step(ew, f, es),
-                lambda: fc.encoder_step_plain(ew, f, es), (ew, f, es, 0.0)),
+                lambda: fc.encoder_step_plain(ew, f, es), (ew, f, es, none)),
             "fused_decoder_step_int8": (
                 lambda: fc.fused_decoder_step(dwq, z, ds),
-                lambda: fc.decoder_step_plain(dwq, z, ds), (dwq, z, ds, 0.0)),
+                lambda: fc.decoder_step_plain(dwq, z, ds), (dwq, z, ds, none)),
             "fused_decoder_merged_step_int8": (
                 lambda: fc.fused_decoder_step(dwmq, z, dsm),
                 lambda: fc.decoder_merged_step_plain(dwmq, z, dsm),
-                (dwmq, z, dsm, 0.0)),
+                (dwmq, z, dsm, none)),
             "fused_encoder_step_int8": (
                 lambda: fc.fused_encoder_step(ewq, f, es),
-                lambda: fc.encoder_step_plain(ewq, f, es), (ewq, f, es, 0.0)),
+                lambda: fc.encoder_step_plain(ewq, f, es), (ewq, f, es, none)),
         }
+        for name, (w, bw) in new_w.items():   # the new forms, same inputs
+            kern, plain, zero_state, _ = kernel_form(name, gen)
+            x = (rx_win if "frame" in name else
+                 f if "encoder" in name else z)
+            st = (es if "encoder" in name else
+                  dsm if "merged" in name else ds)
+            runs[name] = ((lambda k=kern, w=w, x=x, st=st: k(w, x, st)),
+                          (lambda p=plain, w=w, x=x, st=st: p(w, x, st)),
+                          (bw, x, st, demod(name) if "frame" in name
+                           else none))
         lib = _kernels.library("fused_core")
         enc_rows = (lib.radae_enc_tile_rows(),) * 2
         dec_rows = (lib.radae_dec_tile_rows(),) * 2
@@ -773,7 +1050,8 @@ def main(argv=None) -> int:
             ms = time_ms(kern, 50)
             plain_ms = time_ms(plain, 10)
             out, st1 = plain()
-            b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B, extra)
+            b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B,
+                               bf16_mask(name, w), extra)
             print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms by {b_by}; "
                   f"{graph_ms(kern):.4f} ms in a CUDA graph replay)")
@@ -792,13 +1070,16 @@ def main(argv=None) -> int:
                 ms40 = time_ms(k40, 50)
                 out40, st40 = fc.rx_frame_step_plain(rw40, rx40, ds)
                 b40, by40 = bound(rw40.decoder, (rx40,) + ds, (out40,) + st40,
-                                  nz, B, demod_flops(cfg40) * B)
+                                  nz, B, extra=(B * sum(demod_flops(cfg40)),
+                                                0.0))
                 print(f"  latent 40 (Nc=15): {ms40:.4f} ms (bound {b40:.4f} ms "
                       f"by {by40}; {graph_ms(k40):.4f} ms in a CUDA graph "
                       f"replay)")
             kernels.append({
                 "name": name, "route": "cuda", "source": SRC,
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": BODIES[next(b for b in BODIES
+                                        if name.startswith(b))],
+                "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 

@@ -9,16 +9,18 @@ the caller asks for the CPU.  Submodules are imported on demand:
   ops           split-complex modem math, pilot EQ, fused core kernels
   models        stateful core encoder/decoder
   runtime       batched streaming tx/rx serving steps
+  bench         the serving benchmark (`python -m radae_tpu_torch.bench`),
+                whose supervising process imports no torch: so neither
+                does this file until resolve_device is called
 """
 
-import torch
 
-
-def resolve_device(device) -> torch.device:
+def resolve_device(device):
     """The torch.device an entry point runs on.
 
     A CUDA device is refused when no card is present: the port never
     falls back to the CPU on its own."""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

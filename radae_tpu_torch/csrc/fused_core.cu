@@ -5,14 +5,21 @@
 // Replaces the Pallas TPU kernels in radae_tpu/ops/fused_core.py:
 //   radae_fused_decoder_step         <- make_fused_decoder_step, body `kernel`
 //                                       (unmerged; f32 and quant="int8")
+//   radae_fused_decoder_bf16_step    <- the same with compute_dtype=bf16
 //   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
 //                                       `kernel_merged` (merged=True; f32
 //                                       and quant="int8")
+//   radae_fused_decoder_merged_x_step <- the same with merged="pad" (f32 and
+//                                       int8), and with compute_dtype=bf16
+//                                       (either layout)
 //   radae_fused_rx_frame_step        <- make_fused_rx_frame_step (f32; the
 //                                       samples staged by cp.async, the
-//                                       port's form of its rx_dma copies)
+//                                       port's form of both its rx_dma
+//                                       paths)
+//   radae_fused_rx_frame_bf16_step   <- the same with compute_dtype=bf16
 //   radae_fused_encoder_step         <- make_fused_encoder_step (f32 and
 //                                       quant="int8")
+//   radae_fused_encoder_bf16_step    <- the same with compute_dtype=bf16
 // and computes the same functions as the plain PyTorch versions in
 // radae_tpu_torch/ops/fused_core.py (decoder_step_plain,
 // decoder_merged_step_plain, rx_frame_step_plain, encoder_step_plain).
@@ -119,11 +126,40 @@
 // bound is the same.  The frame kernel stays f32: radae_tpu's frame kernel
 // has no quant.
 //
+// bf16 products (compute_dtype=bf16).  Each body has one more instance
+// (BF) that rounds each product's x to bf16 (round to nearest even) where
+// tmac loads it, so the f32 values that the gate math, the state and the
+// stored x read are never rounded; the products of bf16 values are exact
+// in f32 and the sums stay f32, as the TPU's dot with f32 accumulation.
+// Its matrices come in four kinds, a flag per array (KindArgs): int8 (with
+// its scale row, as in the int8 instance), bf16 (widened to f32 by a
+// 16-bit shift: 4 weights in one 8-byte load), f32, and f32 rounded to bf16
+// at the product (the TPU kernel's _gru_step and its frame kernel round
+// both inputs; its other dots round only x unless the weights are int8, so
+// the runtime says which).  The BF instances of the decoders and the
+// encoder take the int8 instance's form (the GRU's h products in partials
+// of their own, scales on the outputs; none without scale rows); the
+// frame's takes the f32 form.  These are plain f32 FMA loops on rounded
+// inputs, far from the tensor cores' bf16 rate that bounds the same work.
+//
+// The padded layout (merged="pad").  The TPU's chain-merged kernel can
+// store each x segment (x0, then each layer's GLU and conv outputs) in a
+// 128-lane window, and its x operands (wih, [tap1 | tap0], out) then hold
+// segment j's rows from row 128 j, zero rows between.  Here x stays
+// contiguous in shared memory; pmac runs tmac once a segment, with the
+// weight pointer at the segment's rows, and skips the zero rows, so the
+// padded operands fetch no extra bytes.  The sums run per segment, so they
+// are reassociated against the merged kernel's (radae_tpu promises about
+// 1e-6 relative between the two layouts too).  The merged decoder's PAD
+// instances take both layouts (the flag in KindArgs): f32 and int8 on the
+// padded one, bf16 products on either.
+//
 // Built by radae_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes: plain C entries, pointers and the stream passed as
 // void*, the launch status returned as cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -219,6 +255,17 @@ static_assert(DECM_CONV_KS * R * 2 * DEC_CO <= DEC_SCR &&
               "every partial buffer fits the scratch");
 static_assert(DECM_SMEM <= 232448, "opt-in shared memory of one block");
 
+// the padded merged layout: x segment j (widths DEC_H, then DEC_H and DEC_CO
+// a layer) is read against rows DEC_SEG * j.. of an x operand
+constexpr int DEC_SEG = 128;
+__host__ __device__ constexpr int seg_width(int j) {
+  return j == 0 || j % 2 ? DEC_H : DEC_CO;
+}
+static_assert(DEC_H % 4 == 0 && DEC_CO % 4 == 0 && DEC_H <= DEC_SEG &&
+                  DEC_CO <= DEC_SEG,
+              "every x segment a whole number of float4 within its rows");
+static_assert(DEC_H + 5 * (DEC_H + DEC_CO) == DEC_X, "x is its segments");
+
 // frame kernel (rx_frame_kernel): the modem geometry of one frame
 struct FrameGeo {
   int ns;      // data symbol rows between the two pilot rows
@@ -274,6 +321,31 @@ int frame_limit(const FrameGeo& g) {
   return 0;
 }
 
+// The int8 instances' second kernel argument (the f32 ones ignore it, and
+// the frame kernel has none): bit j of i8 set when array j is int8, and the
+// start in w of each of the NS scale rows.  The kernels take it as
+// __grid_constant__, so that indexing soff reads the parameter in place
+// (without, each thread copied it to local memory first).
+template <int NS>
+struct QuantArgs {
+  unsigned long long i8;
+  int soff[NS];
+};
+
+// The second kernel argument of the BF instances (bf16 products) and of the
+// merged decoder's PAD instances (in the frame kernel's, a member of its
+// arguments): array j's kind (bit j of i8: int8; of bf: bf16; of rw: f32
+// rounded to bf16 at its products; none: f32), the ns scale rows' starts (ns
+// 0: no int8 matrix), and, for the merged decoder, whether the x operands
+// are padded.
+template <int NS>
+struct KindArgs {
+  unsigned long long i8, bf, rw;
+  int ns;
+  int pad;
+  int soff[NS];
+};
+
 struct DecArgs {
   const float* w;
   int off[DEC_NW];
@@ -308,6 +380,7 @@ struct FrameArgs {
   const float* ls_w;  // (yw, yw)
   float mag_k;
   int coarse_mag;
+  KindArgs<DEC_NS> k; // bf16 products: the decoder's kinds (else unused)
 };
 
 struct EncArgs {
@@ -320,17 +393,6 @@ struct EncArgs {
   const float* hist_in[5];
   float* h_out[5];
   float* hist_out[5];
-};
-
-// The int8 instances' second kernel argument (the f32 ones ignore it, and
-// the frame kernel has none): bit j of i8 set when array j is int8, and the
-// start in w of each of the NS scale rows.  The kernels take it as
-// __grid_constant__, so that indexing soff reads the parameter in place
-// (without, each thread copied it to local memory first).
-template <int NS>
-struct QuantArgs {
-  unsigned long long i8;
-  int soff[NS];
 };
 
 // A row-major operand: row r is p + min(r, rmax) * ld (rmax clamps the
@@ -361,6 +423,25 @@ __device__ __forceinline__ float4 ldq4(const signed char* p) {
   const char4 q = __ldg(reinterpret_cast<const char4*>(p));
   return make_float4(q.x, q.y, q.z, q.w);
 }
+// 4 bf16 weights of a row segment (their bits), one 8-byte load, as floats:
+// a bf16 is the high half of the f32 with the same value
+__device__ __forceinline__ float4 ldb4(const unsigned short* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+// v rounded to bf16 (nearest even) and back: a product input of the BF
+// instances
+__device__ __forceinline__ float4 bfr4(float4 v) {
+  const float2 a = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+  const float2 b = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+template <bool RX>
+__device__ __forceinline__ float4 bfx(float4 v) {
+  if constexpr (RX) return bfr4(v);
+  return v;
+}
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float4 tanh4(float4 v) {
   return make_float4(tanhf(v.x), tanhf(v.y), tanhf(v.z), tanhf(v.w));
@@ -377,8 +458,9 @@ __device__ __forceinline__ void fma4(float4& a, float x, float4 w) {
 // frame's LS product of its two pilot rows): a thread owns a row x 4-column
 // tile and walks K in order, reading W as float4 along `out` and A as
 // float4 along K; epi(r, c, Y[r][c..c+3]) consumes the result.  All threads
-// call it; the caller syncs before the result is read.
-template <class Epi>
+// call it; the caller syncs before the result is read.  BF: both inputs
+// rounded to bf16.
+template <bool BF, class Epi>
 __device__ __forceinline__ void rowprod(const Src& a, const float* __restrict__ W,
                                         int K, int out, Epi epi) {
   const int nq = out >> 2;
@@ -388,9 +470,9 @@ __device__ __forceinline__ void rowprod(const Src& a, const float* __restrict__ 
     const float* wp = W + c;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int k = 0; k < K; k += 4, wp += 4 * out) {
-      const float4 w0 = ldg4(wp), w1 = ldg4(wp + out);
-      const float4 w2 = ldg4(wp + 2 * out), w3 = ldg4(wp + 3 * out);
-      const float4 xv = ld4(x + k);
+      const float4 w0 = bfx<BF>(ldg4(wp)), w1 = bfx<BF>(ldg4(wp + out));
+      const float4 w2 = bfx<BF>(ldg4(wp + 2 * out)), w3 = bfx<BF>(ldg4(wp + 3 * out));
+      const float4 xv = bfx<BF>(ld4(x + k));
       fma4(acc, xv.x, w0);
       fma4(acc, xv.y, w1);
       fma4(acc, xv.z, w2);
@@ -452,6 +534,12 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
 #pragma unroll
   for (int m = 0; m < 4; ++m) wt[m] = v ? ldq4(p + m * out) : z;
 }
+__device__ __forceinline__ void ldw(float4 (&wt)[4], const unsigned short* p,
+                                    int out, bool v) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) wt[m] = v ? ldb4(p + m * out) : z;
+}
 
 // acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
 //           X[r0 + i][k..k+3] . W[k..k+3][c..c+3],
@@ -459,11 +547,14 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
 // kernel's sample rows (every operand of a tile product is there: the
 // carried state and the inputs are staged first).  k0 and k1 are multiples
 // of 4; an empty range adds nothing.  The next K step's weights are loaded
-// into registers before this step's multiply-adds.  W is f32 or int8 (T).
-template <class T>
+// into registers before this step's multiply-adds.  W is f32, int8 or bf16
+// bits (T).  RX (bf16 products): each x float4 rounded to bf16 as it is
+// loaded, and f32 weights too where rw.
+template <class T, bool RX = false>
 __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const T* __restrict__ W,
-                                     int out, int c, int k0, int k1, int kl) {
+                                     int out, int c, int k0, int k1, int kl,
+                                     bool rw = false) {
   const float* const xr = X + r0 * ld;
   const bool cv = c < out;
   const int n = (k1 - k0 + 31) >> 5;
@@ -482,9 +573,13 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 #pragma unroll
     for (int m = 0; m < 4; ++m) wt[m] = wn[m];
     ldw(wn, wp, out, cv && k < k1);
+    if constexpr (RX && sizeof(T) == 4) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) wt[m] = rw ? bfr4(wt[m]) : wt[m];
+    }
 #pragma unroll
     for (int i = 0; i < ET; ++i) {
-      const float4 x = ld4(xr + i * ld + kx);
+      const float4 x = bfx<RX>(ld4(xr + i * ld + kx));
       fma4(acc[i], x.x, wt[0]);
       fma4(acc[i], x.y, wt[1]);
       fma4(acc[i], x.z, wt[2]);
@@ -528,21 +623,58 @@ __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
   }
 }
 
-// tmac on the matrix at W, int8 when Q (an int8 instance) and q (its kind)
-template <bool Q>
+// tmac on the matrix at W of kind q: in an int8 instance (Q) int8 when q
+// is 1; in a BF instance (bf16 products) int8 (1, Q only), bf16 (2), f32
+// (0) or f32 rounded at the product (3)
+template <bool Q, bool BF = false>
 __device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
-                                     int r0, const float* W, bool q, int out,
+                                     int r0, const float* W, int q, int out,
                                      int c, int k0, int k1, int kl) {
-  if (Q && q)
+  if constexpr (BF) {
+    if (Q && q == 1)
+      tmac<signed char, true>(acc, X, ld, r0,
+                              reinterpret_cast<const signed char*>(W), out, c,
+                              k0, k1, kl);
+    else if (q == 2)
+      tmac<unsigned short, true>(acc, X, ld, r0,
+                                 reinterpret_cast<const unsigned short*>(W),
+                                 out, c, k0, k1, kl);
+    else
+      tmac<float, true>(acc, X, ld, r0, W, out, c, k0, k1, kl, q == 3);
+  } else if (Q && q) {
     tmac(acc, X, ld, r0, reinterpret_cast<const signed char*>(W), out, c, k0,
          k1, kl);
-  else
+  } else {
     tmac(acc, X, ld, r0, W, out, c, k0, k1, kl);
+  }
 }
 
-// The scale row sc at columns c..c+3 in an int8 instance (ones otherwise)
-template <bool Q>
+// wmac on a padded operand of the chain-merged decoder: x's segment j
+// (columns s.. of X, seg_width(j) wide) against the rows DEC_SEG * j.. of
+// W, for the part of each segment in [k0, k1); W's zero rows between are
+// skipped
+template <bool Q, bool BF>
+__device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
+                                     int r0, const float* W, int q, int out,
+                                     int c, int k0, int k1, int kl) {
+  const int esz = Q && q == 1 ? 1 : BF && q == 2 ? 2 : 4;   // bytes a weight
+  for (int j = 0, s = 0; s < k1; s += seg_width(j), ++j) {
+    const int lo = max(k0, s), hi = min(k1, s + seg_width(j));
+    if (lo < hi)
+      wmac<Q, BF>(acc, X, ld, r0,
+                  reinterpret_cast<const float*>(
+                      reinterpret_cast<const char*>(W) +
+                      (long long)(DEC_SEG * j - s) * out * esz),
+                  q, out, c, lo, hi, kl);
+  }
+}
+
+// The scale row sc at columns c..c+3 in an int8 instance (ones otherwise,
+// and in a BF instance without scale rows, where sc is null)
+template <bool Q, bool BF = false>
 __device__ __forceinline__ float4 scl(const float* sc, int c, int out) {
+  if constexpr (BF)
+    return sc && c < out ? ldg4(sc + c) : make_float4(1.f, 1.f, 1.f, 1.f);
   return Q && c < out ? ldg4(sc + c) : make_float4(1.f, 1.f, 1.f, 1.f);
 }
 
@@ -585,14 +717,16 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // row group, one 16-column group and one K chunk (kc wide, a multiple of
 // 32), taken by the warps in turn.  Chunk ch's partial goes to
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
-// after the barrier adds the chunks in order.  In an int8 instance W is
-// int8 when q, and each partial is scaled by the row sc.
-template <bool Q>
+// after the barrier adds the chunks in order.  W is of kind q (wmac), and in
+// an int8 instance each partial is scaled by the row sc.  PAD: W is a
+// padded x operand when pad (pmac).
+template <bool Q, bool BF = false, bool PAD = false>
 __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
-                                      bool q, const float* sc, int K, int out,
+                                      int q, const float* sc, int K, int out,
                                       int ng, int ks,
                                       const float* __restrict__ bias,
-                                      float* part, int warp, int kl, int cq) {
+                                      float* part, int warp, int kl, int cq,
+                                      bool pad = false) {
   const int kc = ((K + ks - 1) / ks + 31) & ~31;
   for (int u = warp; u < RG * ng * ks; u += NWARP) {
     const int r0 = u / (ng * ks) * ET, v = u % (ng * ks);
@@ -603,8 +737,11 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 acc[ET];
     zero(acc);
-    wmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
-    kputq<Q>(acc, kl, r0, part + ch * R * out + c, out, scl<Q>(sc, c, out), b,
+    if (PAD && pad)
+      pmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+    else
+      wmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+    kputq<Q>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
              c < out);
   }
 }
@@ -636,6 +773,29 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
+// The kinds of a BF instance's arrays and its number of scale rows, read
+// from its KindArgs once (nothing in the other instances)
+struct Kinds {
+  unsigned long long i8, bf, rw;
+  int ns;
+  // array j's kind (wmac): 1 int8, 2 bf16, 3 f32 rounded at its products,
+  // 0 f32
+  __device__ __forceinline__ int operator()(int j) const {
+    return i8 >> j & 1 ? 1 : bf >> j & 1 ? 2 : rw >> j & 1 ? 3 : 0;
+  }
+};
+template <bool BF, class KA>
+__device__ __forceinline__ Kinds kinds_of(const KA& k) {
+  if constexpr (BF) return Kinds{k.i8, k.bf, k.rw, k.ns};
+  else return Kinds{0, 0, 0, 0};
+}
+// whether the x operands are padded (the KindArgs of a PAD instance)
+template <bool PAD, class KA>
+__device__ __forceinline__ bool padded(const KA& k) {
+  if constexpr (PAD) return k.pad != 0;
+  else return false;
+}
+
 // h' of one GRU unit from its gate sums (biases included) and the old h
 __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
                                        float h) {
@@ -653,10 +813,10 @@ __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
 // and layer i's conv history over the prefix of x[-1] just before its conv
 // at the first step (the next layer overwrites it with its own).  Each
 // staging pass sits between two barriers that are there anyway.  smem holds
-// DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).
-template <bool Q>
-__device__ __forceinline__ void dec_body(const DecArgs& a,
-                                         const QuantArgs<DEC_NS>& qa,
+// DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).  BF: bf16 products,
+// the kinds in qa (KindArgs).
+template <bool Q, bool BF = false, class KA = QuantArgs<DEC_NS>>
+__device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
                                          float* smem, const Src& zs,
                                          int zstep) {
   float* const xb = smem;                               // [2][R][DEC_X]
@@ -675,11 +835,19 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
   // Q: array j's kind and scale row si (scale rows in the order of
-  // radae_tpu's kernel: d1, per layer wih whh glu cw0 cw1, out)
+  // radae_tpu's kernel: d1, per layer wih whh glu cw0 cw1, out); BF: the
+  // kind of wmac
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
-  auto q8 = [=](int j) { return Q && (i8 >> j & 1); };
-  auto sc = [=](int si) { return Q ? w + soff[si] : nullptr; };
+  const Kinds kd = kinds_of<BF>(qa);
+  auto q8 = [=](int j) {
+    if constexpr (BF) return kd(j);
+    else return Q && (i8 >> j & 1);
+  };
+  auto sc = [=](int si) {
+    if constexpr (BF) return Q && kd.ns ? w + soff[si] : nullptr;
+    else return Q ? w + soff[si] : nullptr;
+  };
 
   for (int i = 0; i < 5; ++i)
     stage<DEC_H>(hb + (5 + i) * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H,
@@ -693,8 +861,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
-             DEC_NG, 2, w + off[1], scr, warp, kl, cq);
+    tprod<Q, BF>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
+                 DEC_NG, 2, w + off[1], scr, warp, kl, cq);
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -704,7 +872,7 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
       const int gin = DEC_H + 128 * i, cin = gin + DEC_H;
       const int* o = off + 2 + 8 * i;   // wih whh bih bhh glu cw0 cw1 cb
       const int j0 = 2 + 8 * i;       // o's first array (int8 kinds)
-      const bool qi = q8(j0), qh = q8(j0 + 1);
+      const int qi = q8(j0), qh = q8(j0 + 1);
       const float *si = sc(1 + 5 * i), *sh = sc(2 + 5 * i);
       const float *wih = w + o[0], *whh = w + o[1];
       const float *bih = w + o[2], *bhh = w + o[3];
@@ -728,28 +896,28 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
         if (hf == 0) bx = rz ? add4(ldg4(bih + c), ldg4(bhh + c)) : ldg4(bih + c);
         const float4 bh = hf == 1 && !rz ? ldg4(bhh + c) : zero4;
         float* const p = scr + hf * R * DEC_GS + c;
-        const float4 gi = scl<Q>(si, c, DEC_G), gh = scl<Q>(sh, c, DEC_G);
+        const float4 gi = scl<Q, BF>(si, c, DEC_G), gh = scl<Q, BF>(sh, c, DEC_G);
         // (bh is zero for the r|z groups)
         float4 acc[ET];
         zero(acc);
         if (Q) {
-          wmac<Q>(acc, X, DEC_X, r0, wih, qi, DEC_G, c, hf ? kh : 0,
-                  hf ? gin : kh, kl);
+          wmac<Q, BF>(acc, X, DEC_X, r0, wih, qi, DEC_G, c, hf ? kh : 0,
+                      hf ? gin : kh, kl);
           kputq<Q>(acc, kl, r0, p, DEC_GS, gi, bx, true);
           if (hf) {
             zero(acc);
-            wmac<Q>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
+            wmac<Q, BF>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
             kputq<Q>(acc, kl, r0, rz ? hz + c : p + DEC_H, rz ? 2 * DEC_H : DEC_GS,
                      gh, bh, true);
           }
           continue;
         }
-        tmac(acc, X, DEC_X, r0, wih, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
-        if (rz && hf) tmac(acc, hp, DEC_H, r0, whh, DEC_G, c, 0, DEC_H, kl);
+        wmac<Q, BF>(acc, X, DEC_X, r0, wih, qi, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
+        if (rz && hf) wmac<Q, BF>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
         kput(acc, kl, r0, p, DEC_GS, bx, true);
         if (!rz && hf) {
           zero(acc);
-          tmac(acc, hp, DEC_H, r0, whh, DEC_G, c, 0, DEC_H, kl);
+          wmac<Q, BF>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
           kput(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
         }
       }
@@ -781,8 +949,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod<Q>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i), DEC_H, DEC_H,
-               DEC_NG, 2, nullptr, scr, warp, kl, cq);
+      tprod<Q, BF>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i), DEC_H, DEC_H,
+                   DEC_NG, 2, nullptr, scr, warp, kl, cq);
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -807,10 +975,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        wmac<Q>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap], q8(j0 + 5 + tap),
-                DEC_CO, c, kb, ke, kl);
+        wmac<Q, BF>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap], q8(j0 + 5 + tap),
+                    DEC_CO, c, kb, ke, kl);
         kputq<Q>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
-                 scl<Q>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
+                 scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
       }
       __syncthreads();
       if (t < R * DEC_CO / 4) {
@@ -825,9 +993,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2), sc(DEC_NS - 1),
-             DEC_X, od, (od + 15) / 16, 2, w + off[DEC_NW - 1], scr, warp, kl,
-             cq);
+    tprod<Q, BF>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2), sc(DEC_NS - 1),
+                 DEC_X, od, (od + 15) / 16, 2, w + off[DEC_NW - 1], scr, warp, kl,
+                 cq);
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -854,14 +1022,16 @@ __device__ __forceinline__ void dec_body(const DecArgs& a,
   }
 }
 
-template <bool Q>
+// The instances: <false> f32, <true> int8, <true, true> bf16 products on
+// weights of any kind (KindArgs).
+template <bool Q, bool BF = false, class KA = QuantArgs<DEC_NS>>
 __global__ void __launch_bounds__(NT)
-    dec_kernel(const DecArgs a, const __grid_constant__ QuantArgs<DEC_NS> qa) {
+    dec_kernel(const DecArgs a, const __grid_constant__ KA qa) {
   extern __shared__ float4 smem4[];
   const int b0 = blockIdx.x * R;
   const Src z0{a.z + (size_t)b0 * a.nz * a.in_dim, a.nz * a.in_dim,
                min(R, a.B - b0) - 1};
-  dec_body<Q>(a, qa, reinterpret_cast<float*>(smem4), z0, a.in_dim);
+  dec_body<Q, BF>(a, qa, reinterpret_cast<float*>(smem4), z0, a.in_dim);
 }
 
 // The chain-merged decoder stack (radae_tpu's `kernel_merged`) over a.nz
@@ -872,10 +1042,15 @@ __global__ void __launch_bounds__(NT)
 // reads them.  h, the hh projection and the tap projection are carried in
 // shared memory and updated in place.  smem holds DECM_SMEM bytes.  In the
 // int8 instance (Q) the carried projections are the scaled ones, as in the
-// TPU kernel: bhh is added where they are used.
-template <bool Q>
+// TPU kernel: bhh is added where they are used.  BF: bf16 products, the
+// kinds in qa (KindArgs); PAD: the x operands are padded when qa.pad
+// (pmac).  The instances: <false> f32, <true> int8, <false, false, true>
+// and <true, false, true> f32 and int8 in either layout (KindArgs), <true,
+// true, true> bf16 products on weights of any kind, either layout.
+template <bool Q, bool BF = false, bool PAD = false,
+          class KA = QuantArgs<DECM_NS>>
 __global__ void __launch_bounds__(NT)
-    dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ QuantArgs<DECM_NS> qa) {
+    dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ KA qa) {
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
@@ -895,11 +1070,20 @@ __global__ void __launch_bounds__(NT)
   const float* const z0 = a.z + (size_t)b0 * zld;
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
-  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out)
+  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out);
+  // BF: the kind of wmac
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
-  auto q8 = [=](int j) { return Q && (i8 >> j & 1); };
-  auto sc = [=](int si) { return Q ? w + soff[si] : nullptr; };
+  const Kinds kd = kinds_of<BF>(qa);
+  auto q8 = [=](int j) {
+    if constexpr (BF) return kd(j);
+    else return Q && (i8 >> j & 1);
+  };
+  auto sc = [=](int si) {
+    if constexpr (BF) return Q && kd.ns ? w + soff[si] : nullptr;
+    else return Q ? w + soff[si] : nullptr;
+  };
+  const bool pad = padded<PAD>(qa);
 
   for (int i = 0; i < 5; ++i) {
     stage<DEC_H>(hs + i * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H, DEC_H,
@@ -921,8 +1105,8 @@ __global__ void __launch_bounds__(NT)
 
   for (int k = 0; k < a.nz; ++k) {
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
-             DEC_NG, 2, w + off[1], scr, warp, kl, cq);
+    tprod<Q, BF>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
+                 DEC_NG, 2, w + off[1], scr, warp, kl, cq);
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -939,8 +1123,8 @@ __global__ void __launch_bounds__(NT)
 
       // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
       // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
-      tprod<Q>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin, DEC_G,
-               DEC_G / 16, 2, w + o[2], scr, warp, kl, cq);
+      tprod<Q, BF, PAD>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin, DEC_G,
+                        DEC_G / 16, 2, w + o[2], scr, warp, kl, cq, pad);
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
@@ -967,15 +1151,15 @@ __global__ void __launch_bounds__(NT)
       // h @ [whh | glu], K = 96 whole: 24 units in 2 rounds.  The 18 hh
       // groups are the next step's projection (read above); the 6 GLU
       // groups give X[:, gin:cin] = h * sigmoid(h @ glu); Q: both scaled
-      const bool qg = q8(j0 + 1);
+      const int qg = q8(j0 + 1);
       const float* const sgg = sc(2 + 3 * i);
       for (int u = warp; u < RG * DECM_GGC; u += NWARP) {
         const int r0 = u / DECM_GGC * ET, c = u % DECM_GGC * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        wmac<Q>(acc, h, DEC_H, r0, w + o[1], qg, DEC_GG, c, 0, DEC_H, kl);
+        wmac<Q, BF>(acc, h, DEC_H, r0, w + o[1], qg, DEC_GG, c, 0, DEC_H, kl);
         const int rk = ksum(acc, kl, r0);
-        if (Q) {
+        if (Q && (!BF || sgg)) {
           const float4 s4 = ldg4(sgg + c);
 #pragma unroll
           for (int j = 0; j < ET / 8; ++j) acc[j] = mul4(acc[j], s4);
@@ -997,8 +1181,9 @@ __global__ void __launch_bounds__(NT)
 
       // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
       // chunks, partials [chunk][R][64]
-      tprod<Q>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i), cin, 2 * DEC_CO,
-               2 * DEC_CO / 16, DECM_CONV_KS, nullptr, scr, warp, kl, cq);
+      tprod<Q, BF, PAD>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i), cin,
+                        2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS, nullptr, scr,
+                        warp, kl, cq, pad);
       __syncthreads();
       // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
       // half of cc is the next step's projection (each float4 of it read
@@ -1021,9 +1206,9 @@ __global__ void __launch_bounds__(NT)
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2), sc(DECM_NS - 1),
-             DEC_X, od, (od + 15) / 16, 2, w + off[DEC_NWM - 1], scr, warp, kl,
-             cq);
+    tprod<Q, BF, PAD>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
+                      sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                      w + off[DEC_NWM - 1], scr, warp, kl, cq, pad);
     __syncthreads();
     for (int it = t; it < nv * (od / 4); it += NT) {
       const int r = it / (od / 4), c = it % (od / 4) * 4;
@@ -1051,8 +1236,10 @@ __global__ void __launch_bounds__(NT)
 // dec_body on the latents it leaves in shared memory.  FIX: the flagship
 // modem's geometry as constants (flagship_geo), else the launch's (a.g);
 // the flagship through the FIX=false instance ran 3.5% slower on an H100
-// (tools/enc_variants.py --kernel frame, form frgeneric).
-template <bool FIX>
+// (tools/enc_variants.py --kernel frame, form frgeneric).  BF: bf16
+// products, every product rounding both its inputs (radae_tpu's frame
+// kernel's dot), the decoder's kinds in a.k (the instance <false, true>).
+template <bool FIX, bool BF = false>
 __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   extern __shared__ float4 smem4[];
   const FrameGeo g = FIX ? flagship_geo() : a.g;
@@ -1097,7 +1284,7 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
       const int r0 = s * srows + u / cg * ET, c = u % cg * 16 + cq;
       float4 acc[ET];
       zero(acc);
-      tmac(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl);
+      tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);
       kput(acc, kl, r0, Y + c, yw, make_float4(0.f, 0.f, 0.f, 0.f), c < yw);
     }
   }
@@ -1106,9 +1293,9 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   // LS channel estimates of the two pilot rows: [Yr | Yi] @ ls_w
   const Src p0{Y, nsym * yw, R - 1};
   const Src p1{Y + (nsym - 1) * yw, nsym * yw, R - 1};
-  rowprod(p0, a.ls_w, yw, yw,
+  rowprod<BF>(p0, a.ls_w, yw, yw,
           [&](int r, int c, float4 v) { st4(hp0 + r * yw + c, v); });
-  rowprod(p1, a.ls_w, yw, yw,
+  rowprod<BF>(p1, a.ls_w, yw, yw,
           [&](int r, int c, float4 v) { st4(hp1 + r * yw + c, v); });
   __syncthreads();
 
@@ -1148,8 +1335,11 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   }
   __syncthreads();
 
-  dec_body<false>(a.d, QuantArgs<DEC_NS>{}, smem,
-                  Src{zsh, g.nz * g.lat, R - 1}, g.lat);
+  if constexpr (BF)
+    dec_body<false, true>(a.d, a.k, smem, Src{zsh, g.nz * g.lat, R - 1}, g.lat);
+  else
+    dec_body<false>(a.d, QuantArgs<DEC_NS>{}, smem,
+                    Src{zsh, g.nz * g.lat, R - 1}, g.lat);
 }
 
 // The encoder stack over a.nz z-steps for the block's R rows.  x[t] of
@@ -1157,10 +1347,11 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
 // slots of x[-1] and x[-2] (h at its GRU window, each conv's history tap
 // as the prefix), and the features of step k at columns ENC_FOFF.. of its
 // own slot, each in a pass that already sits between two barriers.  Q: the
-// int8 instance (ENC_SMEM_Q bytes of shared memory).
-template <bool Q>
+// int8 instance (ENC_SMEM_Q bytes of shared memory).  BF: bf16 products,
+// the kinds in qa (KindArgs; the instance <true, true>).
+template <bool Q, bool BF = false, class KA = QuantArgs<ENC_NS>>
 __global__ void __launch_bounds__(NT)
-    enc_kernel(const EncArgs a, const __grid_constant__ QuantArgs<ENC_NS> qa) {
+    enc_kernel(const EncArgs a, const __grid_constant__ KA qa) {
   extern __shared__ float4 smem4[];
   float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
   float* const scr = xb + 3 * R * ENC_X;                // gates / partials
@@ -1180,11 +1371,19 @@ __global__ void __launch_bounds__(NT)
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   const float4 d1v = ldg4(w + off[1] + t % (ENC_H / 4) * 4);
   const float4 obv = ldg4(w + off[ENC_NW - 1] + t % (od / 4) * 4);
-  // Q: array j's kind and scale row si (d1, per layer wih whh cw0 cw1, out)
+  // Q: array j's kind and scale row si (d1, per layer wih whh cw0 cw1,
+  // out); BF: the kind of wmac
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
-  auto q8 = [=](int j) { return Q && (i8 >> j & 1); };
-  auto sc = [=](int si) { return Q ? w + soff[si] : nullptr; };
+  const Kinds kd = kinds_of<BF>(qa);
+  auto q8 = [=](int j) {
+    if constexpr (BF) return kd(j);
+    else return Q && (i8 >> j & 1);
+  };
+  auto sc = [=](int si) {
+    if constexpr (BF) return Q && kd.ns ? w + soff[si] : nullptr;
+    else return Q ? w + soff[si] : nullptr;
+  };
   stage<ENC_X>(xb + ENC_FOFF, f0, fld, a.in_dim, rmax);
   __syncthreads();
   for (int k = 0; k < a.nz; ++k) {
@@ -1200,10 +1399,10 @@ __global__ void __launch_bounds__(NT)
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        wmac<Q>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], q8(0), ENC_H, c, kb,
-                ke, kl);
+        wmac<Q, BF>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], q8(0), ENC_H, c,
+                    kb, ke, kl);
       kputq<Q>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
-               scl<Q>(sc(0), c, ENC_H), zero4, true);
+               scl<Q, BF>(sc(0), c, ENC_H), zero4, true);
     }
     __syncthreads();
     if (t < R * ENC_H / 4) {
@@ -1222,7 +1421,7 @@ __global__ void __launch_bounds__(NT)
       const int d = i == 0 ? 1 : 2;     // conv dilations 1,2,2,2,2
       const int* o = off + 2 + 7 * i;   // wih whh bih bhh cw0 cw1 cb
       const int j0 = 2 + 7 * i;       // o's first array (int8 kinds)
-      const bool qi = q8(j0), qh = q8(j0 + 1);
+      const int qi = q8(j0), qh = q8(j0 + 1);
       const float *si = sc(1 + 4 * i), *sh = sc(2 + 4 * i);
       const float *wih = w + o[0], *whh = w + o[1];
       const float *bih = w + o[2], *bhh = w + o[3];
@@ -1238,16 +1437,16 @@ __global__ void __launch_bounds__(NT)
       for (int u = warp; u < RG * 12; u += NWARP) {
         const int r0 = u / 12 * ET, qg = u % 12, c = qg * 16 + cq;
         const float4 bi = ldg4(bih + c), bh = ldg4(bhh + c);
-        const float4 gi = scl<Q>(si, c, ENC_G), gh = scl<Q>(sh, c, ENC_G);
+        const float4 gi = scl<Q, BF>(si, c, ENC_G), gh = scl<Q, BF>(sh, c, ENC_G);
         float4 acc[ET];
         zero(acc);
         if (Q) {
           const bool rz = qg < 8;
-          wmac<Q>(acc, X, ENC_X, r0, wih, qi, ENC_G, c, 0, gin, kl);
+          wmac<Q, BF>(acc, X, ENC_X, r0, wih, qi, ENC_G, c, 0, gin, kl);
           kputq<Q>(acc, kl, r0, scr + c, ENC_GS, gi, rz ? add4(bi, bh) : bi,
                    true);
           zero(acc);
-          wmac<Q>(acc, Xp + gin, ENC_X, r0, whh, qh, ENC_G, c, 0, ENC_H, kl);
+          wmac<Q, BF>(acc, Xp + gin, ENC_X, r0, whh, qh, ENC_G, c, 0, ENC_H, kl);
           kputq<Q>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
                    rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
           continue;
@@ -1296,10 +1495,10 @@ __global__ void __launch_bounds__(NT)
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        wmac<Q>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap], q8(j0 + 4 + tap),
-                ENC_CO, c, 0, cin, kl);
+        wmac<Q, BF>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
+                    q8(j0 + 4 + tap), ENC_CO, c, 0, cin, kl);
         kputq<Q>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
-                 scl<Q>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
+                 scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
       }
       __syncthreads();
       if (t < R * ENC_CO / 4) {
@@ -1324,10 +1523,10 @@ __global__ void __launch_bounds__(NT)
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      wmac<Q>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], q8(ENC_NW - 2), od, c, kb,
-              ke, kl);
+      wmac<Q, BF>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], q8(ENC_NW - 2), od,
+                  c, kb, ke, kl);
       kputq<Q>(acc, kl, r0, scr + ch * R * od + c, od,
-               scl<Q>(sc(ENC_NS - 1), c, od), zero4, c < od);
+               scl<Q, BF>(sc(ENC_NS - 1), c, od), zero4, c < od);
     }
     __syncthreads();
     float* const zo = a.z + ((size_t)b0 * a.nz + k) * od;
@@ -1375,10 +1574,33 @@ bool quant_args(const int* kinds, int n, const int* soff, int n_soff,
                 unsigned long long mats, QuantArgs<NS>& q) {
   if (n_soff != 0 && n_soff != NS) return false;
   q.i8 = 0;
-  for (int j = 0; j < n; ++j)
+  for (int j = 0; j < n; ++j) {
+    if (kinds[j] < 0 || kinds[j] > 1) return false;
     if (kinds[j]) q.i8 |= 1ull << j;
+  }
   for (int j = 0; j < NS; ++j) q.soff[j] = n_soff ? soff[j] : 0;
   return (q.i8 & ~mats) == 0 && (n_soff > 0 || q.i8 == 0);
+}
+
+// The same for a BF or PAD instance (k): kinds[j] 0 f32, 1 int8,
+// 2 bf16, 3 f32 rounded to bf16 at its products; bf16 and rounded kinds
+// only with bf16 products (bf), all at matrices (mats), int8 only with the
+// ns scale rows
+template <int NS>
+bool kind_args(const int* kinds, int n, const int* soff, int n_soff,
+               unsigned long long mats, bool bf, KindArgs<NS>& k) {
+  if (n_soff != 0 && n_soff != NS) return false;
+  k.i8 = k.bf = k.rw = 0;
+  for (int j = 0; j < n; ++j) {
+    unsigned long long* m[4] = {nullptr, &k.i8, &k.bf, &k.rw};
+    if (kinds[j] < 0 || kinds[j] > 3) return false;
+    if (kinds[j]) *m[kinds[j]] |= 1ull << j;
+  }
+  for (int j = 0; j < NS; ++j) k.soff[j] = n_soff ? soff[j] : 0;
+  k.ns = n_soff;
+  k.pad = 0;
+  return ((k.i8 | k.bf | k.rw) & ~mats) == 0 && (n_soff > 0 || k.i8 == 0) &&
+         (bf || (k.bf | k.rw) == 0);
 }
 
 // Set the kernel's shared memory and launch it on the stream
@@ -1429,6 +1651,34 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
                 : launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
 }
 
+// radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args)
+int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
+                                  const int* kinds, const int* soff,
+                                  int n_soff, const void* z, void* feats,
+                                  int B, int nz, int in_dim, int out_dim,
+                                  void* const* state_in,
+                                  void* const* state_out, void* stream) {
+  DecArgs a;
+  KindArgs<DEC_NS> k;
+  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT ||
+      !kind_args(kinds, n_off, soff, n_soff, DEC_MATS, true, k))
+    return (int)cudaErrorInvalidValue;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < DEC_NW; ++i) a.off[i] = off[i];
+  a.z = static_cast<const float*>(z);
+  a.feats = static_cast<float*>(feats);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
+  }
+  return launch(dec_kernel<true, true, KindArgs<DEC_NS>>, DEC_SMEM_Q, B,
+                stream, a, k);
+}
+
 int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
                                     const int* kinds, const int* soff,
                                     int n_soff, const void* z, void* feats,
@@ -1458,27 +1708,70 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
                 : launch(dec_merged_kernel<false>, DECM_SMEM, B, stream, a, q);
 }
 
+// radae_fused_decoder_merged_step on the padded layout (pad; f32 or int8
+// matrices), or with bf16 products (bf16; either layout, kinds 0..3): the
+// x operands' rows from DEC_SEG * j for x segment j (seg_width: every one a
+// multiple of 4, static_assert above)
+int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
+                                      const int* kinds, const int* soff,
+                                      int n_soff, const void* z, void* feats,
+                                      int B, int nz, int in_dim, int out_dim,
+                                      int pad, int bf16,
+                                      void* const* state_in,
+                                      void* const* state_out, void* stream) {
+  DecMergedArgs a;
+  KindArgs<DECM_NS> k;
+  if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_MAX_OUT ||
+      (!pad && !bf16) ||
+      !kind_args(kinds, n_off, soff, n_soff, DECM_MATS, bf16, k))
+    return (int)cudaErrorInvalidValue;
+  k.pad = pad != 0;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < DEC_NWM; ++i) a.off[i] = off[i];
+  a.z = static_cast<const float*>(z);
+  a.feats = static_cast<float*>(feats);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hgp_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.hpp_in[i] = static_cast<const float*>(state_in[10 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
+    a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
+  }
+  if (bf16)
+    return launch(dec_merged_kernel<true, true, true, KindArgs<DECM_NS>>,
+                  DECM_SMEM, B, stream, a, k);
+  return n_soff
+             ? launch(dec_merged_kernel<true, false, true, KindArgs<DECM_NS>>,
+                      DECM_SMEM, B, stream, a, k)
+             : launch(dec_merged_kernel<false, false, true, KindArgs<DECM_NS>>,
+                      DECM_SMEM, B, stream, a, k);
+}
+
 int radae_rx_frame_limit(int ns, int nc, int samp, int latent, int nz) {
   return frame_limit(frame_geo(ns, nc, samp, latent, nz));
 }
 
-int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
-                              const void* rx, void* feats, int B, int out_dim,
-                              float mag_k, int coarse_mag, int ns, int nc,
-                              int samp, int latent, int nz,
-                              void* const* state_in, void* const* state_out,
-                              void* stream) {
-  const FrameGeo g = frame_geo(ns, nc, samp, latent, nz);
+}  // extern "C"
+
+namespace {
+
+// The FrameArgs of a frame launch; false unless the entry takes it
+bool frame_args(const void* w, const int* off, int n_off, const void* rx,
+                void* feats, int B, int out_dim, float mag_k, int coarse_mag,
+                const FrameGeo& g, void* const* state_in,
+                void* const* state_out, FrameArgs& a) {
   if (n_off != FR_NW || B < 1 || out_dim < 4 || out_dim % 4 ||
       out_dim > DEC_TMAX_OUT || frame_limit(g))
-    return (int)cudaErrorInvalidValue;
-  FrameArgs a;
+    return false;
   const float* wf = static_cast<const float*>(w);
   a.d.w = wf;
   for (int i = 0; i < DEC_NW; ++i) a.d.off[i] = off[4 + i];
   a.d.z = nullptr;
   a.d.feats = static_cast<float*>(feats);
-  a.d.B = B; a.d.nz = nz; a.d.in_dim = latent; a.d.out_dim = out_dim;
+  a.d.B = B; a.d.nz = g.nz; a.d.in_dim = g.lat; a.d.out_dim = out_dim;
   for (int i = 0; i < 5; ++i) {
     a.d.h_in[i] = static_cast<const float*>(state_in[i]);
     a.d.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
@@ -1491,6 +1784,24 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
   a.g = g;
   a.mag_k = mag_k;
   a.coarse_mag = coarse_mag;
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
+                              const void* rx, void* feats, int B, int out_dim,
+                              float mag_k, int coarse_mag, int ns, int nc,
+                              int samp, int latent, int nz,
+                              void* const* state_in, void* const* state_out,
+                              void* stream) {
+  const FrameGeo g = frame_geo(ns, nc, samp, latent, nz);
+  FrameArgs a;
+  if (!frame_args(w, off, n_off, rx, feats, B, out_dim, mag_k, coarse_mag, g,
+                  state_in, state_out, a))
+    return (int)cudaErrorInvalidValue;
   const FrameGeo f = flagship_geo();
   const bool fix = ns == f.ns && nc == f.nc && samp == f.samp &&
                    latent == f.lat && nz == f.nz;
@@ -1505,6 +1816,33 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
   else
     rx_frame_kernel<false><<<(B + R - 1) / R, NT, smem,
                              static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// radae_fused_rx_frame_step with bf16 products (the geometry from the
+// launch): the kinds (kind_args) of all FR_NW arrays, every decoder matrix
+// bf16 (2) or f32 rounded at its products (3), no scale rows
+int radae_fused_rx_frame_bf16_step(const void* w, const int* off, int n_off,
+                                   const int* kinds, const int* soff,
+                                   int n_soff, const void* rx, void* feats,
+                                   int B, int out_dim, float mag_k,
+                                   int coarse_mag, int ns, int nc, int samp,
+                                   int latent, int nz, void* const* state_in,
+                                   void* const* state_out, void* stream) {
+  const FrameGeo g = frame_geo(ns, nc, samp, latent, nz);
+  FrameArgs a;
+  if (!frame_args(w, off, n_off, rx, feats, B, out_dim, mag_k, coarse_mag, g,
+                  state_in, state_out, a) ||
+      n_soff != 0 || !kind_args(kinds + 4, DEC_NW, soff, 0, DEC_MATS, true, a.k) ||
+      a.k.i8 != 0 || (a.k.bf | a.k.rw) != DEC_MATS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = frame_smem(g);
+  cudaError_t e = cudaFuncSetAttribute(
+      rx_frame_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  rx_frame_kernel<false, true><<<(B + R - 1) / R, NT, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1535,6 +1873,36 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
   }
   return n_soff ? launch(enc_kernel<true>, ENC_SMEM_Q, B, stream, a, q)
                 : launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
+}
+
+// radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args)
+int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
+                                  const int* kinds, const int* soff,
+                                  int n_soff, const void* f, void* z, int B,
+                                  int nz, int in_dim, int out_dim,
+                                  int bottleneck, void* const* state_in,
+                                  void* const* state_out, void* stream) {
+  EncArgs a;
+  KindArgs<ENC_NS> k;
+  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      out_dim < 4 || out_dim % 4 || in_dim > ENC_X - ENC_FOFF ||
+      out_dim > ENC_MAX_OUT ||
+      !kind_args(kinds, n_off, soff, n_soff, ENC_MATS, true, k))
+    return (int)cudaErrorInvalidValue;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < ENC_NW; ++i) a.off[i] = off[i];
+  a.f = static_cast<const float*>(f);
+  a.z = static_cast<float*>(z);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  a.bottleneck = bottleneck;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
+  }
+  return launch(enc_kernel<true, true, KindArgs<ENC_NS>>, ENC_SMEM_Q, B,
+                stream, a, k);
 }
 
 // The tiling, for counting the weight bytes a launch fetches: batch rows a

@@ -106,6 +106,20 @@ class CoreDecoder:
         self.input_dim = input_dim
         self.output_dim = output_dim
 
+    def init(self, seed) -> Params:
+        """Random weights (numpy) from an int seed: radae_tpu's
+        `CoreDecoder.init(seed)` draw for draw."""
+        rng = L.as_rng(seed)
+        p: Params = {"dense_1": L.init_dense(rng, self.input_dim, 96)}
+        for i, ((gin, gh), (cin, cout, _)) in enumerate(
+                zip(_DEC_GRU_DIMS, _DEC_CONV_DIMS), start=1):
+            p[f"gru{i}"] = L.init_gru(rng, gin, gh)
+            p[f"glu{i}"] = L.init_glu(rng, gh)
+            p[f"conv{i}"] = L.init_conv2tap(rng, cin, cout)
+        p["output"] = L.init_dense(rng, _DEC_CAT_DIM,
+                                   FRAMES_PER_STEP * self.output_dim)
+        return p
+
     def zero_state(self, batch: int, device="cuda",
                    dtype=torch.float32) -> State:
         return _zero_state(_DEC_GRU_DIMS, _DEC_CONV_DIMS, batch, device, dtype)

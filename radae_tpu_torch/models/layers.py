@@ -1,5 +1,7 @@
 """Primitive layers as plain functions over parameter dicts (port of
-`radae_tpu/models/layers.py`, apply functions only).
+`radae_tpu/models/layers.py`: the apply functions, and the host-side
+initialisers, which draw numpy arrays from a seeded numpy Generator as
+radae_tpu's do, so one seed gives both packages the same weights).
 
 Weights keep the row-major (out_features, in_features) layout of the JAX
 package and of torch checkpoints, so one npz feeds both packages
@@ -9,7 +11,58 @@ layers take and return an explicit state.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def as_rng(seed) -> np.random.Generator:
+    """A numpy Generator from an int seed (or the Generator itself).
+    radae_tpu also takes a jax key here; the port takes seeds only."""
+    if isinstance(seed, np.random.Generator):
+        return seed
+    if isinstance(seed, (int, np.integer)):
+        return np.random.default_rng(seed)
+    raise TypeError(f"init takes an int seed or a numpy Generator, got "
+                    f"{type(seed).__name__}")
+
+
+def _uniform(rng, shape, bound):
+    return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+
+def _orthogonal(rng, shape):
+    # orthogonal init (reference: radae_base.py:72-77)
+    rows, cols = shape
+    n = max(rows, cols)
+    q, r = np.linalg.qr(rng.standard_normal((n, n)))
+    q = q * np.sign(np.diagonal(r))
+    return np.asarray(q[:rows, :cols], np.float32)
+
+
+def init_dense(rng, in_dim, out_dim):
+    bound = 1.0 / np.sqrt(in_dim)
+    return {"w": _uniform(rng, (out_dim, in_dim), bound),
+            "b": _uniform(rng, (out_dim,), bound)}
+
+
+def init_gru(rng, in_dim, hidden):
+    bound = 1.0 / np.sqrt(hidden)
+    return {"w_ih": _uniform(rng, (3 * hidden, in_dim), bound),
+            "w_hh": _orthogonal(rng, (3 * hidden, hidden)),
+            "b_ih": _uniform(rng, (3 * hidden,), bound),
+            "b_hh": _uniform(rng, (3 * hidden,), bound)}
+
+
+def init_conv2tap(rng, in_dim, out_dim):
+    bound = 1.0 / np.sqrt(in_dim * 2)
+    return {"w": _uniform(rng, (out_dim, in_dim, 2), bound),
+            "b": _uniform(rng, (out_dim,), bound)}
+
+
+def init_glu(rng, feat):
+    # gate initialised orthogonal, stored in weight-norm (g, v) form
+    v = _orthogonal(rng, (feat, feat))
+    return {"v": v, "g": np.linalg.norm(v, axis=1).astype(np.float32)}
 
 
 def dense(params, x):

@@ -25,8 +25,8 @@ _F = ctypes.c_float
 # C signatures of each library's entries: name -> argtypes (restype int).
 # Every launch entry takes (weights, offsets, n_off, [kinds, scale offsets,
 # n_scales,] input, output, <sizes>, state_in[], state_out[], stream) and
-# returns the launch's cudaError_t (the bracketed three: the entries with an
-# int8 instance); the entries with no arguments return a constant of the
+# returns the launch's cudaError_t (the bracketed three: all but the f32
+# frame entry); the entries with no arguments return a constant of the
 # kernels' tiling, and radae_rx_frame_limit the frame kernel's limit a
 # modem geometry breaks.
 _SIGNATURES = {
@@ -36,13 +36,23 @@ _SIGNATURES = {
         "radae_dec_tile_rows": [],
         "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _P, _P, _P],
+        "radae_fused_decoder_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P,
+                                          _I, _I, _I, _I, _P, _P, _P],
         "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _P, _P,
                                             _I, _I, _I, _I, _P, _P, _P],
+        "radae_fused_decoder_merged_x_step": [_P, _P, _I, _P, _P, _I, _P, _P,
+                                              _I, _I, _I, _I, _I, _I, _P, _P,
+                                              _P],
         "radae_rx_frame_limit": [_I, _I, _I, _I, _I],
         "radae_fused_rx_frame_step": [_P, _P, _I, _P, _P, _I, _I, _F, _I,
                                       _I, _I, _I, _I, _I, _P, _P, _P],
+        "radae_fused_rx_frame_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P,
+                                           _I, _I, _F, _I, _I, _I, _I, _I,
+                                           _I, _P, _P, _P],
         "radae_fused_encoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _I, _P, _P, _P],
+        "radae_fused_encoder_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
+                                          _I, _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -1,8 +1,9 @@
 """Fused core codec steps: the whole recurrent encoder or decoder stack for
 nz latent steps in one CUDA kernel, and the whole rx frame (OFDM demod,
 LS pilot EQ, coarse magnitude, demap and decoder) in one more (port of
-`radae_tpu/ops/fused_core.py`: the f32 forms, and the int8 forms of the
-encoder and both decoders).
+`radae_tpu/ops/fused_core.py`: every body in f32, int8 and bf16 weights,
+with f32 or bf16 products, and the chain-merged decoder in its padded
+layout).
 
 `fused_decoder_step` / `fused_encoder_step` / `fused_rx_frame_step` launch
 the hand-written kernels of `csrc/fused_core.cu` for CUDA tensors and run
@@ -12,22 +13,31 @@ the same math in the order of the Pallas kernels) for CPU tensors.  There
 is no fallback: a CUDA tensor goes to the kernel or the call raises.
 
 Weights are packed once, pre-transposed to (in, out), into one contiguous
-f32 buffer; the kernel takes the buffer plus the offset of each array.
-With quant="int8" every matrix (but those `quant_exclude` names) is stored
-as int8, one byte a weight, with a per-output-column f32 scale row
-appended to the buffer; each product is dequantized on its output,
-(x @ q) * scale + bias, as in radae_tpu's `_fused_weights`.
-The decoder comes in two layouts (`decoder_weights(merged=...)`):
+buffer; the kernel takes the buffer plus the offset of each array.
+dtype=torch.bfloat16 stores every matrix in bf16 (rounded once, to nearest
+even; biases stay f32).  With quant="int8" every matrix (but those
+`quant_exclude` names, stored in `dtype`) is stored as int8, one byte a
+weight, with a per-output-column f32 scale row appended to the buffer; each
+product is dequantized on its output, (x @ q) * scale + bias, as in
+radae_tpu's `_fused_weights`.
+The decoder comes in three layouts (`decoder_weights(merged=...)`):
   unmerged: per layer wih, whh, bih, bhh, glu, conv tap 0, tap 1, bias;
   merged:   per layer wih, wgg = [whh | glu], bih, bhh, cw = [tap1 | tap0],
             bias (the TPU's chain-merged form: 17 serial products a z-step
-            instead of 27).
+            instead of 27);
+  "pad":    the merged arrays with the rows of the x operands (wih, cw,
+            out_w) scattered onto 128-row segments, one a segment of x (x0,
+            then each layer's GLU and conv outputs), zero rows between.
+compute_dtype=torch.bfloat16 (a keyword of every step) rounds the inputs of
+each product to bf16 as radae_tpu's kernels do (`_rounds`); the sums, the
+gates and the carried state stay f32.
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
   decoder, merged:   5 GRU h (B, 96) + 5 projected hh rows h @ whh (B, 288)
                      + 5 projected conv tap-0 rows hist @ tap0 (B, 32); the
                      biases are added where the projections are used, so
-                     the zero state is all zeros in both layouts
+                     the zero state is all zeros in both layouts (and in
+                     "pad", whose state is the merged one)
   encoder:           5 GRU h (B, 64) + 5 conv history rings (B, d, in),
                      oldest first
 (the `CoreDecoder` / `CoreEncoder` state squeezed or kept per layer).  A
@@ -50,13 +60,33 @@ from .. import resolve_device
 from . import _kernels
 from .pilots import LOCAL_PATH_DELAY_S, ls_pmat, window3_index
 
-# kernel launches per kernel form since the last reset_launches()
-LAUNCHES = {"fused_decoder_step": 0, "fused_decoder_merged_step": 0,
-            "fused_rx_frame_step": 0, "fused_encoder_step": 0,
-            "fused_decoder_step_int8": 0, "fused_decoder_merged_step_int8": 0,
-            "fused_encoder_step_int8": 0}
 N_DEC, N_DEC_MERGED, N_ENC = 2 + 5 * 8 + 2, 2 + 5 * 6 + 2, 2 + 5 * 7 + 2
 QUANTS = (None, "int8")
+DTYPES = (torch.float32, torch.bfloat16)   # of the matrices, and of products
+SEG = 128                                  # rows of a "pad" x segment
+
+
+def _launch_key(entry, weights, compute_dtype, pad=False):
+    """The LAUNCHES key of one form: the entry, then "_pad" for the padded
+    layout, the weights' kind ("_int8", "_bf16w" for bf16 matrices) and
+    "_bf16" for bf16 products."""
+    kind = ("_int8" if weights.quant else
+            "_bf16w" if any(a.dtype == torch.bfloat16 for a in weights.arrays)
+            else "")
+    return (entry + ("_pad" if pad else "") + kind
+            + ("_bf16" if compute_dtype == torch.bfloat16 else ""))
+
+
+# kernel launches per form (kernel instance and weight kind) since the last
+# reset_launches(): every form a wrapper can launch
+LAUNCHES = {e + p + k: 0
+            for e, pads, kinds in (
+                ("fused_decoder_step", ("",), ("", "_int8")),
+                ("fused_decoder_merged_step", ("", "_pad"), ("", "_int8")),
+                ("fused_rx_frame_step", ("",), ("",)),
+                ("fused_encoder_step", ("",), ("", "_int8")))
+            for p in pads
+            for k in kinds + tuple(x + "_bf16" for x in kinds + ("_bf16w",))}
 
 
 def reset_launches():
@@ -65,17 +95,17 @@ def reset_launches():
 
 
 class PackedWeights(NamedTuple):
-    """Weights of one fused stack in one contiguous f32 buffer.  An int8
-    matrix takes a quarter of the floats it would take in f32; its view
-    is int8."""
+    """Weights of one fused stack in one contiguous buffer (f32 words).  An
+    int8 matrix takes a quarter of the bytes it would take in f32, a bf16
+    one half; its view is int8 or bfloat16."""
     buf: torch.Tensor            # (n,) float32
     offsets: Tuple[int, ...]     # start of each array in buf, in floats
                                  # (16-byte aligned)
     arrays: Tuple[torch.Tensor, ...]   # views of buf, in kernel order
     names: Tuple[str, ...]
     # quant="int8": one (1, out) f32 scale row per matrix, in array order
-    # (a unit row for a matrix kept in f32 by quant_exclude), and their
-    # starts in buf
+    # (a unit row for a matrix kept in f32 or bf16 by quant_exclude), and
+    # their starts in buf
     scales: Tuple[torch.Tensor, ...] = ()
     scale_offsets: Tuple[int, ...] = ()
 
@@ -88,6 +118,12 @@ def _np(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, np.float32)
+
+
+def _bf16_bits(a: np.ndarray) -> np.ndarray:
+    """The bf16 bits (uint16) of an f32 array, rounded to nearest even."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 
 def _quantize_int8(w: np.ndarray):
@@ -111,39 +147,70 @@ def _quantize_int8(w: np.ndarray):
     return q, np.asarray(best_s[None, :], np.float32)
 
 
+def _xsegs(n):
+    """Widths of the decoder's x segments after n layers: x0 (dense_1's
+    output), then each layer's GLU output and conv output."""
+    return ([_DEC_GRU_DIMS[0][0]]
+            + [v for j in range(n)
+               for v in (_DEC_GRU_DIMS[j][1], _DEC_CONV_DIMS[j][1])])
+
+
+def _pad_rows(w, widths):
+    """The row blocks of w (heights `widths`, the x segments it consumes) at
+    starts SEG apart, exact zero rows in the gaps."""
+    out = np.zeros((SEG * len(widths), w.shape[1]), np.float32)
+    r = 0
+    for j, wd in enumerate(widths):
+        out[SEG * j:SEG * j + wd] = w[r:r + wd]
+        r += wd
+    assert r == w.shape[0], (r, w.shape)
+    return out
+
+
 def _fused_arrays(params: Dict[str, Any], side: str, merged=False,
-                  quant=None, quant_exclude=()):
+                  quant=None, quant_exclude=(), dtype=torch.float32):
     """Flatten a decoder/encoder param tree (numpy or torch leaves) into the
     order of radae_tpu's `_fused_weights`: d1_w, d1_b, per layer g_wih,
     g_whh, g_bih, g_bhh, [glu_w,] c_w0, c_w1, c_b (merged, decoder only:
     g_wih, g_wgg, g_bih, g_bhh, c_w, c_b), then out_w, out_b.  Matrices
-    are transposed to (in, out).  quant="int8" stores each matrix as int8
-    with a scale row, but those whose name ends with a `quant_exclude`
-    suffix, which stay f32 with a unit scale row; a suffix that matches
-    no name raises.  Returns (arrays, names, scales); scales is [] unless
-    quant."""
+    are transposed to (in, out); merged="pad" scatters the rows of g_wih,
+    c_w and out_w onto SEG-row segments (`_pad_rows`).  Matrices are stored
+    in `dtype` (bf16 as its uint16 bits); quant="int8" stores each matrix
+    as int8 with a scale row, but those whose name ends with a
+    `quant_exclude` suffix, which stay in `dtype` with a unit scale row; a
+    suffix that matches no name raises.  Returns (arrays, names, scales);
+    scales is [] unless quant."""
     if merged and side != "decoder":
         raise ValueError("the merged layout is decoder-only")
+    if merged not in (False, True, "pad"):
+        raise ValueError(f'merged must be False, True or "pad", got {merged!r}')
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
+    pad = merged == "pad"
     arrs, names, scales = [], [], []
     matched = set()
 
     def add(name, a):
         a = np.ascontiguousarray(a, np.float32)
-        if a.ndim >= 2 and quant == "int8":
+        if a.ndim >= 2:
             excl = [x for x in quant_exclude if name.endswith(x)]
-            if excl:
-                matched.update(excl)
-                scales.append(np.ones((1, a.shape[1]), np.float32))
-            else:
+            if quant == "int8" and not excl:
                 a, sc = _quantize_int8(a)
                 scales.append(sc)
+            else:
+                if quant == "int8":
+                    matched.update(excl)
+                    scales.append(np.ones((1, a.shape[1]), np.float32))
+                if dtype == torch.bfloat16:
+                    a = _bf16_bits(a)
         arrs.append(a)
         names.append(name)
 
-    def addT(name, a):
-        add(name, _np(a).T)
+    def addT(name, a, segs=None):
+        a = _np(a).T
+        add(name, _pad_rows(a, segs) if pad and segs else a)
 
     addT("d1_w", params["dense_1"]["w"]); add("d1_b", _np(params["dense_1"]["b"]))
     for i in range(1, 6):
@@ -154,10 +221,11 @@ def _fused_arrays(params: Dict[str, Any], side: str, merged=False,
             v, gg = _np(glu["v"]), _np(glu["g"])
             glu_w = gg[:, None] * v / np.linalg.norm(v, axis=1, keepdims=True)
         if merged:
-            addT(f"g{i}_wih", g["w_ih"])
+            addT(f"g{i}_wih", g["w_ih"], _xsegs(i - 1))
             add(f"g{i}_wgg", np.concatenate([_np(g["w_hh"]).T, glu_w.T], axis=1))
             add(f"g{i}_bih", _np(g["b_ih"])); add(f"g{i}_bhh", _np(g["b_hh"]))
-            add(f"c{i}_w", np.concatenate([cw[:, :, 1].T, cw[:, :, 0].T], axis=1))
+            addT(f"c{i}_w", np.concatenate([cw[:, :, 1], cw[:, :, 0]], axis=0),
+                 _xsegs(i - 1) + [_DEC_GRU_DIMS[i - 1][1]])
             add(f"c{i}_b", _np(params[f"conv{i}"]["b"]))
             continue
         addT(f"g{i}_wih", g["w_ih"]); addT(f"g{i}_whh", g["w_hh"])
@@ -167,7 +235,7 @@ def _fused_arrays(params: Dict[str, Any], side: str, merged=False,
         addT(f"c{i}_w0", cw[:, :, 0]); addT(f"c{i}_w1", cw[:, :, 1])
         add(f"c{i}_b", _np(params[f"conv{i}"]["b"]))
     out = params["output" if side == "decoder" else "z_dense"]
-    addT("out_w", out["w"]); add("out_b", _np(out["b"]))
+    addT("out_w", out["w"], _xsegs(5)); add("out_b", _np(out["b"]))
     unmatched = set(quant_exclude) - matched
     if quant == "int8" and unmatched:
         raise ValueError(
@@ -177,8 +245,8 @@ def _fused_arrays(params: Dict[str, Any], side: str, merged=False,
 
 
 def _pack(arrs, names, device, scales=()) -> PackedWeights:
-    """Copy arrays (f32 or int8) and then the scale rows into one f32
-    buffer on `device`, every start 16-byte aligned."""
+    """Copy arrays (f32, int8 or bf16 bits) and then the scale rows into one
+    f32 buffer on `device`, every start 16-byte aligned."""
     offsets, n = [], 0
     for a in list(arrs) + list(scales):
         offsets.append(n)
@@ -187,12 +255,12 @@ def _pack(arrs, names, device, scales=()) -> PackedWeights:
     for o, a in zip(offsets, list(arrs) + list(scales)):
         flat[4 * o:4 * o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).ravel()
     buf = torch.as_tensor(flat.view(np.float32), device=resolve_device(device))
-    buf8 = buf.view(torch.int8)
+    typed = {np.dtype(np.float32): (buf, 1), np.dtype(np.int8): (buf.view(torch.int8), 4),
+             np.dtype(np.uint16): (buf.view(torch.bfloat16), 2)}
 
     def view(o, a):
-        if a.dtype == np.int8:
-            return buf8[4 * o:4 * o + a.size].view(a.shape)
-        return buf[o:o + a.size].view(a.shape)
+        b, per = typed[a.dtype]
+        return b[per * o:per * o + a.size].view(a.shape)
 
     views = tuple(view(o, a) for o, a in zip(offsets, list(arrs) + list(scales)))
     k = len(arrs)
@@ -201,26 +269,36 @@ def _pack(arrs, names, device, scales=()) -> PackedWeights:
 
 
 def decoder_weights(params, device="cuda", merged=False, quant=None,
-                    quant_exclude=()) -> PackedWeights:
+                    quant_exclude=(), dtype=torch.float32) -> PackedWeights:
     """The decoder's fused weights, unmerged (44 arrays) or chain-merged
-    (34 arrays, radae_tpu's `decoder_weights(merged=True)`); quant="int8"
-    adds 27 (unmerged) or 17 (merged) scale rows."""
+    (34 arrays, radae_tpu's `decoder_weights(merged=True)`, or its padded
+    layout with merged="pad"); quant="int8" adds 27 (unmerged) or 17
+    (merged) scale rows; dtype=torch.bfloat16 stores the matrices in bf16."""
     arrs, names, scales = _fused_arrays(params, "decoder", merged, quant,
-                                        quant_exclude)
+                                        quant_exclude, dtype)
     return _pack(arrs, names, device, scales)
 
 
 def encoder_weights(params, device="cuda", quant=None,
-                    quant_exclude=()) -> PackedWeights:
+                    quant_exclude=(), dtype=torch.float32) -> PackedWeights:
     """The encoder's fused weights (39 arrays); quant="int8" adds 22 scale
-    rows."""
+    rows; dtype=torch.bfloat16 stores the matrices in bf16."""
     arrs, names, scales = _fused_arrays(params, "encoder", False, quant,
-                                        quant_exclude)
+                                        quant_exclude, dtype)
     return _pack(arrs, names, device, scales)
 
 
+def merged_layout(weights: PackedWeights):
+    """The decoder layout of a weight set: False (unmerged), True
+    (chain-merged) or "pad" (chain-merged, x operands on SEG-row
+    segments)."""
+    if len(weights.arrays) != N_DEC_MERGED:
+        return False
+    return "pad" if weights.arrays[2].shape[0] == SEG else True
+
+
 def is_merged(weights: PackedWeights) -> bool:
-    return len(weights.arrays) == N_DEC_MERGED
+    return bool(merged_layout(weights))
 
 
 def _dec_state_shapes(batch, merged=False):
@@ -316,8 +394,11 @@ class RxFrameWeights(NamedTuple):
         return PackedWeights(w.buf, w.offsets[sl], w.arrays[sl], w.names[sl])
 
 
-def fused_rx_weights(params, cfg, device="cuda") -> RxFrameWeights:
-    """Demod constants + decoder weights for the frame step.  dense_1's
+def fused_rx_weights(params, cfg, device="cuda",
+                     dtype=torch.float32) -> RxFrameWeights:
+    """Demod constants + decoder weights (matrices in `dtype`, as
+    radae_tpu's `fused_rx_weights(dtype=)`: the demod constants stay f32)
+    for the frame step.  dense_1's
     rows are permuted so the step feeds [re(0..L/2-1), im(0..L/2-1)]
     instead of the interleaved QPSK demap (the interleave is folded into
     the product).  Two more arrays give the kernel its layout, with 2Nc
@@ -326,7 +407,7 @@ def fused_rx_weights(params, cfg, device="cuda") -> RxFrameWeights:
       ls_w (yw, yw): [Yr | Yi | 0] of a pilot row -> [hr | hi | 0] (zero
       rows and columns at the pad)."""
     Wr, Wi, Er, Ei = (t.numpy() for t in rx_demod_consts(cfg, "cpu"))
-    arrs, names, _ = _fused_arrays(params, "decoder")
+    arrs, names, _ = _fused_arrays(params, "decoder", dtype=dtype)
     L = arrs[0].shape[0]
     perm = np.concatenate([np.arange(0, L, 2), np.arange(1, L, 2)])
     arrs[0] = np.ascontiguousarray(arrs[0][perm])
@@ -350,16 +431,56 @@ def fused_rx_weights(params, cfg, device="cuda") -> RxFrameWeights:
 # plain PyTorch versions (the kernels' reference)
 # ---------------------------------------------------------------------------
 
-def _products(weights: PackedWeights):
+def _check_compute(compute_dtype):
+    if compute_dtype not in DTYPES:
+        raise ValueError(f"compute_dtype must be one of {DTYPES}, got "
+                         f"{compute_dtype!r}")
+
+
+def _rounds(weights: PackedWeights, compute_dtype, rule):
+    """Per array: whether a step with bf16 products rounds that matrix to
+    bf16 at its product inputs, as radae_tpu's kernels do.  Their `dot` is
+    jnp.dot(x.astype(cd), w.astype(cd) if quant else w), so an f32 matrix
+    of an f32 set stays f32 (bf16 x f32 promotes to f32); but `_gru_step`,
+    which the unmerged decoder and the encoder run their GRU products
+    through (rule "gru"), and the frame kernel's dot (rule "all") round w
+    always.  int8 and bf16 matrices are exact in bf16 either way."""
+    if compute_dtype != torch.bfloat16:
+        return (False,) * len(weights.arrays)
+    return tuple(a.dim() == 2 and (rule == "all" or weights.quant is not None
+                                   or (rule == "gru" and n.endswith(("_wih", "_whh"))))
+                 for n, a in zip(weights.names, weights.arrays))
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest even) and back to f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _products(weights: PackedWeights, compute_dtype=torch.float32,
+              rule="none"):
     """mm(x, j) = x @ arrays[j], dequantized on its output as radae_tpu's
     int8 `dot` does, (x @ q) * scale, when the weights are int8 (a matrix
-    kept in f32 by quant_exclude is multiplied by its unit scale row)."""
+    kept in f32 or bf16 by quant_exclude is multiplied by its unit scale
+    row).  With bf16 products x is rounded to bf16 and so is each matrix
+    that `_rounds(..., rule)` names; the products of bf16 values are exact
+    in f32 and the sum is f32."""
     arrays = weights.arrays
-    if not weights.scales:
+    if compute_dtype == torch.bfloat16:
+        rounds = _rounds(weights, compute_dtype, rule)
+        ws = [_bf16(a.float()) if r else a.float()
+              for a, r in zip(arrays, rounds)]
+        mm = lambda x, j: _bf16(x) @ ws[j]
+    elif any(a.dtype != torch.float32 for a in arrays):
+        ws = [a.float() for a in arrays]
+        mm = lambda x, j: x @ ws[j]
+    else:
         return lambda x, j: x @ arrays[j]
+    if not weights.scales:
+        return mm
     rows = iter(weights.scales)
     sc = [next(rows) if a.dim() == 2 else None for a in arrays]
-    return lambda x, j: (x @ arrays[j].float()) * sc[j]
+    return lambda x, j: mm(x, j) * sc[j]
 
 
 def _gru_step(xg, hg, h):
@@ -371,9 +492,8 @@ def _gru_step(xg, hg, h):
     return (1.0 - z) * n + z * h
 
 
-def decoder_step_plain(weights: PackedWeights, z, state):
-    """z (B, nz, latent) -> (features (B, 4*nz, F), new_state)."""
-    w, mm = weights.arrays, _products(weights)
+def _decoder_steps(w, mm, z, state):
+    """The unmerged decoder stack over z's nz steps with the products mm."""
     B, nz, _ = z.shape
     h, hist = list(state[:5]), list(state[5:])
     outs = []
@@ -393,14 +513,38 @@ def decoder_step_plain(weights: PackedWeights, z, state):
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(h + hist)
 
 
-def decoder_merged_step_plain(weights: PackedWeights, z, state):
+def decoder_step_plain(weights: PackedWeights, z, state,
+                       compute_dtype=torch.float32):
+    """z (B, nz, latent) -> (features (B, 4*nz, F), new_state)."""
+    return _decoder_steps(weights.arrays,
+                          _products(weights, compute_dtype, "gru"), z, state)
+
+
+def _pad_x(x):
+    """x's segments (`_xsegs`) at starts SEG apart, zeros between: the x
+    operand of a "pad" matrix."""
+    out = x.new_zeros((x.shape[0], SEG * len(_xsegs(5))))
+    r = j = 0
+    for wd in _xsegs(5):
+        if r == x.shape[1]:
+            break
+        out[:, SEG * j:SEG * j + wd] = x[:, r:r + wd]
+        r, j = r + wd, j + 1
+    return out[:, :SEG * j]
+
+
+def decoder_merged_step_plain(weights: PackedWeights, z, state,
+                              compute_dtype=torch.float32):
     """The chain-merged decoder (radae_tpu's `kernel_merged`): z (B, nz,
     latent) -> (features (B, 4*nz, F), new 15-tensor state).  hg is the
     carried hh projection plus b_hh; h @ [whh | glu] gives the next
     step's projection and this step's GLU gate; x @ [tap1 | tap0] gives
     this step's tap 1 and the next step's tap 0 (no bias until used; with
-    int8 weights the carried projections are the dequantized ones)."""
-    w, mm = weights.arrays, _products(weights)
+    int8 weights the carried projections are the dequantized ones).  With
+    "pad" weights the x operands go in as `_pad_x` lays them out."""
+    w, mm = weights.arrays, _products(weights, compute_dtype)
+    xmm = ((lambda x, j: mm(_pad_x(x), j))
+           if merged_layout(weights) == "pad" else mm)
     B, nz, _ = z.shape
     h, hgp, hpp = list(state[:5]), list(state[5:10]), list(state[10:])
     outs = []
@@ -409,36 +553,42 @@ def decoder_merged_step_plain(weights: PackedWeights, z, state):
         for i in range(5):
             j = 2 + 6 * i      # wih wgg bih bhh cw cb
             H, co = h[i].shape[-1], w[j + 5].shape[0]
-            h[i] = _gru_step(mm(x, j) + w[j + 2], hgp[i] + w[j + 3], h[i])
+            h[i] = _gru_step(xmm(x, j) + w[j + 2], hgp[i] + w[j + 3], h[i])
             gh = mm(h[i], j + 1)
             hgp[i] = gh[:, :3 * H]
             x = torch.cat([x, h[i] * torch.sigmoid(gh[:, 3 * H:])], dim=-1)
-            cc = mm(x, j + 4)
+            cc = xmm(x, j + 4)
             yc = torch.tanh(hpp[i] + cc[:, :co] + w[j + 5])
             hpp[i] = cc[:, co:]
             x = torch.cat([x, yc], dim=-1)
-        outs.append(mm(x, len(w) - 2) + w[-1])
+        outs.append(xmm(x, len(w) - 2) + w[-1])
     feats = torch.stack(outs, dim=1)
     F = feats.shape[-1] // FRAMES_PER_STEP
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(h + hgp + hpp)
 
 
-def rx_frame_step_plain(weights: RxFrameWeights, rx_packed, state):
+def rx_frame_step_plain(weights: RxFrameWeights, rx_packed, state,
+                        compute_dtype=torch.float32):
     """One whole rx frame (radae_tpu's `make_fused_rx_frame_step` kernel,
     in its order): rx_packed (B, (Ns+2)(M+Ncp), 2) -> (features (B, 4*nz,
     F), new unmerged decoder state).  DFT of every symbol row, LS pilot
     estimates of the two pilot rows, coarse magnitude, linear pilot
-    interpolation with phase EQ, then the decoder on [re | im] latents."""
-    Wr, Wi, Er, Ei = weights.w.arrays[:4]
+    interpolation with phase EQ, then the decoder on [re | im] latents.
+    With bf16 products every product rounds both its inputs to bf16 (the
+    samples and the DFT, the DFT outputs and the LS matrices, x and every
+    decoder matrix), as that kernel's dot does."""
+    rnd = _bf16 if compute_dtype == torch.bfloat16 else (lambda t: t)
+    Wr, Wi, Er, Ei = (rnd(t) for t in weights.w.arrays[:4])
     B = rx_packed.shape[0]
     n_sym, Ns = weights.n_sym, weights.n_sym - 2
     rx = rx_packed.reshape(B, n_sym, weights.samp, 2)
-    xr, xi = rx[..., 0], rx[..., 1]
+    xr, xi = rnd(rx[..., 0]), rnd(rx[..., 1])
     Yr = xr @ Wr - xi @ Wi                         # (B, n_sym, Nc)
     Yi = xr @ Wi + xi @ Wr
 
     def ls(s):
-        return (Yr[:, s] @ Er - Yi[:, s] @ Ei, Yr[:, s] @ Ei + Yi[:, s] @ Er)
+        yr, yi = rnd(Yr[:, s]), rnd(Yi[:, s])
+        return (yr @ Er - yi @ Ei, yr @ Ei + yi @ Er)
 
     (hp0r, hp0i), (hp1r, hp1i) = ls(0), ls(n_sym - 1)
     if weights.coarse_mag:
@@ -464,12 +614,14 @@ def rx_frame_step_plain(weights: RxFrameWeights, rx_packed, state):
     z = torch.stack([torch.cat([Dr[:, k * per_z:(k + 1) * per_z],
                                 Di[:, k * per_z:(k + 1) * per_z]], dim=-1)
                      for k in range(nz)], dim=1)
-    return decoder_step_plain(dec, z, state)
+    return _decoder_steps(dec.arrays, _products(dec, compute_dtype, "all"),
+                          z, state)
 
 
-def encoder_step_plain(weights: PackedWeights, feats, state, bottleneck=3):
+def encoder_step_plain(weights: PackedWeights, feats, state, bottleneck=3,
+                       compute_dtype=torch.float32):
     """feats (B, 4*nz, F) -> (z (B, nz, latent), new_state)."""
-    w, mm = weights.arrays, _products(weights)
+    w, mm = weights.arrays, _products(weights, compute_dtype, "gru")
     B, T, F = feats.shape
     nz = T // FRAMES_PER_STEP
     f = feats.reshape(B, nz, FRAMES_PER_STEP * F)
@@ -509,16 +661,23 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
+def _kinds(weights: PackedWeights, rounds):
+    """Each array's kind as the C entries take it: 0 f32, 1 int8, 2 bf16,
+    3 f32 rounded to bf16 at its products (`_rounds`)."""
+    return [1 if a.dtype == torch.int8 else 2 if a.dtype == torch.bfloat16
+            else 3 if r else 0 for a, r in zip(weights.arrays, rounds)]
+
+
 def _launch(fn, weights: PackedWeights, x, out, state, new_state, args,
-            kinds=True):
-    """Call a C entry on torch's current stream.  kinds: the entry takes,
-    after the offsets, each array's kind (1 for an int8 matrix) and the
-    scale rows' offsets (none: the f32 instance)."""
+            kinds=None):
+    """Call a C entry on torch's current stream.  kinds (`_kinds`): the
+    entry takes, after the offsets, each array's kind and the scale rows'
+    offsets (none without int8 matrices); None for the f32 frame entry,
+    which takes neither."""
     offs = (ctypes.c_int * len(weights.offsets))(*weights.offsets)
     head = [weights.buf.data_ptr(), ctypes.addressof(offs), len(weights.offsets)]
-    if kinds:
-        k = (ctypes.c_int * len(weights.arrays))(
-            *[int(a.dtype == torch.int8) for a in weights.arrays])
+    if kinds is not None:
+        k = (ctypes.c_int * len(kinds))(*kinds)
         so = (ctypes.c_int * max(1, len(weights.scale_offsets)))(
             *weights.scale_offsets)
         head += [ctypes.addressof(k), ctypes.addressof(so),
@@ -529,23 +688,30 @@ def _launch(fn, weights: PackedWeights, x, out, state, new_state, args,
                   _ptrs(new_state), stream)
 
 
-def _check_kinds(weights: PackedWeights, what: str, n_arrays: int):
-    """Raise unless the weights are what the kernel takes: n_arrays f32
-    arrays, or int8 and f32 matrices with one scale row each and f32
-    vectors."""
+def _check_kinds(weights: PackedWeights, what: str, n_arrays: int,
+                 compute_dtype=torch.float32):
+    """Raise unless the weights are what the kernels take: n_arrays arrays,
+    f32 vectors and f32, bf16 or int8 matrices (int8 with one scale row a
+    matrix), and bf16 matrices only under bf16 products (the instances
+    with f32 products read f32 and int8 matrices)."""
     ok = len(weights.arrays) == n_arrays and all(
-        a.dtype == torch.float32 or (a.dtype == torch.int8 and a.dim() == 2
-                                     and weights.scales)
+        a.dtype == torch.float32 or (a.dim() == 2 and (
+            a.dtype == torch.bfloat16
+            or (a.dtype == torch.int8 and weights.scales)))
         for a in weights.arrays)
     if weights.scales:
         ok = ok and len(weights.scales) == sum(a.dim() == 2
                                                for a in weights.arrays)
     if not ok:
         kinds = sorted({str(a.dtype) for a in weights.arrays})
-        raise ValueError(f"{what}: the kernel takes f32 or int8 weights from "
-                         f"the packing functions, got {len(weights.arrays)} "
-                         f"arrays of {kinds} with {len(weights.scales)} "
-                         "scale rows")
+        raise ValueError(f"{what}: the kernel takes f32, bf16 or int8 weights "
+                         f"from the packing functions, got "
+                         f"{len(weights.arrays)} arrays of {kinds} with "
+                         f"{len(weights.scales)} scale rows")
+    if compute_dtype != torch.bfloat16 and any(
+            a.dtype == torch.bfloat16 for a in weights.arrays):
+        raise ValueError(f"{what}: bf16 weights run with compute_dtype="
+                         "torch.bfloat16 on the card")
 
 
 def _ready_state(state, shapes, dev):
@@ -556,18 +722,36 @@ def _ready_state(state, shapes, dev):
             for i, (s, sh) in enumerate(zip(state, shapes))]
 
 
-def fused_decoder_step(weights: PackedWeights, z, state):
+def _check_pad(weights: PackedWeights):
+    """Raise unless each x operand of a "pad" set has SEG rows for each x
+    segment it reads (the kernel reads segment j's rows from row SEG*j)."""
+    w = weights.arrays
+    want = [(2 + 6 * i, len(_xsegs(i))) for i in range(5)] \
+        + [(6 + 6 * i, len(_xsegs(i)) + 1) for i in range(5)] \
+        + [(N_DEC_MERGED - 2, len(_xsegs(5)))]
+    bad = [weights.names[j] for j, n in want if w[j].shape[0] != SEG * n]
+    if bad:
+        raise ValueError(f'merged="pad" weights: {bad} do not have {SEG} '
+                         "rows an x segment")
+
+
+def fused_decoder_step(weights: PackedWeights, z, state,
+                       compute_dtype=torch.float32):
     """Decoder stack for nz z-steps: z (B, nz, latent) ->
     (features (B, 4*nz, F), new_state).  The weights' layout picks the
-    form: unmerged (`decoder_weights`) or chain-merged
-    (`decoder_weights(merged=True)`, with the 15-tensor merged state), and
-    their kind the instance: f32 or int8 (`quant="int8"`).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel
-    (radae_fused_decoder_step or radae_fused_decoder_merged_step)."""
-    merged = is_merged(weights)
+    form: unmerged (`decoder_weights`), chain-merged or padded
+    (`decoder_weights(merged=True | "pad")`, with the 15-tensor merged
+    state); their kind and compute_dtype the instance: f32 or int8
+    matrices with f32 products, or f32, bf16 or int8 matrices with bf16
+    products.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
+    radae_fused_decoder_merged_step or, padded or with bf16 products,
+    radae_fused_decoder_merged_x_step)."""
+    _check_compute(compute_dtype)
+    layout = merged_layout(weights)
     if z.device.type == "cpu":
-        return (decoder_merged_step_plain if merged
-                else decoder_step_plain)(weights, z, state)
+        return (decoder_merged_step_plain if layout
+                else decoder_step_plain)(weights, z, state, compute_dtype)
     if z.device.type != "cuda":
         raise ValueError(f"fused_decoder_step: unsupported device {z.device}")
     dev = z.device
@@ -577,18 +761,29 @@ def fused_decoder_step(weights: PackedWeights, z, state):
                                                                 N_DEC_MERGED):
         raise ValueError("fused_decoder_step: weights must come from "
                          f"decoder_weights(params, device={str(dev)!r})")
-    _check_kinds(weights, "fused_decoder_step", len(weights.arrays))
+    _check_kinds(weights, "fused_decoder_step", len(weights.arrays),
+                 compute_dtype)
+    if layout == "pad":
+        _check_pad(weights)
+    bf = compute_dtype == torch.bfloat16
     z = _ready(z, (B, nz, latent), dev, "z")
-    shapes = _dec_state_shapes(B, merged)
+    shapes = _dec_state_shapes(B, layout)
     state = _ready_state(state, shapes, dev)
     feats = torch.empty((B, nz, out_dim), device=dev)
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    entry = "fused_decoder_merged_step" if merged else "fused_decoder_step"
-    fn = getattr(_kernels.library("fused_core"), "radae_" + entry)
-    status = _launch(fn, weights, z, feats, state, new_state,
-                       (B, nz, latent, out_dim))
-    _kernels.check(status, "radae_" + entry)
-    LAUNCHES[entry + ("_int8" if weights.quant else "")] += 1
+    entry = "fused_decoder_merged_step" if layout else "fused_decoder_step"
+    args = (B, nz, latent, out_dim)
+    if layout and (bf or layout == "pad"):
+        name = "radae_fused_decoder_merged_x_step"
+        args += (int(layout == "pad"), int(bf))
+    else:
+        name = "radae_" + entry.replace("_step", "_bf16_step" if bf else "_step")
+    kinds = _kinds(weights, _rounds(weights, compute_dtype,
+                                    "none" if layout else "gru"))
+    status = _launch(getattr(_kernels.library("fused_core"), name), weights,
+                     z, feats, state, new_state, args, kinds)
+    _kernels.check(status, name)
+    LAUNCHES[_launch_key(entry, weights, compute_dtype, layout == "pad")] += 1
     F = out_dim // FRAMES_PER_STEP
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
 
@@ -609,14 +804,17 @@ FRAME_LIMITS = {
 }
 
 
-def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state):
+def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state,
+                        compute_dtype=torch.float32):
     """Whole rx frame: rx_packed (B, (Ns+2)(M+Ncp), 2) -> (features
     (B, 4*nz, F), new unmerged decoder state).  CPU tensors take
     `rx_frame_step_plain`; CUDA tensors launch the kernel
-    (radae_fused_rx_frame_step) with the weights' modem geometry, or raise
-    naming the kernel's limit it breaks (FRAME_LIMITS)."""
+    (radae_fused_rx_frame_step, or radae_fused_rx_frame_bf16_step for bf16
+    products) with the weights' modem geometry, or raise naming the
+    kernel's limit it breaks (FRAME_LIMITS)."""
+    _check_compute(compute_dtype)
     if rx_packed.device.type == "cpu":
-        return rx_frame_step_plain(weights, rx_packed, state)
+        return rx_frame_step_plain(weights, rx_packed, state, compute_dtype)
     if rx_packed.device.type != "cuda":
         raise ValueError(
             f"fused_rx_frame_step: unsupported device {rx_packed.device}")
@@ -629,6 +827,7 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state):
         raise ValueError("fused_rx_frame_step: the kernel takes "
                          "fused_rx_weights(params, cfg, device="
                          f"{str(dev)!r})")
+    _check_kinds(weights.decoder, "fused_rx_frame_step", N_DEC, compute_dtype)
     lib = _kernels.library("fused_core")
     limit = lib.radae_rx_frame_limit(ns, nc, samp, latent, nz)
     if limit:
@@ -642,26 +841,34 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state):
     out_dim = weights.decoder.arrays[-1].shape[0]
     feats = torch.empty((B, nz, out_dim), device=dev)
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    status = _launch(lib.radae_fused_rx_frame_step, w, rx, feats, state,
-                     new_state, (B, out_dim, ctypes.c_float(weights.mag_k),
-                                 int(weights.coarse_mag), ns, nc, samp,
-                                 latent, nz), kinds=False)
-    _kernels.check(status, "radae_fused_rx_frame_step")
-    LAUNCHES["fused_rx_frame_step"] += 1
+    bf = compute_dtype == torch.bfloat16
+    name = "radae_fused_rx_frame_" + ("bf16_step" if bf else "step")
+    status = _launch(getattr(lib, name), w, rx, feats, state, new_state,
+                     (B, out_dim, ctypes.c_float(weights.mag_k),
+                      int(weights.coarse_mag), ns, nc, samp, latent, nz),
+                     _kinds(w, _rounds(w, compute_dtype, "all")) if bf else None)
+    _kernels.check(status, name)
+    LAUNCHES[_launch_key("fused_rx_frame_step", weights.decoder,
+                         compute_dtype)] += 1
     F = out_dim // FRAMES_PER_STEP
     return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
 
 
-def make_fused_rx_frame_step(cfg, batch: int, device="cuda"):
+def make_fused_rx_frame_step(cfg, batch: int, device="cuda",
+                             compute_dtype=torch.float32):
     """The whole streaming rx frame as one step (radae_tpu's
-    `make_fused_rx_frame_step`, one frame a call):
+    `make_fused_rx_frame_step`, one frame a call, with its compute_dtype):
 
     step(weights, rx_packed (B, (Ns+2)(M+Ncp), 2), state)
       -> (features (B, 4*Nzmf, F), new_state)
 
     weights from `fused_rx_weights(params, cfg, device)`, state the
     unmerged decoder state (`decoder_state_zero(batch, device)`).  CUDA
-    tensors launch the frame kernel; CPU tensors take the plain version."""
+    tensors launch the frame kernel; CPU tensors take the plain version.
+    radae_tpu's rx_dma and tile place the TPU's sample block and size its
+    grid: the CUDA kernel stages each block's samples by cp.async either
+    way, so the port has neither."""
+    _check_compute(compute_dtype)
     dev = resolve_device(device)
     if cfg.Ns * cfg.Nc != cfg.Nzmf * cfg.latent_dim // 2:
         raise ValueError("a frame's data symbols must fill its latent steps")
@@ -683,18 +890,22 @@ def make_fused_rx_frame_step(cfg, batch: int, device="cuda"):
         if rx_packed.device.type != dev.type:
             raise ValueError(f"fused rx frame step built for {dev}, got "
                              f"samples on {rx_packed.device}")
-        return fused_rx_frame_step(weights, rx_packed, state)
+        return fused_rx_frame_step(weights, rx_packed, state, compute_dtype)
 
     return step
 
 
-def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3):
+def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
+                       compute_dtype=torch.float32):
     """Encoder stack: feats (B, 4*nz, F) -> (z (B, nz, latent), new_state).
-    The weights' kind picks the instance: f32 or int8 (`quant="int8"`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (radae_fused_encoder_step)."""
+    The weights' kind and compute_dtype pick the instance: f32 or int8
+    matrices with f32 products (radae_fused_encoder_step), or f32, bf16 or
+    int8 ones with bf16 products (radae_fused_encoder_bf16_step).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    _check_compute(compute_dtype)
     if feats.device.type == "cpu":
-        return encoder_step_plain(weights, feats, state, bottleneck)
+        return encoder_step_plain(weights, feats, state, bottleneck,
+                                  compute_dtype)
     if feats.device.type != "cuda":
         raise ValueError(f"fused_encoder_step: unsupported device {feats.device}")
     dev = feats.device
@@ -707,17 +918,19 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3):
     if weights.buf.device != dev:
         raise ValueError("fused_encoder_step: weights must come from "
                          f"encoder_weights(params, device={str(dev)!r})")
-    _check_kinds(weights, "fused_encoder_step", N_ENC)
+    _check_kinds(weights, "fused_encoder_step", N_ENC, compute_dtype)
     x = _ready(feats, (B, T, F), dev, "feats")
     shapes = ([(B, gh) for _, gh in _ENC_GRU_DIMS]
               + [(B, d, cin) for cin, _, d in _ENC_CONV_DIMS])
     state = _ready_state(state, shapes, dev)
     z = torch.empty((B, nz, latent), device=dev)
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    lib = _kernels.library("fused_core")
-    status = _launch(lib.radae_fused_encoder_step, weights, x, z, state,
-                       new_state, (B, nz, FRAMES_PER_STEP * F, latent,
-                                   int(bottleneck)))
-    _kernels.check(status, "radae_fused_encoder_step")
-    LAUNCHES["fused_encoder_step" + ("_int8" if weights.quant else "")] += 1
+    bf = compute_dtype == torch.bfloat16
+    name = "radae_fused_encoder_" + ("bf16_step" if bf else "step")
+    status = _launch(getattr(_kernels.library("fused_core"), name), weights,
+                     x, z, state, new_state,
+                     (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck)),
+                     _kinds(weights, _rounds(weights, compute_dtype, "gru")))
+    _kernels.check(status, name)
+    LAUNCHES[_launch_key("fused_encoder_step", weights, compute_dtype)] += 1
     return z, tuple(new_state)

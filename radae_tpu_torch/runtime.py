@@ -13,9 +13,10 @@ factory builds its device constants once; the DFT/IDFT are constant-matrix
 products left to torch.matmul (in full f32: TF32 is switched off).  With
 fused=True the core net runs as the fused kernel of ops/fused_core.py and
 takes `decoder_weights`/`encoder_weights` and the fused state tuples;
-fused_merged=True picks the chain-merged decoder kernel and
-fused_quant="int8" the int8 instances.  The whole rx frame as one kernel is
-`ops.fused_core.make_fused_rx_frame_step`.
+fused_merged=True (or "pad", the padded layout) picks the chain-merged
+decoder kernel, fused_quant="int8" the int8 instances and
+fused_dtype=torch.bfloat16 the instances with bf16 products.  The whole rx
+frame as one kernel is `ops.fused_core.make_fused_rx_frame_step`.
 """
 
 from __future__ import annotations
@@ -32,19 +33,21 @@ from .ops import pilots as pilots_ops
 
 
 def _check_fused(fused, fused_quant, fused_dtype=None, fused_merged=False):
-    """Refuse the fused options the port has no kernel for."""
+    """Refuse fused options the port has no kernel for, and options that
+    need fused=True without it."""
     if fused_quant not in fused_core.QUANTS:
         raise ValueError(f"fused_quant must be one of {fused_core.QUANTS}, "
                          f"got {fused_quant!r}")
+    if fused_dtype is not None and fused_dtype not in fused_core.DTYPES:
+        raise ValueError(f"fused_dtype must be None or one of "
+                         f"{fused_core.DTYPES}, got {fused_dtype!r}")
+    if fused_merged not in (False, True, "pad"):
+        raise ValueError(f'fused_merged must be False, True or "pad", got '
+                         f"{fused_merged!r}")
     if (fused_quant or fused_dtype is not None or fused_merged) and not fused:
         raise ValueError("fused_quant, fused_dtype and fused_merged need "
                          "fused=True")
-    if fused_dtype is not None:
-        raise NotImplementedError(
-            "fused_dtype (bf16 weights) is not ported yet: ROADMAP.md Queue 2")
-    if fused_merged == "pad":
-        raise NotImplementedError(
-            'fused_merged="pad" is not ported yet: ROADMAP.md Queue 2')
+    return torch.float32 if fused_dtype is None else fused_dtype
 
 
 def _check_quant(weights, fused_quant, what):
@@ -76,13 +79,16 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
     from `fused_core.decoder_weights` and dec_state from
     `decoder_state_zero`; with fused_merged=True both come from the
     same functions with merged=True and the chain-merged decoder kernel
-    runs; with fused_quant="int8" the weights come from
+    runs, and with fused_merged="pad" they come with merged="pad" (the
+    padded layout); with fused_quant="int8" the weights come from
     `decoder_weights(..., quant="int8")` and the int8 kernel runs.
-    fused_dtype (bf16) and fused_merged="pad" are not ported and raise
-    NotImplementedError.  frames_per_step=N demodulates and decodes N
-    consecutive frames per call, each frame equalised from its own two
-    bracketing pilot rows (the same math as N chained calls)."""
-    _check_fused(fused, fused_quant, fused_dtype, fused_merged)
+    fused_dtype=torch.bfloat16 runs the kernel's bf16-product instance
+    (radae_tpu's compute_dtype), on f32, bf16 (`decoder_weights(...,
+    dtype=torch.bfloat16)`) or int8 weights.  frames_per_step=N
+    demodulates and decodes N consecutive frames per call, each frame
+    equalised from its own two bracketing pilot rows (the same math as N
+    chained calls)."""
+    cd = _check_fused(fused, fused_quant, fused_dtype, fused_merged)
     dev = _device(device)
     Ns, Nc = cfg.Ns, cfg.Nc
     fps = int(frames_per_step)
@@ -126,14 +132,15 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
 
         z_hat = ofdm.qpsk_demap(data.reshape(B, -1, cfg.latent_dim // 2))
         if fused:
-            if fused_core.is_merged(dec_params) != bool(fused_merged):
+            if fused_core.merged_layout(dec_params) != fused_merged:
                 raise ValueError(
-                    f"rx step built with fused_merged={fused_merged}: the "
+                    f"rx step built with fused_merged={fused_merged!r}: the "
                     "weights must come from decoder_weights(..., merged="
-                    f"{bool(fused_merged)})")
+                    f"{fused_merged!r})")
             _check_quant(dec_params, fused_quant, "rx step")
             z_hat = z_hat.reshape(B, fps * cfg.Nzmf, cfg.latent_dim)
-            return fused_core.fused_decoder_step(dec_params, z_hat, dec_state)
+            return fused_core.fused_decoder_step(dec_params, z_hat, dec_state,
+                                                 cd)
         return decoder(dec_params, z_hat, key=None, state=dec_state)
 
     return step
@@ -274,7 +281,8 @@ def make_batched_receiver(cfg: RADAEConfig, decoder: CoreDecoder,
                              f"{batch} but got rx batch {B}")
         step = make_streaming_rx_step(cfg, decoder, B, fused=fused,
                                       fused_merged=fused_merged,
-                                      fused_quant=fused_quant, device=dev)
+                                      fused_quant=fused_quant,
+                                      fused_dtype=fused_dtype, device=dev)
         if n_windows > 1:
             candidate, tmax, fmax, win, Dthresh = detect_w(rx_packed)
         else:

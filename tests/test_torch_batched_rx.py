@@ -207,12 +207,15 @@ def test_batched_receiver_refuses_what_it_cannot_run(flagship):
     tree, _ = flagship
     cfg = flagship_config()
     dec = CoreDecoder(80, 21)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        make_batched_receiver(cfg, dec, B, 2, fused=True,
-                              fused_dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        make_batched_receiver(cfg, dec, B, 2, fused=True, fused_merged="pad",
+    # bf16 products and the padded layout run (tests/test_torch_bf16_pad.py);
+    # still refused: fused_dtype without fused=True, and a type other than
+    # f32 or bf16
+    with pytest.raises(ValueError, match="need fused=True"):
+        make_batched_receiver(cfg, dec, B, 2, fused_dtype=torch.bfloat16,
                               device="cpu")
+    with pytest.raises(ValueError, match="fused_dtype must be"):
+        make_batched_receiver(cfg, dec, B, 2, fused=True,
+                              fused_dtype=torch.float16, device="cpu")
     rx = make_batched_receiver(cfg, dec, B, 2, fused=True, fused_quant="int8",
                                device="cpu")
     sig = np.zeros((B + 1, 4 * cfg.Nmf, 2), np.float32)

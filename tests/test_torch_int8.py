@@ -172,33 +172,53 @@ def test_runtime_int8_steps_match_jax(tree, side):
 
 
 def test_runtime_refuses_bf16_and_pad(tree):
+    """bf16 products and the padded layout now run (tests/
+    test_torch_bf16_pad.py); what is still refused: the fused options
+    without fused=True, and a product type other than f32 or bf16."""
     from radae_tpu_torch import runtime
     from radae_tpu_torch.models.core import CoreDecoder
     cfg = flagship_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B, fused=True,
+    with pytest.raises(ValueError, match="need fused=True"):
+        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B,
                                        fused_dtype=torch.bfloat16,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B, fused=True,
+    with pytest.raises(ValueError, match="need fused=True"):
+        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B,
                                        fused_merged="pad", device="cpu")
     with pytest.raises(ValueError, match="need fused=True"):
         runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B,
                                        fused_quant="int8", device="cpu")
+    with pytest.raises(ValueError, match="fused_dtype must be"):
+        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B, fused=True,
+                                       fused_dtype=torch.float16,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="fused_merged must be"):
+        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B, fused=True,
+                                       fused_merged="padded", device="cpu")
+    for merged in (True, "pad"):
+        runtime.make_streaming_rx_step(cfg, CoreDecoder(80, 21), B, fused=True,
+                                       fused_merged=merged,
+                                       fused_dtype=torch.bfloat16,
+                                       device="cpu")
 
 
 def test_kernel_wrappers_refuse_other_weight_kinds(tree):
     """A weight set the kernels do not take raises before a launch (on a
     tensor of the meta device, which reaches the checks and no kernel)."""
     w = fc.decoder_weights(tree["decoder"], "cpu", quant="int8")
-    bad = w._replace(arrays=tuple(a.to(torch.bfloat16) if a.dim() == 2 else a
+    bad = w._replace(arrays=tuple(a.to(torch.float16) if a.dim() == 2 else a
                                   for a in w.arrays))
-    with pytest.raises(ValueError, match="f32 or int8 weights"):
+    with pytest.raises(ValueError, match="f32, bf16 or int8 weights"):
         fc._check_kinds(bad, "fused_decoder_step", fc.N_DEC)
-    with pytest.raises(ValueError, match="f32 or int8 weights"):
+    with pytest.raises(ValueError, match="f32, bf16 or int8 weights"):
         fc._check_kinds(w._replace(scales=w.scales[:-1]),
                         "fused_decoder_step", fc.N_DEC)
     fc._check_kinds(w, "fused_decoder_step", fc.N_DEC)
+    # bf16 matrices take bf16 products on the card
+    wb = fc.decoder_weights(tree["decoder"], "cpu", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype=torch.bfloat16"):
+        fc._check_kinds(wb, "fused_decoder_step", fc.N_DEC)
+    fc._check_kinds(wb, "fused_decoder_step", fc.N_DEC, torch.bfloat16)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused-int8"])

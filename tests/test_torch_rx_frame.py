@@ -120,14 +120,22 @@ def test_padded_block_matrices_give_the_unpadded_products(trees):
         torch.cat([Yr @ Er - Yi @ Ei, Yr @ Ei + Yi @ Er, pad], -1), **TOL)
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_rx_frame_plain_matches_pallas_interpret(trees, name):
+@pytest.mark.parametrize("name, rx_dma",
+                         [(n, False) for n in CONFIGS]
+                         + [(n, True) for n in CONFIGS],
+                         ids=list(CONFIGS) + [f"{n}-rx_dma" for n in CONFIGS])
+def test_rx_frame_plain_matches_pallas_interpret(trees, name, rx_dma):
+    """Against radae_tpu's frame kernel with the sample block in VMEM
+    (rx_dma=False, bench.py's frame_vmem) and copied by hand from HBM
+    (rx_dma=True, its frame): the port has one kernel for both (its
+    samples staged by cp.async) and one plain version."""
     overrides, path, tol = CONFIGS[name]
     tree = trees[path]
     cfg = flagship_config(**overrides)
     jcfg = jax_flagship_config(**overrides)
     w = fc.fused_rx_weights(tree["decoder"], cfg, "cpu")
-    jstep = jfc.make_fused_rx_frame_step(jcfg, B, tile=4, interpret=True)
+    jstep = jfc.make_fused_rx_frame_step(jcfg, B, tile=4, interpret=True,
+                                         rx_dma=rx_dma)
     jw = jfc.fused_rx_weights(tree["decoder"], jcfg)
     state, jstate = fc.decoder_state_zero(B, "cpu"), jfc.decoder_state_zero(B)
     for rx in _frames(cfg, 6):

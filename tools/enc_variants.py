@@ -66,19 +66,17 @@ B = 2048
 FIRST_ROWS = (2, 4)  # rows a weight load feeds in a source that does not say:
                      # the first kernels (2 in the GRU products, 4 else)
 # --kernel -> (name of the __global__ function, wrapper, library entry of its
-# tile rows, the mangled-name part of the instance left out); the frame
-# kernel has two instances (the flagship geometry as constants, and from the
-# launch), whose ptxas lines and SASS go together; of the others, the int8
-# instance (template argument true: "ILb1EE") is left out, or with --quant
-# int8 the f32 one ("ILb0EE")
-KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows",
-                   "ILb1EE"),
-           "dec": ("dec_kernel", "fused_decoder_step", "radae_dec_tile_rows",
-                   "ILb1EE"),
+# tile rows).  Each is a template whose first bool is Q (int8) or, for the
+# frame kernel, FIX (the flagship geometry as constants); the tool takes the
+# instances whose further bools (bf16 products, the padded layout) are all
+# false: the f32 one, or with --quant int8 the int8 one, and both FIX
+# instances of the frame kernel, whose ptxas lines and SASS go together
+KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
+           "dec": ("dec_kernel", "fused_decoder_step", "radae_dec_tile_rows"),
            "decm": ("dec_merged_kernel", "fused_decoder_step",
-                    "radae_dec_tile_rows", "ILb1EE"),
+                    "radae_dec_tile_rows"),
            "frame": ("rx_frame_kernel", "fused_rx_frame_step",
-                     "radae_dec_tile_rows", None)}
+                     "radae_dec_tile_rows")}
 ALL = tuple(KERNELS)
 
 # the weight loads staged by cp.async in a 2-stage ring of 16-byte slots, one
@@ -157,26 +155,21 @@ FORMS = {
 #pragma unroll
     for (int i = 0; i < ET / 8; ++i)
       st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));"""),
-        ("scl<Q>(sc, c, out), b,", "Q ? sc + c : nullptr, b,"),
-        ("const float4 gi = scl<Q>(si, c, DEC_G), gh = scl<Q>(sh, c, DEC_G);",
+        ("scl<Q, BF>(sc, c, out), b,", "Q ? sc + c : nullptr, b,"),
+        ("const float4 gi = scl<Q, BF>(si, c, DEC_G), gh = scl<Q, BF>(sh, c, DEC_G);",
          "const float *gi = Q ? si + c : nullptr, *gh = Q ? sh + c : nullptr;"),
-        ("const float4 gi = scl<Q>(si, c, ENC_G), gh = scl<Q>(sh, c, ENC_G);",
+        ("const float4 gi = scl<Q, BF>(si, c, ENC_G), gh = scl<Q, BF>(sh, c, ENC_G);",
          "const float *gi = Q ? si + c : nullptr, *gh = Q ? sh + c : nullptr;"),
-        ("scl<Q>(sc(4 + 5 * i + tap), c, DEC_CO)",
+        ("scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO)",
          "Q ? sc(4 + 5 * i + tap) + c : nullptr"),
-        ("scl<Q>(sc(0), c, ENC_H)", "Q ? sc(0) + c : nullptr"),
-        ("scl<Q>(sc(3 + 4 * i + tap), c, ENC_CO)",
+        ("scl<Q, BF>(sc(0), c, ENC_H)", "Q ? sc(0) + c : nullptr"),
+        ("scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO)",
          "Q ? sc(3 + 4 * i + tap) + c : nullptr"),
-        ("scl<Q>(sc(ENC_NS - 1), c, od)", "Q ? sc(ENC_NS - 1) + c : nullptr")]),
+        ("scl<Q, BF>(sc(ENC_NS - 1), c, od)", "Q ? sc(ENC_NS - 1) + c : nullptr")]),
     # int8 instance: QuantArgs without __grid_constant__, so each thread
     # copies it to local memory to index soff
     "int8_qalocal": (("enc", "dec", "decm"), True, [
-        ("const __grid_constant__ QuantArgs<DEC_NS> qa)",
-         "const QuantArgs<DEC_NS> qa)"),
-        ("const __grid_constant__ QuantArgs<DECM_NS> qa)",
-         "const QuantArgs<DECM_NS> qa)"),
-        ("const __grid_constant__ QuantArgs<ENC_NS> qa)",
-         "const QuantArgs<ENC_NS> qa)")]),
+        ("const __grid_constant__ KA qa)", "const KA qa)")]),
     "unroll2": (ALL, True, [("#pragma unroll 1 ", "#pragma unroll 2 ")]),
     "syncload": (("frame",), True, [      # the samples by plain loads and stores
         ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n"
@@ -184,7 +177,7 @@ FORMS = {
          "               : \"memory\");\n",
          "  (void)d;\n  st4(dst, ld4(src));\n")]),
     "noxload": (ALL, False, [             # x from registers: no shared x loads
-        ("const float4 x = ld4(xr + i * ld + kx);",
+        ("const float4 x = bfx<RX>(ld4(xr + i * ld + kx));",
          "const float4 x = wt[i & 3];")]),
     "wfixed": (ALL, False, [              # every K step reloads the first one's
         ("    wp += 32 * out;\n", "")]),  # weights (from L1)
@@ -198,15 +191,16 @@ FORMS = {
         ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n",
          "  if (d == 0xffffffffu) asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n")]),
     "nodft": (("frame",), False, [        # no DFT product loop
-        ("      tmac(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl);\n", "")]),
+        ("      tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);\n",
+         "")]),
     "nols": (("frame",), False, [         # no LS products
-        ("  rowprod(p0, a.ls_w,", "  if (a.d.B < 0) rowprod(p0, a.ls_w,"),
-        ("  rowprod(p1, a.ls_w,", "  if (a.d.B < 0) rowprod(p1, a.ls_w,")]),
+        ("  rowprod<BF>(p0, a.ls_w,", "  if (a.d.B < 0) rowprod<BF>(p0, a.ls_w,"),
+        ("  rowprod<BF>(p1, a.ls_w,", "  if (a.d.B < 0) rowprod<BF>(p1, a.ls_w,")]),
     "noprologue": (("frame",), False, [   # the decoder body alone
         ("  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n",
          "  if (a.d.B < 0) {\n"
          "  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n"),
-        ("  dec_body<false>(a.d,", "  }\n  dec_body<false>(a.d,")]),
+        ("  dec_body<false, BF>(a.d,", "  }\n  dec_body<false, BF>(a.d,")]),
     "noz": (("dec",), False, [            # latents never staged: stale operands
         ("  stage<DEC_X>(xb + DEC_H, zs.p, zs.ld, a.in_dim, zs.rmax);\n", ""),
         ("      stage<DEC_X>(Xp + DEC_H, zs.p + (size_t)(k + 1) * zstep, zs.ld,\n"
@@ -281,17 +275,28 @@ class F32OnlyEntries:
         return getattr(self._lib, name)
 
 
-def sass(lib_path, kname, cuobjdump, skip=None):
-    """The kernel's SASS, without addresses, encodings and the
-    source-dependent mangled names, leaving out the instances whose name
-    holds `skip` (None without cuobjdump)."""
+def instance(name, kname, quant=None):
+    """Whether the mangled `name` is an instance of kernel `kname` that the
+    tool takes: its template bools after the first all false, and the first
+    (Q) false, or true with quant; any for the frame kernel (FIX)."""
+    m = re.search(kname + r"I((?:Lb[01]E)+)", name)
+    if not m:
+        return False
+    flags = re.findall(r"Lb([01])E", m.group(1))
+    return (not any(f == "1" for f in flags[1:])
+            and (kname == "rx_frame_kernel" or (flags[0] == "1") == bool(quant)))
+
+
+def sass(lib_path, kname, cuobjdump, quant=None):
+    """The SASS of the kernel's instances that the tool takes (`instance`),
+    without addresses, encodings and the source-dependent mangled names
+    (None without cuobjdump)."""
     if not os.path.exists(cuobjdump):
         return None
     out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                          text=True, check=True).stdout
     body = [b for b in out.split("Function : ")[1:]
-            if kname in b.splitlines()[0]
-            and not (skip and skip in b.splitlines()[0])]
+            if instance(b.splitlines()[0], kname, quant)]
     if not body:
         return None
     lines = []
@@ -332,12 +337,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     kernel = args.kernel
-    kname, wrapper, rows_entry, skip = KERNELS[kernel]
+    kname, wrapper, rows_entry = KERNELS[kernel]
     tag = kernel + ("_int8" if args.quant else "")   # output file names
     if args.quant:
         if kernel == "frame":
             ap.error("the frame kernel has no int8 instance")
-        skip = "ILb0EE"
     forms = [n for n, (ks, _, _) in FORMS.items() if kernel in ks]
     if args.forms is not None:
         asked = [n for n in args.forms.split(",") if n]
@@ -390,7 +394,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"nvcc failed for {v}:\n" + "\n".join(lines))
         at = [i for i, x in enumerate(lines)
               if "entry function" in x and kname in x
-              and not (skip and skip in x)]
+              and instance(x, kname, args.quant)]
         ptxas = [x.strip() for i in at for x in lines[i:i + 4]
                  if "registers" in x or "spill" in x]
         lib = ctypes.CDLL(os.path.join(args.out, f"lib{tag}_{v}.so"))
@@ -408,7 +412,7 @@ def main(argv=None) -> int:
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
         code = sass(os.path.join(args.out, f"lib{tag}_{v}.so"), kname,
                     os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump"),
-                    skip)
+                    args.quant)
         if code:
             with open(os.path.join(args.out, f"{tag}_{v}.sass"), "w") as fh:
                 fh.write("\n".join(code) + "\n")
