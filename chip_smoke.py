@@ -24,7 +24,12 @@ EQ, coarse magnitude):
      with bf16 products), 16 forms more; the padded ones with f32 products
      at 1e-4, the bf16-product ones within 2e-3 but for at most 1e-3 of a
      run's elements (bf16 input flips), each tensor's max and mean error
-     within BF16_MAX and BF16_MEAN of its scale (readings in PERF.md);
+     within BF16_MAX and BF16_MEAN of its scale (readings in PERF.md).
+     Six of them multiply on the tensor cores (the merged and the padded
+     decoder on bf16 and int8 weights, the frame kernel on f32 and bf16
+     weights, on the weights packed by fc.mma_weights at a set's first
+     such launch); the frame
+     kernel's two are also held at latent 40;
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -61,7 +66,11 @@ EQ, coarse magnitude):
   5. times the rx steps, the tx step and the 23 kernel forms (FORMS)
      with CUDA events around calls issued from the host, beside each
      kernel's plain version, its bound (each product at the f32 rate, or
-     at the tensor cores' bf16 rate where both its operands are bf16) and
+     at the tensor cores' bf16 rate where both its operands are bf16; on
+     the tensor-core route each packed matrix's bytes or its own, the
+     smaller), which products it runs on the tensor cores (the `kernels`
+     line says "mma" or "fma"), on that route the packed bytes a launch
+     reads (printed, not in the `kernels` line: a count, not a reading), and
      its device time in a CUDA graph replay (and the frame kernel at
      latent 40 too), and prints the
      weight bytes one encoder, one unmerged and one chain-merged decoder
@@ -331,7 +340,35 @@ def demod_flops(cfg):
             float(8 * 2 * 3 * Nc + 8 * Nc + 22 * cfg.Ns * Nc))
 
 
-def bound(weights, inputs, outputs, nz, batch, bf16=None, extra=(0.0, 0.0)):
+def packed_sizes(mma):
+    """Bytes of each matrix packed for the tensor cores (fc.mma_weights),
+    by its index in the weight set."""
+    offs = sorted((o, j) for j, o in enumerate(mma.offsets) if o >= 0)
+    ends = [o for o, _ in offs[1:]] + [mma.buf.numel() // 8]
+    return {j: 16 * (e - o) for (o, j), e in zip(offs, ends)}
+
+
+def mma_terms(w, mma, nz, batch, block_rows):
+    """For a launch on the tensor-core route: ((the bytes bound() counts
+    for the packed matrices, the bytes of the weight set's matrices they
+    stand in for), the bytes of the packed copy, the packed bytes the
+    launch reads into the SMs).  bound() counts per matrix the smaller of
+    its packed copy and its own: the function needs the bf16 values of an
+    f32 matrix rounded at the product, and only the one byte a weight of an
+    int8 matrix, which the packed copy widens to two.  Every block reads
+    each packed matrix once a z-step, the frame kernel's dft_w once.  w:
+    the PackedWeights whose arrays mma indexes."""
+    sizes = packed_sizes(mma)
+    own = {j: w.arrays[j].element_size() * w.arrays[j].numel() for j in sizes}
+    blocks = -(-batch // block_rows)
+    dft = len(w.arrays) - 2 if w.names[-2:] == ("dft_w", "ls_w") else -1
+    read = sum(b * blocks * (1 if j == dft else nz) for j, b in sizes.items())
+    return ((sum(min(b, own[j]) for j, b in sizes.items()), sum(own.values())),
+            sum(sizes.values()), read)
+
+
+def bound(weights, inputs, outputs, nz, batch, bf16=None, extra=(0.0, 0.0),
+          packed=(0, 0)):
     """Least time for one launch: each input read once and each output
     written once at the HBM rate, or the operations at the peak rate of
     their operands' type, whichever is larger.  2 flop per weight-matrix
@@ -339,9 +376,12 @@ def bound(weights, inputs, outputs, nz, batch, bf16=None, extra=(0.0, 0.0)):
     both operands of the product are bf16 (bf16[j] for weights.arrays[j])
     and else at the f32 rate outside the tensor cores, plus extra = (f32
     flop, bf16 flop); the two kinds' times add.  (The padded layout's bound
-    is the merged weights': its zero rows are not work.)"""
+    is the merged weights': its zero rows are not work.)  packed = (bytes
+    counted for the matrices packed for the tensor cores, bytes of the
+    matrices they stand in for: `mma_terms`): a launch on that route reads
+    the packed copy instead."""
     nbytes = 4 * (weights.buf.numel() + sum(t.numel() for t in inputs)
-                  + sum(t.numel() for t in outputs))
+                  + sum(t.numel() for t in outputs)) + packed[0] - packed[1]
     flops = [extra[0], extra[1]]
     for j, a in enumerate(weights.arrays):
         if a.dim() == 2:
@@ -646,6 +686,23 @@ def main(argv=None) -> int:
                     op, sp = plain(w, x, sp)
                     held(name, batch, f"nz={steps} call {frame}",
                          (ok_,) + sk, (op,) + sp)
+        # the frame kernel's tensor-core instance at latent 40 too (dense_1's
+        # K = 40 ends inside a 16-wide K step), on f32 and bf16 weights
+        frame40 = {"fused_rx_frame_step_bf16": rw40,
+                   "fused_rx_frame_step_bf16w_bf16": fc.fused_rx_weights(
+                       tree40["decoder"], cfg40, dev, dtype=bf)}
+        for name, w in frame40.items():
+            kern, plain, zero_state, _ = kernel_form(name, nrng)
+            for batch in (B, RAGGED_B):
+                sk = sp = zero_state(batch)
+                for frame in range(3):
+                    x = sig40[:batch, frame * Nmf:frame * Nmf + win] + torch.as_tensor(
+                        (RX_NOISE * nrng.standard_normal((batch, win, 2))).astype(
+                            np.float32), device=dev)
+                    ok_, sk = kern(w, x, sk)
+                    op, sp = plain(w, x, sp)
+                    held(name, f"{batch} latent 40", f"call {frame}",
+                         (ok_,) + sk, (op,) + sp)
         for (name, batch), (n_over, n) in flips.items():
             if n_over > BF16_FLIPS * n:
                 raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
@@ -712,6 +769,12 @@ def main(argv=None) -> int:
                 kern, _, zero_state, draw = kernel_form(name, qbrng)
                 x, st = draw(batch, nz), rand_state(qbrng, zero_state(batch))
                 same_bits(name, batch, lambda: kern(w, x, st))
+            for name, w in frame40.items():
+                kern, _, zero_state, _ = kernel_form(name, qbrng)
+                x = sig40[:batch, :win] + torch.as_tensor((RX_NOISE * qbrng.standard_normal(
+                    (batch, win, 2))).astype(np.float32), device=dev)
+                st = rand_state(qbrng, zero_state(batch))
+                same_bits(f"{name} latent 40", batch, lambda: kern(w, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
           f"{BF16_TOL} but for at most {BF16_FLIPS} of a run's elements, "
           f"max and mean err within {BF16_MAX} and {BF16_MEAN} of the scale),"
@@ -720,13 +783,12 @@ def main(argv=None) -> int:
           + f"; frame kernel at latent 40, B={B} and B={RAGGED_B}: {err40:.3g}")
     for name, r in bf16_read.items():
         print(f"  {name}: past {BF16_TOL} " + ", ".join(
-            f"B={b} {flips[name, b][0]} of {flips[name, b][1]} "
-            f"({flips[name, b][0] / flips[name, b][1]:.3g})"
-            for b in (B, RAGGED_B)) + f"; largest max err {r[0]:.3g} and "
-            f"mean {r[1]:.3g} of the scale")
+            f"B={b} {n_over} of {n} ({n_over / n:.3g})"
+            for (f, b), (n_over, n) in flips.items() if f == name)
+            + f"; largest max err {r[0]:.3g} and mean {r[1]:.3g} of the scale")
     print(f"refused without a launch: {refused}")
     print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
-          f"and B={RAGGED_B}")
+          f"and B={RAGGED_B} (the frame kernel's bf16 forms also at latent 40)")
 
     # -- the serving path on the fixture: the rx paths ----------------------
     # path -> (step, weights, zero state, the forms it launches, encoder
@@ -1032,6 +1094,13 @@ def main(argv=None) -> int:
                 lambda: fc.fused_encoder_step(ewq, f, es),
                 lambda: fc.encoder_step_plain(ewq, f, es), (ewq, f, es, none)),
         }
+        lib = _kernels.library("fused_core")
+        enc_rows = (lib.radae_enc_tile_rows(),) * 2
+        dec_rows = (lib.radae_dec_tile_rows(),) * 2
+        # name -> mma_terms of the forms whose launches ran on the tensor
+        # cores: a bf16 form whose weight set keeps a packed copy with a
+        # matrix in it (fc._mma_args made it at the form's first launch)
+        mma_of = {}
         for name, (w, bw) in new_w.items():   # the new forms, same inputs
             kern, plain, zero_state, _ = kernel_form(name, gen)
             x = (rx_win if "frame" in name else
@@ -1042,26 +1111,34 @@ def main(argv=None) -> int:
                           (lambda p=plain, w=w, x=x, st=st: p(w, x, st)),
                           (bw, x, st, demod(name) if "frame" in name
                            else none))
-        lib = _kernels.library("fused_core")
-        enc_rows = (lib.radae_enc_tile_rows(),) * 2
-        dec_rows = (lib.radae_dec_tile_rows(),) * 2
+            ws = w.w if "frame" in name else w
+            kept = list(ws.mma.values()) if name.endswith("_bf16") else []
+            if kept and any(o >= 0 for o in kept[0].offsets):
+                mma_of[name] = mma_terms(ws if "frame" in name else bw,
+                                         kept[0], nz, B, lib.radae_block_rows())
         kernels = []
         for name, (kern, plain, (w, x, st, extra)) in runs.items():
             ms = time_ms(kern, 50)
             plain_ms = time_ms(plain, 10)
             out, st1 = plain()
+            swap, packed_b, read = mma_of.get(name, ((0, 0), 0, 0))
             b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B,
-                               bf16_mask(name, w), extra)
+                               bf16_mask(name, w), extra, swap)
             print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms by {b_by}; "
-                  f"{graph_ms(kern):.4f} ms in a CUDA graph replay)")
+                  f"{graph_ms(kern):.4f} ms in a CUDA graph replay); products "
+                  f"on {'the tensor cores (mma.sync)' if name in mma_of else 'FMA loops'}"
+                  + (f", packed weights {packed_b} B (the bound counts "
+                     f"{swap[0]} B for them), {read / 1e9:.4f} GB a launch "
+                     f"({read / (ms * 1e-3) / 1e12:.2f} TB/s)"
+                     if name in mma_of else ""))
             if name.startswith("fused_encoder_step"):
                 print(f"  encoder, {enc_rows[0]}-row tiles: " + fetch_line(
                     w, enc_rows, lib.radae_block_rows(), nz, B, ms))
             if name.startswith("fused_decoder_step"):
                 print(f"  decoder, {dec_rows[0]}-row tiles: " + fetch_line(
                     w, dec_rows, lib.radae_block_rows(), nz, B, ms))
-            if name.startswith("fused_decoder_merged_step"):
+            if name.startswith("fused_decoder_merged_step") and name not in mma_of:
                 print(f"  merged decoder, {dec_rows[0]}-row tiles: " + fetch_line(
                     w, dec_rows, lib.radae_block_rows(), nz, B, ms))
             if name == "fused_rx_frame_step":     # the latent-40 modem
@@ -1075,13 +1152,19 @@ def main(argv=None) -> int:
                 print(f"  latent 40 (Nc=15): {ms40:.4f} ms (bound {b40:.4f} ms "
                       f"by {by40}; {graph_ms(k40):.4f} ms in a CUDA graph "
                       f"replay)")
+            if name in ("fused_rx_frame_step_bf16", "fused_rx_frame_step_bf16w_bf16"):
+                k40 = (lambda k=kernel_form(name, gen)[0], w=frame40[name],
+                        rx=sig40[:, :win].contiguous(): k(w, rx, ds))
+                print(f"  latent 40 (Nc=15): {time_ms(k40, 50):.4f} ms "
+                      f"({graph_ms(k40):.4f} ms in a CUDA graph replay)")
             kernels.append({
                 "name": name, "route": "cuda", "source": SRC,
                 "replaces": BODIES[next(b for b in BODIES
                                         if name.startswith(b))],
                 "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "products": "mma" if name in mma_of else "fma"})
 
 
         # the batch pair: the int8 tx loop, the receiver, and the receiver's

@@ -139,8 +139,33 @@
 // the runtime says which).  The BF instances of the decoders and the
 // encoder take the int8 instance's form (the GRU's h products in partials
 // of their own, scales on the outputs; none without scale rows); the
-// frame's takes the f32 form.  These are plain f32 FMA loops on rounded
-// inputs, far from the tensor cores' bf16 rate that bounds the same work.
+// frame's takes the f32 form.  In dec_kernel's and enc_kernel's BF
+// instances, and the merged decoder's on f32 weights (kind 0: bf16 x f32,
+// f32 work), these are f32 FMA loops on rounded inputs (tmac).
+//
+// The tensor cores (MM instances).  Where every product is bf16 x bf16 --
+// the merged decoder's BF instance on int8, bf16 or rounded matrices
+// (kinds 1..3) and the frame kernel's BF instance, which rounds both inputs
+// of every product -- the FMA loops spent their time on the roundings and
+// the FMAs, 25-55 times the bound that the same work has on the tensor
+// cores (the bytes: the whole stack is 0.9M weights a z-step).  These
+// instances run every product on mma.sync m16n8k16 (tmma): the block's 16
+// rows are one A tile read from the f32 operands in shared memory and
+// rounded as they are loaded (2 float4 and 4 cvt.rn.bf16x2 a lane and K
+// step, where tmac rounded every float4 it read for each column quad), and
+// the weights come as B fragments packed once per weight set on the host
+// (ops/fused_core.py mma_weights: bf16, int8 widened to bf16, exact, the
+// scale rows kept on the outputs; a padded matrix packs to its merged one,
+// so the padded layout needs no pmac), one 16-byte coalesced load a lane and
+// K step.  The work items, K chunks, partials and epilogues stay as they
+// are (an item's rows are then g and g + 8 instead of ksum's rk, rk + 1);
+// sums stay f32 in a fixed order.  On an H100 they take 0.212 (merged) and
+// 0.251 ms (frame) against 0.554 and 0.610 for the FMA loops; what bounds
+// them now is the tmma loops' own issue (loads, conversions, selects and
+// MMAs: 0.14 / 0.15 ms), then the barrier-separated phases with no product
+// loop in them (0.056 / 0.093 ms); the 0.70 GB of packed weights the blocks
+// stream from the L2 a launch cost 0.014 ms once two K-step pairs are in
+// flight (tools/enc_variants.py forms).
 //
 // The padded layout (merged="pad").  The TPU's chain-merged kernel can
 // store each x segment (x0, then each layer's GLU and conv outputs) in a
@@ -161,6 +186,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -346,6 +373,23 @@ struct KindArgs {
   int soff[NS];
 };
 
+// The fragment-packed matrices of an MM instance (tmma): array j's packed
+// copy starts off[j] 16-byte words into p (-1: not packed)
+template <int NW>
+struct MmaW {
+  const uint4* p;
+  int off[NW];
+};
+// The merged decoder's MM instance takes its kinds and its packed matrices
+template <int NS, int NW>
+struct KindMmaArgs : KindArgs<NS> {
+  MmaW<NW> m;
+};
+template <class KA>
+constexpr bool has_mma = false;
+template <int NS, int NW>
+constexpr bool has_mma<KindMmaArgs<NS, NW>> = true;
+
 struct DecArgs {
   const float* w;
   int off[DEC_NW];
@@ -382,6 +426,14 @@ struct FrameArgs {
   int coarse_mag;
   KindArgs<DEC_NS> k; // bf16 products: the decoder's kinds (else unused)
 };
+// The argument of the frame kernel's BF instance (an MM one): the decoder's
+// packed matrices and the packed dft_w besides
+struct FrameMmaArgs : FrameArgs {
+  MmaW<DEC_NW> m;
+  const uint4* dft_m;
+};
+template <bool BF>
+using FrameArgsOf = std::conditional_t<BF, FrameMmaArgs, FrameArgs>;
 
 struct EncArgs {
   const float* w;
@@ -588,6 +640,123 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tile products on the tensor cores (tmma: the MM instances' route for
+// matrices of kinds 1, 2 and 3, whose products are bf16 x bf16).
+//
+// A work item is the same one warp's 16 rows x 16 columns over a K range,
+// but the whole warp walks K in 16-wide steps with
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, two n8 tiles a step, and
+// its sums need no K-lane butterfly.  Lane (g, t) = (lane >> 2, lane & 3)
+// loads x[g][k + 4t..+3] and x[g + 8][k + 4t..+3] as two float4 from shared
+// memory and rounds them to bf16 (cvt.rn.bf16x2): physical k 4t, 4t+1 are
+// the A fragment's k 2t, 2t+1, and 4t+2, 4t+3 its 2t+8, 2t+9.  n8 tile 0
+// holds the group's columns {4q, 4q+1} (q < 4) and tile 1 {4q+2, 4q+3}, so
+// the lane ends with columns 4t..4t+3 (its column quad cq, as on the FMA
+// route) of rows g and g+8.  The weights come packed in that order
+// (ops/fused_core.py mma_weights, once per weight set): bf16, K padded to a
+// multiple of 16 with zero rows and out to a multiple of 16 with zero
+// columns, 16-column group cg and K step s at 32 lanes x 16 bytes (both n8
+// tiles' B of the lane: 4 k of one column each) from (cg * nks + s) * 32,
+// nks = ceil(K / 16), so a step is one coalesced 512-byte load a warp.
+// Each step's products are summed from zero in the tensor cores and added
+// in f32, in a fixed order, no atomics.  Timed on an H100 by
+// tools/enc_variants.py (graph replay, merged decoder on bf16 weights /
+// frame kernel on f32 weights): one step a loop, B one step ahead, 0.274 /
+// 0.373 ms, a third of it waiting on the B loads from the L2; K-step pairs
+// with B 2 pairs ahead and the bank swizzle below 0.212 / 0.251 (1 pair
+// ahead +8% / +5%, 4 pairs +6% / +3%, no swizzle +11% / +10%), and B from
+// L1 instead of the L2 then saves only 0.014 / 0.013 ms.
+
+// d += a b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col), d
+// 16x8 f32 (the lane's c0..c3 in d.x..d.w)
+__device__ __forceinline__ void mma16816(float4& d, unsigned a0, unsigned a1,
+                                         unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d.x), "+f"(d.y), "+f"(d.z), "+f"(d.w)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// lo and hi rounded to bf16 (nearest even) in one register, lo in the low
+// half
+__device__ __forceinline__ unsigned bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// K-step pairs of B that tmma keeps in flight ahead of their products (the
+// weight stream from the L2 is latency-bound: one 512-byte load a warp in
+// flight left a third of the launch to it on an H100)
+constexpr int MMA_PAIRS = 2;
+
+// One K step's products, summed by the tensor cores from zero and added to
+// the item's sums d0, d1 in f32.  (Accumulating a whole K range inside the
+// tensor cores, which truncate as they add into an accumulator, doubled the
+// bf16 input flips against the plain version on an H100.)
+__device__ __forceinline__ void mstep(float4& d0, float4& d1, unsigned a0,
+                                      unsigned a1, unsigned a2, unsigned a3,
+                                      uint4 b) {
+  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
+  mma16816(e0, a0, a1, a2, a3, b.x, b.y);
+  mma16816(e1, a0, a1, a2, a3, b.z, b.w);
+  d0 = add4(d0, e0);
+  d1 = add4(d1, e1);
+}
+
+// acc[0] and acc[1] (rows r0 + g and r0 + g + 8 at columns c..c+3, c =
+// 16 cg + 4t) += X[those rows][k0, k1) @ W[k0, k1)[those columns], X in
+// shared memory with row stride ld, W the packed matrix of K rows.  k0 is a
+// multiple of 16 and k1 of 4; the A elements at k >= k1 are zeros (a zero
+// B row does not cancel an x past K that holds Inf or NaN bits).  K goes in
+// pairs of steps: the row strides are 0 mod 32 banks, so the lanes of odd g
+// load a pair's second step first and a quarter-warp's two rows fall on
+// other banks; selects give each step its registers back.  B is loaded
+// MMA_PAIRS pairs ahead of its products.
+__device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
+                                     int r0, const uint4* __restrict__ W,
+                                     int K, int c, int k0, int k1, int kl) {
+  static_assert(ET == 16, "an mma.sync A tile is the item's 16 rows");
+  constexpr int NB = 2 * MMA_PAIRS;
+  const int t = (c >> 2) & 3;
+  const bool odd = kl & 1;
+  const float* const x0 = X + (r0 + kl) * ld + 4 * t;
+  const float* const x1 = x0 + 8 * ld;
+  const uint4* wp = W + ((size_t)(c >> 4) * ((K + 15) >> 4) + (k0 >> 4)) * 32 +
+                    4 * kl + t;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
+  float4 d0 = make_float4(acc[0].x, acc[0].y, acc[1].x, acc[1].y);
+  float4 d1 = make_float4(acc[0].z, acc[0].w, acc[1].z, acc[1].w);
+  uint4 bq[NB];
+#pragma unroll
+  for (int p = 0; p < NB; ++p) bq[p] = k0 + 16 * p < k1 ? __ldg(wp + 32 * p) : z4;
+  wp += 32 * NB;
+#pragma unroll 1
+  for (int k = k0; k < k1; k += 32) {
+    const uint4 b0 = bq[0], b1 = bq[1];
+#pragma unroll
+    for (int p = 0; p + 2 < NB; ++p) bq[p] = bq[p + 2];
+    bq[NB - 2] = k + 16 * NB < k1 ? __ldg(wp) : z4;
+    bq[NB - 1] = k + 16 * NB + 16 < k1 ? __ldg(wp + 32) : z4;
+    wp += 64;
+    const int ka = odd ? k + 16 : k, kb = odd ? k : k + 16;
+    const bool va = ka + 4 * t < k1, vb = kb + 4 * t < k1;
+    const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
+    const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;
+    const unsigned u0 = bf2(pa.x, pa.y), u1 = bf2(pb.x, pb.y);
+    const unsigned u2 = bf2(pa.z, pa.w), u3 = bf2(pb.z, pb.w);
+    const unsigned w0 = bf2(qa.x, qa.y), w1 = bf2(qb.x, qb.y);
+    const unsigned w2 = bf2(qa.z, qa.w), w3 = bf2(qb.z, qb.w);
+    mstep(d0, d1, odd ? w0 : u0, odd ? w1 : u1, odd ? w2 : u2, odd ? w3 : u3, b0);
+    if (k + 16 < k1)
+      mstep(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2, odd ? u3 : w3,
+            b1);
+  }
+  acc[0] = make_float4(d0.x, d0.y, d1.x, d1.y);
+  acc[1] = make_float4(d0.z, d0.w, d1.z, d1.w);
+}
+
 // One level of the K-lane butterfly: lanes keep H rows of the tile, the
 // upper half when up, and add the partner's (lane ^ m) copy of them.
 template <int H>
@@ -612,14 +781,17 @@ __device__ __forceinline__ int ksum(float4 (&acc)[ET], int kl, int r0) {
 }
 
 // The end of a work item: ksum, then lane kl stores its ET/8 rows plus
-// `bias` at dst + row * ld when `put`.
+// `bias` at dst + row * ld when `put`.  MM (the item ran on tmma): nothing
+// to sum, and the lane's rows are r0 + kl and r0 + kl + 8.
+template <bool MM = false>
 __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
                                      float* dst, int ld, float4 bias,
                                      bool put) {
-  const int rk = ksum(acc, kl, r0);
+  constexpr int rs = MM ? 8 : 1;
+  const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
   if (put) {
 #pragma unroll
-    for (int i = 0; i < ET / 8; ++i) st4(dst + (rk + i) * ld, add4(acc[i], bias));
+    for (int i = 0; i < ET / 8; ++i) st4(dst + (rk + rs * i) * ld, add4(acc[i], bias));
   }
 }
 
@@ -669,6 +841,19 @@ __device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
   }
 }
 
+// An item's product on its route: in an MM instance tmma on the packed
+// matrix wm (K rows), else wmac on W of kind q
+template <bool Q, bool BF, bool MM>
+__device__ __forceinline__ void umac(float4 (&acc)[ET], const float* X, int ld,
+                                     int r0, const float* W, const uint4* wm,
+                                     int q, int K, int out, int c, int k0,
+                                     int k1, int kl) {
+  if constexpr (MM)
+    tmma(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+  else
+    wmac<Q, BF>(acc, X, ld, r0, W, q, out, c, k0, k1, kl);
+}
+
 // The scale row sc at columns c..c+3 in an int8 instance (ones otherwise,
 // and in a BF instance without scale rows, where sc is null)
 template <bool Q, bool BF = false>
@@ -680,19 +865,20 @@ __device__ __forceinline__ float4 scl(const float* sc, int c, int out) {
 
 // kput, in an int8 instance with the summed tile times the column scale s
 // before the bias
-template <bool Q>
+template <bool Q, bool MM = false>
 __device__ __forceinline__ void kputq(float4 (&acc)[ET], int kl, int r0,
                                       float* dst, int ld, float4 s,
                                       float4 bias, bool put) {
   if (!Q) {
-    kput(acc, kl, r0, dst, ld, bias, put);
+    kput<MM>(acc, kl, r0, dst, ld, bias, put);
     return;
   }
-  const int rk = ksum(acc, kl, r0);
+  constexpr int rs = MM ? 8 : 1;
+  const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
   if (put) {
 #pragma unroll
     for (int i = 0; i < ET / 8; ++i)
-      st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));
+      st4(dst + (rk + rs * i) * ld, add4(mul4(acc[i], s), bias));
   }
 }
 
@@ -719,14 +905,17 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
 // after the barrier adds the chunks in order.  W is of kind q (wmac), and in
 // an int8 instance each partial is scaled by the row sc.  PAD: W is a
-// padded x operand when pad (pmac).
-template <bool Q, bool BF = false, bool PAD = false>
+// padded x operand when pad (pmac).  MM: on the tensor cores (tmma), W's
+// packed copy wm (pad is then moot: a padded matrix packs as its merged
+// one).
+template <bool Q, bool BF = false, bool PAD = false, bool MM = false>
 __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       int q, const float* sc, int K, int out,
                                       int ng, int ks,
                                       const float* __restrict__ bias,
                                       float* part, int warp, int kl, int cq,
-                                      bool pad = false) {
+                                      bool pad = false,
+                                      const uint4* wm = nullptr) {
   const int kc = ((K + ks - 1) / ks + 31) & ~31;
   for (int u = warp; u < RG * ng * ks; u += NWARP) {
     const int r0 = u / (ng * ks) * ET, v = u % (ng * ks);
@@ -737,12 +926,14 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 acc[ET];
     zero(acc);
-    if (PAD && pad)
+    if constexpr (MM)
+      tmma(acc, X, ld, r0, wm, K, c, kb, ke, kl);
+    else if (PAD && pad)
       pmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
     else
       wmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
-    kputq<Q>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
-             c < out);
+    kputq<Q, MM>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
+                 c < out);
   }
 }
 
@@ -814,11 +1005,16 @@ __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
 // at the first step (the next layer overwrites it with its own).  Each
 // staging pass sits between two barriers that are there anyway.  smem holds
 // DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).  BF: bf16 products,
-// the kinds in qa (KindArgs).
-template <bool Q, bool BF = false, class KA = QuantArgs<DEC_NS>>
+// the kinds in qa (KindArgs).  MM (the frame kernel's BF instance, not
+// dec_kernel's): every product on the tensor cores (tmma), on the packed
+// matrices m.
+template <bool Q, bool BF = false, bool MM = false,
+          class KA = QuantArgs<DEC_NS>>
 __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
                                          float* smem, const Src& zs,
-                                         int zstep) {
+                                         int zstep,
+                                         const MmaW<DEC_NW>* m = nullptr) {
+  static_assert(!(Q && MM), "the MM route has no int8 GRU partials");
   float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
   float* const scr = smem + DEC_RING;                   // partial sums
@@ -848,6 +1044,11 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     if constexpr (BF) return Q && kd.ns ? w + soff[si] : nullptr;
     else return Q ? w + soff[si] : nullptr;
   };
+  // MM: array j's packed copy
+  auto mw = [=](int j) -> const uint4* {
+    if constexpr (MM) return m->p + m->off[j];
+    else return nullptr;
+  };
 
   for (int i = 0; i < 5; ++i)
     stage<DEC_H>(hb + (5 + i) * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H,
@@ -861,8 +1062,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
-                 DEC_NG, 2, w + off[1], scr, warp, kl, cq);
+    tprod<Q, BF, false, MM>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                            a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
+                            kl, cq, false, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -912,13 +1114,17 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
           }
           continue;
         }
-        wmac<Q, BF>(acc, X, DEC_X, r0, wih, qi, DEC_G, c, hf ? kh : 0, hf ? gin : kh, kl);
-        if (rz && hf) wmac<Q, BF>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
-        kput(acc, kl, r0, p, DEC_GS, bx, true);
+        umac<Q, BF, MM>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                        hf ? kh : 0, hf ? gin : kh, kl);
+        if (rz && hf)
+          umac<Q, BF, MM>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
+                          c, 0, DEC_H, kl);
+        kput<MM>(acc, kl, r0, p, DEC_GS, bx, true);
         if (!rz && hf) {
           zero(acc);
-          wmac<Q, BF>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
-          kput(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
+          umac<Q, BF, MM>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
+                          c, 0, DEC_H, kl);
+          kput<MM>(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
         }
       }
       __syncthreads();
@@ -949,8 +1155,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod<Q, BF>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i), DEC_H, DEC_H,
-                   DEC_NG, 2, nullptr, scr, warp, kl, cq);
+      tprod<Q, BF, false, MM>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i),
+                              DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp, kl,
+                              cq, false, mw(j0 + 4));
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -975,10 +1182,11 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        wmac<Q, BF>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap], q8(j0 + 5 + tap),
-                    DEC_CO, c, kb, ke, kl);
-        kputq<Q>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
-                 scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
+        umac<Q, BF, MM>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
+                        mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c, kb,
+                        ke, kl);
+        kputq<Q, MM>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
+                     scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
       }
       __syncthreads();
       if (t < R * DEC_CO / 4) {
@@ -993,9 +1201,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2), sc(DEC_NS - 1),
-                 DEC_X, od, (od + 15) / 16, 2, w + off[DEC_NW - 1], scr, warp, kl,
-                 cq);
+    tprod<Q, BF, false, MM>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2),
+                            sc(DEC_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                            w + off[DEC_NW - 1], scr, warp, kl, cq, false,
+                            mw(DEC_NW - 2));
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -1046,11 +1255,15 @@ __global__ void __launch_bounds__(NT)
 // kinds in qa (KindArgs); PAD: the x operands are padded when qa.pad
 // (pmac).  The instances: <false> f32, <true> int8, <false, false, true>
 // and <true, false, true> f32 and int8 in either layout (KindArgs), <true,
-// true, true> bf16 products on weights of any kind, either layout.
+// true, true> bf16 products on f32 weights (kind 0), either layout, and the
+// MM instance <true, true, true, KindMmaArgs> bf16 products on weights of
+// kinds 1, 2 and 3 (int8, bf16, f32 rounded at the product), every product
+// on the tensor cores (tmma) on the packed matrices qa.m, either layout.
 template <bool Q, bool BF = false, bool PAD = false,
           class KA = QuantArgs<DECM_NS>>
 __global__ void __launch_bounds__(NT)
     dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ KA qa) {
+  constexpr bool MM = has_mma<KA>;
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
@@ -1084,6 +1297,11 @@ __global__ void __launch_bounds__(NT)
     else return Q ? w + soff[si] : nullptr;
   };
   const bool pad = padded<PAD>(qa);
+  // MM: array j's packed copy
+  auto mw = [&](int j) -> const uint4* {
+    if constexpr (MM) return qa.m.p + qa.m.off[j];
+    else return nullptr;
+  };
 
   for (int i = 0; i < 5; ++i) {
     stage<DEC_H>(hs + i * R * DEC_H, a.h_in[i] + (size_t)b0 * DEC_H, DEC_H,
@@ -1105,8 +1323,9 @@ __global__ void __launch_bounds__(NT)
 
   for (int k = 0; k < a.nz; ++k) {
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0), a.in_dim, DEC_H,
-                 DEC_NG, 2, w + off[1], scr, warp, kl, cq);
+    tprod<Q, BF, false, MM>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                            a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
+                            kl, cq, false, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1123,8 +1342,9 @@ __global__ void __launch_bounds__(NT)
 
       // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
       // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
-      tprod<Q, BF, PAD>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin, DEC_G,
-                        DEC_G / 16, 2, w + o[2], scr, warp, kl, cq, pad);
+      tprod<Q, BF, PAD, MM>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin,
+                            DEC_G, DEC_G / 16, 2, w + o[2], scr, warp, kl, cq,
+                            pad, mw(j0));
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
@@ -1157,8 +1377,10 @@ __global__ void __launch_bounds__(NT)
         const int r0 = u / DECM_GGC * ET, c = u % DECM_GGC * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        wmac<Q, BF>(acc, h, DEC_H, r0, w + o[1], qg, DEC_GG, c, 0, DEC_H, kl);
-        const int rk = ksum(acc, kl, r0);
+        umac<Q, BF, MM>(acc, h, DEC_H, r0, w + o[1], mw(j0 + 1), qg, DEC_H,
+                        DEC_GG, c, 0, DEC_H, kl);
+        constexpr int rs = MM ? 8 : 1;   // the lane's rows rk, rk + rs (kput)
+        const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
         if (Q && (!BF || sgg)) {
           const float4 s4 = ldg4(sgg + c);
 #pragma unroll
@@ -1166,12 +1388,12 @@ __global__ void __launch_bounds__(NT)
         }
         if (c < DEC_G) {
 #pragma unroll
-          for (int j = 0; j < ET / 8; ++j) st4(hg + (rk + j) * DEC_G + c, acc[j]);
+          for (int j = 0; j < ET / 8; ++j) st4(hg + (rk + rs * j) * DEC_G + c, acc[j]);
         } else {
 #pragma unroll
           for (int j = 0; j < ET / 8; ++j) {
-            const float4 v = acc[j], hv = ld4(h + (rk + j) * DEC_H + c - DEC_G);
-            st4(X + (rk + j) * DEC_X + gin + c - DEC_G,
+            const float4 v = acc[j], hv = ld4(h + (rk + rs * j) * DEC_H + c - DEC_G);
+            st4(X + (rk + rs * j) * DEC_X + gin + c - DEC_G,
                 make_float4(hv.x * sigm(v.x), hv.y * sigm(v.y),
                             hv.z * sigm(v.z), hv.w * sigm(v.w)));
           }
@@ -1181,9 +1403,9 @@ __global__ void __launch_bounds__(NT)
 
       // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
       // chunks, partials [chunk][R][64]
-      tprod<Q, BF, PAD>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i), cin,
-                        2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS, nullptr, scr,
-                        warp, kl, cq, pad);
+      tprod<Q, BF, PAD, MM>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i), cin,
+                            2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS, nullptr,
+                            scr, warp, kl, cq, pad, mw(j0 + 4));
       __syncthreads();
       // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
       // half of cc is the next step's projection (each float4 of it read
@@ -1206,9 +1428,10 @@ __global__ void __launch_bounds__(NT)
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, PAD>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
-                      sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
-                      w + off[DEC_NWM - 1], scr, warp, kl, cq, pad);
+    tprod<Q, BF, PAD, MM>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
+                          sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                          w + off[DEC_NWM - 1], scr, warp, kl, cq, pad,
+                          mw(DEC_NWM - 2));
     __syncthreads();
     for (int it = t; it < nv * (od / 4); it += NT) {
       const int r = it / (od / 4), c = it % (od / 4) * 4;
@@ -1238,9 +1461,11 @@ __global__ void __launch_bounds__(NT)
 // the flagship through the FIX=false instance ran 3.5% slower on an H100
 // (tools/enc_variants.py --kernel frame, form frgeneric).  BF: bf16
 // products, every product rounding both its inputs (radae_tpu's frame
-// kernel's dot), the decoder's kinds in a.k (the instance <false, true>).
+// kernel's dot), the decoder's kinds in a.k (the instance <false, true>):
+// an MM instance, the DFT and every decoder product on the tensor cores
+// (tmma) on the packed matrices of a (FrameMmaArgs).
 template <bool FIX, bool BF = false>
-__global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
+__global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgsOf<BF> a) {
   extern __shared__ float4 smem4[];
   const FrameGeo g = FIX ? flagship_geo() : a.g;
   const int nsym = g.ns + 2, row = 2 * g.samp, yw = g.yw;
@@ -1284,8 +1509,11 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
       const int r0 = s * srows + u / cg * ET, c = u % cg * 16 + cq;
       float4 acc[ET];
       zero(acc);
-      tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);
-      kput(acc, kl, r0, Y + c, yw, make_float4(0.f, 0.f, 0.f, 0.f), c < yw);
+      if constexpr (BF)
+        tmma(acc, S, row, r0, a.dft_m, row, c, 0, row, kl);
+      else
+        tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);
+      kput<BF>(acc, kl, r0, Y + c, yw, make_float4(0.f, 0.f, 0.f, 0.f), c < yw);
     }
   }
   __syncthreads();
@@ -1336,7 +1564,8 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgs a) {
   __syncthreads();
 
   if constexpr (BF)
-    dec_body<false, true>(a.d, a.k, smem, Src{zsh, g.nz * g.lat, R - 1}, g.lat);
+    dec_body<false, true, true>(a.d, a.k, smem, Src{zsh, g.nz * g.lat, R - 1},
+                                g.lat, &a.m);
   else
     dec_body<false>(a.d, QuantArgs<DEC_NS>{}, smem,
                     Src{zsh, g.nz * g.lat, R - 1}, g.lat);
@@ -1603,6 +1832,21 @@ bool kind_args(const int* kinds, int n, const int* soff, int n_soff,
          (bf || (k.bf | k.rw) == 0);
 }
 
+// The packed matrices of an MM launch (m) from the buffer wm and each
+// array's start in it (moff[n], -1 for none); false unless every array in
+// mats is packed
+template <int NW>
+bool mma_args(const void* wm, const int* moff, int n, unsigned long long mats,
+              MmaW<NW>& m) {
+  if (!wm || n != NW) return false;
+  m.p = static_cast<const uint4*>(wm);
+  for (int j = 0; j < NW; ++j) {
+    m.off[j] = moff[j];
+    if ((mats >> j & 1) && moff[j] < 0) return false;
+  }
+  return true;
+}
+
 // Set the kernel's shared memory and launch it on the stream
 template <class K, class A, class Q>
 int launch(K kernel, size_t smem, int B, void* stream, const A& a,
@@ -1709,14 +1953,18 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
 }
 
 // radae_fused_decoder_merged_step on the padded layout (pad; f32 or int8
-// matrices), or with bf16 products (bf16; either layout, kinds 0..3): the
-// x operands' rows from DEC_SEG * j for x segment j (seg_width: every one a
-// multiple of 4, static_assert above)
+// matrices), or with bf16 products (bf16; either layout): the x operands'
+// rows from DEC_SEG * j for x segment j (seg_width: every one a multiple of
+// 4, static_assert above).  With bf16 products every matrix is of kind 0
+// (f32, the FMA instance) or every one of kinds 1..3 (the MM instance, on
+// the matrices packed into wm at moff[n_off], in 16-byte words: their
+// merged rows in either layout); wm and moff are read only then.
 int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
                                       const int* kinds, const int* soff,
                                       int n_soff, const void* z, void* feats,
                                       int B, int nz, int in_dim, int out_dim,
-                                      int pad, int bf16,
+                                      int pad, int bf16, const void* wm,
+                                      const int* moff,
                                       void* const* state_in,
                                       void* const* state_out, void* stream) {
   DecMergedArgs a;
@@ -1739,6 +1987,15 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
     a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
+  }
+  if (bf16 && (k.i8 | k.bf | k.rw)) {
+    KindMmaArgs<DECM_NS, DEC_NWM> km;
+    static_cast<KindArgs<DECM_NS>&>(km) = k;
+    if ((k.i8 | k.bf | k.rw) != DECM_MATS ||
+        !mma_args(wm, moff, n_off, DECM_MATS, km.m))
+      return (int)cudaErrorInvalidValue;
+    return launch(dec_merged_kernel<true, true, true, KindMmaArgs<DECM_NS, DEC_NWM>>,
+                  DECM_SMEM, B, stream, a, km);
   }
   if (bf16)
     return launch(dec_merged_kernel<true, true, true, KindArgs<DECM_NS>>,
@@ -1821,21 +2078,25 @@ int radae_fused_rx_frame_step(const void* w, const int* off, int n_off,
 
 // radae_fused_rx_frame_step with bf16 products (the geometry from the
 // launch): the kinds (kind_args) of all FR_NW arrays, every decoder matrix
-// bf16 (2) or f32 rounded at its products (3), no scale rows
+// bf16 (2) or f32 rounded at its products (3), no scale rows; the decoder's
+// matrices and dft_w packed into wm at moff[n_off] (16-byte words)
 int radae_fused_rx_frame_bf16_step(const void* w, const int* off, int n_off,
                                    const int* kinds, const int* soff,
                                    int n_soff, const void* rx, void* feats,
                                    int B, int out_dim, float mag_k,
                                    int coarse_mag, int ns, int nc, int samp,
-                                   int latent, int nz, void* const* state_in,
+                                   int latent, int nz, const void* wm,
+                                   const int* moff, void* const* state_in,
                                    void* const* state_out, void* stream) {
   const FrameGeo g = frame_geo(ns, nc, samp, latent, nz);
-  FrameArgs a;
+  FrameMmaArgs a;
   if (!frame_args(w, off, n_off, rx, feats, B, out_dim, mag_k, coarse_mag, g,
                   state_in, state_out, a) ||
       n_soff != 0 || !kind_args(kinds + 4, DEC_NW, soff, 0, DEC_MATS, true, a.k) ||
-      a.k.i8 != 0 || (a.k.bf | a.k.rw) != DEC_MATS)
+      a.k.i8 != 0 || (a.k.bf | a.k.rw) != DEC_MATS ||
+      !mma_args(wm, moff + 4, DEC_NW, DEC_MATS, a.m) || moff[FR_NW - 2] < 0)
     return (int)cudaErrorInvalidValue;
+  a.dft_m = a.m.p + moff[FR_NW - 2];
   const size_t smem = frame_smem(g);
   cudaError_t e = cudaFuncSetAttribute(
       rx_frame_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,

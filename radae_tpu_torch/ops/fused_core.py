@@ -30,7 +30,11 @@ The decoder comes in three layouts (`decoder_weights(merged=...)`):
             then each layer's GLU and conv outputs), zero rows between.
 compute_dtype=torch.bfloat16 (a keyword of every step) rounds the inputs of
 each product to bf16 as radae_tpu's kernels do (`_rounds`); the sums, the
-gates and the carried state stay f32.
+gates and the carried state stay f32.  Where every product is then bf16 x
+bf16 (the chain-merged decoder on bf16 or int8 weights, the frame kernel)
+the kernel multiplies on the tensor cores, on the weights packed by
+`mma_weights`: the launch packs them on its first use of a weight set and
+keeps them in the set (`PackedWeights.mma`).
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
   decoder, merged:   5 GRU h (B, 96) + 5 projected hh rows h @ whh (B, 288)
@@ -108,6 +112,10 @@ class PackedWeights(NamedTuple):
     # their starts in buf
     scales: Tuple[torch.Tensor, ...] = ()
     scale_offsets: Tuple[int, ...] = ()
+    # the matrices packed for the tensor cores (`mma_weights`), made by the
+    # first launch that needs them (`_mma_args`): {stamp: MmaWeights};
+    # None packs at every such launch
+    mma: Optional[Dict[tuple, Any]] = None
 
     @property
     def quant(self) -> Optional[str]:
@@ -165,6 +173,18 @@ def _pad_rows(w, widths):
         r += wd
     assert r == w.shape[0], (r, w.shape)
     return out
+
+
+def _x_operand_segs(j):
+    """The x segments (`_xsegs`) that array j of a chain-merged set
+    multiplies, where it is an x operand (g*_wih, c*_w, out_w); else
+    None."""
+    if j == N_DEC_MERGED - 2:
+        return _xsegs(5)
+    i, r = divmod(j - 2, 6)
+    if 0 <= i < 5 and r in (0, 4):
+        return _xsegs(i) + ([_DEC_GRU_DIMS[i][1]] if r == 4 else [])
+    return None
 
 
 def _fused_arrays(params: Dict[str, Any], side: str, merged=False,
@@ -265,7 +285,7 @@ def _pack(arrs, names, device, scales=()) -> PackedWeights:
     views = tuple(view(o, a) for o, a in zip(offsets, list(arrs) + list(scales)))
     k = len(arrs)
     return PackedWeights(buf, tuple(offsets[:k]), views[:k], tuple(names),
-                         views[k:], tuple(offsets[k:]))
+                         views[k:], tuple(offsets[k:]), {})
 
 
 def decoder_weights(params, device="cuda", merged=False, quant=None,
@@ -425,6 +445,92 @@ def fused_rx_weights(params, cfg, device="cuda",
              if cfg.bottleneck == 3 else 1.0)
     return RxFrameWeights(packed, cfg.Ns + 2, cfg.M + cfg.Ncp, mag_k,
                           bool(cfg.coarse_mag))
+
+
+# ---------------------------------------------------------------------------
+# fragment-packed weights: the B operands of the tensor-core route
+# ---------------------------------------------------------------------------
+
+def _mma_pack(w: np.ndarray) -> np.ndarray:
+    """The bf16 bits (uint16, nearest even) of a (K, out) matrix in the
+    order in which the kernels' tmma reads mma.sync.m16n8k16 B fragments,
+    shape (ceil(out/16), ceil(K/16), 32, 8): K and out padded with zeros to
+    multiples of 16; for 16-column group cg and K step s, lane 4g + t holds
+    rows 16s + 4t + i (i < 4) of column 16cg + 4(g >> 1) + (g & 1) (its
+    n8 tile 0) and then of that column + 2 (tile 1).  A lane's 4 rows are
+    the fragment's k 2t, 2t+1, 2t+8, 2t+9 (the kernel loads x in the same
+    order), and the two tiles give the lane columns 4t..4t+3 of rows g and
+    g + 8 as its sums."""
+    K, out = w.shape
+    nks, ncg = -(-K // 16), -(-out // 16)
+    p = np.zeros((16 * nks, 16 * ncg), np.float32)
+    p[:K, :out] = w
+    # row 16s + 4t + i, column 16cg + 4q + 2n + e (g = 2q + e)
+    p = p.reshape(nks, 4, 4, ncg, 4, 2, 2)          # s t i cg q n e
+    p = p.transpose(3, 0, 4, 6, 1, 5, 2)            # cg s q e t n i
+    return _bf16_bits(p.reshape(ncg, nks, 32, 8))
+
+
+class MmaWeights(NamedTuple):
+    """`mma_weights`: the matrices a launch multiplies on the tensor cores,
+    each as `_mma_pack` lays it out, one after another in one buffer."""
+    buf: torch.Tensor               # (8 n,) bfloat16
+    offsets: Tuple[int, ...]        # per array of the weight set: its start
+                                    # in buf in 16-byte words, -1 if none
+    kinds: Tuple[int, ...]          # per array: its kind in the launch
+                                    # (`_kinds`)
+
+
+def _mma_kinds(weights):
+    """The kinds (`_kinds`) of a launch with bf16 products of the merged
+    decoder's (PackedWeights) or the frame kernel's (RxFrameWeights)
+    weights, and the arrays whose products run on the tensor cores: every
+    matrix of kind 1, 2 or 3 (int8, bf16, f32 rounded at the product), but
+    in the frame set only the decoder's and dft_w (Wr..Ei are not the
+    kernel's; ls_w stays a row product)."""
+    if isinstance(weights, RxFrameWeights):
+        w = weights.w
+        kinds = _kinds(w, _rounds(w, torch.bfloat16, "all"))
+        return kinds, [j for j in range(4, len(kinds) - 1) if kinds[j]]
+    if not merged_layout(weights):
+        raise ValueError("mma_weights: only the chain-merged decoder and the "
+                         "frame kernel run products on the tensor cores")
+    kinds = _kinds(weights, _rounds(weights, torch.bfloat16, "none"))
+    return kinds, [j for j, k in enumerate(kinds) if k]
+
+
+def mma_weights(weights) -> MmaWeights:
+    """The weights that the tensor-core (MM) instances read, built on the
+    host: for the chain-merged decoder (merged or "pad",
+    `decoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
+    products, each matrix of kind 1, 2 or 3 copied into bf16 (int8 exactly,
+    its scale row staying on the output; f32 rounded to nearest even, as
+    `_bf16`) in `_mma_pack`'s order, on the weights' device.  A "pad"
+    matrix packs to its merged matrix (the zero rows between the SEG-row
+    segments dropped).  The int8 matrices are widened to bf16 here, two
+    bytes a weight where the int8 instances read one.  On f32 weights the
+    merged decoder's products are bf16 x f32 (kind 0) and nothing is
+    packed."""
+    kinds, packed = _mma_kinds(weights)
+    arrays = (weights.w if isinstance(weights, RxFrameWeights)
+              else weights).arrays
+    pad = merged_layout(weights) == "pad" if isinstance(
+        weights, PackedWeights) else False
+    offsets, parts, n = [-1] * len(arrays), [], 0
+    for j in packed:
+        a = arrays[j].float()
+        a = _bf16(a) if kinds[j] == 3 else a
+        a = a.cpu().numpy()
+        if pad and _x_operand_segs(j):
+            a = np.concatenate([a[SEG * k:SEG * k + wd] for k, wd in
+                                enumerate(_x_operand_segs(j))])
+        parts.append(_mma_pack(a).ravel())
+        offsets[j] = n
+        n += parts[-1].size // 8
+    bits = np.concatenate(parts) if parts else np.zeros(0, np.uint16)
+    buf = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16).to(
+        arrays[0].device)
+    return MmaWeights(buf, tuple(offsets), tuple(kinds))
 
 
 # ---------------------------------------------------------------------------
@@ -725,14 +831,32 @@ def _ready_state(state, shapes, dev):
 def _check_pad(weights: PackedWeights):
     """Raise unless each x operand of a "pad" set has SEG rows for each x
     segment it reads (the kernel reads segment j's rows from row SEG*j)."""
-    w = weights.arrays
-    want = [(2 + 6 * i, len(_xsegs(i))) for i in range(5)] \
-        + [(6 + 6 * i, len(_xsegs(i)) + 1) for i in range(5)] \
-        + [(N_DEC_MERGED - 2, len(_xsegs(5)))]
-    bad = [weights.names[j] for j, n in want if w[j].shape[0] != SEG * n]
+    segs = [_x_operand_segs(j) for j in range(N_DEC_MERGED)]
+    bad = [weights.names[j] for j, sg in enumerate(segs)
+           if sg and weights.arrays[j].shape[0] != SEG * len(sg)]
     if bad:
         raise ValueError(f'merged="pad" weights: {bad} do not have {SEG} '
                          "rows an x segment")
+
+
+def _mma_args(weights, kinds):
+    """The (packed buffer, its offsets) arguments of a launch with bf16
+    products of the merged decoder (PackedWeights) or the frame kernel
+    (RxFrameWeights): `mma_weights(weights)`, kept in the weight set's
+    `mma` under a stamp of what it copies (the buffer, its version counter,
+    which every write to it or to a view of it bumps, the arrays' offsets
+    and kinds) and packed anew when the stamp changes, so a launch never
+    reads another set's or a stale copy.  (The C entries refuse a launch
+    without the packed matrices: there is no FMA fallback.)"""
+    w = weights.w if isinstance(weights, RxFrameWeights) else weights
+    stamp = (w.buf.data_ptr(), w.buf._version, w.offsets, tuple(kinds))
+    kept = {} if w.mma is None else w.mma
+    if stamp not in kept:
+        kept.clear()
+        kept[stamp] = mma_weights(weights)
+    m = kept[stamp]
+    return (m.buf.data_ptr() if m.buf.numel() else None,
+            (ctypes.c_int * len(m.offsets))(*m.offsets))
 
 
 def fused_decoder_step(weights: PackedWeights, z, state,
@@ -746,7 +870,9 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     products.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
     radae_fused_decoder_merged_step or, padded or with bf16 products,
-    radae_fused_decoder_merged_x_step)."""
+    radae_fused_decoder_merged_x_step).  The chain-merged decoder with bf16
+    products on int8 or bf16 weights runs them on the tensor cores, on the
+    weights packed on first use (`_mma_args`)."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":
@@ -773,13 +899,15 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
     entry = "fused_decoder_merged_step" if layout else "fused_decoder_step"
     args = (B, nz, latent, out_dim)
-    if layout and (bf or layout == "pad"):
-        name = "radae_fused_decoder_merged_x_step"
-        args += (int(layout == "pad"), int(bf))
-    else:
-        name = "radae_" + entry.replace("_step", "_bf16_step" if bf else "_step")
     kinds = _kinds(weights, _rounds(weights, compute_dtype,
                                     "none" if layout else "gru"))
+    if layout and (bf or layout == "pad"):
+        name = "radae_fused_decoder_merged_x_step"
+        args += (int(layout == "pad"), int(bf)) + (
+            _mma_args(weights, kinds) if bf
+            else (None, None))
+    else:
+        name = "radae_" + entry.replace("_step", "_bf16_step" if bf else "_step")
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
                      z, feats, state, new_state, args, kinds)
     _kernels.check(status, name)
@@ -810,8 +938,9 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state,
     (B, 4*nz, F), new unmerged decoder state).  CPU tensors take
     `rx_frame_step_plain`; CUDA tensors launch the kernel
     (radae_fused_rx_frame_step, or radae_fused_rx_frame_bf16_step for bf16
-    products) with the weights' modem geometry, or raise naming the
-    kernel's limit it breaks (FRAME_LIMITS)."""
+    products, which runs its products on the tensor cores, on the weights
+    packed on first use: `_mma_args`) with the weights' modem geometry, or raise
+    naming the kernel's limit it breaks (FRAME_LIMITS)."""
     _check_compute(compute_dtype)
     if rx_packed.device.type == "cpu":
         return rx_frame_step_plain(weights, rx_packed, state, compute_dtype)
@@ -843,10 +972,13 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state,
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
     bf = compute_dtype == torch.bfloat16
     name = "radae_fused_rx_frame_" + ("bf16_step" if bf else "step")
+    args = (B, out_dim, ctypes.c_float(weights.mag_k),
+            int(weights.coarse_mag), ns, nc, samp, latent, nz)
+    kinds = _kinds(w, _rounds(w, compute_dtype, "all")) if bf else None
+    if bf:
+        args += _mma_args(weights, kinds)
     status = _launch(getattr(lib, name), w, rx, feats, state, new_state,
-                     (B, out_dim, ctypes.c_float(weights.mag_k),
-                      int(weights.coarse_mag), ns, nc, samp, latent, nz),
-                     _kinds(w, _rounds(w, compute_dtype, "all")) if bf else None)
+                     args, kinds)
     _kernels.check(status, name)
     LAUNCHES[_launch_key("fused_rx_frame_step", weights.decoder,
                          compute_dtype)] += 1

@@ -84,7 +84,9 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
     `decoder_weights(..., quant="int8")` and the int8 kernel runs.
     fused_dtype=torch.bfloat16 runs the kernel's bf16-product instance
     (radae_tpu's compute_dtype), on f32, bf16 (`decoder_weights(...,
-    dtype=torch.bfloat16)`) or int8 weights.  frames_per_step=N
+    dtype=torch.bfloat16)`) or int8 weights; the chain-merged kernel's
+    then runs on the tensor cores, on the weights packed on its first
+    launch with a weight set and kept in it.  frames_per_step=N
     demodulates and decodes N consecutive frames per call, each frame
     equalised from its own two bracketing pilot rows (the same math as N
     chained calls)."""

@@ -5,9 +5,10 @@ whole-frame rx_frame_kernel) against each other on one CUDA card, in turns,
 in one run.
 
     python3 tools/enc_variants.py [--kernel enc|dec|decm|frame]
-                                  [--quant int8] [--forms A,B]
+                                  [--quant int8 | --bf16 f32|bf16|int8 [--pad]]
+                                  [--forms A,B]
                                   [--src NAME=PATH[@G,O] ...] [--out DIR]
-                                  [--reps N]
+                                  [--reps N] [--seeds N] [--latent 80|40]
 
 Builds radae_tpu_torch/csrc/fused_core.cu as it is and, beside it, one copy
 for each form in FORMS that applies to the kernel (the source with a few
@@ -23,8 +24,12 @@ before its 16-row tiles: `@2,4`).
 
 Each form's kernel runs through its wrapper (fused_encoder_step,
 fused_decoder_step, the latter with the merged weights for decm, or
-fused_rx_frame_step) on the flagship weights at B=2048, one frame (nz=3) a
-call, with random inputs and state from a seed.
+fused_rx_frame_step) on the flagship weights (--latent 40: the latent-40
+fixture's) at B=2048, one frame (nz=3) a call, with random inputs and state
+from a seed; --seeds N holds the forms against the plain version on the
+inputs of N seeds (for the bf16 instances printing, per seed and form, the
+elements past chip_smoke.py's BF16_TOL and the max and mean error of a
+tensor over its scale) and times them on the first.
 The checked forms are held against the plain version (rtol 1e-4, atol
 1e-4); the forms that take a cost out on purpose give wrong results and are
 timed only.  For each form it prints the ptxas line of the kernel, the max
@@ -40,7 +45,14 @@ decoders have an int8 instance beside the f32 one; the tool times and
 compares the f32 instance (a --src library whose entries predate the int8
 arguments is called through `F32OnlyEntries`), or with --quant int8 the
 int8 instance on the int8 weights (`quant="int8"`), whose own forms are
-named int8_*.
+named int8_*, or with --bf16 KIND the instance with bf16 products on
+weights of that kind (f32, bf16 or int8; --pad: the merged decoder's padded
+layout), held against the plain version under chip_smoke.py's BF16_*
+limits.  The merged decoder's on bf16 or int8 weights and the frame
+kernel's run on the tensor cores, on the weights the wrapper packs at its
+first launch (`mma_weights`); a --src library whose entries predate them
+is called through `NoMmaEntries`.  For each --src library it also prints, instance by
+instance of every kernel, whether its SASS equals the committed build's.
 """
 
 from __future__ import annotations
@@ -59,8 +71,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (RX_NOISE, TOL, card_line, check_close,  # noqa: E402
-                        graph_ms, max_err, weight_fetch_bytes)
+from chip_smoke import (BF16_FLIPS, BF16_MAX, BF16_MEAN,  # noqa: E402
+                        RX_NOISE, TOL, bf16_errs, card_line, check_close,
+                        graph_ms, max_err, packed_sizes, weight_fetch_bytes)
 
 B = 2048
 FIRST_ROWS = (2, 4)  # rows a weight load feeds in a source that does not say:
@@ -78,6 +91,8 @@ KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
            "frame": ("rx_frame_kernel", "fused_rx_frame_step",
                      "radae_dec_tile_rows")}
 ALL = tuple(KERNELS)
+CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
+NO_MMA = set()       # the libraries that run every form on the FMA loops
 
 # the weight loads staged by cp.async in a 2-stage ring of 16-byte slots, one
 # a lane and weight row, behind the scratch (4 KB a warp)
@@ -95,7 +110,6 @@ __device__ __forceinline__ float* ring_slot(int stage, int m) {
 }
 
 """
-_ROWS8 = [("constexpr int ET = 16;", "constexpr int ET = 8;")]
 _CPASYNC = [
     ("// acc[i] += sum over this lane's k",
      _CP_ASYNC_HELPERS + "// acc[i] += sum over this lane's k"),
@@ -126,11 +140,10 @@ _CPASYNC = [
 }""")]
 # name -> (kernels it applies to, held against the plain version,
 #          [(text of the source, replacement)]); tmac and kput are shared, so
-# the forms that change them apply to all three kernels
+# the forms that change them apply to all three kernels.  (8-row tiles are
+# no form since the tensor-core route: an mma.sync A tile is 16 rows.)
 FORMS = {
-    "rows8": (ALL, True, _ROWS8),         # 8-row tiles, 2 row groups a block
     "cpasync": (("enc",), True, _CPASYNC),  # weights through a cp.async ring
-    "rows8_cpasync": (("enc",), True, _ROWS8 + _CPASYNC),
     "quads8apart": (ALL, True, [          # a K lane's 4 column quads 8 lanes apart
         ("const int kl = lane >> 2, cq = 4 * (lane & 3);",
          "const int kl = lane & 7, cq = 4 * (lane >> 3);"),
@@ -144,17 +157,17 @@ FORMS = {
                                       float4 bias, bool put) {""",
          """                                      float* dst, int ld, const float* sp,
                                       float4 bias, bool put) {"""),
-        ("""  const int rk = ksum(acc, kl, r0);
+        ("""  const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
   if (put) {
 #pragma unroll
     for (int i = 0; i < ET / 8; ++i)
-      st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));""",
-         """  const int rk = ksum(acc, kl, r0);
+      st4(dst + (rk + rs * i) * ld, add4(mul4(acc[i], s), bias));""",
+         """  const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
   if (put) {
     const float4 s = ldg4(sp);
 #pragma unroll
     for (int i = 0; i < ET / 8; ++i)
-      st4(dst + (rk + i) * ld, add4(mul4(acc[i], s), bias));"""),
+      st4(dst + (rk + rs * i) * ld, add4(mul4(acc[i], s), bias));"""),
         ("scl<Q, BF>(sc, c, out), b,", "Q ? sc + c : nullptr, b,"),
         ("const float4 gi = scl<Q, BF>(si, c, DEC_G), gh = scl<Q, BF>(sh, c, DEC_G);",
          "const float *gi = Q ? si + c : nullptr, *gh = Q ? sh + c : nullptr;"),
@@ -191,8 +204,8 @@ FORMS = {
         ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n",
          "  if (d == 0xffffffffu) asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n")]),
     "nodft": (("frame",), False, [        # no DFT product loop
-        ("      tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);\n",
-         "")]),
+        ("        tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);\n",
+         "        ;\n")]),
     "nols": (("frame",), False, [         # no LS products
         ("  rowprod<BF>(p0, a.ls_w,", "  if (a.d.B < 0) rowprod<BF>(p0, a.ls_w,"),
         ("  rowprod<BF>(p1, a.ls_w,", "  if (a.d.B < 0) rowprod<BF>(p1, a.ls_w,")]),
@@ -200,7 +213,7 @@ FORMS = {
         ("  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n",
          "  if (a.d.B < 0) {\n"
          "  const float* const rx = a.rx + (size_t)b0 * nsym * row;\n"),
-        ("  dec_body<false, BF>(a.d,", "  }\n  dec_body<false, BF>(a.d,")]),
+        ("  if constexpr (BF)\n    dec_body<", "  }\n  if constexpr (BF)\n    dec_body<")]),
     "noz": (("dec",), False, [            # latents never staged: stale operands
         ("  stage<DEC_X>(xb + DEC_H, zs.p, zs.ld, a.in_dim, zs.rmax);\n", ""),
         ("      stage<DEC_X>(Xp + DEC_H, zs.p + (size_t)(k + 1) * zstep, zs.ld,\n"
@@ -231,6 +244,33 @@ FORMS = {
     "noproducts": (ALL, False, [          # no product loops: barriers, sums,
         ("  const float* const xr = X + r0 * ld;\n",  # gates, staging only
          "  return;\n  const float* const xr = X + r0 * ld;\n")]),
+    # the tensor-core route (tmma; the MM instances: --bf16 bf16 or int8
+    # for decm, any --bf16 for frame): B 1 or 4 K-step pairs ahead, not 2
+    "mmapairs1": (("decm", "frame"), True, [
+        ("constexpr int MMA_PAIRS = 2;", "constexpr int MMA_PAIRS = 1;")]),
+    "mmapairs4": (("decm", "frame"), True, [
+        ("constexpr int MMA_PAIRS = 2;", "constexpr int MMA_PAIRS = 4;")]),
+    "mmanoswz": (("decm", "frame"), True, [      # every lane the pair's first
+        ("  const bool odd = kl & 1;\n", "  const bool odd = false;\n")]),  # step first
+    # a K range's sums accumulated inside the tensor cores (the same
+    # products, other bits)
+    "mmanofadd": (("decm", "frame"), True, [
+        ("""  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
+  mma16816(e0, a0, a1, a2, a3, b.x, b.y);
+  mma16816(e1, a0, a1, a2, a3, b.z, b.w);
+  d0 = add4(d0, e0);
+  d1 = add4(d1, e1);""", """  mma16816(d0, a0, a1, a2, a3, b.x, b.y);
+  mma16816(d1, a0, a1, a2, a3, b.z, b.w);""")]),
+    "mmanoxload": (("decm", "frame"), False, [   # A from registers
+        ("""    const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
+    const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;""",
+         """    const float4 pa = make_float4(ka, t, va, vb), pb = pa, qa = pa, qb = pa;""")]),
+    "mmawfixed": (("decm", "frame"), False, [    # every pair reloads the first
+        ("    wp += 64;\n    const int ka", "    const int ka")]),   # pairs' B
+    "mmanoproducts": (("decm", "frame"), False, [  # no tmma loops
+        ("  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n",
+         "  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n"
+         "  return;\n")]),
 }
 
 
@@ -275,19 +315,75 @@ class F32OnlyEntries:
         return getattr(self._lib, name)
 
 
-def instance(name, kname, quant=None):
+class NoMmaEntries:
+    """A library built from a source whose merged decoder's x entry and
+    bf16 frame entry predate the packed weights of the tensor-core route:
+    takes the entries' arguments of today and drops the packed buffer and
+    its offsets (that source runs those forms on its FMA loops)."""
+
+    ENTRIES = {"radae_fused_decoder_merged_x_step": 14,
+               "radae_fused_rx_frame_bf16_step": 17}   # where the two sit
+
+    def __init__(self, lib, signatures):
+        self._lib = lib
+        for fn, i in self.ENTRIES.items():
+            getattr(lib, fn).argtypes = signatures[fn][:i] + signatures[fn][i + 2:]
+
+    def __getattr__(self, name):
+        if name in self.ENTRIES:
+            fn, i = getattr(self._lib, name), self.ENTRIES[name]
+            return lambda *args: fn(*args[:i], *args[i + 2:])
+        return getattr(self._lib, name)
+
+
+def instance(name, kname, quant=None, bf16=None):
     """Whether the mangled `name` is an instance of kernel `kname` that the
     tool takes: its template bools after the first all false, and the first
-    (Q) false, or true with quant; any for the frame kernel (FIX)."""
+    (Q) false, or true with quant; any for the frame kernel (FIX).  With
+    bf16 (the weights' kind): the instance with bf16 products (its second
+    bool, BF), for the merged decoder the tensor-core one (KindMmaArgs)
+    unless the weights are f32."""
     m = re.search(kname + r"I((?:Lb[01]E)+)", name)
     if not m:
         return False
     flags = re.findall(r"Lb([01])E", m.group(1))
+    if bf16:
+        return flags[1] == "1" and (kname != "dec_merged_kernel" or (
+            "KindMmaArgs" in name) == (bf16 != "f32"))
     return (not any(f == "1" for f in flags[1:])
             and (kname == "rx_frame_kernel" or (flags[0] == "1") == bool(quant)))
 
 
-def sass(lib_path, kname, cuobjdump, quant=None):
+def instance_key(name):
+    """A kernel instance by its kernel, template bools and argument class,
+    whatever else its mangled name says (None for no kernel)."""
+    m = re.search(r"([a-z][a-z_]*_kernel)I((?:Lb[01]E)+)", name)
+    if not m:
+        return None
+    ka = re.search(r"(QuantArgs|KindMmaArgs|KindArgs)ILi", name)
+    return (m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E", m.group(2)))
+            + (", " + ka.group(1) if ka else "") + ">")
+
+
+def sass_by_instance(lib_path, cuobjdump):
+    """instance_key -> SASS lines (as `sass` strips them) of every kernel
+    instance in the library (None without cuobjdump)."""
+    if not os.path.exists(cuobjdump):
+        return None
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    res = {}
+    for b in out.split("Function : ")[1:]:
+        key = instance_key(b.splitlines()[0])
+        if key:
+            res[key] = [re.sub(r"_ZN\w+", "<name>",
+                               re.sub(r"/\*\s*[0-9a-fx]+\s*\*/", "", x).strip())
+                        for x in b.splitlines()[1:]
+                        if x.strip() and not x.strip().startswith("....")]
+    return res
+
+
+def sass(lib_path, kname, cuobjdump, quant=None, bf16=None):
     """The SASS of the kernel's instances that the tool takes (`instance`),
     without addresses, encodings and the source-dependent mangled names
     (None without cuobjdump)."""
@@ -296,7 +392,7 @@ def sass(lib_path, kname, cuobjdump, quant=None):
     out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                          text=True, check=True).stdout
     body = [b for b in out.split("Function : ")[1:]
-            if instance(b.splitlines()[0], kname, quant)]
+            if instance(b.splitlines()[0], kname, quant, bf16)]
     if not body:
         return None
     lines = []
@@ -326,6 +422,11 @@ def main(argv=None) -> int:
     ap.add_argument("--quant", choices=["int8"], default=None,
                     help="time the int8 instance on int8 weights (enc, dec, "
                     "decm)")
+    ap.add_argument("--bf16", choices=["f32", "bf16", "int8"], default=None,
+                    help="time the instance with bf16 products on weights of "
+                    "this kind")
+    ap.add_argument("--pad", action="store_true",
+                    help="decm: the padded layout (merged=\"pad\")")
     ap.add_argument("--forms", default=None, metavar="NAME,...",
                     help="the forms to build (default: all that apply, the "
                     "int8_* ones with --quant int8 only)")
@@ -335,13 +436,24 @@ def main(argv=None) -> int:
                     "rows a weight load feeds in its GRU and other products)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "enc_variants"))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--seeds", type=int, default=1,
+                    help="hold the forms against the plain version on the "
+                    "inputs of this many seeds (the first is timed)")
+    ap.add_argument("--latent", type=int, choices=sorted(CHECKPOINTS),
+                    default=80, help="the model: the flagship (80) or the "
+                    "latent-40 fixture")
     args = ap.parse_args(argv)
     kernel = args.kernel
     kname, wrapper, rows_entry = KERNELS[kernel]
-    tag = kernel + ("_int8" if args.quant else "")   # output file names
-    if args.quant:
-        if kernel == "frame":
-            ap.error("the frame kernel has no int8 instance")
+    tag = (kernel + ("_pad" if args.pad else "") + ("_int8" if args.quant else "")
+           + (f"_bf16_{args.bf16}" if args.bf16 else "")
+           + ("_l40" if args.latent == 40 else ""))   # output file names
+    if args.quant and args.bf16:
+        ap.error("--quant int8 and --bf16 pick different instances")
+    if (args.quant or args.bf16 == "int8") and kernel == "frame":
+        ap.error("the frame kernel has no int8 instance")
+    if args.pad and kernel != "decm":
+        ap.error("--pad is the merged decoder's layout")
     forms = [n for n, (ks, _, _) in FORMS.items() if kernel in ks]
     if args.forms is not None:
         asked = [n for n in args.forms.split(",") if n]
@@ -350,7 +462,8 @@ def main(argv=None) -> int:
             ap.error(f"forms {bad} do not apply to --kernel {kernel}")
         forms = asked
     else:
-        forms = [n for n in forms if n.startswith("int8_") == bool(args.quant)]
+        forms = [n for n in forms if n.startswith("int8_") == bool(args.quant)
+                 and not args.bf16]
     import torch
     if not torch.cuda.is_available():
         print("enc_variants: no CUDA card", file=sys.stderr)
@@ -385,7 +498,7 @@ def main(argv=None) -> int:
                 [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o",
                  os.path.join(args.out, f"lib{tag}_{v}.so"), src],
                 stdout=log, stderr=subprocess.STDOUT)
-    libs, info = {}, {}
+    libs, info, sass_cmp = {}, {}, {}
     for v, proc in procs.items():
         status = proc.wait()
         with open(os.path.join(args.out, f"{tag}_{v}.log")) as fh:
@@ -394,7 +507,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"nvcc failed for {v}:\n" + "\n".join(lines))
         at = [i for i, x in enumerate(lines)
               if "entry function" in x and kname in x
-              and instance(x, kname, args.quant)]
+              and instance(x, kname, args.quant, args.bf16)]
         ptxas = [x.strip() for i in at for x in lines[i:i + 4]
                  if "registers" in x or "spill" in x]
         lib = ctypes.CDLL(os.path.join(args.out, f"lib{tag}_{v}.so"))
@@ -405,19 +518,35 @@ def main(argv=None) -> int:
         if kernel == "frame" and not hasattr(lib, "radae_rx_frame_limit"):
             lib = FixedGeometryFrame(lib)
         with open(srcs[v]) as fh:
-            if "n_soff" not in fh.read():
-                lib = F32OnlyEntries(lib, _kernels._SIGNATURES["fused_core"])
+            src_text = fh.read()
+        if "n_soff" not in src_text:
+            lib = F32OnlyEntries(lib, _kernels._SIGNATURES["fused_core"])
+        elif "const int* moff" not in src_text:
+            lib = NoMmaEntries(lib, _kernels._SIGNATURES["fused_core"])
+            NO_MMA.add(v)
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
+        cuobjdump = os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump")
         code = sass(os.path.join(args.out, f"lib{tag}_{v}.so"), kname,
-                    os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump"),
-                    args.quant)
+                    cuobjdump, args.quant, args.bf16)
+        every = sass_by_instance(os.path.join(args.out, f"lib{tag}_{v}.so"),
+                                 cuobjdump)
         if code:
             with open(os.path.join(args.out, f"{tag}_{v}.sass"), "w") as fh:
                 fh.write("\n".join(code) + "\n")
         if v == "committed":
-            ref_sass = code
+            ref_sass, ref_every = code, every
+        if v not in FORMS and v != "committed":
+            if every and ref_every:      # a --src library, instance by instance
+                same = sorted(k for k in every if every[k] == ref_every.get(k))
+                diff = sorted(k for k in every if k in ref_every
+                              and every[k] != ref_every[k])
+                print(f"{v}: SASS as committed's in {len(same)} instances "
+                      f"{same}; different in {diff}; only in {v}: "
+                      f"{sorted(set(every) - set(ref_every))}; only in "
+                      f"committed: {sorted(set(ref_every) - set(every))}")
+                sass_cmp[v] = {"same": same, "different": diff}
         info[v] = {"ptxas": ptxas, "rows": rows,
                    "checked": FORMS[v][1] if v in FORMS else True,
                    "sass_lines": len(code) if code else None,
@@ -425,80 +554,141 @@ def main(argv=None) -> int:
         print(f"{v}: ptxas {ptxas}, {info[v]['sass_lines']} SASS "
               f"instructions, the same as committed's: {info[v]['same_sass']}")
 
-    cfg = flagship_config()
-    tree, _ = load_checkpoint(os.path.join(ROOT, "fixtures",
-                                           "model_fs_flagship.npz"))
+    cfg = flagship_config(latent_dim=args.latent)
+    tree, _ = load_checkpoint(os.path.join(ROOT, "fixtures", CHECKPOINTS[args.latent]))
     dev = torch.device("cuda")
-    gen = np.random.default_rng(0)
     nz = cfg.Nzmf
-
-    def rand(shape, scale):
-        return torch.as_tensor((scale * gen.standard_normal(shape))
-                               .astype(np.float32), device=dev)
-
+    bf = torch.bfloat16
+    # the weights' kind: f32 or int8 (--quant), or under bf16 products
+    kind = dict(quant="int8" if "int8" in (args.quant, args.bf16) else None,
+                dtype=bf if args.bf16 == "bf16" else torch.float32)
     if kernel == "enc":
-        w = fetch_w = fc.encoder_weights(tree["encoder"], dev,
-                                         quant=args.quant)
-        x = rand((B, 4 * nz, cfg.feature_dim), 0.3)
-        state = fc.encoder_state_zero(B, dev)
+        w = fetch_w = fc.encoder_weights(tree["encoder"], dev, **kind)
+        zero = fc.encoder_state_zero(B, dev)
         args_k = (cfg.bottleneck,)
         plain = fc.encoder_step_plain
     else:
-        state = fc.decoder_state_zero(B, dev, merged=kernel == "decm")
+        zero = fc.decoder_state_zero(B, dev, merged=kernel == "decm")
         args_k = ()
         if kernel in ("dec", "decm"):
-            w = fetch_w = fc.decoder_weights(tree["decoder"], dev,
-                                             merged=kernel == "decm",
-                                             quant=args.quant)
-            x = torch.tanh(rand((B, nz, cfg.latent_dim), 1.0))
+            w = fetch_w = fc.decoder_weights(
+                tree["decoder"], dev,
+                merged=("pad" if args.pad else kernel == "decm"), **kind)
             plain = (fc.decoder_merged_step_plain if kernel == "decm"
                      else fc.decoder_step_plain)
-        else:       # a received frame: the plain tx step's samples + noise
-            w = fc.fused_rx_weights(tree["decoder"], cfg, dev)
+        else:
+            w = fc.fused_rx_weights(tree["decoder"], cfg, dev,
+                                    dtype=kind["dtype"])
             fetch_w = w.decoder
             tx = make_streaming_tx_step(cfg, CoreEncoder(
                 cfg.feature_dim, cfg.latent_dim, cfg.bottleneck), B,
                 device=dev)
             enc_p = params_to_torch(tree, dev)["encoder"]
+            plain = fc.rx_frame_step_plain
+    if args.bf16:              # bf16 products
+        args_k += (bf,)
+
+    def draw(seed):
+        """The kernel's input and state from a seed (seed 0: the timed
+        ones)."""
+        gen = np.random.default_rng(seed)
+
+        def rand(shape, scale):
+            return torch.as_tensor((scale * gen.standard_normal(shape))
+                                   .astype(np.float32), device=dev)
+
+        if kernel == "enc":
+            x = rand((B, 4 * nz, cfg.feature_dim), 0.3)
+        elif kernel in ("dec", "decm"):
+            x = torch.tanh(rand((B, nz, cfg.latent_dim), 1.0))
+        else:       # a received frame: the plain tx step's samples + noise
             sig = torch.cat([tx(enc_p, rand((B, 4 * nz, cfg.feature_dim),
                                             0.3), None)[0]
                              for _ in range(2)], dim=1)
             n = (cfg.Ns + 2) * (cfg.M + cfg.Ncp)
             x = (sig[:, :n] + rand((B, n, 2), RX_NOISE)).contiguous()
-            plain = fc.rx_frame_step_plain
-    state = tuple(rand(tuple(s.shape), 0.5) for s in state)
+        return x, tuple(rand(tuple(s.shape), 0.5) for s in zero)
+
     block_rows = libs["committed"].radae_block_rows()
     blocks = -(-B // block_rows)
 
-    def run(v):
+    def run(v, x, state):
         with mock.patch.object(_kernels, "library", lambda name: libs[v]):
             return getattr(fc, wrapper)(w, x, state, *args_k)
 
-    with torch.no_grad():
-        op, sp = plain(w, x, state, *args_k)
-        want = (op,) + sp
-        for v in libs:
-            (o1, s1), (o2, s2) = run(v), run(v)
-            torch.cuda.synchronize()
-            got = (o1,) + s1
+    broke = []      # (seed, form) of a checked form past a BF16_* limit
+
+    def held(v, got, want, seed):
+        """check_close, or under bf16 products chip_smoke.py's limits (a
+        form past them is listed in `broke`, and the run goes on to time
+        the forms and then fails); returns bf16_errs summed over the
+        tensors (past the tolerance, of, max, mean), or None"""
+        if not args.bf16:
             if info[v]["checked"]:
                 check_close(f"form {v}", got, want, TOL)
-            info[v]["max_abs_err"] = max_err(got, want)
-            info[v]["same_bits"] = all(
-                torch.equal(a, b) for a, b in zip(got, (o2,) + s2))
-            if v == "committed":
-                ref_out = got
-            info[v]["bits_as_committed"] = all(
-                torch.equal(a, b) for a, b in zip(got, ref_out))
+            return None
+        errs = bf16_errs(got, want)
+        lim = BF16_MAX["fused_rx_frame_step" if kernel == "frame" else ""]
+        over, n = sum(e[0] for e in errs), sum(e[1] for e in errs)
+        mx, mean = max(e[2] for e in errs), max(e[3] for e in errs)
+        if info[v]["checked"] and (over > BF16_FLIPS * n or mx >= lim
+                                   or mean >= BF16_MEAN):
+            broke.append((seed, v))
+        return over, n, mx, mean
+
+    with torch.no_grad():
+        for seed in range(args.seeds):
+            x, state = draw(seed)
+            op, sp = plain(w, x, state, *args_k)
+            want = (op,) + sp
+            for v in libs:
+                (o1, s1), (o2, s2) = run(v, x, state), run(v, x, state)
+                torch.cuda.synchronize()
+                got = (o1,) + s1
+                flips = held(v, got, want, seed)
+                if v == "committed":
+                    ref_out = got
+                r = info[v].setdefault("seeds", [])
+                r.append({"max_abs_err": max_err(got, want),
+                          "same_bits": all(torch.equal(a, b) for a, b in
+                                           zip(got, (o2,) + s2)),
+                          "bits_as_committed": all(torch.equal(a, b) for a, b
+                                                   in zip(got, ref_out)),
+                          "bf16": flips})
+                if flips:
+                    print(f"seed {seed}, {v}: {flips[0]} of {flips[1]} past "
+                          f"the bf16 tolerance, max {flips[2]:.4f} and mean "
+                          f"{flips[3]:.3g} of the scale"
+                          + (" PAST A LIMIT" if (seed, v) in broke else ""),
+                          flush=True)
+        for v in libs:
+            r = info[v]["seeds"]
+            info[v].update(max_abs_err=max(e["max_abs_err"] for e in r),
+                           same_bits=all(e["same_bits"] for e in r),
+                           bits_as_committed=all(e["bits_as_committed"]
+                                                 for e in r))
+        x, state = draw(0)
+    # the packed bytes a launch reads on the tensor-core route (the copy the
+    # launches keep in the weight set): every block reads each packed matrix
+    # once a z-step (the frame's dft_w once)
+    packed_read = None
+    kept = list(((w.w if kernel == "frame" else w).mma or {}).values())
+    if args.bf16 and kept and any(o >= 0 for o in kept[0].offsets):
+        dft = len(kept[0].offsets) - 2 if kernel == "frame" else -1
+        packed_read = sum(b * blocks * (1 if j == dft else nz)
+                          for j, b in packed_sizes(kept[0]).items())
+    with torch.no_grad():
         times = {v: [] for v in libs}
         order = list(libs)
         for r in range(args.reps):
             for v in (order if r % 2 == 0 else order[::-1]):
-                times[v].append(graph_ms(lambda: run(v)))
+                times[v].append(graph_ms(lambda: run(v, x, state)))
     for v in libs:
         ms = sum(times[v]) / args.reps
         fetch = weight_fetch_bytes(fetch_w, *info[v]["rows"], block_rows) \
             * blocks * nz
+        if packed_read is not None and v not in NO_MMA:
+            fetch = packed_read
         info[v].update(ms=ms, runs=times[v], weight_bytes_per_launch=fetch,
                        weight_tb_s=fetch / (ms * 1e-3) / 1e12)
         print(f"{v}: {ms:.4f} ms (rounds {[round(t, 4) for t in times[v]]}), "
@@ -509,9 +699,14 @@ def main(argv=None) -> int:
               f"({info[v]['weight_tb_s']:.2f} TB/s)")
     with open(os.path.join(args.out, f"{tag}_variants.json"), "w") as fh:
         json.dump({"card": card, "kernel": kname, "quant": args.quant,
+                   "bf16": args.bf16, "pad": args.pad, "latent": args.latent,
                    "batch": B, "nz": nz,
-                   "forms": info}, fh, indent=1)
+                   "forms": info, "sass_by_instance": sass_cmp,
+                   "past_limits": broke}, fh, indent=1)
     print(card)
+    if broke:
+        print(f"past the BF16_* limits (seed, form): {broke}", file=sys.stderr)
+        return 1
     return 0
 
 if __name__ == "__main__":
