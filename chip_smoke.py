@@ -25,11 +25,13 @@ EQ, coarse magnitude):
      at 1e-4, the bf16-product ones within 2e-3 but for at most 1e-3 of a
      run's elements (bf16 input flips), each tensor's max and mean error
      within BF16_MAX and BF16_MEAN of its scale (readings in PERF.md).
-     Six of them multiply on the tensor cores (the merged and the padded
-     decoder on bf16 and int8 weights, the frame kernel on f32 and bf16
-     weights, on the weights packed by fc.mma_weights at a set's first
-     such launch); the frame
-     kernel's two are also held at latent 40;
+     Ten of them multiply on the tensor cores (MMA_FORMS: the unmerged,
+     the merged and the padded decoder and the encoder on bf16 and int8
+     weights, the frame kernel on f32 and bf16 weights, on the weights
+     packed by fc.mma_weights at a set's first such launch), and the
+     timing phase fails if any of them ran on FMA loops; the frame
+     kernel's two and the unmerged decoder's and the encoder's four are
+     also held at latent 40 (B=2048 and 37, and to the same bits);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -155,6 +157,16 @@ FORMS = ("fused_decoder_step", "fused_decoder_merged_step",
          "fused_decoder_merged_step_pad_bf16",
          "fused_decoder_merged_step_pad_bf16w_bf16",
          "fused_decoder_merged_step_pad_int8_bf16")
+# the forms whose products run on the tensor cores (tmma): every bf16-
+# product form but those on f32 weights of the decoders and the encoder
+# (bf16 x f32 products, FMA loops)
+MMA_FORMS = ("fused_decoder_step_bf16w_bf16", "fused_decoder_step_int8_bf16",
+             "fused_decoder_merged_step_bf16w_bf16",
+             "fused_decoder_merged_step_int8_bf16",
+             "fused_decoder_merged_step_pad_bf16w_bf16",
+             "fused_decoder_merged_step_pad_int8_bf16",
+             "fused_rx_frame_step_bf16", "fused_rx_frame_step_bf16w_bf16",
+             "fused_encoder_step_bf16w_bf16", "fused_encoder_step_int8_bf16")
 # bf16 products against their plain version: an input of a product that
 # sits on a bf16 rounding boundary rounds the other way under another f32
 # sum order, and the recurrence carries the flip.  So at most BF16_FLIPS of
@@ -584,11 +596,12 @@ def main(argv=None) -> int:
         if batch == B:
             errs[name] = max(errs[name], max_err(got, want))
 
-    def kernel_form(name, rng):
+    def kernel_form(name, rng, latent=None):
         """(kernel call, plain call, zero state, input draw) of the encoder
         or a decoder form (and, once sig3 is made, of a frame form),
         each call taking its weights; the draw takes the batch, the z-steps
-        and the call's number."""
+        and the call's number; a decoder's latents are `latent` wide (the
+        flagship's by default)."""
         cd = bf if name.endswith("_bf16") else torch.float32
         if name.startswith("fused_encoder_step"):
             return (lambda w, x, s: fc.fused_encoder_step(w, x, s, cfg.bottleneck, cd),
@@ -610,7 +623,8 @@ def main(argv=None) -> int:
                 lambda w, x, s: plain(w, x, s, cd),
                 lambda b: fc.decoder_state_zero(b, dev, merged=merged),
                 lambda b, n, k=0: torch.as_tensor(np.tanh(rng.standard_normal(
-                    (b, n, cfg.latent_dim))).astype(np.float32), device=dev))
+                    (b, n, latent or cfg.latent_dim))).astype(np.float32),
+                    device=dev))
 
     with torch.no_grad():
         for batch, steps in ((B, nz), (RAGGED_B, nz), (RAGGED_B, 2 * nz)):
@@ -703,6 +717,28 @@ def main(argv=None) -> int:
                     op, sp = plain(w, x, sp)
                     held(name, f"{batch} latent 40", f"call {frame}",
                          (ok_,) + sk, (op,) + sp)
+        # the unmerged decoder's and the encoder's tensor-core instances at
+        # latent 40 (own seed): dense_1's K = 40 ends inside a 16-wide K
+        # step, the encoder's z_dense has 40 columns (48 packed)
+        lrng = np.random.default_rng(7)
+        l40 = {"fused_decoder_step_bf16w_bf16": fc.decoder_weights(
+                   tree40["decoder"], dev, dtype=bf),
+               "fused_decoder_step_int8_bf16": fc.decoder_weights(
+                   tree40["decoder"], dev, quant="int8"),
+               "fused_encoder_step_bf16w_bf16": fc.encoder_weights(
+                   tree40["encoder"], dev, dtype=bf),
+               "fused_encoder_step_int8_bf16": fc.encoder_weights(
+                   tree40["encoder"], dev, quant="int8")}
+        for name, w in l40.items():
+            kern, plain, zero_state, draw = kernel_form(name, lrng, cfg40.latent_dim)
+            for batch in (B, RAGGED_B):
+                sk = sp = zero_state(batch)
+                for frame in range(3):
+                    x = draw(batch, nz, frame)
+                    ok_, sk = kern(w, x, sk)
+                    op, sp = plain(w, x, sp)
+                    held(name, f"{batch} latent 40", f"call {frame}",
+                         (ok_,) + sk, (op,) + sp)
         for (name, batch), (n_over, n) in flips.items():
             if n_over > BF16_FLIPS * n:
                 raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
@@ -775,12 +811,17 @@ def main(argv=None) -> int:
                     (batch, win, 2))).astype(np.float32), device=dev)
                 st = rand_state(qbrng, zero_state(batch))
                 same_bits(f"{name} latent 40", batch, lambda: kern(w, x, st))
+            for name, w in l40.items():
+                kern, _, zero_state, draw = kernel_form(name, lrng, cfg40.latent_dim)
+                x, st = draw(batch, nz), rand_state(lrng, zero_state(batch))
+                same_bits(f"{name} latent 40", batch, lambda: kern(w, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
           f"{BF16_TOL} but for at most {BF16_FLIPS} of a run's elements, "
           f"max and mean err within {BF16_MAX} and {BF16_MEAN} of the scale),"
           " max abs err at B=2048: "
           + ", ".join(f"{k} {errs[k]:.3g}" for k in FORMS)
-          + f"; frame kernel at latent 40, B={B} and B={RAGGED_B}: {err40:.3g}")
+          + f"; frame kernel at latent 40, B={B} and B={RAGGED_B}: {err40:.3g}"
+          + f"; at latent 40 also {sorted(frame40) + sorted(l40)}")
     for name, r in bf16_read.items():
         print(f"  {name}: past {BF16_TOL} " + ", ".join(
             f"B={b} {n_over} of {n} ({n_over / n:.3g})"
@@ -788,7 +829,8 @@ def main(argv=None) -> int:
             + f"; largest max err {r[0]:.3g} and mean {r[1]:.3g} of the scale")
     print(f"refused without a launch: {refused}")
     print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
-          f"and B={RAGGED_B} (the frame kernel's bf16 forms also at latent 40)")
+          f"and B={RAGGED_B} (the frame kernel's bf16 forms, and the unmerged "
+          "decoder's and the encoder's tensor-core forms, also at latent 40)")
 
     # -- the serving path on the fixture: the rx paths ----------------------
     # path -> (step, weights, zero state, the forms it launches, encoder
@@ -1116,6 +1158,10 @@ def main(argv=None) -> int:
             if kept and any(o >= 0 for o in kept[0].offsets):
                 mma_of[name] = mma_terms(ws if "frame" in name else bw,
                                          kept[0], nz, B, lib.radae_block_rows())
+        if set(mma_of) != set(MMA_FORMS):
+            raise AssertionError(
+                f"forms on the tensor cores: {sorted(mma_of)}; MMA_FORMS: "
+                f"{sorted(MMA_FORMS)}")
         kernels = []
         for name, (kern, plain, (w, x, st, extra)) in runs.items():
             ms = time_ms(kern, 50)
@@ -1132,10 +1178,10 @@ def main(argv=None) -> int:
                      f"{swap[0]} B for them), {read / 1e9:.4f} GB a launch "
                      f"({read / (ms * 1e-3) / 1e12:.2f} TB/s)"
                      if name in mma_of else ""))
-            if name.startswith("fused_encoder_step"):
+            if name.startswith("fused_encoder_step") and name not in mma_of:
                 print(f"  encoder, {enc_rows[0]}-row tiles: " + fetch_line(
                     w, enc_rows, lib.radae_block_rows(), nz, B, ms))
-            if name.startswith("fused_decoder_step"):
+            if name.startswith("fused_decoder_step") and name not in mma_of:
                 print(f"  decoder, {dec_rows[0]}-row tiles: " + fetch_line(
                     w, dec_rows, lib.radae_block_rows(), nz, B, ms))
             if name.startswith("fused_decoder_merged_step") and name not in mma_of:

@@ -139,16 +139,17 @@
 // the runtime says which).  The BF instances of the decoders and the
 // encoder take the int8 instance's form (the GRU's h products in partials
 // of their own, scales on the outputs; none without scale rows); the
-// frame's takes the f32 form.  In dec_kernel's and enc_kernel's BF
-// instances, and the merged decoder's on f32 weights (kind 0: bf16 x f32,
-// f32 work), these are f32 FMA loops on rounded inputs (tmac).
+// frame's takes the f32 form.  On f32 weights (a matrix of kind 0: bf16 x
+// f32, f32 work) the BF instances of dec_kernel, enc_kernel and the merged
+// decoder are f32 FMA loops on rounded inputs (tmac).
 //
 // The tensor cores (MM instances).  Where every product is bf16 x bf16 --
-// the merged decoder's BF instance on int8, bf16 or rounded matrices
-// (kinds 1..3) and the frame kernel's BF instance, which rounds both inputs
-// of every product -- the FMA loops spent their time on the roundings and
-// the FMAs, 25-55 times the bound that the same work has on the tensor
-// cores (the bytes: the whole stack is 0.9M weights a z-step).  These
+// the BF instances of dec_kernel, enc_kernel and the merged decoder on
+// int8, bf16 or rounded matrices (kinds 1..3), and the frame kernel's BF
+// instance, which rounds both inputs of every product -- the FMA loops
+// spent their time on the roundings and the FMAs, 24-55 times the bound
+// that the same work has on the tensor cores (the bytes: each stack is
+// about 0.9M weights a z-step).  These
 // instances run every product on mma.sync m16n8k16 (tmma): the block's 16
 // rows are one A tile read from the f32 operands in shared memory and
 // rounded as they are loaded (2 float4 and 4 cvt.rn.bf16x2 a lane and K
@@ -160,7 +161,8 @@
 // K step.  The work items, K chunks, partials and epilogues stay as they
 // are (an item's rows are then g and g + 8 instead of ksum's rk, rk + 1);
 // sums stay f32 in a fixed order.  On an H100 they take 0.212 (merged) and
-// 0.251 ms (frame) against 0.554 and 0.610 for the FMA loops; what bounds
+// 0.251 ms (frame) against 0.554 and 0.610 for the FMA loops (the unmerged
+// decoder's and the encoder's times: PERF.md's kernel table); what bounds
 // them now is the tmma loops' own issue (loads, conversions, selects and
 // MMAs: 0.14 / 0.15 ms), then the barrier-separated phases with no product
 // loop in them (0.056 / 0.093 ms); the 0.70 GB of packed weights the blocks
@@ -1005,16 +1007,15 @@ __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
 // at the first step (the next layer overwrites it with its own).  Each
 // staging pass sits between two barriers that are there anyway.  smem holds
 // DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).  BF: bf16 products,
-// the kinds in qa (KindArgs).  MM (the frame kernel's BF instance, not
-// dec_kernel's): every product on the tensor cores (tmma), on the packed
-// matrices m.
+// the kinds in qa (KindArgs).  MM (the frame kernel's BF instance, Q false,
+// and dec_kernel's MM instance, Q true): every product on the tensor cores
+// (tmma), on the packed matrices m.
 template <bool Q, bool BF = false, bool MM = false,
           class KA = QuantArgs<DEC_NS>>
 __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
                                          float* smem, const Src& zs,
                                          int zstep,
                                          const MmaW<DEC_NW>* m = nullptr) {
-  static_assert(!(Q && MM), "the MM route has no int8 GRU partials");
   float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
   float* const scr = smem + DEC_RING;                   // partial sums
@@ -1103,14 +1104,15 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         float4 acc[ET];
         zero(acc);
         if (Q) {
-          wmac<Q, BF>(acc, X, DEC_X, r0, wih, qi, DEC_G, c, hf ? kh : 0,
-                      hf ? gin : kh, kl);
-          kputq<Q>(acc, kl, r0, p, DEC_GS, gi, bx, true);
+          umac<Q, BF, MM>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                          hf ? kh : 0, hf ? gin : kh, kl);
+          kputq<Q, MM>(acc, kl, r0, p, DEC_GS, gi, bx, true);
           if (hf) {
             zero(acc);
-            wmac<Q, BF>(acc, hp, DEC_H, r0, whh, qh, DEC_G, c, 0, DEC_H, kl);
-            kputq<Q>(acc, kl, r0, rz ? hz + c : p + DEC_H, rz ? 2 * DEC_H : DEC_GS,
-                     gh, bh, true);
+            umac<Q, BF, MM>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
+                            DEC_G, c, 0, DEC_H, kl);
+            kputq<Q, MM>(acc, kl, r0, rz ? hz + c : p + DEC_H,
+                         rz ? 2 * DEC_H : DEC_GS, gh, bh, true);
           }
           continue;
         }
@@ -1232,7 +1234,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
 }
 
 // The instances: <false> f32, <true> int8, <true, true> bf16 products on
-// weights of any kind (KindArgs).
+// weights of any kind (KindArgs: FMA loops, for f32 weights, whose products
+// but the GRU's are bf16 x f32), and the MM instance <true, true,
+// KindMmaArgs> bf16 products on weights of kinds 1, 2 and 3, every product
+// on the tensor cores (tmma) on the packed matrices qa.m.
 template <bool Q, bool BF = false, class KA = QuantArgs<DEC_NS>>
 __global__ void __launch_bounds__(NT)
     dec_kernel(const DecArgs a, const __grid_constant__ KA qa) {
@@ -1240,7 +1245,11 @@ __global__ void __launch_bounds__(NT)
   const int b0 = blockIdx.x * R;
   const Src z0{a.z + (size_t)b0 * a.nz * a.in_dim, a.nz * a.in_dim,
                min(R, a.B - b0) - 1};
-  dec_body<Q, BF>(a, qa, reinterpret_cast<float*>(smem4), z0, a.in_dim);
+  if constexpr (has_mma<KA>)
+    dec_body<Q, BF, true>(a, qa, reinterpret_cast<float*>(smem4), z0,
+                          a.in_dim, &qa.m);
+  else
+    dec_body<Q, BF>(a, qa, reinterpret_cast<float*>(smem4), z0, a.in_dim);
 }
 
 // The chain-merged decoder stack (radae_tpu's `kernel_merged`) over a.nz
@@ -1577,10 +1586,14 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgsOf<BF> a) {
 // as the prefix), and the features of step k at columns ENC_FOFF.. of its
 // own slot, each in a pass that already sits between two barriers.  Q: the
 // int8 instance (ENC_SMEM_Q bytes of shared memory).  BF: bf16 products,
-// the kinds in qa (KindArgs; the instance <true, true>).
+// the kinds in qa (KindArgs; the instance <true, true>: FMA loops, for f32
+// weights, whose products but the GRU's are bf16 x f32).  The MM instance
+// <true, true, KindMmaArgs>: bf16 products on weights of kinds 1, 2 and 3,
+// every product on the tensor cores (tmma) on the packed matrices qa.m.
 template <bool Q, bool BF = false, class KA = QuantArgs<ENC_NS>>
 __global__ void __launch_bounds__(NT)
     enc_kernel(const EncArgs a, const __grid_constant__ KA qa) {
+  constexpr bool MM = has_mma<KA>;
   extern __shared__ float4 smem4[];
   float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
   float* const scr = xb + 3 * R * ENC_X;                // gates / partials
@@ -1613,6 +1626,11 @@ __global__ void __launch_bounds__(NT)
     if constexpr (BF) return Q && kd.ns ? w + soff[si] : nullptr;
     else return Q ? w + soff[si] : nullptr;
   };
+  // MM: array j's packed copy
+  auto mw = [&](int j) -> const uint4* {
+    if constexpr (MM) return qa.m.p + qa.m.off[j];
+    else return nullptr;
+  };
   stage<ENC_X>(xb + ENC_FOFF, f0, fld, a.in_dim, rmax);
   __syncthreads();
   for (int k = 0; k < a.nz; ++k) {
@@ -1628,10 +1646,10 @@ __global__ void __launch_bounds__(NT)
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        wmac<Q, BF>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], q8(0), ENC_H, c,
-                    kb, ke, kl);
-      kputq<Q>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
-               scl<Q, BF>(sc(0), c, ENC_H), zero4, true);
+        umac<Q, BF, MM>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0), q8(0),
+                        a.in_dim, ENC_H, c, kb, ke, kl);
+      kputq<Q, MM>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
+                   scl<Q, BF>(sc(0), c, ENC_H), zero4, true);
     }
     __syncthreads();
     if (t < R * ENC_H / 4) {
@@ -1671,13 +1689,15 @@ __global__ void __launch_bounds__(NT)
         zero(acc);
         if (Q) {
           const bool rz = qg < 8;
-          wmac<Q, BF>(acc, X, ENC_X, r0, wih, qi, ENC_G, c, 0, gin, kl);
-          kputq<Q>(acc, kl, r0, scr + c, ENC_GS, gi, rz ? add4(bi, bh) : bi,
-                   true);
+          umac<Q, BF, MM>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c, 0,
+                          gin, kl);
+          kputq<Q, MM>(acc, kl, r0, scr + c, ENC_GS, gi,
+                       rz ? add4(bi, bh) : bi, true);
           zero(acc);
-          wmac<Q, BF>(acc, Xp + gin, ENC_X, r0, whh, qh, ENC_G, c, 0, ENC_H, kl);
-          kputq<Q>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
-                   rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
+          umac<Q, BF, MM>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh, ENC_H,
+                          ENC_G, c, 0, ENC_H, kl);
+          kputq<Q, MM>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
+                       rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
           continue;
         }
         tmac(acc, X, ENC_X, r0, wih, ENC_G, c, 0, gin, kl);
@@ -1724,10 +1744,11 @@ __global__ void __launch_bounds__(NT)
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        wmac<Q, BF>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
-                    q8(j0 + 4 + tap), ENC_CO, c, 0, cin, kl);
-        kputq<Q>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
-                 scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
+        umac<Q, BF, MM>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
+                        mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c, 0,
+                        cin, kl);
+        kputq<Q, MM>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
+                     scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
       }
       __syncthreads();
       if (t < R * ENC_CO / 4) {
@@ -1752,10 +1773,10 @@ __global__ void __launch_bounds__(NT)
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      wmac<Q, BF>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], q8(ENC_NW - 2), od,
-                  c, kb, ke, kl);
-      kputq<Q>(acc, kl, r0, scr + ch * R * od + c, od,
-               scl<Q, BF>(sc(ENC_NS - 1), c, od), zero4, c < od);
+      umac<Q, BF, MM>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], mw(ENC_NW - 2),
+                      q8(ENC_NW - 2), ENC_X, od, c, kb, ke, kl);
+      kputq<Q, MM>(acc, kl, r0, scr + ch * R * od + c, od,
+                   scl<Q, BF>(sc(ENC_NS - 1), c, od), zero4, c < od);
     }
     __syncthreads();
     float* const zo = a.z + ((size_t)b0 * a.nz + k) * od;
@@ -1895,11 +1916,16 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
                 : launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
 }
 
-// radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args)
+// radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args).
+// With no matrix of kind 0 (int8, bf16 or rounded matrices: every product
+// bf16 x bf16) the MM instance, on the matrices packed into wm at
+// moff[n_off] (16-byte words), refused without them; else (f32 weights) the
+// FMA instance, and wm and moff are not read.
 int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
                                   const int* kinds, const int* soff,
                                   int n_soff, const void* z, void* feats,
                                   int B, int nz, int in_dim, int out_dim,
+                                  const void* wm, const int* moff,
                                   void* const* state_in,
                                   void* const* state_out, void* stream) {
   DecArgs a;
@@ -1918,6 +1944,14 @@ int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
     a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
+  }
+  if ((k.i8 | k.bf | k.rw) == DEC_MATS) {
+    KindMmaArgs<DEC_NS, DEC_NW> km;
+    static_cast<KindArgs<DEC_NS>&>(km) = k;
+    if (!mma_args(wm, moff, n_off, DEC_MATS, km.m))
+      return (int)cudaErrorInvalidValue;
+    return launch(dec_kernel<true, true, KindMmaArgs<DEC_NS, DEC_NW>>,
+                  DEC_SMEM_Q, B, stream, a, km);
   }
   return launch(dec_kernel<true, true, KindArgs<DEC_NS>>, DEC_SMEM_Q, B,
                 stream, a, k);
@@ -2136,12 +2170,14 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
                 : launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
 }
 
-// radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args)
+// radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args), and
+// the MM instance as in radae_fused_decoder_bf16_step
 int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
                                   const int* kinds, const int* soff,
                                   int n_soff, const void* f, void* z, int B,
                                   int nz, int in_dim, int out_dim,
-                                  int bottleneck, void* const* state_in,
+                                  int bottleneck, const void* wm,
+                                  const int* moff, void* const* state_in,
                                   void* const* state_out, void* stream) {
   EncArgs a;
   KindArgs<ENC_NS> k;
@@ -2161,6 +2197,14 @@ int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
     a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
+  }
+  if ((k.i8 | k.bf | k.rw) == ENC_MATS) {
+    KindMmaArgs<ENC_NS, ENC_NW> km;
+    static_cast<KindArgs<ENC_NS>&>(km) = k;
+    if (!mma_args(wm, moff, n_off, ENC_MATS, km.m))
+      return (int)cudaErrorInvalidValue;
+    return launch(enc_kernel<true, true, KindMmaArgs<ENC_NS, ENC_NW>>,
+                  ENC_SMEM_Q, B, stream, a, km);
   }
   return launch(enc_kernel<true, true, KindArgs<ENC_NS>>, ENC_SMEM_Q, B,
                 stream, a, k);

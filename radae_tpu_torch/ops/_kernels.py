@@ -26,8 +26,8 @@ _F = ctypes.c_float
 # Every launch entry takes (weights, offsets, n_off, [kinds, scale offsets,
 # n_scales,] input, output, <sizes>, state_in[], state_out[], stream) and
 # returns the launch's cudaError_t (the bracketed three: all but the f32
-# frame entry; the merged decoder's x entry and the bf16 frame entry also
-# take the packed buffer and its offsets, `mma_weights`, after the sizes);
+# frame entry; the merged decoder's x entry and the bf16 entries also take
+# the packed buffer and its offsets, `mma_weights`, after the sizes);
 # the entries with no arguments return a constant of the
 # kernels' tiling, and radae_rx_frame_limit the frame kernel's limit a
 # modem geometry breaks.
@@ -39,7 +39,8 @@ _SIGNATURES = {
         "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _P, _P, _P],
         "radae_fused_decoder_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P,
-                                          _I, _I, _I, _I, _P, _P, _P],
+                                          _I, _I, _I, _I, _P, _P, _P, _P,
+                                          _P],
         "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _P, _P,
                                             _I, _I, _I, _I, _P, _P, _P],
         "radae_fused_decoder_merged_x_step": [_P, _P, _I, _P, _P, _I, _P, _P,
@@ -54,7 +55,8 @@ _SIGNATURES = {
         "radae_fused_encoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _I, _P, _P, _P],
         "radae_fused_encoder_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
-                                          _I, _I, _I, _I, _P, _P, _P],
+                                          _I, _I, _I, _I, _P, _P, _P, _P,
+                                          _P],
     },
 }
 

@@ -31,10 +31,10 @@ The decoder comes in three layouts (`decoder_weights(merged=...)`):
 compute_dtype=torch.bfloat16 (a keyword of every step) rounds the inputs of
 each product to bf16 as radae_tpu's kernels do (`_rounds`); the sums, the
 gates and the carried state stay f32.  Where every product is then bf16 x
-bf16 (the chain-merged decoder on bf16 or int8 weights, the frame kernel)
-the kernel multiplies on the tensor cores, on the weights packed by
-`mma_weights`: the launch packs them on its first use of a weight set and
-keeps them in the set (`PackedWeights.mma`).
+bf16 (both decoders and the encoder on bf16 or int8 weights, the frame
+kernel on any) the kernel multiplies on the tensor cores, on the weights
+packed by `mma_weights`: the launch packs them on its first use of a
+weight set and keeps them in the set (`PackedWeights.mma`).
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
   decoder, merged:   5 GRU h (B, 96) + 5 projected hh rows h @ whh (B, 288)
@@ -482,35 +482,41 @@ class MmaWeights(NamedTuple):
 
 
 def _mma_kinds(weights):
-    """The kinds (`_kinds`) of a launch with bf16 products of the merged
-    decoder's (PackedWeights) or the frame kernel's (RxFrameWeights)
-    weights, and the arrays whose products run on the tensor cores: every
-    matrix of kind 1, 2 or 3 (int8, bf16, f32 rounded at the product), but
-    in the frame set only the decoder's and dft_w (Wr..Ei are not the
-    kernel's; ls_w stays a row product)."""
+    """The kinds (`_kinds`) of a launch with bf16 products of a decoder's
+    (either layout), the encoder's (PackedWeights) or the frame kernel's
+    (RxFrameWeights) weights, and the arrays whose products run on the
+    tensor cores: every matrix, when each is of kind 1, 2 or 3 (int8, bf16,
+    f32 rounded at the product), none when one is of kind 0 (f32 weights:
+    bf16 x f32 products, which the FMA instances run); in the frame set,
+    whose kernel rounds every matrix, the decoder's and dft_w (Wr..Ei are
+    not the kernel's; ls_w stays a row product)."""
     if isinstance(weights, RxFrameWeights):
         w = weights.w
         kinds = _kinds(w, _rounds(w, torch.bfloat16, "all"))
         return kinds, [j for j in range(4, len(kinds) - 1) if kinds[j]]
-    if not merged_layout(weights):
-        raise ValueError("mma_weights: only the chain-merged decoder and the "
-                         "frame kernel run products on the tensor cores")
-    kinds = _kinds(weights, _rounds(weights, torch.bfloat16, "none"))
-    return kinds, [j for j, k in enumerate(kinds) if k]
+    layout = merged_layout(weights)
+    if not layout and len(weights.arrays) not in (N_DEC, N_ENC):
+        raise ValueError(f"mma_weights: {len(weights.arrays)} arrays are no "
+                         "decoder, encoder or frame weight set")
+    kinds = _kinds(weights, _rounds(weights, torch.bfloat16,
+                                    "none" if layout else "gru"))
+    mats = [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
+    return kinds, mats if all(kinds[j] for j in mats) else []
 
 
 def mma_weights(weights) -> MmaWeights:
     """The weights that the tensor-core (MM) instances read, built on the
-    host: for the chain-merged decoder (merged or "pad",
-    `decoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
-    products, each matrix of kind 1, 2 or 3 copied into bf16 (int8 exactly,
-    its scale row staying on the output; f32 rounded to nearest even, as
-    `_bf16`) in `_mma_pack`'s order, on the weights' device.  A "pad"
-    matrix packs to its merged matrix (the zero rows between the SEG-row
-    segments dropped).  The int8 matrices are widened to bf16 here, two
-    bytes a weight where the int8 instances read one.  On f32 weights the
-    merged decoder's products are bf16 x f32 (kind 0) and nothing is
-    packed."""
+    host: for either decoder layout (`decoder_weights`), the encoder
+    (`encoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
+    products, each matrix that `_mma_kinds` names copied into bf16 (int8
+    exactly, its scale row staying on the output; f32 rounded to nearest
+    even, as `_bf16`) in `_mma_pack`'s order, on the weights' device.  A
+    "pad" matrix packs to its merged matrix (the zero rows between the
+    SEG-row segments dropped).  The int8 matrices are widened to bf16 here,
+    two bytes a weight where the int8 instances read one.  On f32 weights
+    the decoders' and the encoder's products are bf16 x f32 (kind 0; the
+    unmerged decoder's and the encoder's GRU products rounded, kind 3) and
+    nothing is packed."""
     kinds, packed = _mma_kinds(weights)
     arrays = (weights.w if isinstance(weights, RxFrameWeights)
               else weights).arrays
@@ -841,7 +847,8 @@ def _check_pad(weights: PackedWeights):
 
 def _mma_args(weights, kinds):
     """The (packed buffer, its offsets) arguments of a launch with bf16
-    products of the merged decoder (PackedWeights) or the frame kernel
+    products of a decoder or the encoder (PackedWeights; null and all -1 on
+    f32 weights, which pack nothing) or of the frame kernel
     (RxFrameWeights): `mma_weights(weights)`, kept in the weight set's
     `mma` under a stamp of what it copies (the buffer, its version counter,
     which every write to it or to a view of it bumps, the arrays' offsets
@@ -870,9 +877,9 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     products.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
     radae_fused_decoder_merged_step or, padded or with bf16 products,
-    radae_fused_decoder_merged_x_step).  The chain-merged decoder with bf16
-    products on int8 or bf16 weights runs them on the tensor cores, on the
-    weights packed on first use (`_mma_args`)."""
+    radae_fused_decoder_merged_x_step).  With bf16 products on int8 or bf16
+    weights either layout runs every product on the tensor cores, on the
+    weights packed on first use (`_mma_args`); on f32 weights, FMA loops."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":
@@ -903,11 +910,11 @@ def fused_decoder_step(weights: PackedWeights, z, state,
                                     "none" if layout else "gru"))
     if layout and (bf or layout == "pad"):
         name = "radae_fused_decoder_merged_x_step"
-        args += (int(layout == "pad"), int(bf)) + (
-            _mma_args(weights, kinds) if bf
-            else (None, None))
+        args += (int(layout == "pad"), int(bf))
     else:
         name = "radae_" + entry.replace("_step", "_bf16_step" if bf else "_step")
+    if bf or layout == "pad":
+        args += _mma_args(weights, kinds) if bf else (None, None)
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
                      z, feats, state, new_state, args, kinds)
     _kernels.check(status, name)
@@ -1032,7 +1039,9 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
     """Encoder stack: feats (B, 4*nz, F) -> (z (B, nz, latent), new_state).
     The weights' kind and compute_dtype pick the instance: f32 or int8
     matrices with f32 products (radae_fused_encoder_step), or f32, bf16 or
-    int8 ones with bf16 products (radae_fused_encoder_bf16_step).  CPU
+    int8 ones with bf16 products (radae_fused_encoder_bf16_step: on bf16
+    or int8 weights every product on the tensor cores, on the weights
+    packed on first use, `_mma_args`; on f32 weights FMA loops).  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     _check_compute(compute_dtype)
     if feats.device.type == "cpu":
@@ -1059,10 +1068,12 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
     bf = compute_dtype == torch.bfloat16
     name = "radae_fused_encoder_" + ("bf16_step" if bf else "step")
+    kinds = _kinds(weights, _rounds(weights, compute_dtype, "gru"))
+    args = (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck))
+    if bf:
+        args += _mma_args(weights, kinds)
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
-                     x, z, state, new_state,
-                     (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck)),
-                     _kinds(weights, _rounds(weights, compute_dtype, "gru")))
+                     x, z, state, new_state, args, kinds)
     _kernels.check(status, name)
     LAUNCHES[_launch_key("fused_encoder_step", weights, compute_dtype)] += 1
     return z, tuple(new_state)

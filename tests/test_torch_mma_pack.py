@@ -1,20 +1,25 @@
 """The fragment-packed weights of the tensor-core route (`mma_weights`) on
 the CPU, where the kernels cannot run.
 
-The MM instances of the chain-merged decoder and of the frame kernel read
+The MM instances of both decoders, the encoder and the frame kernel read
 their matrices as mma.sync.m16n8k16 B fragments packed on the host.  These
 tests hold the packing and its index arithmetic:
 
   * unpacked, each packed matrix is exactly what the plain version
     multiplies by: the int8 values q, the bf16 values w, and `_bf16(w)` for
-    f32 matrices rounded at the product;
+    f32 matrices rounded at the product (the frame kernel's, and those an
+    int8 set's quant_exclude keeps in f32), for the merged and the unmerged
+    decoder and the encoder at latent 80 and 40; f32 sets of the decoders
+    and the encoder pack nothing;
   * a merged="pad" set packs to the same bytes as its merged set;
   * a plain torch walk over the packed fragments, with the lane, K
     permutation and column order that `tmma` in csrc/fused_core.cu uses,
     gives `_bf16(x) @ W` (atol 1e-5: the same exact products summed in
     another f32 order), also with a K tail (K = 40, NaN planted in x past
     K, which the kernel must zero rather than multiply by a zero row), an
-    `out` of 84 (zero columns to 96) and a K range that starts inside K;
+    `out` of 84 (zero columns to 96) and a K range that starts inside K,
+    and on the encoder's own packed matrices: its 84-wide dense_1 (a K
+    tail) and its 40-column z_dense at latent 40 (a column tail);
   * a launch packs the weight set it is given on first use and keeps the
     copy in that set, and packs anew after a write to the set's buffer.
 """
@@ -31,12 +36,31 @@ from radae_tpu_torch.ops import fused_core as fc
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "fixtures", "model_fs_flagship.npz")
+CKPT40 = os.path.join(ROOT, "fixtures", "model_l40.npz")
 BF = torch.bfloat16
+# the int8 sets with some matrices kept in f32 (chip_smoke.py's MIXED)
+EXCLUDE = {"dec": ("whh", "out_w"), "enc": ("whh", "d1_w")}
 
 
 @pytest.fixture(scope="module")
 def dec_tree():
     return load_checkpoint(CKPT)[0]["decoder"]
+
+
+@pytest.fixture(scope="module")
+def trees():
+    """The flagship (latent 80) and the latent-40 checkpoints."""
+    return {80: load_checkpoint(CKPT)[0], 40: load_checkpoint(CKPT40)[0]}
+
+
+def _unmerged_set(trees, side, kind, latent):
+    """The unmerged decoder's or the encoder's weights of one kind: "f32",
+    "bf16", "int8" or "int8-exclude" (EXCLUDE's matrices in f32)."""
+    kw = {"f32": {}, "bf16": {"dtype": BF}, "int8": {"quant": "int8"},
+          "int8-exclude": {"quant": "int8", "quant_exclude": EXCLUDE[side]}}[kind]
+    tree = trees[latent]
+    return (fc.decoder_weights(tree["decoder"], "cpu", **kw) if side == "dec"
+            else fc.encoder_weights(tree["encoder"], "cpu", **kw))
 
 
 def _unpack(buf, off, K, out):
@@ -175,6 +199,54 @@ def test_fragment_walk(K, out, k0, k1):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("latent", [80, 40])
+@pytest.mark.parametrize("kind", ["int8", "bf16", "int8-exclude"])
+@pytest.mark.parametrize("side", ["dec", "enc"])
+def test_pack_round_trip_unmerged_and_encoder(trees, side, kind, latent):
+    """Every matrix of the unmerged decoder (27) and of the encoder (22) is
+    packed and unpacks to q (int8), w (bf16) or _bf16(w) (kept in f32 by
+    quant_exclude: rounded at the product), exactly; no vector is packed,
+    and each matrix takes ceil(K/16) ceil(out/16) 16x16 tiles."""
+    ws = _unmerged_set(trees, side, kind, latent)
+    m = fc.mma_weights(ws)
+    mats = [j for j, a in enumerate(ws.arrays) if a.dim() == 2]
+    assert len(mats) == (27 if side == "dec" else 22)
+    assert [j for j, o in enumerate(m.offsets) if o >= 0] == mats
+    for j in mats:
+        a = ws.arrays[j]
+        want = fc._bf16(a) if a.dtype == torch.float32 else a.float()
+        got = _unpack(m.buf, m.offsets[j], *a.shape)
+        assert torch.equal(got, want), ws.names[j]
+    want_kinds = {"int8": {1}, "bf16": {2}, "int8-exclude": {1, 3}}[kind]
+    assert {m.kinds[j] for j in mats} == want_kinds
+    assert m.buf.numel() // 8 == sum(
+        32 * -(-ws.arrays[j].shape[0] // 16) * -(-ws.arrays[j].shape[1] // 16)
+        for j in mats)
+
+
+@pytest.mark.parametrize("what, latent, k0, k1", [
+    ("d1", 80, 0, 32), ("d1", 80, 64, 84), ("z_dense", 40, 448, 864)],
+    ids=["d1-chunk0", "d1-tail", "z40-columns"])
+def test_fragment_walk_encoder(trees, what, latent, k0, k1):
+    """The walk over the encoder's own packed matrices (bf16 weights) gives
+    _bf16(x) @ W over the K chunks the kernel gives it: dense_1's K of 84
+    ends inside a 16-wide step (x past K holds NaN), and the latent-40
+    z_dense's 40 columns are packed as 48 (the epilogue stores none past
+    40)."""
+    ws = _unmerged_set(trees, "enc", "bf16", latent)
+    m = fc.mma_weights(ws)
+    j = 0 if what == "d1" else len(ws.arrays) - 2
+    K, out = ws.arrays[j].shape
+    assert (K, out) == ((84, 64) if what == "d1" else (864, 40))
+    rng = np.random.default_rng(K + k0)
+    x = rng.standard_normal((16, 16 * -(-K // 16) + 8)).astype(np.float32)
+    x[:, k1:] = np.nan
+    got = _tmma_walk(torch.from_numpy(x), m.buf, m.offsets[j], K, out, k0, k1)
+    want = fc._bf16(torch.from_numpy(x[:, k0:k1])) @ ws.arrays[j].float()[k0:k1]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
 def _kept(w):
     """The packed copy a weight set keeps (PackedWeights.mma)."""
     (m,) = w.mma.values()
@@ -219,15 +291,34 @@ def test_launch_packs_its_weight_set(dec_tree, monkeypatch):
     assert list(f1[1]) == list(real(rw).offsets)
 
 
-def test_what_gets_packed(dec_tree):
-    """f32 weights of the merged decoder: bf16 x f32 products (kind 0),
-    nothing packed and no buffer passed; the unmerged decoder has no
-    tensor-core route."""
-    wf = fc.decoder_weights(dec_tree, "cpu", merged=True)
-    kinds = fc._kinds(wf, fc._rounds(wf, BF, "none"))
-    mf = fc.mma_weights(wf)
-    assert mf.buf.numel() == 0 and set(mf.offsets) == {-1}
-    buf, offs = fc._mma_args(wf, kinds)
-    assert buf is None and set(offs) == {-1}
-    with pytest.raises(ValueError, match="only the chain-merged"):
-        fc.mma_weights(fc.decoder_weights(dec_tree, "cpu"))
+def test_what_gets_packed(dec_tree, trees):
+    """f32 weights of either decoder layout and of the encoder: bf16 x f32
+    products (kind 0; the unmerged decoder's and the encoder's GRU matrices
+    rounded, kind 3), which the FMA instances run: nothing packed and no
+    buffer passed.  A set of no kernel's layout raises."""
+    for wf, rule in ((fc.decoder_weights(dec_tree, "cpu", merged=True), "none"),
+                     (fc.decoder_weights(dec_tree, "cpu"), "gru"),
+                     (fc.encoder_weights(trees[80]["encoder"], "cpu"), "gru")):
+        kinds = fc._kinds(wf, fc._rounds(wf, BF, rule))
+        assert set(kinds) == ({0} if rule == "none" else {0, 3})
+        mf = fc.mma_weights(wf)
+        assert mf.buf.numel() == 0 and set(mf.offsets) == {-1}
+        buf, offs = fc._mma_args(wf, kinds)
+        assert buf is None and set(offs) == {-1}
+    wd = fc.decoder_weights(dec_tree, "cpu", dtype=BF)
+    with pytest.raises(ValueError, match="no decoder, encoder or frame"):
+        fc.mma_weights(wd._replace(arrays=wd.arrays[:-1], names=wd.names[:-1]))
+
+
+@pytest.mark.parametrize("side", ["dec", "enc"])
+def test_launch_packs_unmerged_and_encoder(trees, side):
+    """A launch with bf16 products of the unmerged decoder or the encoder
+    on int8 weights packs the set on first use, keeps the copy and passes
+    its offsets (one per array, every matrix packed)."""
+    w = _unmerged_set(trees, side, "int8", 80)
+    kinds = fc._kinds(w, fc._rounds(w, BF, "gru"))
+    a, b = fc._mma_args(w, kinds), fc._mma_args(w, kinds)
+    m = _kept(w)
+    assert a[0] == b[0] == m.buf.data_ptr()
+    assert list(a[1]) == list(m.offsets) == list(fc.mma_weights(w).offsets)
+    assert sum(o >= 0 for o in m.offsets) == (27 if side == "dec" else 22)

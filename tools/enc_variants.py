@@ -48,11 +48,13 @@ int8 instance on the int8 weights (`quant="int8"`), whose own forms are
 named int8_*, or with --bf16 KIND the instance with bf16 products on
 weights of that kind (f32, bf16 or int8; --pad: the merged decoder's padded
 layout), held against the plain version under chip_smoke.py's BF16_*
-limits.  The merged decoder's on bf16 or int8 weights and the frame
-kernel's run on the tensor cores, on the weights the wrapper packs at its
-first launch (`mma_weights`); a --src library whose entries predate them
-is called through `NoMmaEntries`.  For each --src library it also prints, instance by
-instance of every kernel, whether its SASS equals the committed build's.
+limits.  Those of the encoder and both decoders on bf16 or int8 weights
+and the frame kernel's run on the tensor cores, on the weights the wrapper
+packs at its first launch (`mma_weights`); a --src library whose entries
+predate them (all four, or the encoder's and the unmerged decoder's) is
+called through `NoMmaEntries` and runs those forms on its FMA loops.  For
+each --src library it also prints, instance by instance of every kernel,
+whether its SASS equals the committed build's.
 """
 
 from __future__ import annotations
@@ -92,7 +94,13 @@ KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
                      "radae_dec_tile_rows")}
 ALL = tuple(KERNELS)
 CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
-NO_MMA = set()       # the libraries that run every form on the FMA loops
+NO_MMA = set()       # the libraries that run the kernel's form on FMA loops
+# --kernel -> its entry with bf16 products, which takes the packed weights
+MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
+             "dec": "radae_fused_decoder_bf16_step",
+             "decm": "radae_fused_decoder_merged_x_step",
+             "frame": "radae_fused_rx_frame_bf16_step"}
+MMA_KERNELS = ("enc", "dec", "decm", "frame")   # those with an MM instance
 
 # the weight loads staged by cp.async in a 2-stage ring of 16-byte slots, one
 # a lane and weight row, behind the scratch (4 KB a warp)
@@ -245,29 +253,30 @@ FORMS = {
         ("  const float* const xr = X + r0 * ld;\n",  # gates, staging only
          "  return;\n  const float* const xr = X + r0 * ld;\n")]),
     # the tensor-core route (tmma; the MM instances: --bf16 bf16 or int8
-    # for decm, any --bf16 for frame): B 1 or 4 K-step pairs ahead, not 2
-    "mmapairs1": (("decm", "frame"), True, [
+    # for enc, dec and decm, any --bf16 for frame): B 1 or 4 K-step pairs
+    # ahead, not 2
+    "mmapairs1": (MMA_KERNELS, True, [
         ("constexpr int MMA_PAIRS = 2;", "constexpr int MMA_PAIRS = 1;")]),
-    "mmapairs4": (("decm", "frame"), True, [
+    "mmapairs4": (MMA_KERNELS, True, [
         ("constexpr int MMA_PAIRS = 2;", "constexpr int MMA_PAIRS = 4;")]),
-    "mmanoswz": (("decm", "frame"), True, [      # every lane the pair's first
+    "mmanoswz": (MMA_KERNELS, True, [      # every lane the pair's first
         ("  const bool odd = kl & 1;\n", "  const bool odd = false;\n")]),  # step first
     # a K range's sums accumulated inside the tensor cores (the same
     # products, other bits)
-    "mmanofadd": (("decm", "frame"), True, [
+    "mmanofadd": (MMA_KERNELS, True, [
         ("""  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
   mma16816(e0, a0, a1, a2, a3, b.x, b.y);
   mma16816(e1, a0, a1, a2, a3, b.z, b.w);
   d0 = add4(d0, e0);
   d1 = add4(d1, e1);""", """  mma16816(d0, a0, a1, a2, a3, b.x, b.y);
   mma16816(d1, a0, a1, a2, a3, b.z, b.w);""")]),
-    "mmanoxload": (("decm", "frame"), False, [   # A from registers
+    "mmanoxload": (MMA_KERNELS, False, [   # A from registers
         ("""    const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
     const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;""",
          """    const float4 pa = make_float4(ka, t, va, vb), pb = pa, qa = pa, qb = pa;""")]),
-    "mmawfixed": (("decm", "frame"), False, [    # every pair reloads the first
+    "mmawfixed": (MMA_KERNELS, False, [    # every pair reloads the first
         ("    wp += 64;\n    const int ka", "    const int ka")]),   # pairs' B
-    "mmanoproducts": (("decm", "frame"), False, [  # no tmma loops
+    "mmanoproducts": (MMA_KERNELS, False, [  # no tmma loops
         ("  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n",
          "  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n"
          "  return;\n")]),
@@ -316,24 +325,39 @@ class F32OnlyEntries:
 
 
 class NoMmaEntries:
-    """A library built from a source whose merged decoder's x entry and
-    bf16 frame entry predate the packed weights of the tensor-core route:
-    takes the entries' arguments of today and drops the packed buffer and
-    its offsets (that source runs those forms on its FMA loops)."""
+    """A library built from a source some of whose entries with bf16
+    products (`entries`) predate the packed weights of the tensor-core
+    route: takes those entries' arguments of today and drops the packed
+    buffer and its offsets (that source runs their forms on its FMA
+    loops)."""
 
-    ENTRIES = {"radae_fused_decoder_merged_x_step": 14,
-               "radae_fused_rx_frame_bf16_step": 17}   # where the two sit
+    AT = {"radae_fused_decoder_merged_x_step": 14,   # where the two sit
+          "radae_fused_rx_frame_bf16_step": 17,
+          "radae_fused_decoder_bf16_step": 12,
+          "radae_fused_encoder_bf16_step": 13}
 
-    def __init__(self, lib, signatures):
+    def __init__(self, lib, signatures, entries):
         self._lib = lib
-        for fn, i in self.ENTRIES.items():
+        self._at = {fn: self.AT[fn] for fn in entries}
+        for fn, i in self._at.items():
             getattr(lib, fn).argtypes = signatures[fn][:i] + signatures[fn][i + 2:]
 
     def __getattr__(self, name):
-        if name in self.ENTRIES:
-            fn, i = getattr(self._lib, name), self.ENTRIES[name]
+        if name in self._at:
+            fn, i = getattr(self._lib, name), self._at[name]
             return lambda *args: fn(*args[:i], *args[i + 2:])
         return getattr(self._lib, name)
+
+
+def entries_without_mma(src_text):
+    """The entries of `NoMmaEntries.AT` that the source defines without
+    the packed weights (no `moff` among their parameters)."""
+    out = []
+    for fn in NoMmaEntries.AT:
+        m = re.search(r"int " + fn + r"\(([^)]*)\)", src_text)
+        if m and "moff" not in m.group(1):
+            out.append(fn)
+    return out
 
 
 def instance(name, kname, quant=None, bf16=None):
@@ -341,14 +365,14 @@ def instance(name, kname, quant=None, bf16=None):
     tool takes: its template bools after the first all false, and the first
     (Q) false, or true with quant; any for the frame kernel (FIX).  With
     bf16 (the weights' kind): the instance with bf16 products (its second
-    bool, BF), for the merged decoder the tensor-core one (KindMmaArgs)
-    unless the weights are f32."""
+    bool, BF), for the encoder and both decoders the tensor-core one
+    (KindMmaArgs) unless the weights are f32."""
     m = re.search(kname + r"I((?:Lb[01]E)+)", name)
     if not m:
         return False
     flags = re.findall(r"Lb([01])E", m.group(1))
     if bf16:
-        return flags[1] == "1" and (kname != "dec_merged_kernel" or (
+        return flags[1] == "1" and (kname == "rx_frame_kernel" or (
             "KindMmaArgs" in name) == (bf16 != "f32"))
     return (not any(f == "1" for f in flags[1:])
             and (kname == "rx_frame_kernel" or (flags[0] == "1") == bool(quant)))
@@ -519,11 +543,13 @@ def main(argv=None) -> int:
             lib = FixedGeometryFrame(lib)
         with open(srcs[v]) as fh:
             src_text = fh.read()
+        no_mma = entries_without_mma(src_text)
         if "n_soff" not in src_text:
             lib = F32OnlyEntries(lib, _kernels._SIGNATURES["fused_core"])
-        elif "const int* moff" not in src_text:
-            lib = NoMmaEntries(lib, _kernels._SIGNATURES["fused_core"])
-            NO_MMA.add(v)
+        elif no_mma:
+            lib = NoMmaEntries(lib, _kernels._SIGNATURES["fused_core"], no_mma)
+            if MMA_ENTRY[kernel] in no_mma:
+                NO_MMA.add(v)
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
