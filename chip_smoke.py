@@ -25,13 +25,15 @@ EQ, coarse magnitude):
      at 1e-4, the bf16-product ones within 2e-3 but for at most 1e-3 of a
      run's elements (bf16 input flips), each tensor's max and mean error
      within BF16_MAX and BF16_MEAN of its scale (readings in PERF.md).
-     Ten of them multiply on the tensor cores (MMA_FORMS: the unmerged,
-     the merged and the padded decoder and the encoder on bf16 and int8
-     weights, the frame kernel on f32 and bf16 weights, on the weights
-     packed by fc.mma_weights at a set's first such launch), and the
-     timing phase fails if any of them ran on FMA loops; the frame
-     kernel's two and the unmerged decoder's and the encoder's four are
-     also held at latent 40 (B=2048 and 37, and to the same bits);
+     Twelve of them multiply on the tensor cores (MMA_FORMS: the
+     unmerged, the merged and the padded decoder and the encoder on bf16
+     and int8 weights, the unmerged decoder and the encoder on f32 weights
+     (each bf16 x f32 product as three bf16 products, on the weight's hi,
+     mid and lo parts), the frame kernel on f32 and bf16 weights, on the
+     weights packed by fc.mma_weights at a set's first such launch), and
+     the timing phase fails unless exactly those ran on the tensor cores;
+     the frame kernel's two and the unmerged decoder's and the encoder's
+     six are also held at latent 40 (B=2048 and 37, and to the same bits);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -68,14 +70,15 @@ EQ, coarse magnitude):
   5. times the rx steps, the tx step and the 23 kernel forms (FORMS)
      with CUDA events around calls issued from the host, beside each
      kernel's plain version, its bound (each product at the f32 rate, or
-     at the tensor cores' bf16 rate where both its operands are bf16; on
+     at the tensor cores' bf16 rate where both its operands are bf16, or
+     as three bf16 products where the split route runs an f32 matrix; on
      the tensor-core route each packed matrix's bytes or its own, the
      smaller), which products it runs on the tensor cores (the `kernels`
      line says "mma" or "fma"), on that route the packed bytes a launch
      reads (printed, not in the `kernels` line: a count, not a reading), and
-     its device time in a CUDA graph replay (and the frame kernel at
-     latent 40 too), and prints the
-     weight bytes one encoder, one unmerged and one chain-merged decoder
+     its device time in CUDA graph replays, min/median/max over
+     GRAPH_REPS replays (and the frame kernel at latent 40 too), and prints
+     the weight bytes one encoder, one unmerged and one chain-merged decoder
      launch fetch into the SMs, f32, bf16 and int8, from the tiling the
      built library reports; and the batch pair's ms per frame and
      audio-s/s, its acquisition apart from its decode;
@@ -158,9 +161,12 @@ FORMS = ("fused_decoder_step", "fused_decoder_merged_step",
          "fused_decoder_merged_step_pad_bf16w_bf16",
          "fused_decoder_merged_step_pad_int8_bf16")
 # the forms whose products run on the tensor cores (tmma): every bf16-
-# product form but those on f32 weights of the decoders and the encoder
-# (bf16 x f32 products, FMA loops)
-MMA_FORMS = ("fused_decoder_step_bf16w_bf16", "fused_decoder_step_int8_bf16",
+# product form but those of the chain-merged decoder on f32 weights (bf16 x
+# f32 products, FMA loops); the unmerged decoder and the encoder on f32
+# weights run each bf16 x f32 product as SPLIT_PARTS bf16 products (their
+# split instances, on the weight's hi, mid and lo parts: fc.split_parts)
+MMA_FORMS = ("fused_decoder_step_bf16", "fused_encoder_step_bf16",
+             "fused_decoder_step_bf16w_bf16", "fused_decoder_step_int8_bf16",
              "fused_decoder_merged_step_bf16w_bf16",
              "fused_decoder_merged_step_int8_bf16",
              "fused_decoder_merged_step_pad_bf16w_bf16",
@@ -179,6 +185,8 @@ BF16_TOL = dict(rtol=2e-3, atol=2e-3)
 BF16_FLIPS = 1e-3
 BF16_MAX = {"fused_rx_frame_step": 0.06, "": 0.03}
 BF16_MEAN = 1e-3
+SPLIT_PARTS = 3          # bf16 products a kind-0 (f32) matrix takes, split
+GRAPH_REPS = 7           # replays a kernel form's graph is timed over
 # the port's benchmark: its budget, and run_bench's modes that are not on its
 # ladder, run at B with BENCH_SCAN chained frames
 BENCH_BUDGET_S = 300
@@ -301,10 +309,10 @@ def time_ms(fn, n, warmup=3) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def graph_ms(fn, n=20, reps=5) -> float:
-    """Device time of one fn() call: n calls captured in a CUDA graph, the
-    graph replayed reps times between two CUDA events.  Unlike time_ms it
-    leaves out the host's time to issue the calls."""
+def graph_runs(fn, n=20, reps=5) -> list:
+    """Device time of one fn() call in each of reps replays: n calls
+    captured in a CUDA graph, each replay between two CUDA events.  Unlike
+    time_ms it leaves out the host's time to issue the calls."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -318,14 +326,25 @@ def graph_ms(fn, n=20, reps=5) -> float:
             fn()
     g.replay()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ev[0].record()
+    for e in ev[1:]:
         g.replay()
-    t1.record()
+        e.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / (n * reps)
+    return [a.elapsed_time(b) / n for a, b in zip(ev, ev[1:])]
+
+
+def graph_ms(fn, n=20, reps=5) -> float:
+    """The mean of graph_runs(fn, n, reps)."""
+    runs = graph_runs(fn, n, reps)
+    return sum(runs) / len(runs)
+
+
+def spread(runs) -> str:
+    """min/median/max of a list of times (ms)."""
+    r = sorted(runs)
+    return f"{r[0]:.4f}/{r[len(r) // 2]:.4f}/{r[-1]:.4f}"
 
 
 def host_ms(fn, reps=2) -> float:
@@ -385,8 +404,9 @@ def bound(weights, inputs, outputs, nz, batch, bf16=None, extra=(0.0, 0.0),
     written once at the HBM rate, or the operations at the peak rate of
     their operands' type, whichever is larger.  2 flop per weight-matrix
     element per z-step per stream, at the tensor cores' bf16 rate where
-    both operands of the product are bf16 (bf16[j] for weights.arrays[j])
-    and else at the f32 rate outside the tensor cores, plus extra = (f32
+    both operands of the product are bf16 (bf16[j] for weights.arrays[j]:
+    the number of bf16 products, SPLIT_PARTS for an f32 matrix on the split
+    route) and else at the f32 rate outside the tensor cores, plus extra = (f32
     flop, bf16 flop); the two kinds' times add.  (The padded layout's bound
     is the merged weights': its zero rows are not work.)  packed = (bytes
     counted for the matrices packed for the tensor cores, bytes of the
@@ -397,7 +417,8 @@ def bound(weights, inputs, outputs, nz, batch, bf16=None, extra=(0.0, 0.0),
     flops = [extra[0], extra[1]]
     for j, a in enumerate(weights.arrays):
         if a.dim() == 2:
-            flops[bool(bf16 and bf16[j])] += 2.0 * a.numel() * nz * batch
+            n = int(bf16[j]) if bf16 else 0
+            flops[n > 0] += max(n, 1) * 2.0 * a.numel() * nz * batch
     t_bytes = nbytes / H100_BYTES_S
     t_ops = flops[0] / H100_F32_FLOPS + flops[1] / H100_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
@@ -511,15 +532,20 @@ def main(argv=None) -> int:
         raise AssertionError("FORMS must hold every form a wrapper launches: "
                              f"{sorted(set(fc.LAUNCHES) ^ set(FORMS))}")
 
-    def bf16_mask(name, w):
-        """Per array of w: both operands of its product bf16 in form name
-        (the rounding rule of the form's body, fc._rounds)."""
+    def bf16_mask(name, w, mma=None):
+        """Per array of w: the bf16 products its product takes on the
+        tensor cores in form name: 1 where both operands are bf16 (the
+        rounding rule of the form's body, fc._rounds), SPLIT_PARTS for an
+        f32 matrix that the launches packed split (mma, their kept
+        fc.mma_weights copy), else 0 (f32 work)."""
         if not name.endswith("_bf16"):
             return None
         rule = ("all" if "rx_frame" in name else
                 "none" if "merged" in name else "gru")
-        return [r or a.dtype == bf for a, r in
-                zip(w.arrays, fc._rounds(w, bf, rule))]
+        split = [mma is not None and mma.offsets[j] >= 0 and mma.kinds[j] == 0
+                 for j in range(len(w.arrays))]
+        return [SPLIT_PARTS if sp else int(r or a.dtype == bf) for a, r, sp in
+                zip(w.arrays, fc._rounds(w, bf, rule), split)]
 
     # the latent-40 modem (Nc=15: [Yr | Yi] padded from 30 to 32 columns)
     cfg40 = flagship_config(latent_dim=40)
@@ -718,10 +744,15 @@ def main(argv=None) -> int:
                     held(name, f"{batch} latent 40", f"call {frame}",
                          (ok_,) + sk, (op,) + sp)
         # the unmerged decoder's and the encoder's tensor-core instances at
-        # latent 40 (own seed): dense_1's K = 40 ends inside a 16-wide K
-        # step, the encoder's z_dense has 40 columns (48 packed)
+        # latent 40 (own seed), the split ones on f32 weights too: dense_1's
+        # K = 40 ends inside a 16-wide K step, the encoder's z_dense has 40
+        # columns (48 packed)
         lrng = np.random.default_rng(7)
-        l40 = {"fused_decoder_step_bf16w_bf16": fc.decoder_weights(
+        l40 = {"fused_decoder_step_bf16": fc.decoder_weights(
+                   tree40["decoder"], dev),
+               "fused_encoder_step_bf16": fc.encoder_weights(
+                   tree40["encoder"], dev),
+               "fused_decoder_step_bf16w_bf16": fc.decoder_weights(
                    tree40["decoder"], dev, dtype=bf),
                "fused_decoder_step_int8_bf16": fc.decoder_weights(
                    tree40["decoder"], dev, quant="int8"),
@@ -1142,7 +1173,7 @@ def main(argv=None) -> int:
         # name -> mma_terms of the forms whose launches ran on the tensor
         # cores: a bf16 form whose weight set keeps a packed copy with a
         # matrix in it (fc._mma_args made it at the form's first launch)
-        mma_of = {}
+        mma_of, kept_of = {}, {}
         for name, (w, bw) in new_w.items():   # the new forms, same inputs
             kern, plain, zero_state, _ = kernel_form(name, gen)
             x = (rx_win if "frame" in name else
@@ -1158,6 +1189,8 @@ def main(argv=None) -> int:
             if kept and any(o >= 0 for o in kept[0].offsets):
                 mma_of[name] = mma_terms(ws if "frame" in name else bw,
                                          kept[0], nz, B, lib.radae_block_rows())
+                if "frame" not in name:       # bw's arrays are kept[0]'s
+                    kept_of[name] = kept[0]
         if set(mma_of) != set(MMA_FORMS):
             raise AssertionError(
                 f"forms on the tensor cores: {sorted(mma_of)}; MMA_FORMS: "
@@ -1168,12 +1201,16 @@ def main(argv=None) -> int:
             plain_ms = time_ms(plain, 10)
             out, st1 = plain()
             swap, packed_b, read = mma_of.get(name, ((0, 0), 0, 0))
-            b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B,
-                               bf16_mask(name, w), extra, swap)
+            mask = bf16_mask(name, w, kept_of.get(name))
+            b_ms, b_by = bound(w, (x,) + st, (out,) + st1, nz, B, mask,
+                               extra, swap)
             print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms by {b_by}; "
-                  f"{graph_ms(kern):.4f} ms in a CUDA graph replay); products "
+                  f"bound {b_ms:.4f} ms by {b_by}; CUDA graph replay "
+                  f"min/median/max {spread(graph_runs(kern, reps=GRAPH_REPS))} "
+                  f"ms over {GRAPH_REPS} replays); products "
                   f"on {'the tensor cores (mma.sync)' if name in mma_of else 'FMA loops'}"
+                  + (f" (f32 matrices split, {SPLIT_PARTS} bf16 products)"
+                     if SPLIT_PARTS in (mask or ()) else "")
                   + (f", packed weights {packed_b} B (the bound counts "
                      f"{swap[0]} B for them), {read / 1e9:.4f} GB a launch "
                      f"({read / (ms * 1e-3) / 1e12:.2f} TB/s)"

@@ -128,20 +128,20 @@
 //
 // bf16 products (compute_dtype=bf16).  Each body has one more instance
 // (BF) that rounds each product's x to bf16 (round to nearest even) where
-// tmac loads it, so the f32 values that the gate math, the state and the
+// it loads it, so the f32 values that the gate math, the state and the
 // stored x read are never rounded; the products of bf16 values are exact
 // in f32 and the sums stay f32, as the TPU's dot with f32 accumulation.
 // Its matrices come in four kinds, a flag per array (KindArgs): int8 (with
-// its scale row, as in the int8 instance), bf16 (widened to f32 by a
-// 16-bit shift: 4 weights in one 8-byte load), f32, and f32 rounded to bf16
-// at the product (the TPU kernel's _gru_step and its frame kernel round
-// both inputs; its other dots round only x unless the weights are int8, so
-// the runtime says which).  The BF instances of the decoders and the
-// encoder take the int8 instance's form (the GRU's h products in partials
-// of their own, scales on the outputs; none without scale rows); the
-// frame's takes the f32 form.  On f32 weights (a matrix of kind 0: bf16 x
-// f32, f32 work) the BF instances of dec_kernel, enc_kernel and the merged
-// decoder are f32 FMA loops on rounded inputs (tmac).
+// its scale row, as in the int8 instance), bf16, f32 (kind 0: bf16 x f32,
+// which promotes to f32), and f32 rounded to bf16 at the product (kind 3:
+// the TPU kernel's _gru_step and its frame kernel round both inputs; its
+// other dots round only x unless the weights are int8, so the runtime says
+// which).  The BF instances of the decoders and the encoder take the int8
+// instance's form (the GRU's h products in partials of their own, scales
+// on the outputs; none without scale rows); the frame's takes the f32
+// form.  Only the merged decoder's BF instance on f32 weights (every matrix
+// of kind 0) is still an f32 FMA loop on rounded x (tmac); every other BF
+// instance runs on the tensor cores.
 //
 // The tensor cores (MM instances).  Where every product is bf16 x bf16 --
 // the BF instances of dec_kernel, enc_kernel and the merged decoder on
@@ -149,7 +149,17 @@
 // instance, which rounds both inputs of every product -- the FMA loops
 // spent their time on the roundings and the FMAs, 24-55 times the bound
 // that the same work has on the tensor cores (the bytes: each stack is
-// about 0.9M weights a z-step).  These
+// about 0.9M weights a z-step).  On f32 weights the unmerged decoder and the
+// encoder (GRU matrices kind 3, the rest kind 0) have a split instance
+// (KindSplitArgs): a kind-0 matrix w is packed three times, hi = bf16(w),
+// mid = bf16(w - hi) and lo = bf16(w - hi - mid) (each difference exact in
+// f32, and hi + mid + lo = w but where w is tiny), and x hi + x mid + x lo,
+// three MMAs on the same A fragment, is the bf16 x f32 product (tmma<true>).
+// Two parts are not enough: |w - hi - mid| reaches 2^-17 |w|, and on the
+// fixture weights that took the encoder's bf16 input flips against the plain
+// version to 12-14 times those of an exact product, past chip_smoke.py's
+// BF16_FLIPS (and BF16_MAX at latent 40); three parts flip 0.9-1.2 times as
+// often (tools/split_flips.py, on the CPU).  These
 // instances run every product on mma.sync m16n8k16 (tmma): the block's 16
 // rows are one A tile read from the f32 operands in shared memory and
 // rounded as they are loaded (2 float4 and 4 cvt.rn.bf16x2 a lane and K
@@ -382,15 +392,25 @@ struct MmaW {
   const uint4* p;
   int off[NW];
 };
-// The merged decoder's MM instance takes its kinds and its packed matrices
+// An MM instance takes its kinds and its packed matrices
 template <int NS, int NW>
 struct KindMmaArgs : KindArgs<NS> {
   MmaW<NW> m;
 };
+// The same for a split instance (dec_kernel, enc_kernel on f32 weights): a
+// matrix of kind 0 is packed as its hi, mid and lo copies (tmma<true>)
+template <int NS, int NW>
+struct KindSplitArgs : KindMmaArgs<NS, NW> {};
 template <class KA>
 constexpr bool has_mma = false;
 template <int NS, int NW>
 constexpr bool has_mma<KindMmaArgs<NS, NW>> = true;
+template <int NS, int NW>
+constexpr bool has_mma<KindSplitArgs<NS, NW>> = true;
+template <class KA>
+constexpr bool has_split = false;
+template <int NS, int NW>
+constexpr bool has_split<KindSplitArgs<NS, NW>> = true;
 
 struct DecArgs {
   const float* w;
@@ -476,13 +496,6 @@ __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
 __device__ __forceinline__ float4 ldq4(const signed char* p) {
   const char4 q = __ldg(reinterpret_cast<const char4*>(p));
   return make_float4(q.x, q.y, q.z, q.w);
-}
-// 4 bf16 weights of a row segment (their bits), one 8-byte load, as floats:
-// a bf16 is the high half of the f32 with the same value
-__device__ __forceinline__ float4 ldb4(const unsigned short* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 // v rounded to bf16 (nearest even) and back: a product input of the BF
 // instances
@@ -588,12 +601,6 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
 #pragma unroll
   for (int m = 0; m < 4; ++m) wt[m] = v ? ldq4(p + m * out) : z;
 }
-__device__ __forceinline__ void ldw(float4 (&wt)[4], const unsigned short* p,
-                                    int out, bool v) {
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int m = 0; m < 4; ++m) wt[m] = v ? ldb4(p + m * out) : z;
-}
 
 // acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
 //           X[r0 + i][k..k+3] . W[k..k+3][c..c+3],
@@ -601,14 +608,12 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const unsigned short* p,
 // kernel's sample rows (every operand of a tile product is there: the
 // carried state and the inputs are staged first).  k0 and k1 are multiples
 // of 4; an empty range adds nothing.  The next K step's weights are loaded
-// into registers before this step's multiply-adds.  W is f32, int8 or bf16
-// bits (T).  RX (bf16 products): each x float4 rounded to bf16 as it is
-// loaded, and f32 weights too where rw.
+// into registers before this step's multiply-adds.  W is f32 or int8 (T).
+// RX (bf16 products): each x float4 rounded to bf16 as it is loaded.
 template <class T, bool RX = false>
 __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const T* __restrict__ W,
-                                     int out, int c, int k0, int k1, int kl,
-                                     bool rw = false) {
+                                     int out, int c, int k0, int k1, int kl) {
   const float* const xr = X + r0 * ld;
   const bool cv = c < out;
   const int n = (k1 - k0 + 31) >> 5;
@@ -627,10 +632,6 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 #pragma unroll
     for (int m = 0; m < 4; ++m) wt[m] = wn[m];
     ldw(wn, wp, out, cv && k < k1);
-    if constexpr (RX && sizeof(T) == 4) {
-#pragma unroll
-      for (int m = 0; m < 4; ++m) wt[m] = rw ? bfr4(wt[m]) : wt[m];
-    }
 #pragma unroll
     for (int i = 0; i < ET; ++i) {
       const float4 x = bfx<RX>(ld4(xr + i * ld + kx));
@@ -643,8 +644,9 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 }
 
 // ---------------------------------------------------------------------------
-// Tile products on the tensor cores (tmma: the MM instances' route for
-// matrices of kinds 1, 2 and 3, whose products are bf16 x bf16).
+// Tile products on the tensor cores (tmma: the MM instances' route, for
+// matrices of kinds 1, 2 and 3, whose products are bf16 x bf16, and in the
+// split instances for kind 0, bf16 x f32, as two bf16 products: tmma<true>).
 //
 // A work item is the same one warp's 16 rows x 16 columns over a K range,
 // but the whole warp walks K in 16-wide steps with
@@ -660,7 +662,10 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 // multiple of 16 with zero rows and out to a multiple of 16 with zero
 // columns, 16-column group cg and K step s at 32 lanes x 16 bytes (both n8
 // tiles' B of the lane: 4 k of one column each) from (cg * nks + s) * 32,
-// nks = ceil(K / 16), so a step is one coalesced 512-byte load a warp.
+// nks = ceil(K / 16), so a step is one coalesced 512-byte load a warp.  A
+// split (kind-0) matrix packs its hi, mid and lo copies of each step the same
+// way one after another, 96 words a step from (cg * nks + s) * 96: three
+// coalesced loads a step, in one 1.5 KB block.
 // Each step's products are summed from zero in the tensor cores and added
 // in f32, in a fixed order, no atomics.  Timed on an H100 by
 // tools/enc_variants.py (graph replay, merged decoder on bf16 weights /
@@ -691,15 +696,30 @@ __device__ __forceinline__ unsigned bf2(float lo, float hi) {
 // weight stream from the L2 is latency-bound: one 512-byte load a warp in
 // flight left a third of the launch to it on an H100)
 constexpr int MMA_PAIRS = 2;
+// and on the split route (tmma<true>), whose K steps load hi, mid and lo:
+// 1.5 times the bytes in flight that MMA_PAIRS gives the single route, in
+// 1.5 times the registers
+constexpr int MMA_SPLIT_PAIRS = 1;
 
 // One K step's products, summed by the tensor cores from zero and added to
 // the item's sums d0, d1 in f32.  (Accumulating a whole K range inside the
 // tensor cores, which truncate as they add into an accumulator, doubled the
-// bf16 input flips against the plain version on an H100.)
+// bf16 input flips against the plain version on an H100.)  SPLIT: b is the
+// step's hi copy, m its mid and l its lo copy; the step's lo products are
+// summed from zero, then the mid and the hi products onto them in the tensor
+// cores (the small parts first, so the one truncation a step is at the step
+// sum's scale, as on the single route), and the step sum added to d in f32.
+template <bool SPLIT>
 __device__ __forceinline__ void mstep(float4& d0, float4& d1, unsigned a0,
                                       unsigned a1, unsigned a2, unsigned a3,
-                                      uint4 b) {
+                                      uint4 b, uint4 m, uint4 l) {
   float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
+  if constexpr (SPLIT) {
+    mma16816(e0, a0, a1, a2, a3, l.x, l.y);
+    mma16816(e1, a0, a1, a2, a3, l.z, l.w);
+    mma16816(e0, a0, a1, a2, a3, m.x, m.y);
+    mma16816(e1, a0, a1, a2, a3, m.z, m.w);
+  }
   mma16816(e0, a0, a1, a2, a3, b.x, b.y);
   mma16816(e1, a0, a1, a2, a3, b.z, b.w);
   d0 = add4(d0, e0);
@@ -714,34 +734,57 @@ __device__ __forceinline__ void mstep(float4& d0, float4& d1, unsigned a0,
 // pairs of steps: the row strides are 0 mod 32 banks, so the lanes of odd g
 // load a pair's second step first and a quarter-warp's two rows fall on
 // other banks; selects give each step its registers back.  B is loaded
-// MMA_PAIRS pairs ahead of its products.
+// MMA_PAIRS pairs ahead of its products.  SPLIT: W is a split matrix (hi,
+// mid and lo copies, 96 words a step, MMA_SPLIT_PAIRS pairs ahead), and each
+// step runs the two n8 tiles on lo, mid and hi with the same A registers
+// (mstep<true>).
+template <bool SPLIT = false>
 __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const uint4* __restrict__ W,
                                      int K, int c, int k0, int k1, int kl) {
   static_assert(ET == 16, "an mma.sync A tile is the item's 16 rows");
-  constexpr int NB = 2 * MMA_PAIRS;
+  constexpr int NB = 2 * (SPLIT ? MMA_SPLIT_PAIRS : MMA_PAIRS);
+  constexpr int WS = SPLIT ? 96 : 32;   // 16-byte words a K step
   const int t = (c >> 2) & 3;
   const bool odd = kl & 1;
   const float* const x0 = X + (r0 + kl) * ld + 4 * t;
   const float* const x1 = x0 + 8 * ld;
-  const uint4* wp = W + ((size_t)(c >> 4) * ((K + 15) >> 4) + (k0 >> 4)) * 32 +
+  const uint4* wp = W + ((size_t)(c >> 4) * ((K + 15) >> 4) + (k0 >> 4)) * WS +
                     4 * kl + t;
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
   const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
   float4 d0 = make_float4(acc[0].x, acc[0].y, acc[1].x, acc[1].y);
   float4 d1 = make_float4(acc[0].z, acc[0].w, acc[1].z, acc[1].w);
-  uint4 bq[NB];
+  uint4 bq[NB];                                 // hi (or the only) copy
+  [[maybe_unused]] uint4 mq[SPLIT ? NB : 1], lq[SPLIT ? NB : 1];  // mid, lo
 #pragma unroll
-  for (int p = 0; p < NB; ++p) bq[p] = k0 + 16 * p < k1 ? __ldg(wp + 32 * p) : z4;
-  wp += 32 * NB;
+  for (int p = 0; p < NB; ++p) bq[p] = k0 + 16 * p < k1 ? __ldg(wp + WS * p) : z4;
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int p = 0; p < NB; ++p) {
+      mq[p] = k0 + 16 * p < k1 ? __ldg(wp + WS * p + 32) : z4;
+      lq[p] = k0 + 16 * p < k1 ? __ldg(wp + WS * p + 64) : z4;
+    }
+  }
+  wp += WS * NB;
 #pragma unroll 1
   for (int k = k0; k < k1; k += 32) {
     const uint4 b0 = bq[0], b1 = bq[1];
 #pragma unroll
     for (int p = 0; p + 2 < NB; ++p) bq[p] = bq[p + 2];
     bq[NB - 2] = k + 16 * NB < k1 ? __ldg(wp) : z4;
-    bq[NB - 1] = k + 16 * NB + 16 < k1 ? __ldg(wp + 32) : z4;
-    wp += 64;
+    bq[NB - 1] = k + 16 * NB + 16 < k1 ? __ldg(wp + WS) : z4;
+    uint4 m0 = z4, m1 = z4, l0 = z4, l1 = z4;
+    if constexpr (SPLIT) {
+      m0 = mq[0], m1 = mq[1], l0 = lq[0], l1 = lq[1];
+#pragma unroll
+      for (int p = 0; p + 2 < NB; ++p) mq[p] = mq[p + 2], lq[p] = lq[p + 2];
+      mq[NB - 2] = k + 16 * NB < k1 ? __ldg(wp + 32) : z4;
+      mq[NB - 1] = k + 16 * NB + 16 < k1 ? __ldg(wp + WS + 32) : z4;
+      lq[NB - 2] = k + 16 * NB < k1 ? __ldg(wp + 64) : z4;
+      lq[NB - 1] = k + 16 * NB + 16 < k1 ? __ldg(wp + WS + 64) : z4;
+    }
+    wp += 2 * WS;
     const int ka = odd ? k + 16 : k, kb = odd ? k : k + 16;
     const bool va = ka + 4 * t < k1, vb = kb + 4 * t < k1;
     const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
@@ -750,10 +793,11 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
     const unsigned u2 = bf2(pa.z, pa.w), u3 = bf2(pb.z, pb.w);
     const unsigned w0 = bf2(qa.x, qa.y), w1 = bf2(qb.x, qb.y);
     const unsigned w2 = bf2(qa.z, qa.w), w3 = bf2(qb.z, qb.w);
-    mstep(d0, d1, odd ? w0 : u0, odd ? w1 : u1, odd ? w2 : u2, odd ? w3 : u3, b0);
+    mstep<SPLIT>(d0, d1, odd ? w0 : u0, odd ? w1 : u1, odd ? w2 : u2,
+                 odd ? w3 : u3, b0, m0, l0);
     if (k + 16 < k1)
-      mstep(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2, odd ? u3 : w3,
-            b1);
+      mstep<SPLIT>(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2,
+                   odd ? u3 : w3, b1, m1, l1);
   }
   acc[0] = make_float4(d0.x, d0.y, d1.x, d1.y);
   acc[1] = make_float4(d0.z, d0.w, d1.z, d1.w);
@@ -798,23 +842,15 @@ __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
 }
 
 // tmac on the matrix at W of kind q: in an int8 instance (Q) int8 when q
-// is 1; in a BF instance (bf16 products) int8 (1, Q only), bf16 (2), f32
-// (0) or f32 rounded at the product (3)
+// is 1; in a BF instance (bf16 products: the merged decoder's FMA instance,
+// which the entry launches only on f32 weights, every matrix of kind 0) f32
+// with x rounded
 template <bool Q, bool BF = false>
 __device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, int q, int out,
                                      int c, int k0, int k1, int kl) {
   if constexpr (BF) {
-    if (Q && q == 1)
-      tmac<signed char, true>(acc, X, ld, r0,
-                              reinterpret_cast<const signed char*>(W), out, c,
-                              k0, k1, kl);
-    else if (q == 2)
-      tmac<unsigned short, true>(acc, X, ld, r0,
-                                 reinterpret_cast<const unsigned short*>(W),
-                                 out, c, k0, k1, kl);
-    else
-      tmac<float, true>(acc, X, ld, r0, W, out, c, k0, k1, kl, q == 3);
+    tmac<float, true>(acc, X, ld, r0, W, out, c, k0, k1, kl);
   } else if (Q && q) {
     tmac(acc, X, ld, r0, reinterpret_cast<const signed char*>(W), out, c, k0,
          k1, kl);
@@ -831,7 +867,7 @@ template <bool Q, bool BF>
 __device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, int q, int out,
                                      int c, int k0, int k1, int kl) {
-  const int esz = Q && q == 1 ? 1 : BF && q == 2 ? 2 : 4;   // bytes a weight
+  const int esz = Q && !BF && q == 1 ? 1 : 4;   // bytes a weight
   for (int j = 0, s = 0; s < k1; s += seg_width(j), ++j) {
     const int lo = max(k0, s), hi = min(k1, s + seg_width(j));
     if (lo < hi)
@@ -843,15 +879,31 @@ __device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
   }
 }
 
-// An item's product on its route: in an MM instance tmma on the packed
+// tmma on the packed matrix wm (K rows) of kind q: in a split instance (SP)
+// a kind-0 matrix on its hi, mid and lo copies (q is warp-uniform: one a
+// matrix)
+template <bool SP>
+__device__ __forceinline__ void kmma(float4 (&acc)[ET], const float* X, int ld,
+                                     int r0, const uint4* wm, int q, int K,
+                                     int c, int k0, int k1, int kl) {
+  if constexpr (SP) {
+    if (q == 0) {
+      tmma<true>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+      return;
+    }
+  }
+  tmma(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+}
+
+// An item's product on its route: in an MM instance kmma on the packed
 // matrix wm (K rows), else wmac on W of kind q
-template <bool Q, bool BF, bool MM>
+template <bool Q, bool BF, bool MM, bool SP = false>
 __device__ __forceinline__ void umac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, const uint4* wm,
                                      int q, int K, int out, int c, int k0,
                                      int k1, int kl) {
   if constexpr (MM)
-    tmma(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+    kmma<SP>(acc, X, ld, r0, wm, q, K, c, k0, k1, kl);
   else
     wmac<Q, BF>(acc, X, ld, r0, W, q, out, c, k0, k1, kl);
 }
@@ -907,10 +959,11 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
 // after the barrier adds the chunks in order.  W is of kind q (wmac), and in
 // an int8 instance each partial is scaled by the row sc.  PAD: W is a
-// padded x operand when pad (pmac).  MM: on the tensor cores (tmma), W's
+// padded x operand when pad (pmac).  MM: on the tensor cores (kmma), W's
 // packed copy wm (pad is then moot: a padded matrix packs as its merged
-// one).
-template <bool Q, bool BF = false, bool PAD = false, bool MM = false>
+// one); SP: a split instance.
+template <bool Q, bool BF = false, bool PAD = false, bool MM = false,
+          bool SP = false>
 __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       int q, const float* sc, int K, int out,
                                       int ng, int ks,
@@ -929,7 +982,7 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
     float4 acc[ET];
     zero(acc);
     if constexpr (MM)
-      tmma(acc, X, ld, r0, wm, K, c, kb, ke, kl);
+      kmma<SP>(acc, X, ld, r0, wm, q, K, c, kb, ke, kl);
     else if (PAD && pad)
       pmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
     else
@@ -971,8 +1024,8 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 struct Kinds {
   unsigned long long i8, bf, rw;
   int ns;
-  // array j's kind (wmac): 1 int8, 2 bf16, 3 f32 rounded at its products,
-  // 0 f32
+  // array j's kind (wmac, kmma): 1 int8, 2 bf16, 3 f32 rounded at its
+  // products, 0 f32
   __device__ __forceinline__ int operator()(int j) const {
     return i8 >> j & 1 ? 1 : bf >> j & 1 ? 2 : rw >> j & 1 ? 3 : 0;
   }
@@ -1008,14 +1061,16 @@ __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
 // staging pass sits between two barriers that are there anyway.  smem holds
 // DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).  BF: bf16 products,
 // the kinds in qa (KindArgs).  MM (the frame kernel's BF instance, Q false,
-// and dec_kernel's MM instance, Q true): every product on the tensor cores
-// (tmma), on the packed matrices m.
+// and dec_kernel's MM and split instances, Q true): every product on the
+// tensor cores (kmma), on the packed matrices m; in the split instance
+// (qa a KindSplitArgs) the kind-0 ones on their hi, mid and lo copies.
 template <bool Q, bool BF = false, bool MM = false,
           class KA = QuantArgs<DEC_NS>>
 __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
                                          float* smem, const Src& zs,
                                          int zstep,
                                          const MmaW<DEC_NW>* m = nullptr) {
+  constexpr bool SP = has_split<KA>;
   float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
   float* const scr = smem + DEC_RING;                   // partial sums
@@ -1063,9 +1118,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF, false, MM>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
-                            a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
-                            kl, cq, false, mw(0));
+    tprod<Q, BF, false, MM, SP>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                                a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
+                                kl, cq, false, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1104,28 +1159,28 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         float4 acc[ET];
         zero(acc);
         if (Q) {
-          umac<Q, BF, MM>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
-                          hf ? kh : 0, hf ? gin : kh, kl);
+          umac<Q, BF, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                              hf ? kh : 0, hf ? gin : kh, kl);
           kputq<Q, MM>(acc, kl, r0, p, DEC_GS, gi, bx, true);
           if (hf) {
             zero(acc);
-            umac<Q, BF, MM>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
-                            DEC_G, c, 0, DEC_H, kl);
+            umac<Q, BF, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
+                                DEC_G, c, 0, DEC_H, kl);
             kputq<Q, MM>(acc, kl, r0, rz ? hz + c : p + DEC_H,
                          rz ? 2 * DEC_H : DEC_GS, gh, bh, true);
           }
           continue;
         }
-        umac<Q, BF, MM>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
-                        hf ? kh : 0, hf ? gin : kh, kl);
+        umac<Q, BF, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                            hf ? kh : 0, hf ? gin : kh, kl);
         if (rz && hf)
-          umac<Q, BF, MM>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
-                          c, 0, DEC_H, kl);
+          umac<Q, BF, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
+                              c, 0, DEC_H, kl);
         kput<MM>(acc, kl, r0, p, DEC_GS, bx, true);
         if (!rz && hf) {
           zero(acc);
-          umac<Q, BF, MM>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
-                          c, 0, DEC_H, kl);
+          umac<Q, BF, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
+                              c, 0, DEC_H, kl);
           kput<MM>(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
         }
       }
@@ -1157,9 +1212,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod<Q, BF, false, MM>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i),
-                              DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp, kl,
-                              cq, false, mw(j0 + 4));
+      tprod<Q, BF, false, MM, SP>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i),
+                                  DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp, kl,
+                                  cq, false, mw(j0 + 4));
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -1184,9 +1239,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        umac<Q, BF, MM>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
-                        mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c, kb,
-                        ke, kl);
+        umac<Q, BF, MM, SP>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
+                            mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c, kb,
+                            ke, kl);
         kputq<Q, MM>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
                      scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
       }
@@ -1203,10 +1258,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, false, MM>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2),
-                            sc(DEC_NS - 1), DEC_X, od, (od + 15) / 16, 2,
-                            w + off[DEC_NW - 1], scr, warp, kl, cq, false,
-                            mw(DEC_NW - 2));
+    tprod<Q, BF, false, MM, SP>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2),
+                                sc(DEC_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                                w + off[DEC_NW - 1], scr, warp, kl, cq, false,
+                                mw(DEC_NW - 2));
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -1233,11 +1288,12 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
   }
 }
 
-// The instances: <false> f32, <true> int8, <true, true> bf16 products on
-// weights of any kind (KindArgs: FMA loops, for f32 weights, whose products
-// but the GRU's are bf16 x f32), and the MM instance <true, true,
-// KindMmaArgs> bf16 products on weights of kinds 1, 2 and 3, every product
-// on the tensor cores (tmma) on the packed matrices qa.m.
+// The instances: <false> f32, <true> int8, and with bf16 products every
+// product on the tensor cores on the packed matrices qa.m: the MM instance
+// <true, true, KindMmaArgs> on weights of kinds 1, 2 and 3 (tmma), the split
+// instance <true, true, KindSplitArgs> on f32 weights (the GRU's matrices of
+// kind 3 through tmma, the others, kind 0, through tmma<true> on their hi,
+// mid and lo copies).
 template <bool Q, bool BF = false, class KA = QuantArgs<DEC_NS>>
 __global__ void __launch_bounds__(NT)
     dec_kernel(const DecArgs a, const __grid_constant__ KA qa) {
@@ -1521,7 +1577,7 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgsOf<BF> a) {
       if constexpr (BF)
         tmma(acc, S, row, r0, a.dft_m, row, c, 0, row, kl);
       else
-        tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);
+        tmac(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl);
       kput<BF>(acc, kl, r0, Y + c, yw, make_float4(0.f, 0.f, 0.f, 0.f), c < yw);
     }
   }
@@ -1586,14 +1642,14 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgsOf<BF> a) {
 // as the prefix), and the features of step k at columns ENC_FOFF.. of its
 // own slot, each in a pass that already sits between two barriers.  Q: the
 // int8 instance (ENC_SMEM_Q bytes of shared memory).  BF: bf16 products,
-// the kinds in qa (KindArgs; the instance <true, true>: FMA loops, for f32
-// weights, whose products but the GRU's are bf16 x f32).  The MM instance
-// <true, true, KindMmaArgs>: bf16 products on weights of kinds 1, 2 and 3,
-// every product on the tensor cores (tmma) on the packed matrices qa.m.
+// the kinds in qa, every product on the tensor cores on the packed matrices
+// qa.m: the MM instance <true, true, KindMmaArgs> on weights of kinds 1, 2
+// and 3 (tmma), the split instance <true, true, KindSplitArgs> on f32
+// weights (kind 3 through tmma, kind 0 through tmma<true> on hi, mid, lo).
 template <bool Q, bool BF = false, class KA = QuantArgs<ENC_NS>>
 __global__ void __launch_bounds__(NT)
     enc_kernel(const EncArgs a, const __grid_constant__ KA qa) {
-  constexpr bool MM = has_mma<KA>;
+  constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
   extern __shared__ float4 smem4[];
   float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
   float* const scr = xb + 3 * R * ENC_X;                // gates / partials
@@ -1646,8 +1702,8 @@ __global__ void __launch_bounds__(NT)
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        umac<Q, BF, MM>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0), q8(0),
-                        a.in_dim, ENC_H, c, kb, ke, kl);
+        umac<Q, BF, MM, SP>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0), q8(0),
+                            a.in_dim, ENC_H, c, kb, ke, kl);
       kputq<Q, MM>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
                    scl<Q, BF>(sc(0), c, ENC_H), zero4, true);
     }
@@ -1689,13 +1745,13 @@ __global__ void __launch_bounds__(NT)
         zero(acc);
         if (Q) {
           const bool rz = qg < 8;
-          umac<Q, BF, MM>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c, 0,
-                          gin, kl);
+          umac<Q, BF, MM, SP>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c, 0,
+                              gin, kl);
           kputq<Q, MM>(acc, kl, r0, scr + c, ENC_GS, gi,
                        rz ? add4(bi, bh) : bi, true);
           zero(acc);
-          umac<Q, BF, MM>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh, ENC_H,
-                          ENC_G, c, 0, ENC_H, kl);
+          umac<Q, BF, MM, SP>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh, ENC_H,
+                              ENC_G, c, 0, ENC_H, kl);
           kputq<Q, MM>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
                        rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
           continue;
@@ -1744,9 +1800,9 @@ __global__ void __launch_bounds__(NT)
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        umac<Q, BF, MM>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
-                        mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c, 0,
-                        cin, kl);
+        umac<Q, BF, MM, SP>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
+                            mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c, 0,
+                            cin, kl);
         kputq<Q, MM>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
                      scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
       }
@@ -1773,8 +1829,8 @@ __global__ void __launch_bounds__(NT)
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      umac<Q, BF, MM>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], mw(ENC_NW - 2),
-                      q8(ENC_NW - 2), ENC_X, od, c, kb, ke, kl);
+      umac<Q, BF, MM, SP>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], mw(ENC_NW - 2),
+                          q8(ENC_NW - 2), ENC_X, od, c, kb, ke, kl);
       kputq<Q, MM>(acc, kl, r0, scr + ch * R * od + c, od,
                    scl<Q, BF>(sc(ENC_NS - 1), c, od), zero4, c < od);
     }
@@ -1916,11 +1972,11 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
                 : launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
 }
 
-// radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args).
-// With no matrix of kind 0 (int8, bf16 or rounded matrices: every product
-// bf16 x bf16) the MM instance, on the matrices packed into wm at
-// moff[n_off] (16-byte words), refused without them; else (f32 weights) the
-// FMA instance, and wm and moff are not read.
+// radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args), on
+// the matrices packed into wm at moff[n_off] (16-byte words), refused without
+// them (there is no FMA instance): with no matrix of kind 0 (int8, bf16 or
+// rounded matrices: every product bf16 x bf16) the MM instance, else (f32
+// weights) the split instance, each kind-0 matrix packed as hi, mid, lo.
 int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
                                   const int* kinds, const int* soff,
                                   int n_soff, const void* z, void* feats,
@@ -1945,16 +2001,16 @@ int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
-  if ((k.i8 | k.bf | k.rw) == DEC_MATS) {
-    KindMmaArgs<DEC_NS, DEC_NW> km;
-    static_cast<KindArgs<DEC_NS>&>(km) = k;
-    if (!mma_args(wm, moff, n_off, DEC_MATS, km.m))
-      return (int)cudaErrorInvalidValue;
+  KindSplitArgs<DEC_NS, DEC_NW> km;
+  static_cast<KindArgs<DEC_NS>&>(km) = k;
+  if (!mma_args(wm, moff, n_off, DEC_MATS, km.m))
+    return (int)cudaErrorInvalidValue;
+  if ((k.i8 | k.bf | k.rw) == DEC_MATS)
     return launch(dec_kernel<true, true, KindMmaArgs<DEC_NS, DEC_NW>>,
-                  DEC_SMEM_Q, B, stream, a, km);
-  }
-  return launch(dec_kernel<true, true, KindArgs<DEC_NS>>, DEC_SMEM_Q, B,
-                stream, a, k);
+                  DEC_SMEM_Q, B, stream, a,
+                  static_cast<const KindMmaArgs<DEC_NS, DEC_NW>&>(km));
+  return launch(dec_kernel<true, true, KindSplitArgs<DEC_NS, DEC_NW>>,
+                DEC_SMEM_Q, B, stream, a, km);
 }
 
 int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
@@ -2170,8 +2226,8 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
                 : launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
 }
 
-// radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args), and
-// the MM instance as in radae_fused_decoder_bf16_step
+// radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args), the
+// MM or the split instance as in radae_fused_decoder_bf16_step
 int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
                                   const int* kinds, const int* soff,
                                   int n_soff, const void* f, void* z, int B,
@@ -2198,16 +2254,16 @@ int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
-  if ((k.i8 | k.bf | k.rw) == ENC_MATS) {
-    KindMmaArgs<ENC_NS, ENC_NW> km;
-    static_cast<KindArgs<ENC_NS>&>(km) = k;
-    if (!mma_args(wm, moff, n_off, ENC_MATS, km.m))
-      return (int)cudaErrorInvalidValue;
+  KindSplitArgs<ENC_NS, ENC_NW> km;
+  static_cast<KindArgs<ENC_NS>&>(km) = k;
+  if (!mma_args(wm, moff, n_off, ENC_MATS, km.m))
+    return (int)cudaErrorInvalidValue;
+  if ((k.i8 | k.bf | k.rw) == ENC_MATS)
     return launch(enc_kernel<true, true, KindMmaArgs<ENC_NS, ENC_NW>>,
-                  ENC_SMEM_Q, B, stream, a, km);
-  }
-  return launch(enc_kernel<true, true, KindArgs<ENC_NS>>, ENC_SMEM_Q, B,
-                stream, a, k);
+                  ENC_SMEM_Q, B, stream, a,
+                  static_cast<const KindMmaArgs<ENC_NS, ENC_NW>&>(km));
+  return launch(enc_kernel<true, true, KindSplitArgs<ENC_NS, ENC_NW>>,
+                ENC_SMEM_Q, B, stream, a, km);
 }
 
 // The tiling, for counting the weight bytes a launch fetches: batch rows a

@@ -32,9 +32,12 @@ compute_dtype=torch.bfloat16 (a keyword of every step) rounds the inputs of
 each product to bf16 as radae_tpu's kernels do (`_rounds`); the sums, the
 gates and the carried state stay f32.  Where every product is then bf16 x
 bf16 (both decoders and the encoder on bf16 or int8 weights, the frame
-kernel on any) the kernel multiplies on the tensor cores, on the weights
-packed by `mma_weights`: the launch packs them on its first use of a
-weight set and keeps them in the set (`PackedWeights.mma`).
+kernel on any), and for the unmerged decoder and the encoder on f32 weights
+too (a bf16 x f32 product as three bf16 products, on the weight's bf16
+high, middle and low parts), the kernel multiplies on the tensor cores, on
+the weights packed by `mma_weights`: the launch packs them on its first use
+of a weight set and keeps them in the set (`PackedWeights.mma`).  Only the
+chain-merged decoder on f32 weights still runs bf16 x f32 on FMA loops.
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
   decoder, merged:   5 GRU h (B, 96) + 5 projected hh rows h @ whh (B, 288)
@@ -471,25 +474,51 @@ def _mma_pack(w: np.ndarray) -> np.ndarray:
     return _bf16_bits(p.reshape(ncg, nks, 32, 8))
 
 
+def split_parts(w: torch.Tensor):
+    """(hi, mid, lo) of an f32 matrix, each bf16-valued (nearest even): hi =
+    bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid).  Each difference
+    is exact in f32, |w - hi - mid| <= 2^-17 |w|, and hi + mid + lo = w but
+    where w is tiny (bf16's 8-bit significands hold w's 24 bits in three)."""
+    w = w.float()
+    hi = _bf16(w)
+    mid = _bf16(w - hi)
+    return hi, mid, _bf16(w - hi - mid)
+
+
+def _mma_pack_split(w: np.ndarray) -> np.ndarray:
+    """A kind-0 (f32, bf16 x f32 product) matrix for the split route: its
+    `split_parts` hi, mid and lo, each packed as `_mma_pack` packs it, the
+    three of one 16-column group and K step one after another: shape
+    (ceil(out/16), ceil(K/16), 3, 32, 8), so a K step is 96 16-byte words,
+    mid 32 and lo 64 words after hi."""
+    parts = split_parts(torch.from_numpy(np.ascontiguousarray(w, np.float32)))
+    return np.stack([_mma_pack(p.numpy()) for p in parts], axis=2)
+
+
 class MmaWeights(NamedTuple):
     """`mma_weights`: the matrices a launch multiplies on the tensor cores,
-    each as `_mma_pack` lays it out, one after another in one buffer."""
+    each as `_mma_pack` lays it out (a kind-0 matrix as `_mma_pack_split`:
+    its hi, mid and lo copies), one after another in one buffer."""
     buf: torch.Tensor               # (8 n,) bfloat16
     offsets: Tuple[int, ...]        # per array of the weight set: its start
                                     # in buf in 16-byte words, -1 if none
     kinds: Tuple[int, ...]          # per array: its kind in the launch
-                                    # (`_kinds`)
+                                    # (`_kinds`); a packed matrix of kind 0
+                                    # is split (hi, mid and lo)
 
 
 def _mma_kinds(weights):
     """The kinds (`_kinds`) of a launch with bf16 products of a decoder's
     (either layout), the encoder's (PackedWeights) or the frame kernel's
     (RxFrameWeights) weights, and the arrays whose products run on the
-    tensor cores: every matrix, when each is of kind 1, 2 or 3 (int8, bf16,
-    f32 rounded at the product), none when one is of kind 0 (f32 weights:
-    bf16 x f32 products, which the FMA instances run); in the frame set,
-    whose kernel rounds every matrix, the decoder's and dft_w (Wr..Ei are
-    not the kernel's; ls_w stays a row product)."""
+    tensor cores.  The unmerged decoder and the encoder: every matrix, those
+    of kind 0 (f32 weights: bf16 x f32 products) split into hi, mid and lo
+    (`_mma_pack_split`), the others (int8, bf16, f32 rounded at the product:
+    kinds 1, 2, 3) packed once.  The chain-merged decoder (either layout):
+    every matrix when each is of kind 1, 2 or 3, none when one is of kind 0
+    (its f32 weights run on the FMA instance).  The frame set, whose kernel
+    rounds every matrix: the decoder's and dft_w (Wr..Ei are not the
+    kernel's; ls_w stays a row product)."""
     if isinstance(weights, RxFrameWeights):
         w = weights.w
         kinds = _kinds(w, _rounds(w, torch.bfloat16, "all"))
@@ -501,22 +530,24 @@ def _mma_kinds(weights):
     kinds = _kinds(weights, _rounds(weights, torch.bfloat16,
                                     "none" if layout else "gru"))
     mats = [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
-    return kinds, mats if all(kinds[j] for j in mats) else []
+    return kinds, mats if not layout or all(kinds[j] for j in mats) else []
 
 
 def mma_weights(weights) -> MmaWeights:
-    """The weights that the tensor-core (MM) instances read, built on the
-    host: for either decoder layout (`decoder_weights`), the encoder
+    """The weights that the tensor-core (MM and split) instances read, built
+    on the host: for either decoder layout (`decoder_weights`), the encoder
     (`encoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
     products, each matrix that `_mma_kinds` names copied into bf16 (int8
-    exactly, its scale row staying on the output; f32 rounded to nearest
-    even, as `_bf16`) in `_mma_pack`'s order, on the weights' device.  A
+    exactly, its scale row staying on the output; f32 rounded at the
+    product, kind 3, to nearest even, as `_bf16`) in `_mma_pack`'s order,
+    and each of kind 0 (f32, bf16 x f32) as its hi, mid and lo copies
+    (`_mma_pack_split`, six bytes a weight), on the weights' device.  A
     "pad" matrix packs to its merged matrix (the zero rows between the
     SEG-row segments dropped).  The int8 matrices are widened to bf16 here,
     two bytes a weight where the int8 instances read one.  On f32 weights
-    the decoders' and the encoder's products are bf16 x f32 (kind 0; the
-    unmerged decoder's and the encoder's GRU products rounded, kind 3) and
-    nothing is packed."""
+    the unmerged decoder's and the encoder's GRU matrices are of kind 3 and
+    the rest of kind 0; the chain-merged decoder's f32 sets (every matrix of
+    kind 0) pack nothing."""
     kinds, packed = _mma_kinds(weights)
     arrays = (weights.w if isinstance(weights, RxFrameWeights)
               else weights).arrays
@@ -530,7 +561,8 @@ def mma_weights(weights) -> MmaWeights:
         if pad and _x_operand_segs(j):
             a = np.concatenate([a[SEG * k:SEG * k + wd] for k, wd in
                                 enumerate(_x_operand_segs(j))])
-        parts.append(_mma_pack(a).ravel())
+        pack = _mma_pack_split if kinds[j] == 0 else _mma_pack
+        parts.append(pack(a).ravel())
         offsets[j] = n
         n += parts[-1].size // 8
     bits = np.concatenate(parts) if parts else np.zeros(0, np.uint16)
@@ -848,7 +880,8 @@ def _check_pad(weights: PackedWeights):
 def _mma_args(weights, kinds):
     """The (packed buffer, its offsets) arguments of a launch with bf16
     products of a decoder or the encoder (PackedWeights; null and all -1 on
-    f32 weights, which pack nothing) or of the frame kernel
+    the chain-merged decoder's f32 weights, which pack nothing) or of the
+    frame kernel
     (RxFrameWeights): `mma_weights(weights)`, kept in the weight set's
     `mma` under a stamp of what it copies (the buffer, its version counter,
     which every write to it or to a view of it bumps, the arrays' offsets
@@ -877,9 +910,12 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     products.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
     radae_fused_decoder_merged_step or, padded or with bf16 products,
-    radae_fused_decoder_merged_x_step).  With bf16 products on int8 or bf16
-    weights either layout runs every product on the tensor cores, on the
-    weights packed on first use (`_mma_args`); on f32 weights, FMA loops."""
+    radae_fused_decoder_merged_x_step).  With bf16 products every product
+    runs on the tensor cores, on the weights packed on first use
+    (`_mma_args`): either layout on int8 or bf16 weights, and the unmerged
+    one on f32 weights too (each bf16 x f32 product as three bf16 products,
+    on the weight's hi, mid and lo copies: `split_parts`); the chain-merged
+    and padded layouts on f32 weights run FMA loops."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":
@@ -1039,9 +1075,10 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
     """Encoder stack: feats (B, 4*nz, F) -> (z (B, nz, latent), new_state).
     The weights' kind and compute_dtype pick the instance: f32 or int8
     matrices with f32 products (radae_fused_encoder_step), or f32, bf16 or
-    int8 ones with bf16 products (radae_fused_encoder_bf16_step: on bf16
-    or int8 weights every product on the tensor cores, on the weights
-    packed on first use, `_mma_args`; on f32 weights FMA loops).  CPU
+    int8 ones with bf16 products (radae_fused_encoder_bf16_step: every
+    product on the tensor cores, on the weights packed on first use,
+    `_mma_args`; on f32 weights each bf16 x f32 product as three bf16
+    products, on the weight's hi, mid and lo copies: `split_parts`).  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     _check_compute(compute_dtype)
     if feats.device.type == "cpu":

@@ -9,8 +9,13 @@ tests hold the packing and its index arithmetic:
     multiplies by: the int8 values q, the bf16 values w, and `_bf16(w)` for
     f32 matrices rounded at the product (the frame kernel's, and those an
     int8 set's quant_exclude keeps in f32), for the merged and the unmerged
-    decoder and the encoder at latent 80 and 40; f32 sets of the decoders
-    and the encoder pack nothing;
+    decoder and the encoder at latent 80 and 40; f32 sets of the chain-merged
+    decoder (either layout) pack nothing;
+  * f32 sets of the unmerged decoder and the encoder pack every matrix: the
+    GRU's (rounded at the product) as `_bf16(w)`, the rest (bf16 x f32
+    products) split into hi = `_bf16(w)`, mid = `_bf16(w - hi)` and lo =
+    `_bf16(w - hi - mid)`, three copies a K step, with |w - hi - mid| <=
+    2^-17 |w| and hi + mid + lo = w;
   * a merged="pad" set packs to the same bytes as its merged set;
   * a plain torch walk over the packed fragments, with the lane, K
     permutation and column order that `tmma` in csrc/fused_core.cu uses,
@@ -19,7 +24,9 @@ tests hold the packing and its index arithmetic:
     K, which the kernel must zero rather than multiply by a zero row), an
     `out` of 84 (zero columns to 96) and a K range that starts inside K,
     and on the encoder's own packed matrices: its 84-wide dense_1 (a K
-    tail) and its 40-column z_dense at latent 40 (a column tail);
+    tail) and its 40-column z_dense at latent 40 (a column tail), and the
+    split route's walk over hi, mid and lo in the kernel's sum order on
+    the same two matrices of an f32 set, against `_bf16(x) @ w`;
   * a launch packs the weight set it is given on first use and keeps the
     copy in that set, and packs anew after a write to the set's buffer.
 """
@@ -63,12 +70,20 @@ def _unmerged_set(trees, side, kind, latent):
             else fc.encoder_weights(tree["encoder"], "cpu", **kw))
 
 
-def _unpack(buf, off, K, out):
-    """The (K, out) f32 values of a packed matrix: the inverse of
-    `_mma_pack`, read lane by lane as the kernel reads its B fragments."""
+def _blocks(buf, off, K, out, parts=1, part=0):
+    """The (ceil(out/16), ceil(K/16), 32, 8) words of one copy of a packed
+    matrix: the only one, or part `part` of a split one's `parts`."""
     nks, ncg = -(-K // 16), -(-out // 16)
-    blk = buf[8 * off:8 * off + ncg * nks * 256].float().reshape(
-        ncg, nks, 32, 8)
+    return buf[8 * off:8 * off + ncg * nks * 256 * parts].float().reshape(
+        ncg, nks, parts, 32, 8)[:, :, part]
+
+
+def _unpack(buf, off, K, out, parts=1, part=0):
+    """The (K, out) f32 values of a packed matrix (of part `part` of a
+    split one): the inverse of `_mma_pack`, read lane by lane as the kernel
+    reads its B fragments."""
+    nks, ncg = -(-K // 16), -(-out // 16)
+    blk = _blocks(buf, off, K, out, parts, part)
     w = torch.zeros((16 * nks, 16 * ncg))
     for lane in range(32):
         g, t = lane >> 2, lane & 3
@@ -79,23 +94,26 @@ def _unpack(buf, off, K, out):
     return w[:K, :out]
 
 
-def _tmma_walk(x, buf, off, K, out, k0, k1):
+def _tmma_walk(x, buf, off, K, out, k0, k1, parts=1):
     """Y[:, :] = x[:, k0:k1] @ W[k0:k1] for 16 rows of x, as tmma computes
     it: per 16-column group and K step, each lane's A registers (two float4
     of x rounded to bf16, zero at k >= k1) and B registers (16 bytes of the
     packed matrix) assembled into the m16n8k16 fragments of the PTX ISA,
     the two n8 tiles' products, and the lane's sums (rows g, g + 8,
-    columns 4t..4t+3) written where the kernel's epilogue puts them."""
+    columns 4t..4t+3) written where the kernel's epilogue puts them.
+    parts=3: a split matrix, whose step products on lo, mid and hi (B
+    registers of each copy) are summed in that order (exactly here; the
+    tensor cores truncate the step sum once) and the step sum added to the
+    lane's f32 sums."""
     nks, ncg = -(-K // 16), -(-out // 16)
-    blk = buf[8 * off:8 * off + ncg * nks * 256].float().reshape(
-        ncg, nks, 32, 8)
+    blks = [_blocks(buf, off, K, out, parts, p) for p in range(parts)]
     xb = fc._bf16(x)
     y = torch.zeros((16, 16 * ncg))
     for cg in range(ncg):
         acc = torch.zeros((32, 2, 4))            # lane, row g / g+8, column
         for k in range(k0, k1, 16):
             A = torch.zeros((16, 16))             # fragment row, fragment k
-            Bn = torch.zeros((2, 16, 8))          # tile, fragment k, column
+            Bn = torch.zeros((parts, 2, 16, 8))   # copy, tile, fragment k, column
             for lane in range(32):
                 g, t = lane >> 2, lane & 3
                 kk = k + 4 * t
@@ -106,11 +124,15 @@ def _tmma_walk(x, buf, off, K, out, k0, k1):
                 A[g, 2 * t:2 * t + 2], A[g + 8, 2 * t:2 * t + 2] = xa[:2], xc[:2]
                 A[g, 2 * t + 8:2 * t + 10] = xa[2:]
                 A[g + 8, 2 * t + 8:2 * t + 10] = xc[2:]
-                b = blk[cg, k // 16, lane]
-                for n in range(2):               # b0, b1 of tile n: column g
-                    Bn[n, 2 * t:2 * t + 2, g] = b[4 * n:4 * n + 2]
-                    Bn[n, 2 * t + 8:2 * t + 10, g] = b[4 * n + 2:4 * n + 4]
-            D = torch.stack([A @ Bn[0], A @ Bn[1]])   # (tile, 16, 8)
+                for p, blk in enumerate(blks):
+                    b = blk[cg, k // 16, lane]
+                    for n in range(2):           # b0, b1 of tile n: column g
+                        Bn[p, n, 2 * t:2 * t + 2, g] = b[4 * n:4 * n + 2]
+                        Bn[p, n, 2 * t + 8:2 * t + 10, g] = b[4 * n + 2:4 * n + 4]
+            # the copies' step products, lo first (the last copy), in f64
+            D = sum(torch.stack([A.double() @ Bn[p, 0].double(),
+                                 A.double() @ Bn[p, 1].double()])
+                    for p in reversed(range(parts))).float()   # (tile, 16, 8)
             for lane in range(32):
                 g, t = lane >> 2, lane & 3
                 for h in range(2):               # c0, c1 of rows g, g + 8
@@ -292,33 +314,114 @@ def test_launch_packs_its_weight_set(dec_tree, monkeypatch):
 
 
 def test_what_gets_packed(dec_tree, trees):
-    """f32 weights of either decoder layout and of the encoder: bf16 x f32
-    products (kind 0; the unmerged decoder's and the encoder's GRU matrices
-    rounded, kind 3), which the FMA instances run: nothing packed and no
-    buffer passed.  A set of no kernel's layout raises."""
-    for wf, rule in ((fc.decoder_weights(dec_tree, "cpu", merged=True), "none"),
-                     (fc.decoder_weights(dec_tree, "cpu"), "gru"),
-                     (fc.encoder_weights(trees[80]["encoder"], "cpu"), "gru")):
-        kinds = fc._kinds(wf, fc._rounds(wf, BF, rule))
-        assert set(kinds) == ({0} if rule == "none" else {0, 3})
+    """f32 weights: bf16 x f32 products (kind 0; the unmerged decoder's and
+    the encoder's GRU matrices rounded, kind 3).  The chain-merged decoder's
+    sets, merged and padded, which its FMA instance runs: nothing packed and
+    no buffer passed.  The unmerged decoder's and the encoder's, which their
+    split instances run: every matrix packed, the kind-0 ones as three
+    copies (ceil(K/16) ceil(out/16) 16x16 tiles each), the kind-3 ones as
+    one, and the buffer passed.  A set of no kernel's layout raises."""
+    for wf in (fc.decoder_weights(dec_tree, "cpu", merged=True),
+               fc.decoder_weights(dec_tree, "cpu", merged="pad")):
+        kinds = fc._kinds(wf, fc._rounds(wf, BF, "none"))
+        assert set(kinds) == {0}
         mf = fc.mma_weights(wf)
         assert mf.buf.numel() == 0 and set(mf.offsets) == {-1}
         buf, offs = fc._mma_args(wf, kinds)
         assert buf is None and set(offs) == {-1}
+    for wf in (fc.decoder_weights(dec_tree, "cpu"),
+               fc.encoder_weights(trees[80]["encoder"], "cpu")):
+        kinds = fc._kinds(wf, fc._rounds(wf, BF, "gru"))
+        assert set(kinds) == {0, 3}
+        mats = [j for j, a in enumerate(wf.arrays) if a.dim() == 2]
+        assert {kinds[j] for j in mats} == {0, 3}
+        assert all((kinds[j] == 3) == wf.names[j].endswith(("_wih", "_whh"))
+                   for j in mats)
+        mf = fc.mma_weights(wf)
+        assert [j for j, o in enumerate(mf.offsets) if o >= 0] == mats
+        assert mf.buf.numel() // 8 == sum(
+            (3 if kinds[j] == 0 else 1) * 32 * -(-wf.arrays[j].shape[0] // 16)
+            * -(-wf.arrays[j].shape[1] // 16) for j in mats)
+        buf, offs = fc._mma_args(wf, kinds)
+        assert buf == fc._mma_args(wf, kinds)[0] and list(offs) == list(
+            mf.offsets)
     wd = fc.decoder_weights(dec_tree, "cpu", dtype=BF)
     with pytest.raises(ValueError, match="no decoder, encoder or frame"):
         fc.mma_weights(wd._replace(arrays=wd.arrays[:-1], names=wd.names[:-1]))
 
 
+@pytest.mark.parametrize("kind", ["int8", "f32"])
 @pytest.mark.parametrize("side", ["dec", "enc"])
-def test_launch_packs_unmerged_and_encoder(trees, side):
+def test_launch_packs_unmerged_and_encoder(trees, side, kind):
     """A launch with bf16 products of the unmerged decoder or the encoder
-    on int8 weights packs the set on first use, keeps the copy and passes
-    its offsets (one per array, every matrix packed)."""
-    w = _unmerged_set(trees, side, "int8", 80)
+    on int8 or f32 weights packs the set on first use, keeps the copy and
+    passes its offsets (one per array, every matrix packed)."""
+    w = _unmerged_set(trees, side, kind, 80)
     kinds = fc._kinds(w, fc._rounds(w, BF, "gru"))
     a, b = fc._mma_args(w, kinds), fc._mma_args(w, kinds)
     m = _kept(w)
     assert a[0] == b[0] == m.buf.data_ptr()
     assert list(a[1]) == list(m.offsets) == list(fc.mma_weights(w).offsets)
     assert sum(o >= 0 for o in m.offsets) == (27 if side == "dec" else 22)
+
+
+@pytest.mark.parametrize("latent", [80, 40])
+@pytest.mark.parametrize("side", ["dec", "enc"])
+def test_pack_round_trip_split(trees, side, latent):
+    """f32 sets of the unmerged decoder and the encoder: each kind-0 matrix
+    unpacks to hi = _bf16(w), mid = _bf16(w - hi), lo = _bf16(w - hi - mid)
+    exactly, with |w - hi - mid| <= 2^-17 |w| and hi + mid + lo = w (both
+    with 1e-30 for w near bf16's smallest normal), and each kind-3 (GRU)
+    matrix to _bf16(w)."""
+    ws = _unmerged_set(trees, side, "f32", latent)
+    m = fc.mma_weights(ws)
+    n_split = 0
+    for j, a in enumerate(ws.arrays):
+        if a.dim() != 2:
+            assert m.offsets[j] == -1
+            continue
+        if m.kinds[j] == 3:
+            assert torch.equal(_unpack(m.buf, m.offsets[j], *a.shape),
+                               fc._bf16(a)), ws.names[j]
+            continue
+        assert m.kinds[j] == 0
+        n_split += 1
+        hi, mid, lo = (_unpack(m.buf, m.offsets[j], *a.shape, 3, p)
+                       for p in range(3))
+        assert torch.equal(hi, fc._bf16(a)), ws.names[j]
+        assert torch.equal(mid, fc._bf16(a - hi)), ws.names[j]
+        assert torch.equal(lo, fc._bf16(a - hi - mid)), ws.names[j]
+        w64 = a.double()
+        assert ((w64 - hi.double() - mid.double()).abs()
+                <= 2.0 ** -17 * w64.abs() + 1e-30).all(), ws.names[j]
+        assert ((w64 - hi.double() - mid.double() - lo.double()).abs()
+                <= 2.0 ** -24 * w64.abs() + 1e-30).all(), ws.names[j]
+    # d1, the glu, the conv taps and out_w; the encoder's d1, taps, z_dense
+    assert n_split == (2 + 5 * 3 if side == "dec" else 2 + 5 * 2)
+
+
+@pytest.mark.parametrize("what, latent, k0, k1", [
+    ("d1", 80, 0, 32), ("d1", 80, 64, 84), ("z_dense", 40, 448, 864)],
+    ids=["d1-chunk0", "d1-tail", "z40-columns"])
+def test_fragment_walk_split(trees, what, latent, k0, k1):
+    """The walk over the encoder's own split matrices (f32 weights): hi,
+    mid and lo's fragments, each step's products summed lo first and the
+    step added in f32, give _bf16(x) @ W over the kernel's K chunks with
+    W the f32 matrix (rtol 1e-5; atol 1e-6 for sums that cancel to near
+    zero), on dense_1's K tail (NaN in x past K) and the latent-40
+    z_dense's 40 columns."""
+    ws = _unmerged_set(trees, "enc", "f32", latent)
+    m = fc.mma_weights(ws)
+    j = 0 if what == "d1" else len(ws.arrays) - 2
+    K, out = ws.arrays[j].shape
+    assert (K, out) == ((84, 64) if what == "d1" else (864, 40))
+    assert m.kinds[j] == 0
+    rng = np.random.default_rng(K + k0 + 1)
+    x = rng.standard_normal((16, 16 * -(-K // 16) + 8)).astype(np.float32)
+    x[:, k1:] = np.nan
+    got = _tmma_walk(torch.from_numpy(x), m.buf, m.offsets[j], K, out, k0,
+                     k1, parts=3)
+    want = (fc._bf16(torch.from_numpy(x[:, k0:k1])).double()
+            @ ws.arrays[j].double()[k0:k1]).float()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -50,11 +50,14 @@ weights of that kind (f32, bf16 or int8; --pad: the merged decoder's padded
 layout), held against the plain version under chip_smoke.py's BF16_*
 limits.  Those of the encoder and both decoders on bf16 or int8 weights
 and the frame kernel's run on the tensor cores, on the weights the wrapper
-packs at its first launch (`mma_weights`); a --src library whose entries
-predate them (all four, or the encoder's and the unmerged decoder's) is
-called through `NoMmaEntries` and runs those forms on its FMA loops.  For
-each --src library it also prints, instance by instance of every kernel,
-whether its SASS equals the committed build's.
+packs at its first launch (`mma_weights`), and so do the encoder's and the
+unmerged decoder's on f32 weights (their split instances: the kind-0
+matrices as hi, mid and lo copies); a --src library whose entries predate
+them (all four, or the encoder's and the unmerged decoder's) is called
+through `NoMmaEntries` and runs those forms on its FMA loops, and one
+without the split instances runs the f32-weight forms on its FMA loops.
+For each --src library it also prints, instance by instance of every
+kernel, whether its SASS equals the committed build's.
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
 ALL = tuple(KERNELS)
 CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 NO_MMA = set()       # the libraries that run the kernel's form on FMA loops
+SPLIT_KERNELS = ("enc", "dec")   # those with a split instance (f32 weights)
 # --kernel -> its entry with bf16 products, which takes the packed weights
 MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
              "dec": "radae_fused_decoder_bf16_step",
@@ -212,7 +216,7 @@ FORMS = {
         ("  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n",
          "  if (d == 0xffffffffu) asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(d),\n")]),
     "nodft": (("frame",), False, [        # no DFT product loop
-        ("        tmac<float, BF>(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl, BF);\n",
+        ("        tmac(acc, S, row, r0, a.dft_w, yw, c, 0, row, kl);\n",
          "        ;\n")]),
     "nols": (("frame",), False, [         # no LS products
         ("  rowprod<BF>(p0, a.ls_w,", "  if (a.d.B < 0) rowprod<BF>(p0, a.ls_w,"),
@@ -264,18 +268,39 @@ FORMS = {
     # a K range's sums accumulated inside the tensor cores (the same
     # products, other bits)
     "mmanofadd": (MMA_KERNELS, True, [
+        ("  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;\n",
+         "  float4 &e0 = d0, &e1 = d1;\n"),
+        ("  d0 = add4(d0, e0);\n  d1 = add4(d1, e1);\n", "")]),
+    # the split route (--bf16 f32, enc and dec): a step's hi products summed
+    # from zero first, then mid's and lo's onto them in the tensor cores
+    # (the committed order is lo, mid, hi)
+    "splithifirst": (SPLIT_KERNELS, True, [
         ("""  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
+  if constexpr (SPLIT) {
+    mma16816(e0, a0, a1, a2, a3, l.x, l.y);
+    mma16816(e1, a0, a1, a2, a3, l.z, l.w);
+    mma16816(e0, a0, a1, a2, a3, m.x, m.y);
+    mma16816(e1, a0, a1, a2, a3, m.z, m.w);
+  }
+  mma16816(e0, a0, a1, a2, a3, b.x, b.y);
+  mma16816(e1, a0, a1, a2, a3, b.z, b.w);""", """  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
   mma16816(e0, a0, a1, a2, a3, b.x, b.y);
   mma16816(e1, a0, a1, a2, a3, b.z, b.w);
-  d0 = add4(d0, e0);
-  d1 = add4(d1, e1);""", """  mma16816(d0, a0, a1, a2, a3, b.x, b.y);
-  mma16816(d1, a0, a1, a2, a3, b.z, b.w);""")]),
+  if constexpr (SPLIT) {
+    mma16816(e0, a0, a1, a2, a3, m.x, m.y);
+    mma16816(e1, a0, a1, a2, a3, m.z, m.w);
+    mma16816(e0, a0, a1, a2, a3, l.x, l.y);
+    mma16816(e1, a0, a1, a2, a3, l.z, l.w);
+  }""")]),
+    # the split route with B two K-step pairs ahead, not one
+    "splitpairs2": (SPLIT_KERNELS, True, [
+        ("constexpr int MMA_SPLIT_PAIRS = 1;", "constexpr int MMA_SPLIT_PAIRS = 2;")]),
     "mmanoxload": (MMA_KERNELS, False, [   # A from registers
         ("""    const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
     const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;""",
          """    const float4 pa = make_float4(ka, t, va, vb), pb = pa, qa = pa, qb = pa;""")]),
     "mmawfixed": (MMA_KERNELS, False, [    # every pair reloads the first
-        ("    wp += 64;\n    const int ka", "    const int ka")]),   # pairs' B
+        ("    wp += 2 * WS;\n    const int ka", "    const int ka")]),   # pairs' B
     "mmanoproducts": (MMA_KERNELS, False, [  # no tmma loops
         ("  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n",
          "  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n"
@@ -366,14 +391,19 @@ def instance(name, kname, quant=None, bf16=None):
     (Q) false, or true with quant; any for the frame kernel (FIX).  With
     bf16 (the weights' kind): the instance with bf16 products (its second
     bool, BF), for the encoder and both decoders the tensor-core one
-    (KindMmaArgs) unless the weights are f32."""
+    (KindMmaArgs) unless the weights are f32, and then for the encoder and
+    the unmerged decoder the split one (KindSplitArgs), for the merged
+    decoder its FMA one (KindArgs)."""
     m = re.search(kname + r"I((?:Lb[01]E)+)", name)
     if not m:
         return False
     flags = re.findall(r"Lb([01])E", m.group(1))
     if bf16:
+        args = ("KindSplitArgs" if bf16 == "f32" and kname != "dec_merged_kernel"
+                else "KindMmaArgs" if bf16 != "f32" else "KindArgs")
+        ka = re.search(r"(KindSplitArgs|KindMmaArgs|KindArgs)ILi", name)
         return flags[1] == "1" and (kname == "rx_frame_kernel" or (
-            "KindMmaArgs" in name) == (bf16 != "f32"))
+            ka is not None and ka.group(1) == args))
     return (not any(f == "1" for f in flags[1:])
             and (kname == "rx_frame_kernel" or (flags[0] == "1") == bool(quant)))
 
@@ -384,7 +414,7 @@ def instance_key(name):
     m = re.search(r"([a-z][a-z_]*_kernel)I((?:Lb[01]E)+)", name)
     if not m:
         return None
-    ka = re.search(r"(QuantArgs|KindMmaArgs|KindArgs)ILi", name)
+    ka = re.search(r"(QuantArgs|KindSplitArgs|KindMmaArgs|KindArgs)ILi", name)
     return (m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E", m.group(2)))
             + (", " + ka.group(1) if ka else "") + ">")
 
@@ -550,6 +580,9 @@ def main(argv=None) -> int:
             lib = NoMmaEntries(lib, _kernels._SIGNATURES["fused_core"], no_mma)
             if MMA_ENTRY[kernel] in no_mma:
                 NO_MMA.add(v)
+        if (args.bf16 == "f32" and kernel in SPLIT_KERNELS
+                and "KindSplitArgs" not in src_text):
+            NO_MMA.add(v)      # its entry runs f32 weights on FMA loops
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
