@@ -25,15 +25,16 @@ EQ, coarse magnitude):
      at 1e-4, the bf16-product ones within 2e-3 but for at most 1e-3 of a
      run's elements (bf16 input flips), each tensor's max and mean error
      within BF16_MAX and BF16_MEAN of its scale (readings in PERF.md).
-     Twelve of them multiply on the tensor cores (MMA_FORMS: the
-     unmerged, the merged and the padded decoder and the encoder on bf16
-     and int8 weights, the unmerged decoder and the encoder on f32 weights
-     (each bf16 x f32 product as three bf16 products, on the weight's hi,
-     mid and lo parts), the frame kernel on f32 and bf16 weights, on the
-     weights packed by fc.mma_weights at a set's first such launch), and
-     the timing phase fails unless exactly those ran on the tensor cores;
-     the frame kernel's two and the unmerged decoder's and the encoder's
-     six are also held at latent 40 (B=2048 and 37, and to the same bits);
+     All fourteen bf16-product forms multiply on the tensor cores
+     (MMA_FORMS: every decoder layout and the encoder on bf16 and int8
+     weights and on f32 weights, where each bf16 x f32 product runs as
+     three bf16 products, on the weight's hi, mid and lo parts, and the
+     frame kernel on f32 and bf16 weights, on the weights packed by
+     fc.mma_weights at a set's first such launch), and the timing phase
+     fails unless exactly those ran on the tensor cores; the frame
+     kernel's two, the unmerged decoder's and the encoder's six and the
+     merged and padded decoder's two on f32 weights are also held at
+     latent 40 (B=2048 and 37, and to the same bits);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -161,11 +162,13 @@ FORMS = ("fused_decoder_step", "fused_decoder_merged_step",
          "fused_decoder_merged_step_pad_bf16w_bf16",
          "fused_decoder_merged_step_pad_int8_bf16")
 # the forms whose products run on the tensor cores (tmma): every bf16-
-# product form but those of the chain-merged decoder on f32 weights (bf16 x
-# f32 products, FMA loops); the unmerged decoder and the encoder on f32
-# weights run each bf16 x f32 product as SPLIT_PARTS bf16 products (their
-# split instances, on the weight's hi, mid and lo parts: fc.split_parts)
+# product form; on f32 weights each bf16 x f32 product runs as SPLIT_PARTS
+# bf16 products (the split instances of both decoders, either layout of the
+# chain-merged one, and of the encoder, on the weight's hi, mid and lo
+# parts: fc.split_parts)
 MMA_FORMS = ("fused_decoder_step_bf16", "fused_encoder_step_bf16",
+             "fused_decoder_merged_step_bf16",
+             "fused_decoder_merged_step_pad_bf16",
              "fused_decoder_step_bf16w_bf16", "fused_decoder_step_int8_bf16",
              "fused_decoder_merged_step_bf16w_bf16",
              "fused_decoder_merged_step_int8_bf16",
@@ -744,9 +747,10 @@ def main(argv=None) -> int:
                     held(name, f"{batch} latent 40", f"call {frame}",
                          (ok_,) + sk, (op,) + sp)
         # the unmerged decoder's and the encoder's tensor-core instances at
-        # latent 40 (own seed), the split ones on f32 weights too: dense_1's
-        # K = 40 ends inside a 16-wide K step, the encoder's z_dense has 40
-        # columns (48 packed)
+        # latent 40 (own seed), the split ones on f32 weights too, and the
+        # merged decoder's split instance in both layouts: dense_1's K = 40
+        # ends inside a 16-wide K step, the encoder's z_dense has 40 columns
+        # (48 packed)
         lrng = np.random.default_rng(7)
         l40 = {"fused_decoder_step_bf16": fc.decoder_weights(
                    tree40["decoder"], dev),
@@ -759,7 +763,11 @@ def main(argv=None) -> int:
                "fused_encoder_step_bf16w_bf16": fc.encoder_weights(
                    tree40["encoder"], dev, dtype=bf),
                "fused_encoder_step_int8_bf16": fc.encoder_weights(
-                   tree40["encoder"], dev, quant="int8")}
+                   tree40["encoder"], dev, quant="int8"),
+               "fused_decoder_merged_step_bf16": fc.decoder_weights(
+                   tree40["decoder"], dev, merged=True),
+               "fused_decoder_merged_step_pad_bf16": fc.decoder_weights(
+                   tree40["decoder"], dev, merged="pad")}
         for name, w in l40.items():
             kern, plain, zero_state, draw = kernel_form(name, lrng, cfg40.latent_dim)
             for batch in (B, RAGGED_B):
@@ -860,8 +868,9 @@ def main(argv=None) -> int:
             + f"; largest max err {r[0]:.3g} and mean {r[1]:.3g} of the scale")
     print(f"refused without a launch: {refused}")
     print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
-          f"and B={RAGGED_B} (the frame kernel's bf16 forms, and the unmerged "
-          "decoder's and the encoder's tensor-core forms, also at latent 40)")
+          f"and B={RAGGED_B} (the frame kernel's bf16 forms, the unmerged "
+          "decoder's and the encoder's tensor-core forms and the merged "
+          "decoder's split forms also at latent 40)")
 
     # -- the serving path on the fixture: the rx paths ----------------------
     # path -> (step, weights, zero state, the forms it launches, encoder

@@ -139,9 +139,7 @@
 // which).  The BF instances of the decoders and the encoder take the int8
 // instance's form (the GRU's h products in partials of their own, scales
 // on the outputs; none without scale rows); the frame's takes the f32
-// form.  Only the merged decoder's BF instance on f32 weights (every matrix
-// of kind 0) is still an f32 FMA loop on rounded x (tmac); every other BF
-// instance runs on the tensor cores.
+// form.  Every BF instance runs its products on the tensor cores.
 //
 // The tensor cores (MM instances).  Where every product is bf16 x bf16 --
 // the BF instances of dec_kernel, enc_kernel and the merged decoder on
@@ -150,11 +148,12 @@
 // spent their time on the roundings and the FMAs, 24-55 times the bound
 // that the same work has on the tensor cores (the bytes: each stack is
 // about 0.9M weights a z-step).  On f32 weights the unmerged decoder and the
-// encoder (GRU matrices kind 3, the rest kind 0) have a split instance
-// (KindSplitArgs): a kind-0 matrix w is packed three times, hi = bf16(w),
-// mid = bf16(w - hi) and lo = bf16(w - hi - mid) (each difference exact in
-// f32, and hi + mid + lo = w but where w is tiny), and x hi + x mid + x lo,
-// three MMAs on the same A fragment, is the bf16 x f32 product (tmma<true>).
+// encoder (GRU matrices kind 3, the rest kind 0) and the chain-merged
+// decoder (every matrix kind 0) have a split instance (KindSplitArgs): a
+// kind-0 matrix w is packed three times, hi = bf16(w), mid = bf16(w - hi)
+// and lo = bf16(w - hi - mid) (each difference exact in f32, and hi + mid +
+// lo = w but where w is tiny), and x hi + x mid + x lo, three MMAs on the
+// same A fragment, is the bf16 x f32 product (tmma<true>).
 // Two parts are not enough: |w - hi - mid| reaches 2^-17 |w|, and on the
 // fixture weights that took the encoder's bf16 input flips against the plain
 // version to 12-14 times those of an exact product, past chip_smoke.py's
@@ -497,8 +496,8 @@ __device__ __forceinline__ float4 ldq4(const signed char* p) {
   const char4 q = __ldg(reinterpret_cast<const char4*>(p));
   return make_float4(q.x, q.y, q.z, q.w);
 }
-// v rounded to bf16 (nearest even) and back: a product input of the BF
-// instances
+// v rounded to bf16 (nearest even) and back: a product input of the frame
+// kernel's BF instance's LS products (rowprod)
 __device__ __forceinline__ float4 bfr4(float4 v) {
   const float2 a = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
   const float2 b = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
@@ -609,8 +608,7 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
 // carried state and the inputs are staged first).  k0 and k1 are multiples
 // of 4; an empty range adds nothing.  The next K step's weights are loaded
 // into registers before this step's multiply-adds.  W is f32 or int8 (T).
-// RX (bf16 products): each x float4 rounded to bf16 as it is loaded.
-template <class T, bool RX = false>
+template <class T>
 __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const T* __restrict__ W,
                                      int out, int c, int k0, int k1, int kl) {
@@ -634,7 +632,7 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
     ldw(wn, wp, out, cv && k < k1);
 #pragma unroll
     for (int i = 0; i < ET; ++i) {
-      const float4 x = bfx<RX>(ld4(xr + i * ld + kx));
+      const float4 x = ld4(xr + i * ld + kx);
       fma4(acc[i], x.x, wt[0]);
       fma4(acc[i], x.y, wt[1]);
       fma4(acc[i], x.z, wt[2]);
@@ -646,7 +644,8 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 // ---------------------------------------------------------------------------
 // Tile products on the tensor cores (tmma: the MM instances' route, for
 // matrices of kinds 1, 2 and 3, whose products are bf16 x bf16, and in the
-// split instances for kind 0, bf16 x f32, as two bf16 products: tmma<true>).
+// split instances for kind 0, bf16 x f32, as three bf16 products:
+// tmma<true>).
 //
 // A work item is the same one warp's 16 rows x 16 columns over a K range,
 // but the whole warp walks K in 16-wide steps with
@@ -842,16 +841,12 @@ __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
 }
 
 // tmac on the matrix at W of kind q: in an int8 instance (Q) int8 when q
-// is 1; in a BF instance (bf16 products: the merged decoder's FMA instance,
-// which the entry launches only on f32 weights, every matrix of kind 0) f32
-// with x rounded
-template <bool Q, bool BF = false>
+// is 1, else f32
+template <bool Q>
 __device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, int q, int out,
                                      int c, int k0, int k1, int kl) {
-  if constexpr (BF) {
-    tmac<float, true>(acc, X, ld, r0, W, out, c, k0, k1, kl);
-  } else if (Q && q) {
+  if (Q && q) {
     tmac(acc, X, ld, r0, reinterpret_cast<const signed char*>(W), out, c, k0,
          k1, kl);
   } else {
@@ -863,19 +858,19 @@ __device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
 // (columns s.. of X, seg_width(j) wide) against the rows DEC_SEG * j.. of
 // W, for the part of each segment in [k0, k1); W's zero rows between are
 // skipped
-template <bool Q, bool BF>
+template <bool Q>
 __device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, int q, int out,
                                      int c, int k0, int k1, int kl) {
-  const int esz = Q && !BF && q == 1 ? 1 : 4;   // bytes a weight
+  const int esz = Q && q == 1 ? 1 : 4;   // bytes a weight
   for (int j = 0, s = 0; s < k1; s += seg_width(j), ++j) {
     const int lo = max(k0, s), hi = min(k1, s + seg_width(j));
     if (lo < hi)
-      wmac<Q, BF>(acc, X, ld, r0,
-                  reinterpret_cast<const float*>(
-                      reinterpret_cast<const char*>(W) +
-                      (long long)(DEC_SEG * j - s) * out * esz),
-                  q, out, c, lo, hi, kl);
+      wmac<Q>(acc, X, ld, r0,
+              reinterpret_cast<const float*>(
+                  reinterpret_cast<const char*>(W) +
+                  (long long)(DEC_SEG * j - s) * out * esz),
+              q, out, c, lo, hi, kl);
   }
 }
 
@@ -897,7 +892,7 @@ __device__ __forceinline__ void kmma(float4 (&acc)[ET], const float* X, int ld,
 
 // An item's product on its route: in an MM instance kmma on the packed
 // matrix wm (K rows), else wmac on W of kind q
-template <bool Q, bool BF, bool MM, bool SP = false>
+template <bool Q, bool MM, bool SP = false>
 __device__ __forceinline__ void umac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, const uint4* wm,
                                      int q, int K, int out, int c, int k0,
@@ -905,7 +900,7 @@ __device__ __forceinline__ void umac(float4 (&acc)[ET], const float* X, int ld,
   if constexpr (MM)
     kmma<SP>(acc, X, ld, r0, wm, q, K, c, k0, k1, kl);
   else
-    wmac<Q, BF>(acc, X, ld, r0, W, q, out, c, k0, k1, kl);
+    wmac<Q>(acc, X, ld, r0, W, q, out, c, k0, k1, kl);
 }
 
 // The scale row sc at columns c..c+3 in an int8 instance (ones otherwise,
@@ -984,9 +979,9 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
     if constexpr (MM)
       kmma<SP>(acc, X, ld, r0, wm, q, K, c, kb, ke, kl);
     else if (PAD && pad)
-      pmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+      pmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
     else
-      wmac<Q, BF>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+      wmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
     kputq<Q, MM>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
                  c < out);
   }
@@ -1024,8 +1019,8 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 struct Kinds {
   unsigned long long i8, bf, rw;
   int ns;
-  // array j's kind (wmac, kmma): 1 int8, 2 bf16, 3 f32 rounded at its
-  // products, 0 f32
+  // array j's kind (kmma): 1 int8, 2 bf16, 3 f32 rounded at its products,
+  // 0 f32
   __device__ __forceinline__ int operator()(int j) const {
     return i8 >> j & 1 ? 1 : bf >> j & 1 ? 2 : rw >> j & 1 ? 3 : 0;
   }
@@ -1159,28 +1154,28 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         float4 acc[ET];
         zero(acc);
         if (Q) {
-          umac<Q, BF, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
-                              hf ? kh : 0, hf ? gin : kh, kl);
+          umac<Q, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                          hf ? kh : 0, hf ? gin : kh, kl);
           kputq<Q, MM>(acc, kl, r0, p, DEC_GS, gi, bx, true);
           if (hf) {
             zero(acc);
-            umac<Q, BF, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
-                                DEC_G, c, 0, DEC_H, kl);
+            umac<Q, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
+                            DEC_G, c, 0, DEC_H, kl);
             kputq<Q, MM>(acc, kl, r0, rz ? hz + c : p + DEC_H,
                          rz ? 2 * DEC_H : DEC_GS, gh, bh, true);
           }
           continue;
         }
-        umac<Q, BF, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
-                            hf ? kh : 0, hf ? gin : kh, kl);
+        umac<Q, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                        hf ? kh : 0, hf ? gin : kh, kl);
         if (rz && hf)
-          umac<Q, BF, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
-                              c, 0, DEC_H, kl);
+          umac<Q, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
+                          c, 0, DEC_H, kl);
         kput<MM>(acc, kl, r0, p, DEC_GS, bx, true);
         if (!rz && hf) {
           zero(acc);
-          umac<Q, BF, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
-                              c, 0, DEC_H, kl);
+          umac<Q, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
+                          c, 0, DEC_H, kl);
           kput<MM>(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
         }
       }
@@ -1239,9 +1234,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        umac<Q, BF, MM, SP>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
-                            mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c, kb,
-                            ke, kl);
+        umac<Q, MM, SP>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
+                        mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c, kb,
+                        ke, kl);
         kputq<Q, MM>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
                      scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
       }
@@ -1319,16 +1314,20 @@ __global__ void __launch_bounds__(NT)
 // TPU kernel: bhh is added where they are used.  BF: bf16 products, the
 // kinds in qa (KindArgs); PAD: the x operands are padded when qa.pad
 // (pmac).  The instances: <false> f32, <true> int8, <false, false, true>
-// and <true, false, true> f32 and int8 in either layout (KindArgs), <true,
-// true, true> bf16 products on f32 weights (kind 0), either layout, and the
-// MM instance <true, true, true, KindMmaArgs> bf16 products on weights of
-// kinds 1, 2 and 3 (int8, bf16, f32 rounded at the product), every product
-// on the tensor cores (tmma) on the packed matrices qa.m, either layout.
+// and <true, false, true> f32 and int8 in either layout (KindArgs), and
+// with bf16 products, either layout, every product on the tensor cores on
+// the packed matrices qa.m: the MM instance <true, true, true, KindMmaArgs>
+// on weights of kinds 1, 2 and 3 (int8, bf16, f32 rounded at the product;
+// tmma), and the split instance <true, true, true, KindSplitArgs> on f32
+// weights, every matrix of kind 0 (the GRU's too: radae_tpu's merged kernel
+// rounds none of its f32 matrices) on its hi, mid and lo copies
+// (tmma<true>).
 template <bool Q, bool BF = false, bool PAD = false,
           class KA = QuantArgs<DECM_NS>>
 __global__ void __launch_bounds__(NT)
     dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ KA qa) {
-  constexpr bool MM = has_mma<KA>;
+  constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
+  static_assert(MM || !BF, "bf16 products run on the tensor cores");
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
@@ -1348,13 +1347,14 @@ __global__ void __launch_bounds__(NT)
   const float* const z0 = a.z + (size_t)b0 * zld;
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
-  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out);
-  // BF: the kind of wmac
+  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out).
+  // BF: kmma's kind 0 (the MM instance's route reads none; the split
+  // instance runs only on f32 weights, every matrix of kind 0)
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
   const Kinds kd = kinds_of<BF>(qa);
   auto q8 = [=](int j) {
-    if constexpr (BF) return kd(j);
+    if constexpr (BF) return 0;
     else return Q && (i8 >> j & 1);
   };
   auto sc = [=](int si) {
@@ -1388,9 +1388,9 @@ __global__ void __launch_bounds__(NT)
 
   for (int k = 0; k < a.nz; ++k) {
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF, false, MM>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
-                            a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
-                            kl, cq, false, mw(0));
+    tprod<Q, BF, false, MM, SP>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                                a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr,
+                                warp, kl, cq, false, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1407,9 +1407,9 @@ __global__ void __launch_bounds__(NT)
 
       // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
       // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
-      tprod<Q, BF, PAD, MM>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin,
-                            DEC_G, DEC_G / 16, 2, w + o[2], scr, warp, kl, cq,
-                            pad, mw(j0));
+      tprod<Q, BF, PAD, MM, SP>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i),
+                                gin, DEC_G, DEC_G / 16, 2, w + o[2], scr, warp,
+                                kl, cq, pad, mw(j0));
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
@@ -1442,7 +1442,7 @@ __global__ void __launch_bounds__(NT)
         const int r0 = u / DECM_GGC * ET, c = u % DECM_GGC * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        umac<Q, BF, MM>(acc, h, DEC_H, r0, w + o[1], mw(j0 + 1), qg, DEC_H,
+        umac<Q, MM, SP>(acc, h, DEC_H, r0, w + o[1], mw(j0 + 1), qg, DEC_H,
                         DEC_GG, c, 0, DEC_H, kl);
         constexpr int rs = MM ? 8 : 1;   // the lane's rows rk, rk + rs (kput)
         const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
@@ -1468,9 +1468,9 @@ __global__ void __launch_bounds__(NT)
 
       // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
       // chunks, partials [chunk][R][64]
-      tprod<Q, BF, PAD, MM>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i), cin,
-                            2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS, nullptr,
-                            scr, warp, kl, cq, pad, mw(j0 + 4));
+      tprod<Q, BF, PAD, MM, SP>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i),
+                                cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
+                                nullptr, scr, warp, kl, cq, pad, mw(j0 + 4));
       __syncthreads();
       // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
       // half of cc is the next step's projection (each float4 of it read
@@ -1493,10 +1493,10 @@ __global__ void __launch_bounds__(NT)
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, PAD, MM>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
-                          sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
-                          w + off[DEC_NWM - 1], scr, warp, kl, cq, pad,
-                          mw(DEC_NWM - 2));
+    tprod<Q, BF, PAD, MM, SP>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
+                              sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                              w + off[DEC_NWM - 1], scr, warp, kl, cq, pad,
+                              mw(DEC_NWM - 2));
     __syncthreads();
     for (int it = t; it < nv * (od / 4); it += NT) {
       const int r = it / (od / 4), c = it % (od / 4) * 4;
@@ -1702,8 +1702,8 @@ __global__ void __launch_bounds__(NT)
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        umac<Q, BF, MM, SP>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0), q8(0),
-                            a.in_dim, ENC_H, c, kb, ke, kl);
+        umac<Q, MM, SP>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0), q8(0),
+                        a.in_dim, ENC_H, c, kb, ke, kl);
       kputq<Q, MM>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
                    scl<Q, BF>(sc(0), c, ENC_H), zero4, true);
     }
@@ -1745,13 +1745,13 @@ __global__ void __launch_bounds__(NT)
         zero(acc);
         if (Q) {
           const bool rz = qg < 8;
-          umac<Q, BF, MM, SP>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c, 0,
-                              gin, kl);
+          umac<Q, MM, SP>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c, 0,
+                          gin, kl);
           kputq<Q, MM>(acc, kl, r0, scr + c, ENC_GS, gi,
                        rz ? add4(bi, bh) : bi, true);
           zero(acc);
-          umac<Q, BF, MM, SP>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh, ENC_H,
-                              ENC_G, c, 0, ENC_H, kl);
+          umac<Q, MM, SP>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh, ENC_H,
+                          ENC_G, c, 0, ENC_H, kl);
           kputq<Q, MM>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
                        rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
           continue;
@@ -1800,9 +1800,9 @@ __global__ void __launch_bounds__(NT)
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        umac<Q, BF, MM, SP>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
-                            mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c, 0,
-                            cin, kl);
+        umac<Q, MM, SP>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
+                        mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c, 0,
+                        cin, kl);
         kputq<Q, MM>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
                      scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
       }
@@ -1829,8 +1829,8 @@ __global__ void __launch_bounds__(NT)
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      umac<Q, BF, MM, SP>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], mw(ENC_NW - 2),
-                          q8(ENC_NW - 2), ENC_X, od, c, kb, ke, kl);
+      umac<Q, MM, SP>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], mw(ENC_NW - 2),
+                      q8(ENC_NW - 2), ENC_X, od, c, kb, ke, kl);
       kputq<Q, MM>(acc, kl, r0, scr + ch * R * od + c, od,
                    scl<Q, BF>(sc(ENC_NS - 1), c, od), zero4, c < od);
     }
@@ -2045,10 +2045,13 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
 // radae_fused_decoder_merged_step on the padded layout (pad; f32 or int8
 // matrices), or with bf16 products (bf16; either layout): the x operands'
 // rows from DEC_SEG * j for x segment j (seg_width: every one a multiple of
-// 4, static_assert above).  With bf16 products every matrix is of kind 0
-// (f32, the FMA instance) or every one of kinds 1..3 (the MM instance, on
-// the matrices packed into wm at moff[n_off], in 16-byte words: their
-// merged rows in either layout); wm and moff are read only then.
+// 4, static_assert above).  With bf16 products every product runs on the
+// tensor cores, on the matrices packed into wm at moff[n_off] (16-byte
+// words: their merged rows in either layout), and the launch is refused
+// without them (there is no FMA instance): with every matrix of kinds 1..3
+// (int8, bf16 or rounded) the MM instance, with every one of kind 0 (f32
+// weights) the split instance, each packed as hi, mid, lo; a mix is
+// refused.  wm and moff are read only with bf16 products.
 int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
                                       const int* kinds, const int* soff,
                                       int n_soff, const void* z, void* feats,
@@ -2078,18 +2081,20 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
     a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
     a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
   }
-  if (bf16 && (k.i8 | k.bf | k.rw)) {
-    KindMmaArgs<DECM_NS, DEC_NWM> km;
+  if (bf16) {
+    KindSplitArgs<DECM_NS, DEC_NWM> km;
     static_cast<KindArgs<DECM_NS>&>(km) = k;
-    if ((k.i8 | k.bf | k.rw) != DECM_MATS ||
+    const unsigned long long kq = k.i8 | k.bf | k.rw;
+    if ((kq != 0 && kq != DECM_MATS) ||
         !mma_args(wm, moff, n_off, DECM_MATS, km.m))
       return (int)cudaErrorInvalidValue;
-    return launch(dec_merged_kernel<true, true, true, KindMmaArgs<DECM_NS, DEC_NWM>>,
+    if (kq)
+      return launch(dec_merged_kernel<true, true, true, KindMmaArgs<DECM_NS, DEC_NWM>>,
+                    DECM_SMEM, B, stream, a,
+                    static_cast<const KindMmaArgs<DECM_NS, DEC_NWM>&>(km));
+    return launch(dec_merged_kernel<true, true, true, KindSplitArgs<DECM_NS, DEC_NWM>>,
                   DECM_SMEM, B, stream, a, km);
   }
-  if (bf16)
-    return launch(dec_merged_kernel<true, true, true, KindArgs<DECM_NS>>,
-                  DECM_SMEM, B, stream, a, k);
   return n_soff
              ? launch(dec_merged_kernel<true, false, true, KindArgs<DECM_NS>>,
                       DECM_SMEM, B, stream, a, k)

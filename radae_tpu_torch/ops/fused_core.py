@@ -511,14 +511,12 @@ def _mma_kinds(weights):
     """The kinds (`_kinds`) of a launch with bf16 products of a decoder's
     (either layout), the encoder's (PackedWeights) or the frame kernel's
     (RxFrameWeights) weights, and the arrays whose products run on the
-    tensor cores.  The unmerged decoder and the encoder: every matrix, those
-    of kind 0 (f32 weights: bf16 x f32 products) split into hi, mid and lo
-    (`_mma_pack_split`), the others (int8, bf16, f32 rounded at the product:
-    kinds 1, 2, 3) packed once.  The chain-merged decoder (either layout):
-    every matrix when each is of kind 1, 2 or 3, none when one is of kind 0
-    (its f32 weights run on the FMA instance).  The frame set, whose kernel
-    rounds every matrix: the decoder's and dft_w (Wr..Ei are not the
-    kernel's; ls_w stays a row product)."""
+    tensor cores.  Both decoders (either layout of the chain-merged one)
+    and the encoder: every matrix, those of kind 0 (f32 weights: bf16 x f32
+    products) split into hi, mid and lo (`_mma_pack_split`), the others
+    (int8, bf16, f32 rounded at the product: kinds 1, 2, 3) packed once.
+    The frame set, whose kernel rounds every matrix: the decoder's and
+    dft_w (Wr..Ei are not the kernel's; ls_w stays a row product)."""
     if isinstance(weights, RxFrameWeights):
         w = weights.w
         kinds = _kinds(w, _rounds(w, torch.bfloat16, "all"))
@@ -529,8 +527,7 @@ def _mma_kinds(weights):
                          "decoder, encoder or frame weight set")
     kinds = _kinds(weights, _rounds(weights, torch.bfloat16,
                                     "none" if layout else "gru"))
-    mats = [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
-    return kinds, mats if not layout or all(kinds[j] for j in mats) else []
+    return kinds, [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
 
 
 def mma_weights(weights) -> MmaWeights:
@@ -546,8 +543,8 @@ def mma_weights(weights) -> MmaWeights:
     SEG-row segments dropped).  The int8 matrices are widened to bf16 here,
     two bytes a weight where the int8 instances read one.  On f32 weights
     the unmerged decoder's and the encoder's GRU matrices are of kind 3 and
-    the rest of kind 0; the chain-merged decoder's f32 sets (every matrix of
-    kind 0) pack nothing."""
+    the rest of kind 0; every matrix of the chain-merged decoder's f32 sets
+    (either layout) is of kind 0, so each is packed split."""
     kinds, packed = _mma_kinds(weights)
     arrays = (weights.w if isinstance(weights, RxFrameWeights)
               else weights).arrays
@@ -565,9 +562,8 @@ def mma_weights(weights) -> MmaWeights:
         parts.append(pack(a).ravel())
         offsets[j] = n
         n += parts[-1].size // 8
-    bits = np.concatenate(parts) if parts else np.zeros(0, np.uint16)
-    buf = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16).to(
-        arrays[0].device)
+    bits = np.concatenate(parts).view(np.int16)
+    buf = torch.from_numpy(bits).view(torch.bfloat16).to(arrays[0].device)
     return MmaWeights(buf, tuple(offsets), tuple(kinds))
 
 
@@ -879,10 +875,8 @@ def _check_pad(weights: PackedWeights):
 
 def _mma_args(weights, kinds):
     """The (packed buffer, its offsets) arguments of a launch with bf16
-    products of a decoder or the encoder (PackedWeights; null and all -1 on
-    the chain-merged decoder's f32 weights, which pack nothing) or of the
-    frame kernel
-    (RxFrameWeights): `mma_weights(weights)`, kept in the weight set's
+    products of a decoder or the encoder (PackedWeights) or of the frame
+    kernel (RxFrameWeights): `mma_weights(weights)`, kept in the weight set's
     `mma` under a stamp of what it copies (the buffer, its version counter,
     which every write to it or to a view of it bumps, the arrays' offsets
     and kinds) and packed anew when the stamp changes, so a launch never
@@ -895,8 +889,7 @@ def _mma_args(weights, kinds):
         kept.clear()
         kept[stamp] = mma_weights(weights)
     m = kept[stamp]
-    return (m.buf.data_ptr() if m.buf.numel() else None,
-            (ctypes.c_int * len(m.offsets))(*m.offsets))
+    return m.buf.data_ptr(), (ctypes.c_int * len(m.offsets))(*m.offsets)
 
 
 def fused_decoder_step(weights: PackedWeights, z, state,
@@ -911,11 +904,10 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
     radae_fused_decoder_merged_step or, padded or with bf16 products,
     radae_fused_decoder_merged_x_step).  With bf16 products every product
-    runs on the tensor cores, on the weights packed on first use
-    (`_mma_args`): either layout on int8 or bf16 weights, and the unmerged
-    one on f32 weights too (each bf16 x f32 product as three bf16 products,
-    on the weight's hi, mid and lo copies: `split_parts`); the chain-merged
-    and padded layouts on f32 weights run FMA loops."""
+    of every layout runs on the tensor cores, on the weights packed on
+    first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
+    weights each bf16 x f32 product as three bf16 products, on the
+    weight's hi, mid and lo copies (`split_parts`)."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":

@@ -142,10 +142,14 @@ def _f32_band(what, got, ref):
 
 
 # body -> (weight dtype, quant); the decoder on each weight kind the
-# bf16-product instance takes, the merged decoder, the frame and encoder
+# bf16-product instance takes, the merged decoder in both layouts, the frame
+# and encoder
 BODIES = {"decoder-f32w": ("f32", None), "decoder-bf16w": ("bf16", None),
           "decoder-int8": ("f32", "int8"), "merged": ("f32", None),
-          "frame": ("f32", None), "encoder": ("f32", None)}
+          "frame": ("f32", None), "encoder": ("f32", None),
+          "merged-pad": ("f32", None)}
+# the merged bodies' layouts (merged=)
+LAYOUTS = {"merged": True, "merged-pad": "pad"}
 
 
 @pytest.mark.parametrize("body", list(BODIES))
@@ -179,7 +183,7 @@ def test_bf16_plain_matches_pallas_interpret(tree, body):
         f32 = lambda x, s: fc.encoder_step_plain(w, x, s)
         draw = lambda: (0.3 * rng.standard_normal((B, 12, 21))).astype(np.float32)
     else:
-        merged = body == "merged"
+        merged = LAYOUTS.get(body, False)
         w = fc.decoder_weights(tree["decoder"], "cpu", merged=merged,
                                quant=quant, dtype=TORCH_DTYPE[dt])
         w32 = fc.decoder_weights(tree["decoder"], "cpu", merged=merged)

@@ -9,14 +9,15 @@ tests hold the packing and its index arithmetic:
     multiplies by: the int8 values q, the bf16 values w, and `_bf16(w)` for
     f32 matrices rounded at the product (the frame kernel's, and those an
     int8 set's quant_exclude keeps in f32), for the merged and the unmerged
-    decoder and the encoder at latent 80 and 40; f32 sets of the chain-merged
-    decoder (either layout) pack nothing;
-  * f32 sets of the unmerged decoder and the encoder pack every matrix: the
-    GRU's (rounded at the product) as `_bf16(w)`, the rest (bf16 x f32
-    products) split into hi = `_bf16(w)`, mid = `_bf16(w - hi)` and lo =
-    `_bf16(w - hi - mid)`, three copies a K step, with |w - hi - mid| <=
-    2^-17 |w| and hi + mid + lo = w;
-  * a merged="pad" set packs to the same bytes as its merged set;
+    decoder and the encoder at latent 80 and 40;
+  * f32 sets of both decoders and the encoder pack every matrix: the
+    unmerged decoder's and the encoder's GRU matrices (rounded at the
+    product) as `_bf16(w)`, the rest, and every matrix of the chain-merged
+    decoder (bf16 x f32 products), split into hi = `_bf16(w)`, mid =
+    `_bf16(w - hi)` and lo = `_bf16(w - hi - mid)`, three copies a K step,
+    with |w - hi - mid| <= 2^-17 |w| and hi + mid + lo = w;
+  * a merged="pad" set (f32, int8 or bf16) packs to the same bytes as its
+    merged set;
   * a plain torch walk over the packed fragments, with the lane, K
     permutation and column order that `tmma` in csrc/fused_core.cu uses,
     gives `_bf16(x) @ W` (atol 1e-5: the same exact products summed in
@@ -26,7 +27,9 @@ tests hold the packing and its index arithmetic:
     and on the encoder's own packed matrices: its 84-wide dense_1 (a K
     tail) and its 40-column z_dense at latent 40 (a column tail), and the
     split route's walk over hi, mid and lo in the kernel's sum order on
-    the same two matrices of an f32 set, against `_bf16(x) @ w`;
+    the same two matrices of an f32 set and on the merged decoder's
+    latent-40 dense_1 (a K tail) and 84-column output, against
+    `_bf16(x) @ w`;
   * a launch packs the weight set it is given on first use and keeps the
     copy in that set, and packs anew after a write to the set's buffer.
 """
@@ -62,7 +65,11 @@ def trees():
 
 def _unmerged_set(trees, side, kind, latent):
     """The unmerged decoder's or the encoder's weights of one kind: "f32",
-    "bf16", "int8" or "int8-exclude" (EXCLUDE's matrices in f32)."""
+    "bf16", "int8" or "int8-exclude" (EXCLUDE's matrices in f32); side
+    "decm": the chain-merged decoder's f32 weights."""
+    if side == "decm":
+        assert kind == "f32"
+        return fc.decoder_weights(trees[latent]["decoder"], "cpu", merged=True)
     kw = {"f32": {}, "bf16": {"dtype": BF}, "int8": {"quant": "int8"},
           "int8-exclude": {"quant": "int8", "quant_exclude": EXCLUDE[side]}}[kind]
     tree = trees[latent]
@@ -185,11 +192,13 @@ def test_pack_round_trip(dec_tree, kind):
 
 
 @pytest.mark.parametrize("kw", [{"quant": "int8"}, {"dtype": BF},
-                                {"quant": "int8", "quant_exclude": ("wgg",)}],
-                         ids=["int8", "bf16", "int8-exclude"])
+                                {"quant": "int8", "quant_exclude": ("wgg",)},
+                                {}],
+                         ids=["int8", "bf16", "int8-exclude", "f32"])
 def test_pad_packs_as_merged(dec_tree, kw):
     """A merged="pad" set packs to the same bytes as its merged set: the
-    zero rows between the 128-row segments are dropped."""
+    zero rows between the 128-row segments are dropped (f32: every matrix
+    split, each of its hi, mid and lo copies so)."""
     merged = fc.mma_weights(fc.decoder_weights(dec_tree, "cpu", merged=True,
                                                **kw))
     pad = fc.mma_weights(fc.decoder_weights(dec_tree, "cpu", merged="pad",
@@ -199,6 +208,10 @@ def test_pad_packs_as_merged(dec_tree, kw):
     if "quant_exclude" in kw:      # the excluded f32 matrices: rounded
         assert set(merged.kinds[j] for j in range(len(merged.kinds))
                    if merged.offsets[j] >= 0) == {1, 3}
+    if not kw:                     # f32: every matrix of kind 0, split
+        assert sum(o >= 0 for o in pad.offsets) == 17
+        assert {pad.kinds[j] for j in range(len(pad.kinds))
+                if pad.offsets[j] >= 0} == {0}
 
 
 @pytest.mark.parametrize("K, out, k0, k1", [
@@ -313,22 +326,36 @@ def test_launch_packs_its_weight_set(dec_tree, monkeypatch):
     assert list(f1[1]) == list(real(rw).offsets)
 
 
+def _merged_rows(w, j):
+    """Rows of array j of a chain-merged set as packed: a "pad" x operand's
+    merged rows (its zero rows between the segments dropped)."""
+    segs = fc._x_operand_segs(j) if fc.merged_layout(w) == "pad" else None
+    return sum(segs) if segs else w.arrays[j].shape[0]
+
+
 def test_what_gets_packed(dec_tree, trees):
     """f32 weights: bf16 x f32 products (kind 0; the unmerged decoder's and
     the encoder's GRU matrices rounded, kind 3).  The chain-merged decoder's
-    sets, merged and padded, which its FMA instance runs: nothing packed and
-    no buffer passed.  The unmerged decoder's and the encoder's, which their
-    split instances run: every matrix packed, the kind-0 ones as three
-    copies (ceil(K/16) ceil(out/16) 16x16 tiles each), the kind-3 ones as
+    sets, merged and padded, which its split instance runs: every matrix
+    of kind 0 and packed as three copies (ceil(K/16) ceil(out/16) 16x16
+    tiles each, K the merged rows), and the buffer passed.  The unmerged
+    decoder's and the encoder's, which their split instances run: every
+    matrix packed, the kind-0 ones as three copies, the kind-3 ones as
     one, and the buffer passed.  A set of no kernel's layout raises."""
     for wf in (fc.decoder_weights(dec_tree, "cpu", merged=True),
                fc.decoder_weights(dec_tree, "cpu", merged="pad")):
         kinds = fc._kinds(wf, fc._rounds(wf, BF, "none"))
         assert set(kinds) == {0}
+        mats = [j for j, a in enumerate(wf.arrays) if a.dim() == 2]
         mf = fc.mma_weights(wf)
-        assert mf.buf.numel() == 0 and set(mf.offsets) == {-1}
+        assert [j for j, o in enumerate(mf.offsets) if o >= 0] == mats
+        assert len(mats) == 17 and {mf.kinds[j] for j in mats} == {0}
+        assert mf.buf.numel() // 8 == sum(
+            3 * 32 * -(-_merged_rows(wf, j) // 16)
+            * -(-wf.arrays[j].shape[1] // 16) for j in mats)
         buf, offs = fc._mma_args(wf, kinds)
-        assert buf is None and set(offs) == {-1}
+        assert buf is not None and buf == fc._mma_args(wf, kinds)[0]
+        assert list(offs) == list(mf.offsets)
     for wf in (fc.decoder_weights(dec_tree, "cpu"),
                fc.encoder_weights(trees[80]["encoder"], "cpu")):
         kinds = fc._kinds(wf, fc._rounds(wf, BF, "gru"))
@@ -366,13 +393,13 @@ def test_launch_packs_unmerged_and_encoder(trees, side, kind):
 
 
 @pytest.mark.parametrize("latent", [80, 40])
-@pytest.mark.parametrize("side", ["dec", "enc"])
+@pytest.mark.parametrize("side", ["dec", "enc", "decm"])
 def test_pack_round_trip_split(trees, side, latent):
-    """f32 sets of the unmerged decoder and the encoder: each kind-0 matrix
-    unpacks to hi = _bf16(w), mid = _bf16(w - hi), lo = _bf16(w - hi - mid)
-    exactly, with |w - hi - mid| <= 2^-17 |w| and hi + mid + lo = w (both
-    with 1e-30 for w near bf16's smallest normal), and each kind-3 (GRU)
-    matrix to _bf16(w)."""
+    """f32 sets of the unmerged decoder, the encoder and the chain-merged
+    decoder: each kind-0 matrix unpacks to hi = _bf16(w), mid = _bf16(w -
+    hi), lo = _bf16(w - hi - mid) exactly, with |w - hi - mid| <= 2^-17 |w|
+    and hi + mid + lo = w (both with 1e-30 for w near bf16's smallest
+    normal), and each kind-3 (GRU) matrix to _bf16(w)."""
     ws = _unmerged_set(trees, side, "f32", latent)
     m = fc.mma_weights(ws)
     n_split = 0
@@ -396,25 +423,34 @@ def test_pack_round_trip_split(trees, side, latent):
                 <= 2.0 ** -17 * w64.abs() + 1e-30).all(), ws.names[j]
         assert ((w64 - hi.double() - mid.double() - lo.double()).abs()
                 <= 2.0 ** -24 * w64.abs() + 1e-30).all(), ws.names[j]
-    # d1, the glu, the conv taps and out_w; the encoder's d1, taps, z_dense
-    assert n_split == (2 + 5 * 3 if side == "dec" else 2 + 5 * 2)
+    # d1, the glu, the conv taps and out_w; the encoder's d1, taps,
+    # z_dense; every matrix of the merged decoder (d1, wih, wgg, cw, out_w)
+    assert n_split == {"dec": 2 + 5 * 3, "enc": 2 + 5 * 2,
+                       "decm": 2 + 5 * 3}[side]
 
 
-@pytest.mark.parametrize("what, latent, k0, k1", [
-    ("d1", 80, 0, 32), ("d1", 80, 64, 84), ("z_dense", 40, 448, 864)],
-    ids=["d1-chunk0", "d1-tail", "z40-columns"])
-def test_fragment_walk_split(trees, what, latent, k0, k1):
-    """The walk over the encoder's own split matrices (f32 weights): hi,
-    mid and lo's fragments, each step's products summed lo first and the
-    step added in f32, give _bf16(x) @ W over the kernel's K chunks with
-    W the f32 matrix (rtol 1e-5; atol 1e-6 for sums that cancel to near
-    zero), on dense_1's K tail (NaN in x past K) and the latent-40
-    z_dense's 40 columns."""
-    ws = _unmerged_set(trees, "enc", "f32", latent)
+@pytest.mark.parametrize("side, what, latent, k0, k1", [
+    ("enc", "d1", 80, 0, 32), ("enc", "d1", 80, 64, 84),
+    ("enc", "z_dense", 40, 448, 864), ("decm", "d1", 40, 32, 40),
+    ("decm", "out_w", 80, 384, 736)],
+    ids=["d1-chunk0", "d1-tail", "z40-columns", "decm-d1-40-tail",
+         "decm-out-chunk1"])
+def test_fragment_walk_split(trees, side, what, latent, k0, k1):
+    """The walk over the encoder's and the chain-merged decoder's own split
+    matrices (f32 weights): hi, mid and lo's fragments, each step's
+    products summed lo first and the step added in f32, give _bf16(x) @ W
+    over the kernel's K chunks with W the f32 matrix (rtol 1e-5; atol 1e-6
+    for sums that cancel to near zero), on the encoder's dense_1 K tail
+    (NaN in x past K) and its latent-40 z_dense's 40 columns, and on the
+    merged decoder's latent-40 dense_1 (its second K chunk, 8 rows into a
+    16-wide step) and the second K chunk of its output (84 columns)."""
+    ws = _unmerged_set(trees, side, "f32", latent)
     m = fc.mma_weights(ws)
     j = 0 if what == "d1" else len(ws.arrays) - 2
     K, out = ws.arrays[j].shape
-    assert (K, out) == ((84, 64) if what == "d1" else (864, 40))
+    assert (K, out) == {("enc", "d1"): (84, 64), ("enc", "z_dense"): (864, 40),
+                        ("decm", "d1"): (40, 96),
+                        ("decm", "out_w"): (736, 84)}[side, what]
     assert m.kinds[j] == 0
     rng = np.random.default_rng(K + k0 + 1)
     x = rng.standard_normal((16, 16 * -(-K // 16) + 8)).astype(np.float32)

@@ -48,16 +48,18 @@ int8 instance on the int8 weights (`quant="int8"`), whose own forms are
 named int8_*, or with --bf16 KIND the instance with bf16 products on
 weights of that kind (f32, bf16 or int8; --pad: the merged decoder's padded
 layout), held against the plain version under chip_smoke.py's BF16_*
-limits.  Those of the encoder and both decoders on bf16 or int8 weights
-and the frame kernel's run on the tensor cores, on the weights the wrapper
-packs at its first launch (`mma_weights`), and so do the encoder's and the
-unmerged decoder's on f32 weights (their split instances: the kind-0
-matrices as hi, mid and lo copies); a --src library whose entries predate
-them (all four, or the encoder's and the unmerged decoder's) is called
+limits.  Every one of them runs on the tensor cores, on the weights the
+wrapper packs at its first launch (`mma_weights`): on f32 weights the
+split instances of the encoder and both decoders (the kind-0 matrices as
+hi, mid and lo copies).  A --src library whose entries predate the packed
+weights (all four, or the encoder's and the unmerged decoder's) is called
 through `NoMmaEntries` and runs those forms on its FMA loops, and one
-without the split instances runs the f32-weight forms on its FMA loops.
-For each --src library it also prints, instance by instance of every
-kernel, whether its SASS equals the committed build's.
+without a kernel's split instance (`SPLIT_KERNELS` names the launch it
+looks for) runs that kernel's f32-weight forms on its FMA loops, so
+`--bf16 f32 --src parent=` of such a source times the split instance in
+turns against the FMA instance it replaced.  For each --src library it
+also prints, instance by instance of every kernel, whether its SASS
+equals the committed build's.
 """
 
 from __future__ import annotations
@@ -98,7 +100,11 @@ KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
 ALL = tuple(KERNELS)
 CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 NO_MMA = set()       # the libraries that run the kernel's form on FMA loops
-SPLIT_KERNELS = ("enc", "dec")   # those with a split instance (f32 weights)
+# those with a split instance (f32 weights): the text of its launch in a
+# source that has it
+SPLIT_KERNELS = {"enc": "enc_kernel<true, true, KindSplitArgs",
+                 "dec": "dec_kernel<true, true, KindSplitArgs",
+                 "decm": "dec_merged_kernel<true, true, true, KindSplitArgs"}
 # --kernel -> its entry with bf16 products, which takes the packed weights
 MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
              "dec": "radae_fused_decoder_bf16_step",
@@ -202,7 +208,7 @@ FORMS = {
          "               : \"memory\");\n",
          "  (void)d;\n  st4(dst, ld4(src));\n")]),
     "noxload": (ALL, False, [             # x from registers: no shared x loads
-        ("const float4 x = bfx<RX>(ld4(xr + i * ld + kx));",
+        ("const float4 x = ld4(xr + i * ld + kx);",
          "const float4 x = wt[i & 3];")]),
     "wfixed": (ALL, False, [              # every K step reloads the first one's
         ("    wp += 32 * out;\n", "")]),  # weights (from L1)
@@ -271,9 +277,9 @@ FORMS = {
         ("  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;\n",
          "  float4 &e0 = d0, &e1 = d1;\n"),
         ("  d0 = add4(d0, e0);\n  d1 = add4(d1, e1);\n", "")]),
-    # the split route (--bf16 f32, enc and dec): a step's hi products summed
-    # from zero first, then mid's and lo's onto them in the tensor cores
-    # (the committed order is lo, mid, hi)
+    # the split route (--bf16 f32: enc, dec, decm): a step's hi products
+    # summed from zero first, then mid's and lo's onto them in the tensor
+    # cores (the committed order is lo, mid, hi)
     "splithifirst": (SPLIT_KERNELS, True, [
         ("""  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
   if constexpr (SPLIT) {
@@ -391,19 +397,20 @@ def instance(name, kname, quant=None, bf16=None):
     (Q) false, or true with quant; any for the frame kernel (FIX).  With
     bf16 (the weights' kind): the instance with bf16 products (its second
     bool, BF), for the encoder and both decoders the tensor-core one
-    (KindMmaArgs) unless the weights are f32, and then for the encoder and
-    the unmerged decoder the split one (KindSplitArgs), for the merged
-    decoder its FMA one (KindArgs)."""
+    (KindMmaArgs) unless the weights are f32, and then the split one
+    (KindSplitArgs), or in a source from before the merged decoder's split
+    instance that decoder's FMA one (KindArgs)."""
     m = re.search(kname + r"I((?:Lb[01]E)+)", name)
     if not m:
         return False
     flags = re.findall(r"Lb([01])E", m.group(1))
     if bf16:
-        args = ("KindSplitArgs" if bf16 == "f32" and kname != "dec_merged_kernel"
-                else "KindMmaArgs" if bf16 != "f32" else "KindArgs")
+        args = (("KindMmaArgs",) if bf16 != "f32" else
+                ("KindSplitArgs", "KindArgs") if kname == "dec_merged_kernel"
+                else ("KindSplitArgs",))
         ka = re.search(r"(KindSplitArgs|KindMmaArgs|KindArgs)ILi", name)
         return flags[1] == "1" and (kname == "rx_frame_kernel" or (
-            ka is not None and ka.group(1) == args))
+            ka is not None and ka.group(1) in args))
     return (not any(f == "1" for f in flags[1:])
             and (kname == "rx_frame_kernel" or (flags[0] == "1") == bool(quant)))
 
@@ -581,7 +588,7 @@ def main(argv=None) -> int:
             if MMA_ENTRY[kernel] in no_mma:
                 NO_MMA.add(v)
         if (args.bf16 == "f32" and kernel in SPLIT_KERNELS
-                and "KindSplitArgs" not in src_text):
+                and SPLIT_KERNELS[kernel] not in src_text):
             NO_MMA.add(v)      # its entry runs f32 weights on FMA loops
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
