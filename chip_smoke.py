@@ -30,11 +30,18 @@ EQ, coarse magnitude):
      weights and on f32 weights, where each bf16 x f32 product runs as
      three bf16 products, on the weight's hi, mid and lo parts, and the
      frame kernel on f32 and bf16 weights, on the weights packed by
-     fc.mma_weights at a set's first such launch), and the timing phase
-     fails unless exactly those ran on the tensor cores; the frame
-     kernel's two, the unmerged decoder's and the encoder's six and the
-     merged and padded decoder's two on f32 weights are also held at
-     latent 40 (B=2048 and 37, and to the same bits);
+     fc.mma_weights at a set's first such launch), and so do the
+     chain-merged decoder's two int8 forms with f32 products (XS_FORMS,
+     either layout: each f32 x int8 product as three bf16 products, x's
+     hi, mid and lo parts against the int8 matrix widened to bf16, and a
+     matrix kept in f32 as six), held at the f32 tolerance; the timing
+     phase fails unless exactly those sixteen ran on the tensor cores; the
+     frame kernel's two, the unmerged decoder's and the encoder's six and
+     the merged and padded decoder's two on f32 weights are also held at
+     latent 40 (B=2048 and 37, and to the same bits), and the two int8
+     forms with f32 products on the MIXED set too, in both layouts, and at
+     latent 40 on full int8 and MIXED sets (B=2048 and 37, to the same
+     bits);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -175,7 +182,17 @@ MMA_FORMS = ("fused_decoder_step_bf16", "fused_encoder_step_bf16",
              "fused_decoder_merged_step_pad_bf16w_bf16",
              "fused_decoder_merged_step_pad_int8_bf16",
              "fused_rx_frame_step_bf16", "fused_rx_frame_step_bf16w_bf16",
-             "fused_encoder_step_bf16w_bf16", "fused_encoder_step_int8_bf16")
+             "fused_encoder_step_bf16w_bf16", "fused_encoder_step_int8_bf16",
+             "fused_decoder_merged_step_int8",
+             "fused_decoder_merged_step_pad_int8")
+# of those, the chain-merged decoder's int8 forms with f32 products: x split
+# into XSPLIT_PARTS bf16 parts against each int8 matrix (exact in bf16), and
+# XW_PRODUCTS products of x's and w's parts for a matrix kept in f32; held
+# at TOL like every f32-product form
+XS_FORMS = ("fused_decoder_merged_step_int8",
+            "fused_decoder_merged_step_pad_int8")
+XSPLIT_PARTS = 3
+XW_PRODUCTS = 6
 # bf16 products against their plain version: an input of a product that
 # sits on a bf16 rounding boundary rounds the other way under another f32
 # sum order, and the recurrence carries the flip.  So at most BF16_FLIPS of
@@ -540,7 +557,11 @@ def main(argv=None) -> int:
         tensor cores in form name: 1 where both operands are bf16 (the
         rounding rule of the form's body, fc._rounds), SPLIT_PARTS for an
         f32 matrix that the launches packed split (mma, their kept
-        fc.mma_weights copy), else 0 (f32 work)."""
+        fc.mma_weights copy), else 0 (f32 work); in XS_FORMS XSPLIT_PARTS
+        for an int8 matrix and XW_PRODUCTS for one kept in f32."""
+        if name in XS_FORMS:
+            return [0 if a.dim() != 2 else XSPLIT_PARTS
+                    if a.dtype == torch.int8 else XW_PRODUCTS for a in w.arrays]
         if not name.endswith("_bf16"):
             return None
         rule = ("all" if "rx_frame" in name else
@@ -778,6 +799,32 @@ def main(argv=None) -> int:
                     op, sp = plain(w, x, sp)
                     held(name, f"{batch} latent 40", f"call {frame}",
                          (ok_,) + sk, (op,) + sp)
+        # the merged decoder's int8 forms with f32 products (x split on the
+        # tensor cores), both layouts, at TOL (own seed): on the MIXED set
+        # (wgg kept in f32: its six products) and at latent 40 (dense_1's
+        # K = 40 ends inside a K step) on full int8 and MIXED sets
+        xrng = np.random.default_rng(8)
+        xs_sets = [(name, latent, excl, fc.decoder_weights(
+                        tr["decoder"], dev, merged="pad" if "_pad" in name else True,
+                        quant="int8", quant_exclude=excl))
+                   for name in XS_FORMS
+                   for latent, tr in ((cfg.latent_dim, tree), (cfg40.latent_dim, tree40))
+                   for excl in ((), MIXED["fused_decoder_merged_step_int8"])
+                   if excl or latent != cfg.latent_dim]
+        xs_err = {}
+        for name, latent, excl, w in xs_sets:
+            kern, plain, zero_state, draw = kernel_form(name, xrng, latent)
+            tag = f"latent {latent}" + (f" {excl} in f32" if excl else "")
+            for batch in (B, RAGGED_B):
+                sk = sp = zero_state(batch)
+                for frame in range(3):
+                    x = draw(batch, nz, frame)
+                    ok_, sk = kern(w, x, sk)
+                    op, sp = plain(w, x, sp)
+                    held(name, f"{batch} {tag}", f"call {frame}",
+                         (ok_,) + sk, (op,) + sp)
+                    xs_err[name, tag] = max(xs_err.get((name, tag), 0.0),
+                                            max_err((ok_,) + sk, (op,) + sp))
         for (name, batch), (n_over, n) in flips.items():
             if n_over > BF16_FLIPS * n:
                 raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
@@ -854,6 +901,11 @@ def main(argv=None) -> int:
                 kern, _, zero_state, draw = kernel_form(name, lrng, cfg40.latent_dim)
                 x, st = draw(batch, nz), rand_state(lrng, zero_state(batch))
                 same_bits(f"{name} latent 40", batch, lambda: kern(w, x, st))
+            for name, latent, excl, w in xs_sets:
+                kern, _, zero_state, draw = kernel_form(name, xrng, latent)
+                x, st = draw(batch, nz), rand_state(xrng, zero_state(batch))
+                same_bits(f"{name} latent {latent} {excl}", batch,
+                          lambda: kern(w, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
           f"{BF16_TOL} but for at most {BF16_FLIPS} of a run's elements, "
           f"max and mean err within {BF16_MAX} and {BF16_MEAN} of the scale),"
@@ -866,11 +918,16 @@ def main(argv=None) -> int:
             f"B={b} {n_over} of {n} ({n_over / n:.3g})"
             for (f, b), (n_over, n) in flips.items() if f == name)
             + f"; largest max err {r[0]:.3g} and mean {r[1]:.3g} of the scale")
+    print("int8 forms with f32 products on the tensor cores (x split in "
+          f"{XSPLIT_PARTS} parts), max abs err at B={B} and B={RAGGED_B} "
+          f"within {TOL}: " + ", ".join(f"{n} {t} {e:.3g}"
+                                       for (n, t), e in xs_err.items()))
     print(f"refused without a launch: {refused}")
     print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
           f"and B={RAGGED_B} (the frame kernel's bf16 forms, the unmerged "
           "decoder's and the encoder's tensor-core forms and the merged "
-          "decoder's split forms also at latent 40)")
+          "decoder's split forms also at latent 40, its int8 forms with f32 "
+          "products also on the MIXED set and at latent 40)")
 
     # -- the serving path on the fixture: the rx paths ----------------------
     # path -> (step, weights, zero state, the forms it launches, encoder
@@ -1180,8 +1237,9 @@ def main(argv=None) -> int:
         enc_rows = (lib.radae_enc_tile_rows(),) * 2
         dec_rows = (lib.radae_dec_tile_rows(),) * 2
         # name -> mma_terms of the forms whose launches ran on the tensor
-        # cores: a bf16 form whose weight set keeps a packed copy with a
-        # matrix in it (fc._mma_args made it at the form's first launch)
+        # cores: a bf16 form, or one of XS_FORMS, whose weight set keeps a
+        # packed copy with a matrix in it (fc._mma_args made it at the
+        # form's first launch)
         mma_of, kept_of = {}, {}
         for name, (w, bw) in new_w.items():   # the new forms, same inputs
             kern, plain, zero_state, _ = kernel_form(name, gen)
@@ -1193,8 +1251,12 @@ def main(argv=None) -> int:
                           (lambda p=plain, w=w, x=x, st=st: p(w, x, st)),
                           (bw, x, st, demod(name) if "frame" in name
                            else none))
-            ws = w.w if "frame" in name else w
-            kept = list(ws.mma.values()) if name.endswith("_bf16") else []
+        # the new forms and the merged int8 one (on dwmq)
+        for name, ws, bw in [(n, w.w if "frame" in n else w, bw)
+                             for n, (w, bw) in new_w.items()] + [
+                                 ("fused_decoder_merged_step_int8", dwmq, dwmq)]:
+            kept = (list(ws.mma.values()) if name.endswith("_bf16")
+                    or name in XS_FORMS else [])
             if kept and any(o >= 0 for o in kept[0].offsets):
                 mma_of[name] = mma_terms(ws if "frame" in name else bw,
                                          kept[0], nz, B, lib.radae_block_rows())
@@ -1218,7 +1280,9 @@ def main(argv=None) -> int:
                   f"min/median/max {spread(graph_runs(kern, reps=GRAPH_REPS))} "
                   f"ms over {GRAPH_REPS} replays); products "
                   f"on {'the tensor cores (mma.sync)' if name in mma_of else 'FMA loops'}"
-                  + (f" (f32 matrices split, {SPLIT_PARTS} bf16 products)"
+                  + (f" (f32 x int8: x split, {XSPLIT_PARTS} bf16 products)"
+                     if name in XS_FORMS else
+                     f" (f32 matrices split, {SPLIT_PARTS} bf16 products)"
                      if SPLIT_PARTS in (mask or ()) else "")
                   + (f", packed weights {packed_b} B (the bound counts "
                      f"{swap[0]} B for them), {read / 1e9:.4f} GB a launch "

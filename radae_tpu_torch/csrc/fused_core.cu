@@ -7,11 +7,10 @@
 //                                       (unmerged; f32 and quant="int8")
 //   radae_fused_decoder_bf16_step    <- the same with compute_dtype=bf16
 //   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
-//                                       `kernel_merged` (merged=True; f32
-//                                       and quant="int8")
-//   radae_fused_decoder_merged_x_step <- the same with merged="pad" (f32 and
-//                                       int8), and with compute_dtype=bf16
-//                                       (either layout)
+//                                       `kernel_merged` (merged=True, f32)
+//   radae_fused_decoder_merged_x_step <- the same with quant="int8" (either
+//                                       layout), merged="pad" (f32), and
+//                                       compute_dtype=bf16 (either layout)
 //   radae_fused_rx_frame_step        <- make_fused_rx_frame_step (f32; the
 //                                       samples staged by cp.async, the
 //                                       port's form of both its rx_dma
@@ -124,7 +123,8 @@
 // for the decoder, 8 KB for the encoder).  The weights a launch fetches are
 // a quarter of the f32 instance's; the multiply-adds are the same, so the
 // bound is the same.  The frame kernel stays f32: radae_tpu's frame kernel
-// has no quant.
+// has no quant.  The chain-merged decoder's int8 instance runs its products
+// on the tensor cores instead (below), in either layout.
 //
 // bf16 products (compute_dtype=bf16).  Each body has one more instance
 // (BF) that rounds each product's x to bf16 (round to nearest even) where
@@ -153,7 +153,20 @@
 // kind-0 matrix w is packed three times, hi = bf16(w), mid = bf16(w - hi)
 // and lo = bf16(w - hi - mid) (each difference exact in f32, and hi + mid +
 // lo = w but where w is tiny), and x hi + x mid + x lo, three MMAs on the
-// same A fragment, is the bf16 x f32 product (tmma<true>).
+// same A fragment, is the bf16 x f32 product (tmma<true>).  The chain-merged
+// decoder's int8 instance (KindSplitXArgs; f32 products, radae_tpu's
+// jnp.dot of f32 x and the int8 matrix as f32) swaps the two sides: every
+// int8 weight is exact in bf16, so the matrix is packed once, widened, and
+// x, f32, is split where it is loaded into hi, mid and lo (xparts: the
+// remainder past lo is below 2^-27 |x|), three MMAs a step on one B copy
+// (tmma<false, true>); a matrix that quant_exclude keeps in f32 is packed
+// split and multiplied as the six products of x's and w's parts at or above
+// 2^-18 of the largest (tmma<true, true>).  Its results are held to the f32
+// instances' tolerance, not to the bf16 products' one.  On an H100 it takes
+// 0.30 ms in either layout against 0.48 and 0.50 for the FMA instances it
+// replaced (tools/enc_variants.py, in turns); two x parts would take 0.25
+// (within the tolerance, but at a third of it on the CPU estimate of
+// tools/split_flips.py, against a fiftieth with three).
 // Two parts are not enough: |w - hi - mid| reaches 2^-17 |w|, and on the
 // fixture weights that took the encoder's bf16 input flips against the plain
 // version to 12-14 times those of an exact product, past chip_smoke.py's
@@ -187,8 +200,9 @@
 // padded operands fetch no extra bytes.  The sums run per segment, so they
 // are reassociated against the merged kernel's (radae_tpu promises about
 // 1e-6 relative between the two layouts too).  The merged decoder's PAD
-// instances take both layouts (the flag in KindArgs): f32 and int8 on the
-// padded one, bf16 products on either.
+// instances take both layouts (the flag in KindArgs): f32 on the padded one
+// (pmac), and the tensor-core ones (int8 weights, bf16 products) on either,
+// where a padded matrix packs as its merged one.
 //
 // Built by radae_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -400,16 +414,28 @@ struct KindMmaArgs : KindArgs<NS> {
 // matrix of kind 0 is packed as its hi, mid and lo copies (tmma<true>)
 template <int NS, int NW>
 struct KindSplitArgs : KindMmaArgs<NS, NW> {};
+// The same for the merged decoder's int8 instance with f32 products: x is
+// split into hi, mid and lo against each int8 matrix widened to bf16 (kind
+// 1), and against the hi, mid and lo copies of a matrix that quant_exclude
+// keeps in f32 (kind 0): tmma<false, true> and tmma<true, true>
+template <int NS, int NW>
+struct KindSplitXArgs : KindMmaArgs<NS, NW> {};
 template <class KA>
 constexpr bool has_mma = false;
 template <int NS, int NW>
 constexpr bool has_mma<KindMmaArgs<NS, NW>> = true;
 template <int NS, int NW>
 constexpr bool has_mma<KindSplitArgs<NS, NW>> = true;
+template <int NS, int NW>
+constexpr bool has_mma<KindSplitXArgs<NS, NW>> = true;
 template <class KA>
 constexpr bool has_split = false;
 template <int NS, int NW>
 constexpr bool has_split<KindSplitArgs<NS, NW>> = true;
+template <class KA>
+constexpr bool has_xsplit = false;
+template <int NS, int NW>
+constexpr bool has_xsplit<KindSplitXArgs<NS, NW>> = true;
 
 struct DecArgs {
   const float* w;
@@ -645,7 +671,9 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 // Tile products on the tensor cores (tmma: the MM instances' route, for
 // matrices of kinds 1, 2 and 3, whose products are bf16 x bf16, and in the
 // split instances for kind 0, bf16 x f32, as three bf16 products:
-// tmma<true>).
+// tmma<true>; and in the merged decoder's int8 instance with f32 products,
+// f32 x int8 as three bf16 products on x's parts, tmma<false, true>, and a
+// kept-f32 matrix's f32 x f32 as six, tmma<true, true>).
 //
 // A work item is the same one warp's 16 rows x 16 columns over a K range,
 // but the whole warp walks K in 16-wide steps with
@@ -697,7 +725,10 @@ __device__ __forceinline__ unsigned bf2(float lo, float hi) {
 constexpr int MMA_PAIRS = 2;
 // and on the split route (tmma<true>), whose K steps load hi, mid and lo:
 // 1.5 times the bytes in flight that MMA_PAIRS gives the single route, in
-// 1.5 times the registers
+// 1.5 times the registers; and on the f32-product route (XS), whose K
+// steps run 3 MMAs a tile on one B copy: with B two pairs ahead it ran 6%
+// slower on an H100 (the merged decoder on int8 weights, 0.3135 against
+// 0.2959 ms, tools/enc_variants.py form mmapairs1)
 constexpr int MMA_SPLIT_PAIRS = 1;
 
 // One K step's products, summed by the tensor cores from zero and added to
@@ -725,6 +756,62 @@ __device__ __forceinline__ void mstep(float4& d0, float4& d1, unsigned a0,
   d1 = add4(d1, e1);
 }
 
+// x's values a, b as three bf16 pairs (a in the low halves), each rounded
+// to nearest even: h = bf16(x), m = bf16(x - h), l = bf16(x - h - m).  Each
+// remainder is exact in f32 (a bf16 value back in f32 is a 16-bit shift),
+// and |x - h - m - l| <= 2^-27 |x|: with an exact bf16 w, x h + x m + x l is
+// the f32 product.
+__device__ __forceinline__ void xparts(float a, float b, unsigned& h,
+                                       unsigned& m, unsigned& l) {
+  h = bf2(a, b);
+  a -= __uint_as_float(h << 16);
+  b -= __uint_as_float(h & 0xffff0000u);
+  m = bf2(a, b);
+  a -= __uint_as_float(m << 16);
+  b -= __uint_as_float(m & 0xffff0000u);
+  l = bf2(a, b);
+}
+
+// both n8 tiles of a K step on one part of A: e0 += a b.xy, e1 += a b.zw
+__device__ __forceinline__ void mma2(float4& e0, float4& e1,
+                                     const unsigned (&a)[4], uint4 b) {
+  mma16816(e0, a[0], a[1], a[2], a[3], b.x, b.y);
+  mma16816(e1, a[0], a[1], a[2], a[3], b.z, b.w);
+}
+
+// One K step of the f32-product route (tmma's XS): the lane's x of rows g
+// (r0) and g + 8 (r1), f32, split into hi, mid and lo (xparts) in
+// registers, against b, an int8 matrix widened to bf16 (exact): x lo b,
+// x mid b and x hi b.  SPLIT: against an f32 matrix's hi b, mid m and lo l
+// copies, the six of the nine products at or above 2^-18 of x hi b (x lo
+// b, x mid m, x hi l, x mid b, x hi m, x hi b; the three left out are below
+// 2^-26 of it).  The step's products are summed from zero in the tensor
+// cores, the smallest first, and the step sum added to d0, d1 in f32, as in
+// mstep<true>.
+template <bool SPLIT>
+__device__ __forceinline__ void xstep(float4& d0, float4& d1, float4 r0,
+                                      float4 r1, uint4 b, uint4 m, uint4 l) {
+  unsigned xh[4], xm[4], xl[4];         // a0..a3 of each part
+  xparts(r0.x, r0.y, xh[0], xm[0], xl[0]);
+  xparts(r1.x, r1.y, xh[1], xm[1], xl[1]);
+  xparts(r0.z, r0.w, xh[2], xm[2], xl[2]);
+  xparts(r1.z, r1.w, xh[3], xm[3], xl[3]);
+  float4 e0 = make_float4(0.f, 0.f, 0.f, 0.f), e1 = e0;
+  if constexpr (SPLIT) {
+    mma2(e0, e1, xl, b);
+    mma2(e0, e1, xm, m);
+    mma2(e0, e1, xh, l);
+    mma2(e0, e1, xm, b);
+    mma2(e0, e1, xh, m);
+  } else {
+    mma2(e0, e1, xl, b);                // x lo: the third part
+    mma2(e0, e1, xm, b);
+  }
+  mma2(e0, e1, xh, b);
+  d0 = add4(d0, e0);
+  d1 = add4(d1, e1);
+}
+
 // acc[0] and acc[1] (rows r0 + g and r0 + g + 8 at columns c..c+3, c =
 // 16 cg + 4t) += X[those rows][k0, k1) @ W[k0, k1)[those columns], X in
 // shared memory with row stride ld, W the packed matrix of K rows.  k0 is a
@@ -736,13 +823,15 @@ __device__ __forceinline__ void mstep(float4& d0, float4& d1, unsigned a0,
 // MMA_PAIRS pairs ahead of its products.  SPLIT: W is a split matrix (hi,
 // mid and lo copies, 96 words a step, MMA_SPLIT_PAIRS pairs ahead), and each
 // step runs the two n8 tiles on lo, mid and hi with the same A registers
-// (mstep<true>).
-template <bool SPLIT = false>
+// (mstep<true>).  XS (f32 products): x is not rounded but split into three
+// bf16 parts at each step (xstep), against W (int8 widened) or, SPLIT,
+// against its three copies; B MMA_SPLIT_PAIRS pairs ahead.
+template <bool SPLIT = false, bool XS = false>
 __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const uint4* __restrict__ W,
                                      int K, int c, int k0, int k1, int kl) {
   static_assert(ET == 16, "an mma.sync A tile is the item's 16 rows");
-  constexpr int NB = 2 * (SPLIT ? MMA_SPLIT_PAIRS : MMA_PAIRS);
+  constexpr int NB = 2 * (SPLIT || XS ? MMA_SPLIT_PAIRS : MMA_PAIRS);
   constexpr int WS = SPLIT ? 96 : 32;   // 16-byte words a K step
   const int t = (c >> 2) & 3;
   const bool odd = kl & 1;
@@ -788,15 +877,21 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
     const bool va = ka + 4 * t < k1, vb = kb + 4 * t < k1;
     const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
     const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;
-    const unsigned u0 = bf2(pa.x, pa.y), u1 = bf2(pb.x, pb.y);
-    const unsigned u2 = bf2(pa.z, pa.w), u3 = bf2(pb.z, pb.w);
-    const unsigned w0 = bf2(qa.x, qa.y), w1 = bf2(qb.x, qb.y);
-    const unsigned w2 = bf2(qa.z, qa.w), w3 = bf2(qb.z, qb.w);
-    mstep<SPLIT>(d0, d1, odd ? w0 : u0, odd ? w1 : u1, odd ? w2 : u2,
-                 odd ? w3 : u3, b0, m0, l0);
-    if (k + 16 < k1)
-      mstep<SPLIT>(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2,
-                   odd ? u3 : w3, b1, m1, l1);
+    if constexpr (XS) {   // each step's rows selected as f32, then split
+      xstep<SPLIT>(d0, d1, sel4(odd, qa, pa), sel4(odd, qb, pb), b0, m0, l0);
+      if (k + 16 < k1)
+        xstep<SPLIT>(d0, d1, sel4(odd, pa, qa), sel4(odd, pb, qb), b1, m1, l1);
+    } else {
+      const unsigned u0 = bf2(pa.x, pa.y), u1 = bf2(pb.x, pb.y);
+      const unsigned u2 = bf2(pa.z, pa.w), u3 = bf2(pb.z, pb.w);
+      const unsigned w0 = bf2(qa.x, qa.y), w1 = bf2(qb.x, qb.y);
+      const unsigned w2 = bf2(qa.z, qa.w), w3 = bf2(qb.z, qb.w);
+      mstep<SPLIT>(d0, d1, odd ? w0 : u0, odd ? w1 : u1, odd ? w2 : u2,
+                   odd ? w3 : u3, b0, m0, l0);
+      if (k + 16 < k1)
+        mstep<SPLIT>(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2,
+                     odd ? u3 : w3, b1, m1, l1);
+    }
   }
   acc[0] = make_float4(d0.x, d0.y, d1.x, d1.y);
   acc[1] = make_float4(d0.z, d0.w, d1.z, d1.w);
@@ -854,33 +949,37 @@ __device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
   }
 }
 
-// wmac on a padded operand of the chain-merged decoder: x's segment j
+// tmac on a padded f32 operand of the chain-merged decoder: x's segment j
 // (columns s.. of X, seg_width(j) wide) against the rows DEC_SEG * j.. of
 // W, for the part of each segment in [k0, k1); W's zero rows between are
-// skipped
-template <bool Q>
+// skipped (the padded int8 and bf16-product forms run on the tensor cores,
+// on the packed merged matrices)
 __device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
-                                     int r0, const float* W, int q, int out,
-                                     int c, int k0, int k1, int kl) {
-  const int esz = Q && q == 1 ? 1 : 4;   // bytes a weight
+                                     int r0, const float* W, int out, int c,
+                                     int k0, int k1, int kl) {
   for (int j = 0, s = 0; s < k1; s += seg_width(j), ++j) {
     const int lo = max(k0, s), hi = min(k1, s + seg_width(j));
     if (lo < hi)
-      wmac<Q>(acc, X, ld, r0,
-              reinterpret_cast<const float*>(
-                  reinterpret_cast<const char*>(W) +
-                  (long long)(DEC_SEG * j - s) * out * esz),
-              q, out, c, lo, hi, kl);
+      tmac(acc, X, ld, r0, W + (long long)(DEC_SEG * j - s) * out, out, c, lo,
+           hi, kl);
   }
 }
 
 // tmma on the packed matrix wm (K rows) of kind q: in a split instance (SP)
-// a kind-0 matrix on its hi, mid and lo copies (q is warp-uniform: one a
-// matrix)
-template <bool SP>
+// a kind-0 matrix on its hi, mid and lo copies; in the int8 instance with
+// f32 products (XS) x in three parts against an int8 matrix (q 1) or a
+// kept-f32 one's three copies (q 0) (q is warp-uniform: one a matrix)
+template <bool SP, bool XS = false>
 __device__ __forceinline__ void kmma(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const uint4* wm, int q, int K,
                                      int c, int k0, int k1, int kl) {
+  if constexpr (XS) {
+    if (q == 0)
+      tmma<true, true>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+    else
+      tmma<false, true>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+    return;
+  }
   if constexpr (SP) {
     if (q == 0) {
       tmma<true>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
@@ -892,13 +991,13 @@ __device__ __forceinline__ void kmma(float4 (&acc)[ET], const float* X, int ld,
 
 // An item's product on its route: in an MM instance kmma on the packed
 // matrix wm (K rows), else wmac on W of kind q
-template <bool Q, bool MM, bool SP = false>
+template <bool Q, bool MM, bool SP = false, bool XS = false>
 __device__ __forceinline__ void umac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, const uint4* wm,
                                      int q, int K, int out, int c, int k0,
                                      int k1, int kl) {
   if constexpr (MM)
-    kmma<SP>(acc, X, ld, r0, wm, q, K, c, k0, k1, kl);
+    kmma<SP, XS>(acc, X, ld, r0, wm, q, K, c, k0, k1, kl);
   else
     wmac<Q>(acc, X, ld, r0, W, q, out, c, k0, k1, kl);
 }
@@ -954,11 +1053,11 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
 // after the barrier adds the chunks in order.  W is of kind q (wmac), and in
 // an int8 instance each partial is scaled by the row sc.  PAD: W is a
-// padded x operand when pad (pmac).  MM: on the tensor cores (kmma), W's
-// packed copy wm (pad is then moot: a padded matrix packs as its merged
-// one); SP: a split instance.
+// padded f32 x operand when pad (pmac).  MM: on the tensor cores (kmma),
+// W's packed copy wm (pad is then moot: a padded matrix packs as its merged
+// one); SP: a split instance; XS: the int8 one with f32 products.
 template <bool Q, bool BF = false, bool PAD = false, bool MM = false,
-          bool SP = false>
+          bool SP = false, bool XS = false>
 __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       int q, const float* sc, int K, int out,
                                       int ng, int ks,
@@ -966,6 +1065,7 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       float* part, int warp, int kl, int cq,
                                       bool pad = false,
                                       const uint4* wm = nullptr) {
+  static_assert(!PAD || MM || !Q, "the padded FMA route is f32 only");
   const int kc = ((K + ks - 1) / ks + 31) & ~31;
   for (int u = warp; u < RG * ng * ks; u += NWARP) {
     const int r0 = u / (ng * ks) * ET, v = u % (ng * ks);
@@ -977,9 +1077,9 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
     float4 acc[ET];
     zero(acc);
     if constexpr (MM)
-      kmma<SP>(acc, X, ld, r0, wm, q, K, c, kb, ke, kl);
+      kmma<SP, XS>(acc, X, ld, r0, wm, q, K, c, kb, ke, kl);
     else if (PAD && pad)
-      pmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+      pmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
     else
       wmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
     kputq<Q, MM>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
@@ -1310,24 +1410,29 @@ __global__ void __launch_bounds__(NT)
 // pass of step k-1, after the output product has read X), where dense_1
 // reads them.  h, the hh projection and the tap projection are carried in
 // shared memory and updated in place.  smem holds DECM_SMEM bytes.  In the
-// int8 instance (Q) the carried projections are the scaled ones, as in the
+// int8 instances (Q) the carried projections are the scaled ones, as in the
 // TPU kernel: bhh is added where they are used.  BF: bf16 products, the
 // kinds in qa (KindArgs); PAD: the x operands are padded when qa.pad
-// (pmac).  The instances: <false> f32, <true> int8, <false, false, true>
-// and <true, false, true> f32 and int8 in either layout (KindArgs), and
-// with bf16 products, either layout, every product on the tensor cores on
-// the packed matrices qa.m: the MM instance <true, true, true, KindMmaArgs>
-// on weights of kinds 1, 2 and 3 (int8, bf16, f32 rounded at the product;
-// tmma), and the split instance <true, true, true, KindSplitArgs> on f32
-// weights, every matrix of kind 0 (the GRU's too: radae_tpu's merged kernel
-// rounds none of its f32 matrices) on its hi, mid and lo copies
-// (tmma<true>).
+// (pmac).  The instances: <false> f32 and <false, false, true> f32 in
+// either layout (KindArgs) on FMA loops; every other one on the tensor
+// cores, either layout, on the packed matrices qa.m: with bf16 products the
+// MM instance <true, true, true, KindMmaArgs> on weights of kinds 1, 2 and
+// 3 (int8, bf16, f32 rounded at the product; tmma), and the split instance
+// <true, true, true, KindSplitArgs> on f32 weights, every matrix of kind 0
+// (the GRU's too: radae_tpu's merged kernel rounds none of its f32
+// matrices) on its hi, mid and lo copies (tmma<true>); with f32 products
+// the int8 instance <true, false, true, KindSplitXArgs>, x in three bf16
+// parts against each int8 matrix widened to bf16 and each matrix that
+// quant_exclude keeps in f32 as its three copies (tmma<false, true> and
+// tmma<true, true>).
 template <bool Q, bool BF = false, bool PAD = false,
           class KA = QuantArgs<DECM_NS>>
 __global__ void __launch_bounds__(NT)
     dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ KA qa) {
-  constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
+  constexpr bool MM = has_mma<KA>, SP = has_split<KA>, XS = has_xsplit<KA>;
   static_assert(MM || !BF, "bf16 products run on the tensor cores");
+  static_assert(BF || !MM || (Q && XS),
+                "an MM instance with f32 products is the int8 one on x's parts");
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
@@ -1347,9 +1452,10 @@ __global__ void __launch_bounds__(NT)
   const float* const z0 = a.z + (size_t)b0 * zld;
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
-  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out).
-  // BF: kmma's kind 0 (the MM instance's route reads none; the split
-  // instance runs only on f32 weights, every matrix of kind 0)
+  // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out;
+  // XS: kmma's kind, 1 int8, 0 kept in f32).  BF: kmma's kind 0 (the MM
+  // instance's route reads none; the split instance runs only on f32
+  // weights, every matrix of kind 0)
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
   const Kinds kd = kinds_of<BF>(qa);
@@ -1388,9 +1494,10 @@ __global__ void __launch_bounds__(NT)
 
   for (int k = 0; k < a.nz; ++k) {
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF, false, MM, SP>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
-                                a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr,
-                                warp, kl, cq, false, mw(0));
+    tprod<Q, BF, false, MM, SP, XS>(X + DEC_H, DEC_X, w + off[0], q8(0),
+                                    sc(0), a.in_dim, DEC_H, DEC_NG, 2,
+                                    w + off[1], scr, warp, kl, cq, false,
+                                    mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1407,9 +1514,9 @@ __global__ void __launch_bounds__(NT)
 
       // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
       // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
-      tprod<Q, BF, PAD, MM, SP>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i),
-                                gin, DEC_G, DEC_G / 16, 2, w + o[2], scr, warp,
-                                kl, cq, pad, mw(j0));
+      tprod<Q, BF, PAD, MM, SP, XS>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i),
+                                    gin, DEC_G, DEC_G / 16, 2, w + o[2], scr, warp,
+                                    kl, cq, pad, mw(j0));
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
@@ -1442,8 +1549,8 @@ __global__ void __launch_bounds__(NT)
         const int r0 = u / DECM_GGC * ET, c = u % DECM_GGC * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        umac<Q, MM, SP>(acc, h, DEC_H, r0, w + o[1], mw(j0 + 1), qg, DEC_H,
-                        DEC_GG, c, 0, DEC_H, kl);
+        umac<Q, MM, SP, XS>(acc, h, DEC_H, r0, w + o[1], mw(j0 + 1), qg,
+                            DEC_H, DEC_GG, c, 0, DEC_H, kl);
         constexpr int rs = MM ? 8 : 1;   // the lane's rows rk, rk + rs (kput)
         const int rk = MM ? r0 + kl : ksum(acc, kl, r0);
         if (Q && (!BF || sgg)) {
@@ -1468,9 +1575,9 @@ __global__ void __launch_bounds__(NT)
 
       // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
       // chunks, partials [chunk][R][64]
-      tprod<Q, BF, PAD, MM, SP>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i),
-                                cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
-                                nullptr, scr, warp, kl, cq, pad, mw(j0 + 4));
+      tprod<Q, BF, PAD, MM, SP, XS>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i),
+                                    cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
+                                    nullptr, scr, warp, kl, cq, pad, mw(j0 + 4));
       __syncthreads();
       // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
       // half of cc is the next step's projection (each float4 of it read
@@ -1493,10 +1600,10 @@ __global__ void __launch_bounds__(NT)
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, PAD, MM, SP>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
-                              sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
-                              w + off[DEC_NWM - 1], scr, warp, kl, cq, pad,
-                              mw(DEC_NWM - 2));
+    tprod<Q, BF, PAD, MM, SP, XS>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
+                                  sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                                  w + off[DEC_NWM - 1], scr, warp, kl, cq, pad,
+                                  mw(DEC_NWM - 2));
     __syncthreads();
     for (int it = t; it < nv * (od / 4); it += NT) {
       const int r = it / (od / 4), c = it % (od / 4) * 4;
@@ -2013,6 +2120,9 @@ int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
                 DEC_SMEM_Q, B, stream, a, km);
 }
 
+// The chain-merged decoder on f32 weights (n_soff 0); its int8 launches
+// take radae_fused_decoder_merged_x_step, which runs them on the tensor
+// cores, and are refused here.
 int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
                                     const int* kinds, const int* soff,
                                     int n_soff, const void* z, void* feats,
@@ -2023,7 +2133,7 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
   QuantArgs<DECM_NS> q;
   if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
       in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_MAX_OUT ||
-      !quant_args(kinds, n_off, soff, n_soff, DECM_MATS, q))
+      n_soff != 0 || !quant_args(kinds, n_off, soff, n_soff, DECM_MATS, q))
     return (int)cudaErrorInvalidValue;
   a.w = static_cast<const float*>(w);
   for (int i = 0; i < DEC_NWM; ++i) a.off[i] = off[i];
@@ -2038,20 +2148,23 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
     a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
     a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
   }
-  return n_soff ? launch(dec_merged_kernel<true>, DECM_SMEM, B, stream, a, q)
-                : launch(dec_merged_kernel<false>, DECM_SMEM, B, stream, a, q);
+  return launch(dec_merged_kernel<false>, DECM_SMEM, B, stream, a, q);
 }
 
 // radae_fused_decoder_merged_step on the padded layout (pad; f32 or int8
-// matrices), or with bf16 products (bf16; either layout): the x operands'
-// rows from DEC_SEG * j for x segment j (seg_width: every one a multiple of
-// 4, static_assert above).  With bf16 products every product runs on the
-// tensor cores, on the matrices packed into wm at moff[n_off] (16-byte
-// words: their merged rows in either layout), and the launch is refused
-// without them (there is no FMA instance): with every matrix of kinds 1..3
-// (int8, bf16 or rounded) the MM instance, with every one of kind 0 (f32
-// weights) the split instance, each packed as hi, mid, lo; a mix is
-// refused.  wm and moff are read only with bf16 products.
+// matrices), with int8 matrices (n_soff > 0; either layout), or with bf16
+// products (bf16; either layout): the x operands' rows from DEC_SEG * j for
+// x segment j (seg_width: every one a multiple of 4, static_assert above).
+// On int8 weights or with bf16 products every product runs on the tensor
+// cores, on the matrices packed into wm at moff[n_off] (16-byte words:
+// their merged rows in either layout), and the launch is refused without
+// them (there is no FMA instance).  With bf16 products: with every matrix
+// of kinds 1..3 (int8, bf16 or rounded) the MM instance, with every one of
+// kind 0 (f32 weights) the split instance, each packed as hi, mid, lo; a
+// mix is refused.  With f32 products on int8 weights (kinds 0 and 1) the
+// instance on x's parts (KindSplitXArgs): each int8 matrix packed once
+// (widened to bf16), each kept in f32 as hi, mid, lo.  wm and moff are
+// read only on the tensor cores.
 int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
                                       const int* kinds, const int* soff,
                                       int n_soff, const void* z, void* feats,
@@ -2064,7 +2177,7 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
   KindArgs<DECM_NS> k;
   if (n_off != DEC_NWM || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
       in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_MAX_OUT ||
-      (!pad && !bf16) ||
+      (!pad && !bf16 && !n_soff) ||
       !kind_args(kinds, n_off, soff, n_soff, DECM_MATS, bf16, k))
     return (int)cudaErrorInvalidValue;
   k.pad = pad != 0;
@@ -2081,13 +2194,19 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
     a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
     a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
   }
-  if (bf16) {
+  if (bf16 || n_soff) {
     KindSplitArgs<DECM_NS, DEC_NWM> km;
     static_cast<KindArgs<DECM_NS>&>(km) = k;
     const unsigned long long kq = k.i8 | k.bf | k.rw;
-    if ((kq != 0 && kq != DECM_MATS) ||
+    if ((bf16 && kq != 0 && kq != DECM_MATS) ||
         !mma_args(wm, moff, n_off, DECM_MATS, km.m))
       return (int)cudaErrorInvalidValue;
+    if (!bf16) {
+      KindSplitXArgs<DECM_NS, DEC_NWM> kx;
+      static_cast<KindMmaArgs<DECM_NS, DEC_NWM>&>(kx) = km;
+      return launch(dec_merged_kernel<true, false, true, KindSplitXArgs<DECM_NS, DEC_NWM>>,
+                    DECM_SMEM, B, stream, a, kx);
+    }
     if (kq)
       return launch(dec_merged_kernel<true, true, true, KindMmaArgs<DECM_NS, DEC_NWM>>,
                     DECM_SMEM, B, stream, a,
@@ -2095,11 +2214,8 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
     return launch(dec_merged_kernel<true, true, true, KindSplitArgs<DECM_NS, DEC_NWM>>,
                   DECM_SMEM, B, stream, a, km);
   }
-  return n_soff
-             ? launch(dec_merged_kernel<true, false, true, KindArgs<DECM_NS>>,
-                      DECM_SMEM, B, stream, a, k)
-             : launch(dec_merged_kernel<false, false, true, KindArgs<DECM_NS>>,
-                      DECM_SMEM, B, stream, a, k);
+  return launch(dec_merged_kernel<false, false, true, KindArgs<DECM_NS>>,
+                DECM_SMEM, B, stream, a, k);
 }
 
 int radae_rx_frame_limit(int ns, int nc, int samp, int latent, int nz) {

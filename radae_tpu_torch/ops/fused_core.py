@@ -32,12 +32,13 @@ compute_dtype=torch.bfloat16 (a keyword of every step) rounds the inputs of
 each product to bf16 as radae_tpu's kernels do (`_rounds`); the sums, the
 gates and the carried state stay f32.  Where every product is then bf16 x
 bf16 (both decoders and the encoder on bf16 or int8 weights, the frame
-kernel on any), and for the unmerged decoder and the encoder on f32 weights
-too (a bf16 x f32 product as three bf16 products, on the weight's bf16
-high, middle and low parts), the kernel multiplies on the tensor cores, on
-the weights packed by `mma_weights`: the launch packs them on its first use
-of a weight set and keeps them in the set (`PackedWeights.mma`).  Only the
-chain-merged decoder on f32 weights still runs bf16 x f32 on FMA loops.
+kernel on any), and for both decoders and the encoder on f32 weights too
+(a bf16 x f32 product as three bf16 products, on the weight's bf16 high,
+middle and low parts), the kernel multiplies on the tensor cores, on the
+weights packed by `mma_weights`: the launch packs them on its first use of
+a weight set and keeps them in the set (`PackedWeights.mma`).  So does the
+chain-merged decoder on int8 weights with f32 products (x's three bf16
+parts against each int8 matrix, exact in bf16).
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
   decoder, merged:   5 GRU h (B, 96) + 5 projected hh rows h @ whh (B, 288)
@@ -507,16 +508,27 @@ class MmaWeights(NamedTuple):
                                     # is split (hi, mid and lo)
 
 
-def _mma_kinds(weights):
-    """The kinds (`_kinds`) of a launch with bf16 products of a decoder's
+def _mma_kinds(weights, compute_dtype=torch.bfloat16):
+    """The kinds (`_kinds`) of a launch on the tensor cores of a decoder's
     (either layout), the encoder's (PackedWeights) or the frame kernel's
-    (RxFrameWeights) weights, and the arrays whose products run on the
-    tensor cores.  Both decoders (either layout of the chain-merged one)
-    and the encoder: every matrix, those of kind 0 (f32 weights: bf16 x f32
-    products) split into hi, mid and lo (`_mma_pack_split`), the others
-    (int8, bf16, f32 rounded at the product: kinds 1, 2, 3) packed once.
-    The frame set, whose kernel rounds every matrix: the decoder's and
-    dft_w (Wr..Ei are not the kernel's; ls_w stays a row product)."""
+    (RxFrameWeights) weights, and the arrays whose products run there.
+    With bf16 products, both decoders (either layout of the chain-merged
+    one) and the encoder: every matrix, those of kind 0 (f32 weights: bf16
+    x f32 products) split into hi, mid and lo (`_mma_pack_split`), the
+    others (int8, bf16, f32 rounded at the product: kinds 1, 2, 3) packed
+    once.  The frame set, whose kernel rounds every matrix: the decoder's
+    and dft_w (Wr..Ei are not the kernel's; ls_w stays a row product).
+    With f32 products only the chain-merged decoder's int8 sets (either
+    layout): every matrix, the int8 ones (kind 1) packed once and those
+    that quant_exclude keeps in f32 (kind 0) split."""
+    if compute_dtype != torch.bfloat16:
+        if not (isinstance(weights, PackedWeights) and merged_layout(weights)
+                and weights.quant):
+            raise ValueError("mma_weights: with f32 products only the "
+                             "chain-merged decoder's int8 weights run on the "
+                             "tensor cores")
+        kinds = _kinds(weights, _rounds(weights, compute_dtype, "none"))
+        return kinds, [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
     if isinstance(weights, RxFrameWeights):
         w = weights.w
         kinds = _kinds(w, _rounds(w, torch.bfloat16, "all"))
@@ -530,11 +542,14 @@ def _mma_kinds(weights):
     return kinds, [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
 
 
-def mma_weights(weights) -> MmaWeights:
+def mma_weights(weights, compute_dtype=torch.bfloat16) -> MmaWeights:
     """The weights that the tensor-core (MM and split) instances read, built
     on the host: for either decoder layout (`decoder_weights`), the encoder
     (`encoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
-    products, each matrix that `_mma_kinds` names copied into bf16 (int8
+    products, and for the chain-merged decoder's int8 sets with f32
+    products too (compute_dtype f32: the same bytes as with bf16 products
+    but for a matrix kept in f32, which is packed split, not rounded), each
+    matrix that `_mma_kinds` names copied into bf16 (int8
     exactly, its scale row staying on the output; f32 rounded at the
     product, kind 3, to nearest even, as `_bf16`) in `_mma_pack`'s order,
     and each of kind 0 (f32, bf16 x f32) as its hi, mid and lo copies
@@ -545,7 +560,7 @@ def mma_weights(weights) -> MmaWeights:
     the unmerged decoder's and the encoder's GRU matrices are of kind 3 and
     the rest of kind 0; every matrix of the chain-merged decoder's f32 sets
     (either layout) is of kind 0, so each is packed split."""
-    kinds, packed = _mma_kinds(weights)
+    kinds, packed = _mma_kinds(weights, compute_dtype)
     arrays = (weights.w if isinstance(weights, RxFrameWeights)
               else weights).arrays
     pad = merged_layout(weights) == "pad" if isinstance(
@@ -873,21 +888,23 @@ def _check_pad(weights: PackedWeights):
                          "rows an x segment")
 
 
-def _mma_args(weights, kinds):
-    """The (packed buffer, its offsets) arguments of a launch with bf16
-    products of a decoder or the encoder (PackedWeights) or of the frame
-    kernel (RxFrameWeights): `mma_weights(weights)`, kept in the weight set's
-    `mma` under a stamp of what it copies (the buffer, its version counter,
-    which every write to it or to a view of it bumps, the arrays' offsets
-    and kinds) and packed anew when the stamp changes, so a launch never
-    reads another set's or a stale copy.  (The C entries refuse a launch
-    without the packed matrices: there is no FMA fallback.)"""
+def _mma_args(weights, kinds, compute_dtype=torch.bfloat16):
+    """The (packed buffer, its offsets) arguments of a launch on the tensor
+    cores of a decoder or the encoder (PackedWeights) or of the frame
+    kernel (RxFrameWeights), with bf16 products or (the chain-merged
+    decoder's int8 sets) f32 products: `mma_weights(weights,
+    compute_dtype)`, kept in the weight set's `mma` under a stamp of what it
+    copies (the buffer, its version counter, which every write to it or to
+    a view of it bumps, the arrays' offsets and kinds) and packed anew when
+    the stamp changes, so a launch never reads another set's or a stale
+    copy.  (The C entries refuse a launch without the packed matrices:
+    there is no FMA fallback.)"""
     w = weights.w if isinstance(weights, RxFrameWeights) else weights
     stamp = (w.buf.data_ptr(), w.buf._version, w.offsets, tuple(kinds))
     kept = {} if w.mma is None else w.mma
     if stamp not in kept:
         kept.clear()
-        kept[stamp] = mma_weights(weights)
+        kept[stamp] = mma_weights(weights, compute_dtype)
     m = kept[stamp]
     return m.buf.data_ptr(), (ctypes.c_int * len(m.offsets))(*m.offsets)
 
@@ -902,12 +919,16 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     matrices with f32 products, or f32, bf16 or int8 matrices with bf16
     products.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
-    radae_fused_decoder_merged_step or, padded or with bf16 products,
-    radae_fused_decoder_merged_x_step).  With bf16 products every product
-    of every layout runs on the tensor cores, on the weights packed on
-    first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
+    radae_fused_decoder_merged_step or, padded, int8 or with bf16
+    products, radae_fused_decoder_merged_x_step).  With bf16 products every
+    product of every layout runs on the tensor cores, on the weights packed
+    on first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
     weights each bf16 x f32 product as three bf16 products, on the
-    weight's hi, mid and lo copies (`split_parts`)."""
+    weight's hi, mid and lo copies (`split_parts`).  So does the
+    chain-merged decoder on int8 weights with f32 products, in either
+    layout: each f32 x int8 product as three bf16 products, x's hi, mid and
+    lo against the int8 matrix widened to bf16 (a matrix kept in f32 as
+    six, against its three copies)."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":
@@ -936,13 +957,16 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     args = (B, nz, latent, out_dim)
     kinds = _kinds(weights, _rounds(weights, compute_dtype,
                                     "none" if layout else "gru"))
-    if layout and (bf or layout == "pad"):
+    # on the tensor cores: bf16 products, and the merged int8 forms
+    mma = bf or bool(layout and weights.quant)
+    if layout and (mma or layout == "pad"):
         name = "radae_fused_decoder_merged_x_step"
         args += (int(layout == "pad"), int(bf))
     else:
         name = "radae_" + entry.replace("_step", "_bf16_step" if bf else "_step")
-    if bf or layout == "pad":
-        args += _mma_args(weights, kinds) if bf else (None, None)
+    if mma or layout == "pad":
+        args += (_mma_args(weights, kinds, compute_dtype) if mma
+                 else (None, None))
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
                      z, feats, state, new_state, args, kinds)
     _kernels.check(status, name)

@@ -297,7 +297,7 @@ def test_launch_packs_its_weight_set(dec_tree, monkeypatch):
     built = []
     real = fc.mma_weights
     monkeypatch.setattr(fc, "mma_weights",
-                        lambda ws: built.append(ws) or real(ws))
+                        lambda ws, *a: built.append(ws) or real(ws, *a))
     w = fc.decoder_weights(dec_tree, "cpu", merged=True, dtype=BF)
     w2 = fc.decoder_weights(dec_tree, "cpu", merged=True, dtype=BF)
     kinds = fc._kinds(w, fc._rounds(w, BF, "none"))

@@ -57,9 +57,14 @@ through `NoMmaEntries` and runs those forms on its FMA loops, and one
 without a kernel's split instance (`SPLIT_KERNELS` names the launch it
 looks for) runs that kernel's f32-weight forms on its FMA loops, so
 `--bf16 f32 --src parent=` of such a source times the split instance in
-turns against the FMA instance it replaced.  For each --src library it
-also prints, instance by instance of every kernel, whether its SASS
-equals the committed build's.
+turns against the FMA instance it replaced.  `--kernel decm --quant int8
+[--pad]` times the merged decoder's int8 instance with f32 products, which
+runs on the tensor cores on x's three bf16 parts (KindSplitXArgs); a --src
+library without that instance (`XSPLIT_KERNEL`) runs the merged layout's
+int8 launches through its FMA entry (`FmaInt8Merged`) and the padded
+layout's on its FMA instance, so `--src parent=` times the two in turns.
+For each --src library it also prints, instance by instance of every
+kernel, whether its SASS equals the committed build's.
 """
 
 from __future__ import annotations
@@ -105,6 +110,9 @@ NO_MMA = set()       # the libraries that run the kernel's form on FMA loops
 SPLIT_KERNELS = {"enc": "enc_kernel<true, true, KindSplitArgs",
                  "dec": "dec_kernel<true, true, KindSplitArgs",
                  "decm": "dec_merged_kernel<true, true, true, KindSplitArgs"}
+# the merged decoder's int8 instance with f32 products (on x's parts): the
+# text of its launch in a source that has it
+XSPLIT_KERNEL = "dec_merged_kernel<true, false, true, KindSplitXArgs"
 # --kernel -> its entry with bf16 products, which takes the packed weights
 MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
              "dec": "radae_fused_decoder_bf16_step",
@@ -264,7 +272,7 @@ FORMS = {
          "  return;\n  const float* const xr = X + r0 * ld;\n")]),
     # the tensor-core route (tmma; the MM instances: --bf16 bf16 or int8
     # for enc, dec and decm, any --bf16 for frame): B 1 or 4 K-step pairs
-    # ahead, not 2
+    # ahead, not 2 (the split and the f32-product routes: splitpairs2)
     "mmapairs1": (MMA_KERNELS, True, [
         ("constexpr int MMA_PAIRS = 2;", "constexpr int MMA_PAIRS = 1;")]),
     "mmapairs4": (MMA_KERNELS, True, [
@@ -298,7 +306,8 @@ FORMS = {
     mma16816(e0, a0, a1, a2, a3, l.x, l.y);
     mma16816(e1, a0, a1, a2, a3, l.z, l.w);
   }""")]),
-    # the split route with B two K-step pairs ahead, not one
+    # the split route (and the merged decoder's f32-product route on int8
+    # weights, --quant int8) with B two K-step pairs ahead, not one
     "splitpairs2": (SPLIT_KERNELS, True, [
         ("constexpr int MMA_SPLIT_PAIRS = 1;", "constexpr int MMA_SPLIT_PAIRS = 2;")]),
     "mmanoxload": (MMA_KERNELS, False, [   # A from registers
@@ -307,6 +316,10 @@ FORMS = {
          """    const float4 pa = make_float4(ka, t, va, vb), pb = pa, qa = pa, qb = pa;""")]),
     "mmawfixed": (MMA_KERNELS, False, [    # every pair reloads the first
         ("    wp += 2 * WS;\n    const int ka", "    const int ka")]),   # pairs' B
+    # the int8 instance with f32 products (--quant int8, decm): x in two
+    # bf16 parts, hi and mid, against an int8 matrix (lo's MMAs dropped)
+    "xsplit2": (("decm",), True, [
+        ("    mma2(e0, e1, xl, b);                // x lo: the third part\n", "")]),
     "mmanoproducts": (MMA_KERNELS, False, [  # no tmma loops
         ("  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n",
          "  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n"
@@ -352,6 +365,26 @@ class F32OnlyEntries:
         if name in self.ENTRIES:
             fn = getattr(self._lib, name)
             return lambda *args: fn(*args[:3], *args[6:])
+        return getattr(self._lib, name)
+
+
+class FmaInt8Merged:
+    """A library built from a source whose merged decoder has no int8
+    instance on the tensor cores (before XSPLIT_KERNEL): an int8 launch of
+    the merged layout, which the wrapper sends to the x entry with the
+    packed weights, goes to its radae_fused_decoder_merged_step (its FMA
+    int8 instance) without the layout flags and the packed weights."""
+
+    X = "radae_fused_decoder_merged_x_step"
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name == self.X:
+            x, m = getattr(self._lib, name), self._lib.radae_fused_decoder_merged_step
+            return lambda *a: (m(*a[:12], *a[16:]) if a[5] and not a[12]
+                               and not a[13] else x(*a))
         return getattr(self._lib, name)
 
 
@@ -404,6 +437,8 @@ def instance(name, kname, quant=None, bf16=None):
     if not m:
         return False
     flags = re.findall(r"Lb([01])E", m.group(1))
+    if quant and kname == "dec_merged_kernel":   # the int8 ones with f32
+        return flags[:2] == ["1", "0"]           # products, either layout
     if bf16:
         args = (("KindMmaArgs",) if bf16 != "f32" else
                 ("KindSplitArgs", "KindArgs") if kname == "dec_merged_kernel"
@@ -421,7 +456,8 @@ def instance_key(name):
     m = re.search(r"([a-z][a-z_]*_kernel)I((?:Lb[01]E)+)", name)
     if not m:
         return None
-    ka = re.search(r"(QuantArgs|KindSplitArgs|KindMmaArgs|KindArgs)ILi", name)
+    ka = re.search(r"(QuantArgs|KindSplitXArgs|KindSplitArgs|KindMmaArgs|"
+                   r"KindArgs)ILi", name)
     return (m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E", m.group(2)))
             + (", " + ka.group(1) if ka else "") + ">")
 
@@ -590,6 +626,10 @@ def main(argv=None) -> int:
         if (args.bf16 == "f32" and kernel in SPLIT_KERNELS
                 and SPLIT_KERNELS[kernel] not in src_text):
             NO_MMA.add(v)      # its entry runs f32 weights on FMA loops
+        if kernel == "decm" and XSPLIT_KERNEL not in src_text:
+            lib = FmaInt8Merged(lib)
+            if args.quant:
+                NO_MMA.add(v)  # its int8 instances run on FMA loops
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
@@ -739,7 +779,8 @@ def main(argv=None) -> int:
     # once a z-step (the frame's dft_w once)
     packed_read = None
     kept = list(((w.w if kernel == "frame" else w).mma or {}).values())
-    if args.bf16 and kept and any(o >= 0 for o in kept[0].offsets):
+    if ((args.bf16 or (args.quant and kernel == "decm")) and kept
+            and any(o >= 0 for o in kept[0].offsets)):
         dft = len(kept[0].offsets) - 2 if kernel == "frame" else -1
         packed_read = sum(b * blocks * (1 if j == dft else nz)
                           for j, b in packed_sizes(kept[0]).items())
