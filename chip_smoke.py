@@ -30,18 +30,23 @@ EQ, coarse magnitude):
      weights and on f32 weights, where each bf16 x f32 product runs as
      three bf16 products, on the weight's hi, mid and lo parts, and the
      frame kernel on f32 and bf16 weights, on the weights packed by
-     fc.mma_weights at a set's first such launch), and so do the
-     chain-merged decoder's two int8 forms with f32 products (XS_FORMS,
-     either layout: each f32 x int8 product as three bf16 products, x's
-     hi, mid and lo parts against the int8 matrix widened to bf16, and a
-     matrix kept in f32 as six), held at the f32 tolerance; the timing
-     phase fails unless exactly those sixteen ran on the tensor cores; the
-     frame kernel's two, the unmerged decoder's and the encoder's six and
-     the merged and padded decoder's two on f32 weights are also held at
-     latent 40 (B=2048 and 37, and to the same bits), and the two int8
-     forms with f32 products on the MIXED set too, in both layouts, and at
-     latent 40 on full int8 and MIXED sets (B=2048 and 37, to the same
-     bits);
+     fc.mma_weights at a set's first such launch), and so do the four int8
+     forms with f32 products (XS_FORMS: the unmerged decoder, the
+     chain-merged one in either layout and the encoder; each f32 x int8
+     product as three bf16 products, x's hi, mid and lo parts against the
+     int8 matrix widened to bf16, and a matrix kept in f32 as six), held
+     at the f32 tolerance; the timing phase fails unless exactly those
+     eighteen ran on the tensor cores; the frame kernel's two, the
+     unmerged decoder's and the encoder's six and the merged and padded
+     decoder's two on f32 weights are also held at latent 40 (B=2048 and
+     37, and to the same bits), and the four int8 forms with f32 products
+     on their MIXED sets too, and at latent 40 on full int8 and MIXED sets
+     (B=2048 and 37, to the same bits; the encoder's there against its
+     plain version in f64: within TOL of it, or no farther from it than the
+     f32 plain version is, whose own rounding passes TOL of it at latent
+     40); an int8 launch through an f32
+     entry, or through an x entry without the packed matrices, is refused
+     and writes nothing (no FMA int8 instance is left to fall back on);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -94,7 +99,7 @@ EQ, coarse magnitude):
 
 Step 2 also holds the int8 instances of the encoder and both decoders
 against their plain int8 versions the same way, once with a quant_exclude
-set that keeps some matrices in f32, and holds all 23 kernel forms,
+set that keeps some matrices in f32 (MIXED), and holds all 23 kernel forms,
 which all tile their products over the block's rows, to the same bits on
 two launches with the same input and state (B=2048 and B=37).
 
@@ -183,16 +188,26 @@ MMA_FORMS = ("fused_decoder_step_bf16", "fused_encoder_step_bf16",
              "fused_decoder_merged_step_pad_int8_bf16",
              "fused_rx_frame_step_bf16", "fused_rx_frame_step_bf16w_bf16",
              "fused_encoder_step_bf16w_bf16", "fused_encoder_step_int8_bf16",
+             "fused_decoder_step_int8", "fused_encoder_step_int8",
              "fused_decoder_merged_step_int8",
              "fused_decoder_merged_step_pad_int8")
-# of those, the chain-merged decoder's int8 forms with f32 products: x split
-# into XSPLIT_PARTS bf16 parts against each int8 matrix (exact in bf16), and
-# XW_PRODUCTS products of x's and w's parts for a matrix kept in f32; held
-# at TOL like every f32-product form
-XS_FORMS = ("fused_decoder_merged_step_int8",
+# of those, the int8 forms with f32 products: x split into XSPLIT_PARTS bf16
+# parts against each int8 matrix (exact in bf16), and XW_PRODUCTS products
+# of x's and w's parts for a matrix kept in f32; held at TOL like every
+# f32-product form
+XS_FORMS = ("fused_decoder_step_int8", "fused_encoder_step_int8",
+            "fused_decoder_merged_step_int8",
             "fused_decoder_merged_step_pad_int8")
 XSPLIT_PARTS = 3
 XW_PRODUCTS = 6
+# of those, the encoder's: its int8 step is so ill-conditioned (its z
+# output cancels in its sums) that the f32 plain version's own rounding
+# takes it past TOL of the same step in f64 at latent 40 (up to 2.2 times
+# on an H100, PERF.md), and so does every f32 kernel now and then, the FMA
+# loops too.  Its MIXED and latent-40 checks hold it against the plain
+# version in f64 (plain_f64): within TOL of it, or no farther from it than
+# the f32 plain version is
+XS_F64 = ("fused_encoder_step_int8",)
 # bf16 products against their plain version: an input of a product that
 # sits on a bf16 rounding boundary rounds the other way under another f32
 # sum order, and the recurrence carries the flip.  So at most BF16_FLIPS of
@@ -297,6 +312,32 @@ def check_close(what, got, want, tol):
             raise AssertionError(
                 f"{what}[{i}]: max abs err {float((g - w).abs().max()):.3g} "
                 f"outside {tol}")
+
+
+def tol_ratio(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) of TOL over the
+    tensors (1 or less: within TOL), in f64."""
+    return max(float(((g.double() - w.double()).abs() / (
+        TOL["atol"] + TOL["rtol"] * w.double().abs())).max())
+        for g, w in zip(got, want))
+
+
+def plain_f64(plain, weights, x, state):
+    """plain(weights, x, state) run in f64: each product x @ w (times its
+    int8 scale row) and everything after it, so each sum is rounded once
+    (the f32 plain version's own rounding reaches TOL on the int8 encoder:
+    PERF.md).  Returns (output, state) in f64."""
+    from radae_tpu_torch.ops import fused_core as fc
+    ws = [a.double() for a in weights.arrays]
+    rows = iter(weights.scales)
+    sc = [next(rows).double() if weights.scales and a.dim() == 2 else 1.0
+          for a in weights.arrays]
+    real = fc._products
+    fc._products = lambda *a, **k: (lambda v, j: (v.double() @ ws[j]) * sc[j])
+    try:
+        return plain(weights, x.double(), tuple(t.double() for t in state))
+    finally:
+        fc._products = real
 
 
 def bf16_errs(got, want):
@@ -799,32 +840,59 @@ def main(argv=None) -> int:
                     op, sp = plain(w, x, sp)
                     held(name, f"{batch} latent 40", f"call {frame}",
                          (ok_,) + sk, (op,) + sp)
-        # the merged decoder's int8 forms with f32 products (x split on the
-        # tensor cores), both layouts, at TOL (own seed): on the MIXED set
-        # (wgg kept in f32: its six products) and at latent 40 (dense_1's
-        # K = 40 ends inside a K step) on full int8 and MIXED sets
-        xrng = np.random.default_rng(8)
-        xs_sets = [(name, latent, excl, fc.decoder_weights(
-                        tr["decoder"], dev, merged="pad" if "_pad" in name else True,
-                        quant="int8", quant_exclude=excl))
-                   for name in XS_FORMS
+        # the int8 forms with f32 products (x split on the tensor cores) at
+        # TOL (own seeds: 8 for the merged decoder's, as before the
+        # unmerged decoder's and the encoder's joined, 9 for those): on
+        # the MIXED sets (the matrices kept in f32 take six products: the
+        # merged decoder's wgg, the unmerged decoder's whh and 84-column
+        # out_w, the encoder's whh and d1_w, whose K = 84 ends inside a K
+        # step) and at latent 40 (the decoders' dense_1 K = 40 ends inside a
+        # K step, the encoder's z_dense has 40 columns) on full int8 and
+        # MIXED sets; the encoder's against its plain version in f64
+        # (XS_F64): within TOL of it, or no farther from it than the f32
+        # plain version is.
+        def xs_weights(name, tr, excl):
+            if name.startswith("fused_encoder_step"):
+                return fc.encoder_weights(tr["encoder"], dev, quant="int8",
+                                          quant_exclude=excl)
+            merged = ("pad" if "_pad" in name else "merged" in name)
+            return fc.decoder_weights(tr["decoder"], dev, merged=merged,
+                                      quant="int8", quant_exclude=excl)
+
+        xrng, xrng9 = np.random.default_rng(8), np.random.default_rng(9)
+        xrngs = {n: xrng if "merged" in n else xrng9 for n in XS_FORMS}
+        xs_sets = [(name, latent, excl, xs_weights(name, tr, excl))
+                   for name in sorted(XS_FORMS, key=lambda n: "merged" not in n)
                    for latent, tr in ((cfg.latent_dim, tree), (cfg40.latent_dim, tree40))
-                   for excl in ((), MIXED["fused_decoder_merged_step_int8"])
+                   for excl in ((), MIXED[name.replace("_pad", "")])
                    if excl or latent != cfg.latent_dim]
-        xs_err = {}
+        xs_err, xs_f64 = {}, {}
         for name, latent, excl, w in xs_sets:
-            kern, plain, zero_state, draw = kernel_form(name, xrng, latent)
+            kern, plain, zero_state, draw = kernel_form(name, xrngs[name], latent)
             tag = f"latent {latent}" + (f" {excl} in f32" if excl else "")
             for batch in (B, RAGGED_B):
-                sk = sp = zero_state(batch)
+                sk = sp = s64 = zero_state(batch)
                 for frame in range(3):
                     x = draw(batch, nz, frame)
                     ok_, sk = kern(w, x, sk)
                     op, sp = plain(w, x, sp)
-                    held(name, f"{batch} {tag}", f"call {frame}",
-                         (ok_,) + sk, (op,) + sp)
+                    got, want = (ok_,) + sk, (op,) + sp
                     xs_err[name, tag] = max(xs_err.get((name, tag), 0.0),
-                                            max_err((ok_,) + sk, (op,) + sp))
+                                            max_err(got, want))
+                    if name not in XS_F64:
+                        held(name, f"{batch} {tag}", f"call {frame}", got, want)
+                        continue
+                    o64, s64 = plain_f64(plain, w, x, s64)
+                    exact = (o64,) + s64
+                    torch.cuda.synchronize()
+                    r_k, r_p = tol_ratio(got, exact), tol_ratio(want, exact)
+                    if not r_k <= max(1.0, r_p):
+                        raise AssertionError(
+                            f"{name} B={batch} {tag} call {frame}: "
+                            f"{r_k:.3f} of TOL from the plain step in f64, "
+                            f"the f32 plain step {r_p:.3f}")
+                    k0, p0 = xs_f64.get((name, tag), (0.0, 0.0))
+                    xs_f64[name, tag] = (max(k0, r_k), max(p0, r_p))
         for (name, batch), (n_over, n) in flips.items():
             if n_over > BF16_FLIPS * n:
                 raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
@@ -850,6 +918,49 @@ def main(argv=None) -> int:
             raise AssertionError("fused_rx_frame_step ran latent 112")
         if fc.LAUNCHES["fused_rx_frame_step"] != n_before:
             raise AssertionError("a refused frame geometry was launched")
+        # int8 launches the C entries refuse, writing nothing (outputs and
+        # state stay NaN): through the f32 entries (no FMA int8 instance is
+        # left) and through the x entries without the packed matrices
+        clib = _kernels.library("fused_core")
+        n_before = dict(fc.LAUNCHES)
+
+        def refuse(what, entry, w, x, out_shape, state, args, rule):
+            out = torch.full(out_shape, float("nan"), device=dev)
+            new = [torch.full(tuple(t.shape), float("nan"), device=dev)
+                   for t in state]
+            status = fc._launch(getattr(clib, entry), w, x, out, state, new,
+                                args, fc._kinds(w, fc._rounds(w, torch.float32, rule)))
+            torch.cuda.synchronize()
+            if status == 0 or not all(bool(torch.isnan(t).all())
+                                      for t in [out] + new):
+                raise AssertionError(f"{what}: {entry} took an int8 launch "
+                                     f"(status {status})")
+            return f"{what} through {entry} (cudaError_t {status})"
+
+        zq = torch.zeros((RAGGED_B, nz, cfg.latent_dim), device=dev)
+        fq = torch.zeros((RAGGED_B, 4 * nz, cfg.feature_dim), device=dev)
+        dq = (RAGGED_B, nz, dwq.arrays[-1].shape[0])
+        eq = (RAGGED_B, nz, cfg.latent_dim)
+        da, ea = (RAGGED_B, nz, cfg.latent_dim, dq[-1]), (
+            RAGGED_B, nz, 4 * cfg.feature_dim, cfg.latent_dim, cfg.bottleneck)
+        zs, zms = (fc.decoder_state_zero(RAGGED_B, dev),
+                   fc.decoder_state_zero(RAGGED_B, dev, merged=True))
+        es0 = fc.encoder_state_zero(RAGGED_B, dev)
+        refused_q = [
+            refuse("unmerged int8", "radae_fused_decoder_step", dwq, zq, dq,
+                   zs, da, "gru"),
+            refuse("unmerged int8", "radae_fused_decoder_x_step", dwq, zq, dq,
+                   zs, da + (None, None), "gru"),
+            refuse("merged int8", "radae_fused_decoder_merged_step", dwmq, zq,
+                   dq, zms, da, "none"),
+            refuse("merged int8", "radae_fused_decoder_merged_x_step", dwmq,
+                   zq, dq, zms, da + (0, 0, None, None), "none"),
+            refuse("encoder int8", "radae_fused_encoder_step", ewq, fq, eq,
+                   es0, ea, "gru"),
+            refuse("encoder int8", "radae_fused_encoder_x_step", ewq, fq, eq,
+                   es0, ea + (None, None), "gru")]
+        if dict(fc.LAUNCHES) != n_before:
+            raise AssertionError("a refused int8 launch was counted")
         # the tile kernels give the same bits on two launches (own seeds, so
         # the inputs above and below stay as they were)
         def same_bits(name, batch, call):
@@ -902,8 +1013,8 @@ def main(argv=None) -> int:
                 x, st = draw(batch, nz), rand_state(lrng, zero_state(batch))
                 same_bits(f"{name} latent 40", batch, lambda: kern(w, x, st))
             for name, latent, excl, w in xs_sets:
-                kern, _, zero_state, draw = kernel_form(name, xrng, latent)
-                x, st = draw(batch, nz), rand_state(xrng, zero_state(batch))
+                kern, _, zero_state, draw = kernel_form(name, xrngs[name], latent)
+                x, st = draw(batch, nz), rand_state(xrngs[name], zero_state(batch))
                 same_bits(f"{name} latent {latent} {excl}", batch,
                           lambda: kern(w, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
@@ -919,15 +1030,21 @@ def main(argv=None) -> int:
             for (f, b), (n_over, n) in flips.items() if f == name)
             + f"; largest max err {r[0]:.3g} and mean {r[1]:.3g} of the scale")
     print("int8 forms with f32 products on the tensor cores (x split in "
-          f"{XSPLIT_PARTS} parts), max abs err at B={B} and B={RAGGED_B} "
-          f"within {TOL}: " + ", ".join(f"{n} {t} {e:.3g}"
-                                       for (n, t), e in xs_err.items()))
+          f"{XSPLIT_PARTS} parts), max abs err against the plain version at "
+          f"B={B} and B={RAGGED_B} (within {TOL} but {XS_F64}; for those, the "
+          "largest |err| / (atol + rtol |want|) against the plain version in "
+          "f64, and the f32 plain version's, in brackets): " + ", ".join(
+              f"{n} {t} {e:.3g}" + (f" (f64: {xs_f64[n, t][0]:.3f}, the f32 "
+                                   f"plain version {xs_f64[n, t][1]:.3f})"
+                                   if (n, t) in xs_f64 else "")
+              for (n, t), e in xs_err.items()))
     print(f"refused without a launch: {refused}")
+    print("int8 launches refused, nothing written: " + "; ".join(refused_q))
     print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
           f"and B={RAGGED_B} (the frame kernel's bf16 forms, the unmerged "
           "decoder's and the encoder's tensor-core forms and the merged "
-          "decoder's split forms also at latent 40, its int8 forms with f32 "
-          "products also on the MIXED set and at latent 40)")
+          "decoder's split forms also at latent 40, the int8 forms with f32 "
+          "products also on the MIXED sets and at latent 40)")
 
     # -- the serving path on the fixture: the rx paths ----------------------
     # path -> (step, weights, zero state, the forms it launches, encoder
@@ -1251,10 +1368,13 @@ def main(argv=None) -> int:
                           (lambda p=plain, w=w, x=x, st=st: p(w, x, st)),
                           (bw, x, st, demod(name) if "frame" in name
                            else none))
-        # the new forms and the merged int8 one (on dwmq)
+        # the new forms and the int8 ones (on dwq, dwmq, ewq)
         for name, ws, bw in [(n, w.w if "frame" in n else w, bw)
                              for n, (w, bw) in new_w.items()] + [
-                                 ("fused_decoder_merged_step_int8", dwmq, dwmq)]:
+                                 (n, w, w) for n, w in (
+                                     ("fused_decoder_step_int8", dwq),
+                                     ("fused_encoder_step_int8", ewq),
+                                     ("fused_decoder_merged_step_int8", dwmq))]:
             kept = (list(ws.mma.values()) if name.endswith("_bf16")
                     or name in XS_FORMS else [])
             if kept and any(o >= 0 for o in kept[0].offsets):

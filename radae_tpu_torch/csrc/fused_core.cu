@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas TPU kernels in radae_tpu/ops/fused_core.py:
 //   radae_fused_decoder_step         <- make_fused_decoder_step, body `kernel`
-//                                       (unmerged; f32 and quant="int8")
+//                                       (unmerged, f32)
+//   radae_fused_decoder_x_step       <- the same with quant="int8"
 //   radae_fused_decoder_bf16_step    <- the same with compute_dtype=bf16
 //   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
 //                                       `kernel_merged` (merged=True, f32)
@@ -16,8 +17,8 @@
 //                                       port's form of both its rx_dma
 //                                       paths)
 //   radae_fused_rx_frame_bf16_step   <- the same with compute_dtype=bf16
-//   radae_fused_encoder_step         <- make_fused_encoder_step (f32 and
-//                                       quant="int8")
+//   radae_fused_encoder_step         <- make_fused_encoder_step (f32)
+//   radae_fused_encoder_x_step       <- the same with quant="int8"
 //   radae_fused_encoder_bf16_step    <- the same with compute_dtype=bf16
 // and computes the same functions as the plain PyTorch versions in
 // radae_tpu_torch/ops/fused_core.py (decoder_step_plain,
@@ -106,25 +107,23 @@
 // the decoder's scratch; the bound is the decoder's plus about 4% for the
 // demod.
 //
-// int8 weights.  The encoder and both decoders have a second instance (the
+// int8 weights.  The encoder and both decoders have an instance (the
 // template argument Q) for the weights of radae_tpu's `_fused_weights(
 // quant="int8")`: every matrix int8, one byte a weight, with a per-output-
 // column f32 scale row, but those its quant_exclude keeps in f32 (a unit
 // scale row each), so the kind is a flag per matrix, the same for a whole
-// work item (warp-uniform).  tmac reads the 4 int8 weights of a row segment
-// as one 32-bit load and converts them to f32 before the same multiply-adds
-// (f32 activations and sums, as the TPU kernel's dot after its astype);
-// the scale multiplies the product on its output, the K lanes' summed tile,
-// before the bias (kputq, and the merged kernel's GLU epilogue).  A K chunk's
-// partial is scaled on its own, and the chunks are added after the barrier:
-// the same sum as scaling their total.  The GRU's r|z items, which add x @
-// wih and h @ whh in one tile in f32, put the h product into partials of
-// its own, since the two have different scales (12 KB more shared memory
-// for the decoder, 8 KB for the encoder).  The weights a launch fetches are
-// a quarter of the f32 instance's; the multiply-adds are the same, so the
-// bound is the same.  The frame kernel stays f32: radae_tpu's frame kernel
-// has no quant.  The chain-merged decoder's int8 instance runs its products
-// on the tensor cores instead (below), in either layout.
+// work item (warp-uniform).  The product is f32 x by the int8 matrix as f32
+// (the TPU kernel's dot after its astype); the scale multiplies the product
+// on its output, the item's summed tile, before the bias (kputq, and the
+// merged kernel's GLU epilogue).  A K chunk's partial is scaled on its own,
+// and the chunks are added after the barrier: the same sum as scaling their
+// total.  The GRU's r|z items, which add x @ wih and h @ whh in one tile in
+// f32, put the h product into partials of its own, since the two have
+// different scales (12 KB more shared memory for the decoder, 8 KB for the
+// encoder).  Every int8 instance runs its products on the tensor cores (the
+// x-split route, below): on FMA loops the conversion of each int8 weight
+// made them 1.10-1.19 times slower than the f32 instances.  The frame
+// kernel stays f32: radae_tpu's frame kernel has no quant.
 //
 // bf16 products (compute_dtype=bf16).  Each body has one more instance
 // (BF) that rounds each product's x to bf16 (round to nearest even) where
@@ -153,20 +152,24 @@
 // kind-0 matrix w is packed three times, hi = bf16(w), mid = bf16(w - hi)
 // and lo = bf16(w - hi - mid) (each difference exact in f32, and hi + mid +
 // lo = w but where w is tiny), and x hi + x mid + x lo, three MMAs on the
-// same A fragment, is the bf16 x f32 product (tmma<true>).  The chain-merged
-// decoder's int8 instance (KindSplitXArgs; f32 products, radae_tpu's
-// jnp.dot of f32 x and the int8 matrix as f32) swaps the two sides: every
+// same A fragment, is the bf16 x f32 product (tmma<true>).  The int8
+// instances with f32 products (KindSplitXArgs: dec_kernel, enc_kernel and
+// the merged decoder in either layout; radae_tpu's jnp.dot of f32 x and the
+// int8 matrix as f32) swap the two sides: every
 // int8 weight is exact in bf16, so the matrix is packed once, widened, and
 // x, f32, is split where it is loaded into hi, mid and lo (xparts: the
 // remainder past lo is below 2^-27 |x|), three MMAs a step on one B copy
-// (tmma<false, true>); a matrix that quant_exclude keeps in f32 is packed
+// (tmma<false, XS>); a matrix that quant_exclude keeps in f32 is packed
 // split and multiplied as the six products of x's and w's parts at or above
-// 2^-18 of the largest (tmma<true, true>).  Its results are held to the f32
-// instances' tolerance, not to the bf16 products' one.  On an H100 it takes
-// 0.30 ms in either layout against 0.48 and 0.50 for the FMA instances it
-// replaced (tools/enc_variants.py, in turns); two x parts would take 0.25
-// (within the tolerance, but at a third of it on the CPU estimate of
-// tools/split_flips.py, against a fiftieth with three).
+// 2^-18 of the largest (tmma<true, XS>).  Their results are held to the
+// f32 instances' tolerance, not to the bf16 products' one.  On an H100 the
+// merged one takes 0.30 ms in either layout against 0.48 and 0.50 for the
+// FMA instances it replaced, the unmerged decoder's 0.31 against 0.44 and
+// the encoder's (which also compensates each step's truncation, XS_COMP
+// below) 0.36 against 0.48 (tools/enc_variants.py, in turns); two x parts
+// would take 0.25-0.31 (the decoders within the tolerance, but at a third
+// of it on the CPU estimate of tools/split_flips.py against a fiftieth with
+// three; the encoder 15 times past it).
 // Two parts are not enough: |w - hi - mid| reaches 2^-17 |w|, and on the
 // fixture weights that took the encoder's bf16 input flips against the plain
 // version to 12-14 times those of an exact product, past chip_smoke.py's
@@ -417,7 +420,7 @@ struct KindSplitArgs : KindMmaArgs<NS, NW> {};
 // The same for the merged decoder's int8 instance with f32 products: x is
 // split into hi, mid and lo against each int8 matrix widened to bf16 (kind
 // 1), and against the hi, mid and lo copies of a matrix that quant_exclude
-// keeps in f32 (kind 0): tmma<false, true> and tmma<true, true>
+// keeps in f32 (kind 0): tmma<false, XS> and tmma<true, XS>
 template <int NS, int NW>
 struct KindSplitXArgs : KindMmaArgs<NS, NW> {};
 template <class KA>
@@ -517,11 +520,6 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
-// 4 int8 weights of a row segment, one 32-bit load, as floats
-__device__ __forceinline__ float4 ldq4(const signed char* p) {
-  const char4 q = __ldg(reinterpret_cast<const char4*>(p));
-  return make_float4(q.x, q.y, q.z, q.w);
-}
 // v rounded to bf16 (nearest even) and back: a product input of the frame
 // kernel's BF instance's LS products (rowprod)
 __device__ __forceinline__ float4 bfr4(float4 v) {
@@ -613,18 +611,12 @@ __device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
   return v;
 }
 
-// rows k..k+3 of W at columns c..c+3 (zeros where !v), f32 or int8
+// rows k..k+3 of W at columns c..c+3 (zeros where !v)
 __device__ __forceinline__ void ldw(float4 (&wt)[4], const float* p, int out,
                                     bool v) {
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int m = 0; m < 4; ++m) wt[m] = v ? ldg4(p + m * out) : z;
-}
-__device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
-                                    int out, bool v) {
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int m = 0; m < 4; ++m) wt[m] = v ? ldq4(p + m * out) : z;
 }
 
 // acc[i] += sum over this lane's k (k0 + 4*kl + 32*j < k1) of
@@ -633,16 +625,16 @@ __device__ __forceinline__ void ldw(float4 (&wt)[4], const signed char* p,
 // kernel's sample rows (every operand of a tile product is there: the
 // carried state and the inputs are staged first).  k0 and k1 are multiples
 // of 4; an empty range adds nothing.  The next K step's weights are loaded
-// into registers before this step's multiply-adds.  W is f32 or int8 (T).
-template <class T>
+// into registers before this step's multiply-adds.  W is f32 (the int8
+// instances run on the tensor cores).
 __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
-                                     int r0, const T* __restrict__ W,
+                                     int r0, const float* __restrict__ W,
                                      int out, int c, int k0, int k1, int kl) {
   const float* const xr = X + r0 * ld;
   const bool cv = c < out;
   const int n = (k1 - k0 + 31) >> 5;
   int k = k0 + 4 * kl;
-  const T* wp = W + (size_t)k * out + c;
+  const float* wp = W + (size_t)k * out + c;
   float4 wn[4];
   ldw(wn, wp, out, cv && k < k1);
 #pragma unroll 1   // unrolled by 2: no faster on an H100, twice the code
@@ -671,9 +663,9 @@ __device__ __forceinline__ void tmac(float4 (&acc)[ET], const float* X, int ld,
 // Tile products on the tensor cores (tmma: the MM instances' route, for
 // matrices of kinds 1, 2 and 3, whose products are bf16 x bf16, and in the
 // split instances for kind 0, bf16 x f32, as three bf16 products:
-// tmma<true>; and in the merged decoder's int8 instance with f32 products,
-// f32 x int8 as three bf16 products on x's parts, tmma<false, true>, and a
-// kept-f32 matrix's f32 x f32 as six, tmma<true, true>).
+// tmma<true>; and in the int8 instances with f32 products, f32 x int8 as
+// three bf16 products on x's parts, tmma<false, XS>, and a kept-f32
+// matrix's f32 x f32 as six, tmma<true, XS>).
 //
 // A work item is the same one warp's 16 rows x 16 columns over a K range,
 // but the whole warp walks K in 16-wide steps with
@@ -779,6 +771,29 @@ __device__ __forceinline__ void mma2(float4& e0, float4& e1,
   mma16816(e1, a[0], a[1], a[2], a[3], b.z, b.w);
 }
 
+// sign(v) 2^(v's exponent) of each element: v with its significand cleared
+// (zero for zero and subnormals)
+__device__ __forceinline__ float4 pow2(float4 v) {
+  constexpr unsigned E = 0xff800000u;
+  return make_float4(__uint_as_float(__float_as_uint(v.x) & E),
+                     __uint_as_float(__float_as_uint(v.y) & E),
+                     __uint_as_float(__float_as_uint(v.z) & E),
+                     __uint_as_float(__float_as_uint(v.w) & E));
+}
+
+// The f32-product routes of the int8 instances (tmma's XS): x in three
+// bf16 parts (XS_SPLIT, both decoders'), and the same with each K step's
+// truncation compensated (XS_COMP, enc_kernel's).  The tensor cores
+// truncate a step sum t toward zero, by half an ulp of t on average, and
+// the encoder's int8 step is so ill-conditioned that the bias shows: on an
+// H100 its output against the plain step in f64 read up to 0.96 of
+// chip_smoke.py's TOL without the compensation and 0.57 with it, where the
+// FMA loops read 0.65 (latent 40, tools/enc_variants.py --exact; the
+// decoders read 0.01 either way).  XS_COMP sums sign(t) 2^(t's exponent)
+// apart, in c0 and c1, and adds 2^-24 of it, half an ulp a step, to the
+// sums at the end, at 7% of the encoder's time.
+constexpr int XS_SPLIT = 1, XS_COMP = 2;
+
 // One K step of the f32-product route (tmma's XS): the lane's x of rows g
 // (r0) and g + 8 (r1), f32, split into hi, mid and lo (xparts) in
 // registers, against b, an int8 matrix widened to bf16 (exact): x lo b,
@@ -787,10 +802,11 @@ __device__ __forceinline__ void mma2(float4& e0, float4& e1,
 // b, x mid m, x hi l, x mid b, x hi m, x hi b; the three left out are below
 // 2^-26 of it).  The step's products are summed from zero in the tensor
 // cores, the smallest first, and the step sum added to d0, d1 in f32, as in
-// mstep<true>.
-template <bool SPLIT>
-__device__ __forceinline__ void xstep(float4& d0, float4& d1, float4 r0,
-                                      float4 r1, uint4 b, uint4 m, uint4 l) {
+// mstep<true>.  COMP: the step sum's pow2 added to c0, c1 (XS_COMP).
+template <bool SPLIT, bool COMP>
+__device__ __forceinline__ void xstep(float4& d0, float4& d1, float4& c0,
+                                      float4& c1, float4 r0, float4 r1,
+                                      uint4 b, uint4 m, uint4 l) {
   unsigned xh[4], xm[4], xl[4];         // a0..a3 of each part
   xparts(r0.x, r0.y, xh[0], xm[0], xl[0]);
   xparts(r1.x, r1.y, xh[1], xm[1], xl[1]);
@@ -810,6 +826,10 @@ __device__ __forceinline__ void xstep(float4& d0, float4& d1, float4 r0,
   mma2(e0, e1, xh, b);
   d0 = add4(d0, e0);
   d1 = add4(d1, e1);
+  if constexpr (COMP) {
+    c0 = add4(c0, pow2(e0));
+    c1 = add4(c1, pow2(e1));
+  }
 }
 
 // acc[0] and acc[1] (rows r0 + g and r0 + g + 8 at columns c..c+3, c =
@@ -823,10 +843,11 @@ __device__ __forceinline__ void xstep(float4& d0, float4& d1, float4 r0,
 // MMA_PAIRS pairs ahead of its products.  SPLIT: W is a split matrix (hi,
 // mid and lo copies, 96 words a step, MMA_SPLIT_PAIRS pairs ahead), and each
 // step runs the two n8 tiles on lo, mid and hi with the same A registers
-// (mstep<true>).  XS (f32 products): x is not rounded but split into three
-// bf16 parts at each step (xstep), against W (int8 widened) or, SPLIT,
-// against its three copies; B MMA_SPLIT_PAIRS pairs ahead.
-template <bool SPLIT = false, bool XS = false>
+// (mstep<true>).  XS (f32 products, XS_SPLIT or XS_COMP): x is not
+// rounded but split into three bf16 parts at each step (xstep), against W
+// (int8 widened) or, SPLIT, against its three copies; B MMA_SPLIT_PAIRS
+// pairs ahead; XS_COMP: the steps' truncation compensated at the end.
+template <bool SPLIT = false, int XS = 0>
 __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const uint4* __restrict__ W,
                                      int K, int c, int k0, int k1, int kl) {
@@ -843,6 +864,7 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
   const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
   float4 d0 = make_float4(acc[0].x, acc[0].y, acc[1].x, acc[1].y);
   float4 d1 = make_float4(acc[0].z, acc[0].w, acc[1].z, acc[1].w);
+  [[maybe_unused]] float4 c0 = z, c1 = z;       // XS_COMP: the steps' pow2
   uint4 bq[NB];                                 // hi (or the only) copy
   [[maybe_unused]] uint4 mq[SPLIT ? NB : 1], lq[SPLIT ? NB : 1];  // mid, lo
 #pragma unroll
@@ -877,10 +899,13 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
     const bool va = ka + 4 * t < k1, vb = kb + 4 * t < k1;
     const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
     const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;
-    if constexpr (XS) {   // each step's rows selected as f32, then split
-      xstep<SPLIT>(d0, d1, sel4(odd, qa, pa), sel4(odd, qb, pb), b0, m0, l0);
+    if constexpr (XS != 0) {   // each step's rows selected as f32, then split
+      constexpr bool C = XS == XS_COMP;
+      xstep<SPLIT, C>(d0, d1, c0, c1, sel4(odd, qa, pa), sel4(odd, qb, pb), b0,
+                      m0, l0);
       if (k + 16 < k1)
-        xstep<SPLIT>(d0, d1, sel4(odd, pa, qa), sel4(odd, pb, qb), b1, m1, l1);
+        xstep<SPLIT, C>(d0, d1, c0, c1, sel4(odd, pa, qa), sel4(odd, pb, qb),
+                        b1, m1, l1);
     } else {
       const unsigned u0 = bf2(pa.x, pa.y), u1 = bf2(pb.x, pb.y);
       const unsigned u2 = bf2(pa.z, pa.w), u3 = bf2(pb.z, pb.w);
@@ -892,6 +917,13 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
         mstep<SPLIT>(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2,
                      odd ? u3 : w3, b1, m1, l1);
     }
+  }
+  if constexpr (XS == XS_COMP) {
+    constexpr float H = 0x1p-24f;       // half an ulp of 1
+    d0 = make_float4(fmaf(c0.x, H, d0.x), fmaf(c0.y, H, d0.y),
+                     fmaf(c0.z, H, d0.z), fmaf(c0.w, H, d0.w));
+    d1 = make_float4(fmaf(c1.x, H, d1.x), fmaf(c1.y, H, d1.y),
+                     fmaf(c1.z, H, d1.z), fmaf(c1.w, H, d1.w));
   }
   acc[0] = make_float4(d0.x, d0.y, d1.x, d1.y);
   acc[1] = make_float4(d0.z, d0.w, d1.z, d1.w);
@@ -935,20 +967,6 @@ __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
   }
 }
 
-// tmac on the matrix at W of kind q: in an int8 instance (Q) int8 when q
-// is 1, else f32
-template <bool Q>
-__device__ __forceinline__ void wmac(float4 (&acc)[ET], const float* X, int ld,
-                                     int r0, const float* W, int q, int out,
-                                     int c, int k0, int k1, int kl) {
-  if (Q && q) {
-    tmac(acc, X, ld, r0, reinterpret_cast<const signed char*>(W), out, c, k0,
-         k1, kl);
-  } else {
-    tmac(acc, X, ld, r0, W, out, c, k0, k1, kl);
-  }
-}
-
 // tmac on a padded f32 operand of the chain-merged decoder: x's segment j
 // (columns s.. of X, seg_width(j) wide) against the rows DEC_SEG * j.. of
 // W, for the part of each segment in [k0, k1); W's zero rows between are
@@ -966,18 +984,19 @@ __device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
 }
 
 // tmma on the packed matrix wm (K rows) of kind q: in a split instance (SP)
-// a kind-0 matrix on its hi, mid and lo copies; in the int8 instance with
-// f32 products (XS) x in three parts against an int8 matrix (q 1) or a
-// kept-f32 one's three copies (q 0) (q is warp-uniform: one a matrix)
-template <bool SP, bool XS = false>
+// a kind-0 matrix on its hi, mid and lo copies; in an int8 instance with
+// f32 products (XS, its route) x in three parts against an int8 matrix (q
+// 1) or a kept-f32 one's three copies (q 0) (q is warp-uniform: one a
+// matrix)
+template <bool SP, int XS = 0>
 __device__ __forceinline__ void kmma(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const uint4* wm, int q, int K,
                                      int c, int k0, int k1, int kl) {
-  if constexpr (XS) {
+  if constexpr (XS != 0) {
     if (q == 0)
-      tmma<true, true>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+      tmma<true, XS>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
     else
-      tmma<false, true>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
+      tmma<false, XS>(acc, X, ld, r0, wm, K, c, k0, k1, kl);
     return;
   }
   if constexpr (SP) {
@@ -990,16 +1009,18 @@ __device__ __forceinline__ void kmma(float4 (&acc)[ET], const float* X, int ld,
 }
 
 // An item's product on its route: in an MM instance kmma on the packed
-// matrix wm (K rows), else wmac on W of kind q
-template <bool Q, bool MM, bool SP = false, bool XS = false>
+// matrix wm (K rows) of kind q, else tmac on the f32 matrix W (every int8
+// instance is an MM one)
+template <bool Q, bool MM, bool SP = false, int XS = 0>
 __device__ __forceinline__ void umac(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const float* W, const uint4* wm,
                                      int q, int K, int out, int c, int k0,
                                      int k1, int kl) {
+  static_assert(MM || !Q, "the int8 instances run on the tensor cores");
   if constexpr (MM)
     kmma<SP, XS>(acc, X, ld, r0, wm, q, K, c, k0, k1, kl);
   else
-    wmac<Q>(acc, X, ld, r0, W, q, out, c, k0, k1, kl);
+    tmac(acc, X, ld, r0, W, out, c, k0, k1, kl);
 }
 
 // The scale row sc at columns c..c+3 in an int8 instance (ones otherwise,
@@ -1051,13 +1072,13 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // row group, one 16-column group and one K chunk (kc wide, a multiple of
 // 32), taken by the warps in turn.  Chunk ch's partial goes to
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
-// after the barrier adds the chunks in order.  W is of kind q (wmac), and in
-// an int8 instance each partial is scaled by the row sc.  PAD: W is a
-// padded f32 x operand when pad (pmac).  MM: on the tensor cores (kmma),
-// W's packed copy wm (pad is then moot: a padded matrix packs as its merged
-// one); SP: a split instance; XS: the int8 one with f32 products.
+// after the barrier adds the chunks in order.  W is f32 (tmac), and in an
+// int8 instance each partial is scaled by the row sc.  PAD: W is a padded
+// f32 x operand when pad (pmac).  MM: on the tensor cores (kmma), W's packed
+// copy wm of kind q (pad is then moot: a padded matrix packs as its merged
+// one); SP: a split instance; XS: an int8 one with f32 products.
 template <bool Q, bool BF = false, bool PAD = false, bool MM = false,
-          bool SP = false, bool XS = false>
+          bool SP = false, int XS = 0>
 __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       int q, const float* sc, int K, int out,
                                       int ng, int ks,
@@ -1065,7 +1086,7 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       float* part, int warp, int kl, int cq,
                                       bool pad = false,
                                       const uint4* wm = nullptr) {
-  static_assert(!PAD || MM || !Q, "the padded FMA route is f32 only");
+  static_assert(MM || !Q, "the int8 instances run on the tensor cores");
   const int kc = ((K + ks - 1) / ks + 31) & ~31;
   for (int u = warp; u < RG * ng * ks; u += NWARP) {
     const int r0 = u / (ng * ks) * ET, v = u % (ng * ks);
@@ -1081,7 +1102,7 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
     else if (PAD && pad)
       pmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
     else
-      wmac<Q>(acc, X, ld, r0, W, q, out, c, kb, ke, kl);
+      tmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
     kputq<Q, MM>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
                  c < out);
   }
@@ -1154,11 +1175,14 @@ __device__ __forceinline__ float gru_h(float r, float z, float nx, float nh,
 // and layer i's conv history over the prefix of x[-1] just before its conv
 // at the first step (the next layer overwrites it with its own).  Each
 // staging pass sits between two barriers that are there anyway.  smem holds
-// DEC_SMEM bytes (DEC_SMEM_Q in the int8 instance, Q).  BF: bf16 products,
-// the kinds in qa (KindArgs).  MM (the frame kernel's BF instance, Q false,
-// and dec_kernel's MM and split instances, Q true): every product on the
-// tensor cores (kmma), on the packed matrices m; in the split instance
-// (qa a KindSplitArgs) the kind-0 ones on their hi, mid and lo copies.
+// DEC_SMEM bytes (DEC_SMEM_Q in the int8 instances, Q).  BF: bf16
+// products, the kinds in qa (KindArgs).  MM (the frame kernel's BF instance,
+// Q false, and dec_kernel's MM, split and x-split instances, Q true): every
+// product on the tensor cores (kmma), on the packed matrices m; in the split
+// instance (qa a KindSplitArgs) the kind-0 ones on their hi, mid and lo
+// copies; in the x-split one (int8 weights with f32 products, qa a
+// KindSplitXArgs, XS_SPLIT) x in three bf16 parts against each int8 matrix
+// and each kept-f32 one's three copies.
 template <bool Q, bool BF = false, bool MM = false,
           class KA = QuantArgs<DEC_NS>>
 __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
@@ -1166,6 +1190,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
                                          int zstep,
                                          const MmaW<DEC_NW>* m = nullptr) {
   constexpr bool SP = has_split<KA>;
+  constexpr int XS = has_xsplit<KA> ? XS_SPLIT : 0;
+  static_assert(BF || !MM || (Q && XS),
+                "an MM instance with f32 products is the int8 one on x's parts");
   float* const xb = smem;                               // [2][R][DEC_X]
   float* const hb = xb + 2 * R * DEC_X;                 // [2][5][R][DEC_H]
   float* const scr = smem + DEC_RING;                   // partial sums
@@ -1182,8 +1209,8 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
   // the float4 of a DEC_H-wide finish pass that is this thread's
   const int fr = t / (DEC_H / 4), fc = t % (DEC_H / 4) * 4;
   // Q: array j's kind and scale row si (scale rows in the order of
-  // radae_tpu's kernel: d1, per layer wih whh glu cw0 cw1, out); BF: the
-  // kind of wmac
+  // radae_tpu's kernel: d1, per layer wih whh glu cw0 cw1, out; XS: kmma's
+  // kind, 1 int8, 0 kept in f32); BF: kmma's kind
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
   const Kinds kd = kinds_of<BF>(qa);
@@ -1213,9 +1240,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF, false, MM, SP>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
-                                a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
-                                kl, cq, false, mw(0));
+    tprod<Q, BF, false, MM, SP, XS>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                                    a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr,
+                                    warp, kl, cq, false, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1254,28 +1281,28 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         float4 acc[ET];
         zero(acc);
         if (Q) {
-          umac<Q, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
-                          hf ? kh : 0, hf ? gin : kh, kl);
+          umac<Q, MM, SP, XS>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G,
+                              c, hf ? kh : 0, hf ? gin : kh, kl);
           kputq<Q, MM>(acc, kl, r0, p, DEC_GS, gi, bx, true);
           if (hf) {
             zero(acc);
-            umac<Q, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
-                            DEC_G, c, 0, DEC_H, kl);
+            umac<Q, MM, SP, XS>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh,
+                                DEC_H, DEC_G, c, 0, DEC_H, kl);
             kputq<Q, MM>(acc, kl, r0, rz ? hz + c : p + DEC_H,
                          rz ? 2 * DEC_H : DEC_GS, gh, bh, true);
           }
           continue;
         }
-        umac<Q, MM, SP>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
-                        hf ? kh : 0, hf ? gin : kh, kl);
+        umac<Q, MM, SP, XS>(acc, X, DEC_X, r0, wih, mw(j0), qi, gin, DEC_G, c,
+                            hf ? kh : 0, hf ? gin : kh, kl);
         if (rz && hf)
-          umac<Q, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
-                          c, 0, DEC_H, kl);
+          umac<Q, MM, SP, XS>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
+                              DEC_G, c, 0, DEC_H, kl);
         kput<MM>(acc, kl, r0, p, DEC_GS, bx, true);
         if (!rz && hf) {
           zero(acc);
-          umac<Q, MM, SP>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H, DEC_G,
-                          c, 0, DEC_H, kl);
+          umac<Q, MM, SP, XS>(acc, hp, DEC_H, r0, whh, mw(j0 + 1), qh, DEC_H,
+                              DEC_G, c, 0, DEC_H, kl);
           kput<MM>(acc, kl, r0, p + DEC_H, DEC_GS, bh, true);
         }
       }
@@ -1307,9 +1334,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod<Q, BF, false, MM, SP>(hc, DEC_H, w + o[4], q8(j0 + 4), sc(3 + 5 * i),
-                                  DEC_H, DEC_H, DEC_NG, 2, nullptr, scr, warp, kl,
-                                  cq, false, mw(j0 + 4));
+      tprod<Q, BF, false, MM, SP, XS>(hc, DEC_H, w + o[4], q8(j0 + 4),
+                                      sc(3 + 5 * i), DEC_H, DEC_H, DEC_NG, 2,
+                                      nullptr, scr, warp, kl, cq, false,
+                                      mw(j0 + 4));
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -1334,9 +1362,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
         const float4 b = ch == 0 ? ldg4(w + o[7] + c) : zero4;
         float4 acc[ET];
         zero(acc);
-        umac<Q, MM, SP>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
-                        mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c, kb,
-                        ke, kl);
+        umac<Q, MM, SP, XS>(acc, tap ? X : Xp, DEC_X, r0, w + o[5 + tap],
+                            mw(j0 + 5 + tap), q8(j0 + 5 + tap), cin, DEC_CO, c,
+                            kb, ke, kl);
         kputq<Q, MM>(acc, kl, r0, scr + ch * R * DEC_CO + c, DEC_CO,
                      scl<Q, BF>(sc(4 + 5 * i + tap), c, DEC_CO), b, true);
       }
@@ -1353,10 +1381,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, false, MM, SP>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2),
-                                sc(DEC_NS - 1), DEC_X, od, (od + 15) / 16, 2,
-                                w + off[DEC_NW - 1], scr, warp, kl, cq, false,
-                                mw(DEC_NW - 2));
+    tprod<Q, BF, false, MM, SP, XS>(X, DEC_X, w + off[DEC_NW - 2],
+                                    q8(DEC_NW - 2), sc(DEC_NS - 1), DEC_X, od,
+                                    (od + 15) / 16, 2, w + off[DEC_NW - 1], scr,
+                                    warp, kl, cq, false, mw(DEC_NW - 2));
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -1383,12 +1411,15 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
   }
 }
 
-// The instances: <false> f32, <true> int8, and with bf16 products every
-// product on the tensor cores on the packed matrices qa.m: the MM instance
+// The instances: <false> f32 on FMA loops; every other one on the tensor
+// cores, on the packed matrices qa.m: with bf16 products the MM instance
 // <true, true, KindMmaArgs> on weights of kinds 1, 2 and 3 (tmma), the split
 // instance <true, true, KindSplitArgs> on f32 weights (the GRU's matrices of
 // kind 3 through tmma, the others, kind 0, through tmma<true> on their hi,
-// mid and lo copies).
+// mid and lo copies); with f32 products the int8 instance <true, false,
+// KindSplitXArgs>, x in three bf16 parts against each int8 matrix widened to
+// bf16 and each matrix that quant_exclude keeps in f32 as its three copies
+// (tmma<false, XS> and tmma<true, XS>).
 template <bool Q, bool BF = false, class KA = QuantArgs<DEC_NS>>
 __global__ void __launch_bounds__(NT)
     dec_kernel(const DecArgs a, const __grid_constant__ KA qa) {
@@ -1423,13 +1454,14 @@ __global__ void __launch_bounds__(NT)
 // matrices) on its hi, mid and lo copies (tmma<true>); with f32 products
 // the int8 instance <true, false, true, KindSplitXArgs>, x in three bf16
 // parts against each int8 matrix widened to bf16 and each matrix that
-// quant_exclude keeps in f32 as its three copies (tmma<false, true> and
-// tmma<true, true>).
+// quant_exclude keeps in f32 as its three copies (tmma<false, XS> and
+// tmma<true, XS>).
 template <bool Q, bool BF = false, bool PAD = false,
           class KA = QuantArgs<DECM_NS>>
 __global__ void __launch_bounds__(NT)
     dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ KA qa) {
-  constexpr bool MM = has_mma<KA>, SP = has_split<KA>, XS = has_xsplit<KA>;
+  constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
+  constexpr int XS = has_xsplit<KA> ? XS_SPLIT : 0;
   static_assert(MM || !BF, "bf16 products run on the tensor cores");
   static_assert(BF || !MM || (Q && XS),
                 "an MM instance with f32 products is the int8 one on x's parts");
@@ -1748,15 +1780,24 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgsOf<BF> a) {
 // slots of x[-1] and x[-2] (h at its GRU window, each conv's history tap
 // as the prefix), and the features of step k at columns ENC_FOFF.. of its
 // own slot, each in a pass that already sits between two barriers.  Q: the
-// int8 instance (ENC_SMEM_Q bytes of shared memory).  BF: bf16 products,
-// the kinds in qa, every product on the tensor cores on the packed matrices
-// qa.m: the MM instance <true, true, KindMmaArgs> on weights of kinds 1, 2
-// and 3 (tmma), the split instance <true, true, KindSplitArgs> on f32
-// weights (kind 3 through tmma, kind 0 through tmma<true> on hi, mid, lo).
+// int8 and bf16-product instances' form (ENC_SMEM_Q bytes of shared memory).
+// The instances: <false> f32 on FMA loops; every other one on the tensor
+// cores, on the packed matrices qa.m: with bf16 products (BF, the kinds in
+// qa) the MM instance <true, true, KindMmaArgs> on weights of kinds 1, 2 and
+// 3 (tmma), the split instance <true, true, KindSplitArgs> on f32 weights
+// (kind 3 through tmma, kind 0 through tmma<true> on hi, mid, lo); with f32
+// products the int8 instance <true, false, KindSplitXArgs> (XS_COMP: the
+// steps' truncation compensated), x in three bf16 parts against each int8
+// matrix widened to bf16 and each matrix that quant_exclude keeps in f32 as
+// its three copies (tmma<false, XS> and tmma<true, XS>).
 template <bool Q, bool BF = false, class KA = QuantArgs<ENC_NS>>
 __global__ void __launch_bounds__(NT)
     enc_kernel(const EncArgs a, const __grid_constant__ KA qa) {
   constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
+  constexpr int XS = has_xsplit<KA> ? XS_COMP : 0;
+  static_assert(MM || !Q, "the int8 instances run on the tensor cores");
+  static_assert(BF || !MM || (Q && XS),
+                "an MM instance with f32 products is the int8 one on x's parts");
   extern __shared__ float4 smem4[];
   float* const xb = reinterpret_cast<float*>(smem4);   // [3][R][ENC_X]
   float* const scr = xb + 3 * R * ENC_X;                // gates / partials
@@ -1777,7 +1818,7 @@ __global__ void __launch_bounds__(NT)
   const float4 d1v = ldg4(w + off[1] + t % (ENC_H / 4) * 4);
   const float4 obv = ldg4(w + off[ENC_NW - 1] + t % (od / 4) * 4);
   // Q: array j's kind and scale row si (d1, per layer wih whh cw0 cw1,
-  // out); BF: the kind of wmac
+  // out; XS: kmma's kind, 1 int8, 0 kept in f32); BF: kmma's kind
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
   const Kinds kd = kinds_of<BF>(qa);
@@ -1809,8 +1850,8 @@ __global__ void __launch_bounds__(NT)
       float4 acc[ET];
       zero(acc);
       if (kb < ke)
-        umac<Q, MM, SP>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0), q8(0),
-                        a.in_dim, ENC_H, c, kb, ke, kl);
+        umac<Q, MM, SP, XS>(acc, X + ENC_FOFF, ENC_X, r0, w + off[0], mw(0),
+                            q8(0), a.in_dim, ENC_H, c, kb, ke, kl);
       kputq<Q, MM>(acc, kl, r0, scr + ch * R * ENC_H + c, ENC_H,
                    scl<Q, BF>(sc(0), c, ENC_H), zero4, true);
     }
@@ -1852,13 +1893,13 @@ __global__ void __launch_bounds__(NT)
         zero(acc);
         if (Q) {
           const bool rz = qg < 8;
-          umac<Q, MM, SP>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c, 0,
-                          gin, kl);
+          umac<Q, MM, SP, XS>(acc, X, ENC_X, r0, wih, mw(j0), qi, gin, ENC_G, c,
+                              0, gin, kl);
           kputq<Q, MM>(acc, kl, r0, scr + c, ENC_GS, gi,
                        rz ? add4(bi, bh) : bi, true);
           zero(acc);
-          umac<Q, MM, SP>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh, ENC_H,
-                          ENC_G, c, 0, ENC_H, kl);
+          umac<Q, MM, SP, XS>(acc, Xp + gin, ENC_X, r0, whh, mw(j0 + 1), qh,
+                              ENC_H, ENC_G, c, 0, ENC_H, kl);
           kputq<Q, MM>(acc, kl, r0, rz ? ez + c : scr + ENC_H + c,
                        rz ? 2 * ENC_H : ENC_GS, gh, rz ? zero4 : bh, true);
           continue;
@@ -1907,9 +1948,9 @@ __global__ void __launch_bounds__(NT)
         const int c = u % 6 * 16 + cq;
         float4 acc[ET];
         zero(acc);
-        umac<Q, MM, SP>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
-                        mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c, 0,
-                        cin, kl);
+        umac<Q, MM, SP, XS>(acc, tap ? X : Xd, ENC_X, r0, w + o[4 + tap],
+                            mw(j0 + 4 + tap), q8(j0 + 4 + tap), cin, ENC_CO, c,
+                            0, cin, kl);
         kputq<Q, MM>(acc, kl, r0, scr + tap * R * ENC_CO + c, ENC_CO,
                      scl<Q, BF>(sc(3 + 4 * i + tap), c, ENC_CO), zero4, true);
       }
@@ -1936,8 +1977,9 @@ __global__ void __launch_bounds__(NT)
       const int kb = ch * kz, ke = min(ENC_X, kb + kz);
       float4 acc[ET];
       zero(acc);
-      umac<Q, MM, SP>(acc, X, ENC_X, r0, w + off[ENC_NW - 2], mw(ENC_NW - 2),
-                      q8(ENC_NW - 2), ENC_X, od, c, kb, ke, kl);
+      umac<Q, MM, SP, XS>(acc, X, ENC_X, r0, w + off[ENC_NW - 2],
+                          mw(ENC_NW - 2), q8(ENC_NW - 2), ENC_X, od, c, kb, ke,
+                          kl);
       kputq<Q, MM>(acc, kl, r0, scr + ch * R * od + c, od,
                    scl<Q, BF>(sc(ENC_NS - 1), c, od), zero4, c < od);
     }
@@ -2042,28 +2084,14 @@ int launch(K kernel, size_t smem, int B, void* stream, const A& a,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Every entry takes (weights, offsets[n_off], n_off, input, output, sizes...,
-// state_in[], state_out[], stream) and returns the launch's cudaError_t.  The
-// decoders and the encoder take, after n_off, each array's kind (kinds[n_off],
-// 1 for an int8 matrix) and the offsets of the scale rows (soff[n_soff]):
-// n_soff = 0 launches the f32 instance, the layout's number of matrices the
-// int8 one.
-
-int radae_fused_decoder_step(const void* w, const int* off, int n_off,
-                             const int* kinds, const int* soff, int n_soff,
-                             const void* z, void* feats, int B, int nz,
-                             int in_dim, int out_dim, void* const* state_in,
-                             void* const* state_out, void* stream) {
-  DecArgs a;
-  QuantArgs<DEC_NS> q;
+// The DecArgs of an unmerged decoder launch; false unless the entries take
+// its sizes
+bool dec_args(const void* w, const int* off, int n_off, const void* z,
+              void* feats, int B, int nz, int in_dim, int out_dim,
+              void* const* state_in, void* const* state_out, DecArgs& a) {
   if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
-      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT ||
-      !quant_args(kinds, n_off, soff, n_soff, DEC_MATS, q))
-    return (int)cudaErrorInvalidValue;
+      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT)
+    return false;
   a.w = static_cast<const float*>(w);
   for (int i = 0; i < DEC_NW; ++i) a.off[i] = off[i];
   a.z = static_cast<const float*>(z);
@@ -2075,8 +2103,97 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
     a.h_out[i] = static_cast<float*>(state_out[i]);
     a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
   }
-  return n_soff ? launch(dec_kernel<true>, DEC_SMEM_Q, B, stream, a, q)
-                : launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
+  return true;
+}
+
+// The EncArgs of an encoder launch; false unless the entries take its sizes
+bool enc_args(const void* w, const int* off, int n_off, const void* f, void* z,
+              int B, int nz, int in_dim, int out_dim, int bottleneck,
+              void* const* state_in, void* const* state_out, EncArgs& a) {
+  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
+      out_dim < 4 || out_dim % 4 || in_dim > ENC_X - ENC_FOFF ||
+      out_dim > ENC_MAX_OUT)
+    return false;
+  a.w = static_cast<const float*>(w);
+  for (int i = 0; i < ENC_NW; ++i) a.off[i] = off[i];
+  a.f = static_cast<const float*>(f);
+  a.z = static_cast<float*>(z);
+  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
+  a.bottleneck = bottleneck;
+  for (int i = 0; i < 5; ++i) {
+    a.h_in[i] = static_cast<const float*>(state_in[i]);
+    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
+    a.h_out[i] = static_cast<float*>(state_out[i]);
+    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
+  }
+  return true;
+}
+
+// The KindSplitArgs of a launch on the tensor cores of the unmerged decoder
+// (NS, NW, MATS: DEC_*) or the encoder (ENC_*): the kinds (kind_args; kinds
+// 2 and 3 only with bf16 products, and with f32 products n_soff > 0: the
+// int8 sets) and the packed matrices (mma_args); false unless both hold
+template <int NS, int NW>
+bool mma_launch_args(const int* kinds, int n_off, const int* soff, int n_soff,
+                     unsigned long long mats, bool bf16, const void* wm,
+                     const int* moff, KindSplitArgs<NS, NW>& km) {
+  return (bf16 || n_soff != 0) &&
+         kind_args(kinds, n_off, soff, n_soff, mats, bf16, km) &&
+         mma_args(wm, moff, n_off, mats, km.m);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry takes (weights, offsets[n_off], n_off, input, output, sizes...,
+// state_in[], state_out[], stream) and returns the launch's cudaError_t.  The
+// decoders and the encoder take, after n_off, each array's kind (kinds[n_off],
+// 1 for an int8 matrix) and the offsets of the scale rows (soff[n_soff]:
+// n_soff 0 for f32 weights, the layout's number of matrices for int8 ones).
+// Every launch on int8 weights runs on the tensor cores and takes the
+// matrices packed into wm at moff[n_off] (16-byte words, fc.mma_weights):
+// the unmerged decoder's and the encoder's x entries (f32 products) and
+// bf16 entries (bf16 products), and the merged decoder's x entry.  Those
+// entries refuse a launch without them, and the f32 entries refuse int8
+// weights (n_soff > 0): there is no FMA int8 instance to fall back on.
+
+int radae_fused_decoder_step(const void* w, const int* off, int n_off,
+                             const int* kinds, const int* soff, int n_soff,
+                             const void* z, void* feats, int B, int nz,
+                             int in_dim, int out_dim, void* const* state_in,
+                             void* const* state_out, void* stream) {
+  DecArgs a;
+  QuantArgs<DEC_NS> q;
+  if (n_soff != 0 || !quant_args(kinds, n_off, soff, n_soff, DEC_MATS, q) ||
+      !dec_args(w, off, n_off, z, feats, B, nz, in_dim, out_dim, state_in,
+                state_out, a))
+    return (int)cudaErrorInvalidValue;
+  return launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
+}
+
+// radae_fused_decoder_step on int8 weights (n_soff > 0), with f32 products:
+// the x-split instance (KindSplitXArgs), every product on the tensor cores
+// on the matrices packed into wm at moff[n_off], each int8 matrix (kind 1)
+// widened to bf16, each that quant_exclude keeps in f32 (kind 0) as hi,
+// mid, lo; refused without them or without int8 scale rows.
+int radae_fused_decoder_x_step(const void* w, const int* off, int n_off,
+                               const int* kinds, const int* soff, int n_soff,
+                               const void* z, void* feats, int B, int nz,
+                               int in_dim, int out_dim, const void* wm,
+                               const int* moff, void* const* state_in,
+                               void* const* state_out, void* stream) {
+  DecArgs a;
+  KindSplitArgs<DEC_NS, DEC_NW> km;
+  if (!mma_launch_args(kinds, n_off, soff, n_soff, DEC_MATS, false, wm, moff,
+                       km) ||
+      !dec_args(w, off, n_off, z, feats, B, nz, in_dim, out_dim, state_in,
+                state_out, a))
+    return (int)cudaErrorInvalidValue;
+  KindSplitXArgs<DEC_NS, DEC_NW> kx;
+  static_cast<KindMmaArgs<DEC_NS, DEC_NW>&>(kx) = km;
+  return launch(dec_kernel<true, false, KindSplitXArgs<DEC_NS, DEC_NW>>,
+                DEC_SMEM_Q, B, stream, a, kx);
 }
 
 // radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args), on
@@ -2092,27 +2209,13 @@ int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
                                   void* const* state_in,
                                   void* const* state_out, void* stream) {
   DecArgs a;
-  KindArgs<DEC_NS> k;
-  if (n_off != DEC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
-      in_dim > DEC_H || out_dim < 4 || out_dim % 4 || out_dim > DEC_TMAX_OUT ||
-      !kind_args(kinds, n_off, soff, n_soff, DEC_MATS, true, k))
-    return (int)cudaErrorInvalidValue;
-  a.w = static_cast<const float*>(w);
-  for (int i = 0; i < DEC_NW; ++i) a.off[i] = off[i];
-  a.z = static_cast<const float*>(z);
-  a.feats = static_cast<float*>(feats);
-  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
-  for (int i = 0; i < 5; ++i) {
-    a.h_in[i] = static_cast<const float*>(state_in[i]);
-    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
-    a.h_out[i] = static_cast<float*>(state_out[i]);
-    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
-  }
   KindSplitArgs<DEC_NS, DEC_NW> km;
-  static_cast<KindArgs<DEC_NS>&>(km) = k;
-  if (!mma_args(wm, moff, n_off, DEC_MATS, km.m))
+  if (!mma_launch_args(kinds, n_off, soff, n_soff, DEC_MATS, true, wm, moff,
+                       km) ||
+      !dec_args(w, off, n_off, z, feats, B, nz, in_dim, out_dim, state_in,
+                state_out, a))
     return (int)cudaErrorInvalidValue;
-  if ((k.i8 | k.bf | k.rw) == DEC_MATS)
+  if ((km.i8 | km.bf | km.rw) == DEC_MATS)
     return launch(dec_kernel<true, true, KindMmaArgs<DEC_NS, DEC_NW>>,
                   DEC_SMEM_Q, B, stream, a,
                   static_cast<const KindMmaArgs<DEC_NS, DEC_NW>&>(km));
@@ -2326,25 +2429,33 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
                              void* stream) {
   EncArgs a;
   QuantArgs<ENC_NS> q;
-  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
-      out_dim < 4 || out_dim % 4 || in_dim > ENC_X - ENC_FOFF ||
-      out_dim > ENC_MAX_OUT ||
-      !quant_args(kinds, n_off, soff, n_soff, ENC_MATS, q))
+  if (n_soff != 0 || !quant_args(kinds, n_off, soff, n_soff, ENC_MATS, q) ||
+      !enc_args(w, off, n_off, f, z, B, nz, in_dim, out_dim, bottleneck,
+                state_in, state_out, a))
     return (int)cudaErrorInvalidValue;
-  a.w = static_cast<const float*>(w);
-  for (int i = 0; i < ENC_NW; ++i) a.off[i] = off[i];
-  a.f = static_cast<const float*>(f);
-  a.z = static_cast<float*>(z);
-  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
-  a.bottleneck = bottleneck;
-  for (int i = 0; i < 5; ++i) {
-    a.h_in[i] = static_cast<const float*>(state_in[i]);
-    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
-    a.h_out[i] = static_cast<float*>(state_out[i]);
-    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
-  }
-  return n_soff ? launch(enc_kernel<true>, ENC_SMEM_Q, B, stream, a, q)
-                : launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
+  return launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
+}
+
+// radae_fused_encoder_step on int8 weights (n_soff > 0), with f32 products:
+// the x-split instance, as radae_fused_decoder_x_step
+int radae_fused_encoder_x_step(const void* w, const int* off, int n_off,
+                               const int* kinds, const int* soff, int n_soff,
+                               const void* f, void* z, int B, int nz,
+                               int in_dim, int out_dim, int bottleneck,
+                               const void* wm, const int* moff,
+                               void* const* state_in, void* const* state_out,
+                               void* stream) {
+  EncArgs a;
+  KindSplitArgs<ENC_NS, ENC_NW> km;
+  if (!mma_launch_args(kinds, n_off, soff, n_soff, ENC_MATS, false, wm, moff,
+                       km) ||
+      !enc_args(w, off, n_off, f, z, B, nz, in_dim, out_dim, bottleneck,
+                state_in, state_out, a))
+    return (int)cudaErrorInvalidValue;
+  KindSplitXArgs<ENC_NS, ENC_NW> kx;
+  static_cast<KindMmaArgs<ENC_NS, ENC_NW>&>(kx) = km;
+  return launch(enc_kernel<true, false, KindSplitXArgs<ENC_NS, ENC_NW>>,
+                ENC_SMEM_Q, B, stream, a, kx);
 }
 
 // radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args), the
@@ -2357,29 +2468,13 @@ int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
                                   const int* moff, void* const* state_in,
                                   void* const* state_out, void* stream) {
   EncArgs a;
-  KindArgs<ENC_NS> k;
-  if (n_off != ENC_NW || B < 1 || nz < 1 || in_dim < 4 || in_dim % 4 ||
-      out_dim < 4 || out_dim % 4 || in_dim > ENC_X - ENC_FOFF ||
-      out_dim > ENC_MAX_OUT ||
-      !kind_args(kinds, n_off, soff, n_soff, ENC_MATS, true, k))
-    return (int)cudaErrorInvalidValue;
-  a.w = static_cast<const float*>(w);
-  for (int i = 0; i < ENC_NW; ++i) a.off[i] = off[i];
-  a.f = static_cast<const float*>(f);
-  a.z = static_cast<float*>(z);
-  a.B = B; a.nz = nz; a.in_dim = in_dim; a.out_dim = out_dim;
-  a.bottleneck = bottleneck;
-  for (int i = 0; i < 5; ++i) {
-    a.h_in[i] = static_cast<const float*>(state_in[i]);
-    a.hist_in[i] = static_cast<const float*>(state_in[5 + i]);
-    a.h_out[i] = static_cast<float*>(state_out[i]);
-    a.hist_out[i] = static_cast<float*>(state_out[5 + i]);
-  }
   KindSplitArgs<ENC_NS, ENC_NW> km;
-  static_cast<KindArgs<ENC_NS>&>(km) = k;
-  if (!mma_args(wm, moff, n_off, ENC_MATS, km.m))
+  if (!mma_launch_args(kinds, n_off, soff, n_soff, ENC_MATS, true, wm, moff,
+                       km) ||
+      !enc_args(w, off, n_off, f, z, B, nz, in_dim, out_dim, bottleneck,
+                state_in, state_out, a))
     return (int)cudaErrorInvalidValue;
-  if ((k.i8 | k.bf | k.rw) == ENC_MATS)
+  if ((km.i8 | km.bf | km.rw) == ENC_MATS)
     return launch(enc_kernel<true, true, KindMmaArgs<ENC_NS, ENC_NW>>,
                   ENC_SMEM_Q, B, stream, a,
                   static_cast<const KindMmaArgs<ENC_NS, ENC_NW>&>(km));

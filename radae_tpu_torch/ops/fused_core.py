@@ -36,8 +36,8 @@ kernel on any), and for both decoders and the encoder on f32 weights too
 (a bf16 x f32 product as three bf16 products, on the weight's bf16 high,
 middle and low parts), the kernel multiplies on the tensor cores, on the
 weights packed by `mma_weights`: the launch packs them on its first use of
-a weight set and keeps them in the set (`PackedWeights.mma`).  So does the
-chain-merged decoder on int8 weights with f32 products (x's three bf16
+a weight set and keeps them in the set (`PackedWeights.mma`).  So do both
+decoders and the encoder on int8 weights with f32 products (x's three bf16
 parts against each int8 matrix, exact in bf16).
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
@@ -518,15 +518,14 @@ def _mma_kinds(weights, compute_dtype=torch.bfloat16):
     others (int8, bf16, f32 rounded at the product: kinds 1, 2, 3) packed
     once.  The frame set, whose kernel rounds every matrix: the decoder's
     and dft_w (Wr..Ei are not the kernel's; ls_w stays a row product).
-    With f32 products only the chain-merged decoder's int8 sets (either
-    layout): every matrix, the int8 ones (kind 1) packed once and those
-    that quant_exclude keeps in f32 (kind 0) split."""
+    With f32 products the int8 sets of both decoders (either layout of the
+    chain-merged one) and of the encoder: every matrix, the int8 ones (kind
+    1) packed once and those that quant_exclude keeps in f32 (kind 0)
+    split; no f32 set and no frame set."""
     if compute_dtype != torch.bfloat16:
-        if not (isinstance(weights, PackedWeights) and merged_layout(weights)
-                and weights.quant):
-            raise ValueError("mma_weights: with f32 products only the "
-                             "chain-merged decoder's int8 weights run on the "
-                             "tensor cores")
+        if not (isinstance(weights, PackedWeights) and weights.quant):
+            raise ValueError("mma_weights: with f32 products only int8 "
+                             "weights run on the tensor cores")
         kinds = _kinds(weights, _rounds(weights, compute_dtype, "none"))
         return kinds, [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
     if isinstance(weights, RxFrameWeights):
@@ -546,9 +545,9 @@ def mma_weights(weights, compute_dtype=torch.bfloat16) -> MmaWeights:
     """The weights that the tensor-core (MM and split) instances read, built
     on the host: for either decoder layout (`decoder_weights`), the encoder
     (`encoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
-    products, and for the chain-merged decoder's int8 sets with f32
-    products too (compute_dtype f32: the same bytes as with bf16 products
-    but for a matrix kept in f32, which is packed split, not rounded), each
+    products, and for their int8 sets with f32 products too (compute_dtype
+    f32: the same bytes as with bf16 products but for a matrix kept in f32,
+    which is packed split, not rounded), each
     matrix that `_mma_kinds` names copied into bf16 (int8
     exactly, its scale row staying on the output; f32 rounded at the
     product, kind 3, to nearest even, as `_bf16`) in `_mma_pack`'s order,
@@ -891,8 +890,8 @@ def _check_pad(weights: PackedWeights):
 def _mma_args(weights, kinds, compute_dtype=torch.bfloat16):
     """The (packed buffer, its offsets) arguments of a launch on the tensor
     cores of a decoder or the encoder (PackedWeights) or of the frame
-    kernel (RxFrameWeights), with bf16 products or (the chain-merged
-    decoder's int8 sets) f32 products: `mma_weights(weights,
+    kernel (RxFrameWeights), with bf16 products or (the int8 sets of the
+    decoders and the encoder) f32 products: `mma_weights(weights,
     compute_dtype)`, kept in the weight set's `mma` under a stamp of what it
     copies (the buffer, its version counter, which every write to it or to
     a view of it bumps, the arrays' offsets and kinds) and packed anew when
@@ -918,17 +917,18 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     state); their kind and compute_dtype the instance: f32 or int8
     matrices with f32 products, or f32, bf16 or int8 matrices with bf16
     products.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (radae_fused_decoder_step, radae_fused_decoder_bf16_step,
-    radae_fused_decoder_merged_step or, padded, int8 or with bf16
-    products, radae_fused_decoder_merged_x_step).  With bf16 products every
-    product of every layout runs on the tensor cores, on the weights packed
-    on first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
+    kernel (unmerged: radae_fused_decoder_step on f32 weights,
+    radae_fused_decoder_x_step on int8 ones, radae_fused_decoder_bf16_step
+    with bf16 products; chain-merged: radae_fused_decoder_merged_step on
+    f32 weights, else, padded, int8 or with bf16 products,
+    radae_fused_decoder_merged_x_step).  With bf16 products every product
+    of every layout runs on the tensor cores, on the weights packed on
+    first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
     weights each bf16 x f32 product as three bf16 products, on the
-    weight's hi, mid and lo copies (`split_parts`).  So does the
-    chain-merged decoder on int8 weights with f32 products, in either
-    layout: each f32 x int8 product as three bf16 products, x's hi, mid and
-    lo against the int8 matrix widened to bf16 (a matrix kept in f32 as
-    six, against its three copies)."""
+    weight's hi, mid and lo copies (`split_parts`).  So does every layout
+    on int8 weights with f32 products: each f32 x int8 product as three
+    bf16 products, x's hi, mid and lo against the int8 matrix widened to
+    bf16 (a matrix kept in f32 as six, against its three copies)."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":
@@ -957,13 +957,14 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     args = (B, nz, latent, out_dim)
     kinds = _kinds(weights, _rounds(weights, compute_dtype,
                                     "none" if layout else "gru"))
-    # on the tensor cores: bf16 products, and the merged int8 forms
-    mma = bf or bool(layout and weights.quant)
+    # on the tensor cores: bf16 products, and the int8 forms
+    mma = bf or bool(weights.quant)
     if layout and (mma or layout == "pad"):
         name = "radae_fused_decoder_merged_x_step"
         args += (int(layout == "pad"), int(bf))
     else:
-        name = "radae_" + entry.replace("_step", "_bf16_step" if bf else "_step")
+        name = "radae_" + entry.replace(
+            "_step", "_bf16_step" if bf else "_x_step" if mma else "_step")
     if mma or layout == "pad":
         args += (_mma_args(weights, kinds, compute_dtype) if mma
                  else (None, None))
@@ -1089,13 +1090,16 @@ def make_fused_rx_frame_step(cfg, batch: int, device="cuda",
 def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
                        compute_dtype=torch.float32):
     """Encoder stack: feats (B, 4*nz, F) -> (z (B, nz, latent), new_state).
-    The weights' kind and compute_dtype pick the instance: f32 or int8
-    matrices with f32 products (radae_fused_encoder_step), or f32, bf16 or
-    int8 ones with bf16 products (radae_fused_encoder_bf16_step: every
-    product on the tensor cores, on the weights packed on first use,
-    `_mma_args`; on f32 weights each bf16 x f32 product as three bf16
-    products, on the weight's hi, mid and lo copies: `split_parts`).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    The weights' kind and compute_dtype pick the instance: f32 matrices
+    with f32 products (radae_fused_encoder_step, on FMA loops), int8 ones
+    with f32 products (radae_fused_encoder_x_step: x's hi, mid and lo bf16
+    parts against each int8 matrix widened to bf16, six products on a
+    matrix kept in f32), or f32, bf16 or int8 ones with bf16 products
+    (radae_fused_encoder_bf16_step; on f32 weights each bf16 x f32 product
+    as three bf16 products, on the weight's hi, mid and lo copies:
+    `split_parts`); but for the first, every product on the tensor cores, on
+    the weights packed on first use (`_mma_args`).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     _check_compute(compute_dtype)
     if feats.device.type == "cpu":
         return encoder_step_plain(weights, feats, state, bottleneck,
@@ -1120,11 +1124,13 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
     z = torch.empty((B, nz, latent), device=dev)
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
     bf = compute_dtype == torch.bfloat16
-    name = "radae_fused_encoder_" + ("bf16_step" if bf else "step")
+    mma = bf or bool(weights.quant)     # on the tensor cores
+    name = "radae_fused_encoder_" + ("bf16_step" if bf else
+                                     "x_step" if mma else "step")
     kinds = _kinds(weights, _rounds(weights, compute_dtype, "gru"))
     args = (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck))
-    if bf:
-        args += _mma_args(weights, kinds)
+    if mma:
+        args += _mma_args(weights, kinds, compute_dtype)
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
                      x, z, state, new_state, args, kinds)
     _kernels.check(status, name)

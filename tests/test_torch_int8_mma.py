@@ -1,31 +1,41 @@
-"""The chain-merged decoder's int8 forms with f32 products on the tensor
-cores, on the CPU, where the kernel cannot run.
+"""The int8 forms with f32 products on the tensor cores (both decoders,
+the chain-merged one in either layout, and the encoder), on the CPU, where
+the kernels cannot run.
 
 radae_tpu multiplies the f32 x by the int8 matrix q in f32 (then scales the
-output columns).  The kernel's int8 instance (csrc/fused_core.cu,
-KindSplitXArgs) runs x @ q on mma.sync: q widened to bf16 (exact), x split
+output columns).  The kernels' int8 instances (csrc/fused_core.cu,
+KindSplitXArgs) run x @ q on mma.sync: q widened to bf16 (exact), x split
 where it is loaded into hi = bf16(x), mid = bf16(x - hi) and lo = bf16(x -
 hi - mid), three bf16 products a K step summed lo first, and a matrix that
 quant_exclude keeps in f32 packed split and multiplied as six products of
 x's and w's parts.  These tests hold:
 
   * the packing: an int8 set with f32 products packs to the same bytes,
-    offsets and kinds as with bf16 products (merged and padded, latent 80
-    and 40), and a MIXED set (wgg in f32) packs its f32 matrices split
-    (hi, mid, lo = `fc.split_parts(w)`) where bf16 products pack them
-    rounded; f32 products on any other set have no tensor-core route;
+    offsets and kinds as with bf16 products (the merged and padded, the
+    unmerged decoder and the encoder, latent 80 and 40), and a MIXED set
+    (chip_smoke.py's: the merged decoder's wgg, the unmerged decoder's whh
+    and out_w, the encoder's whh and d1_w in f32) packs its f32 matrices
+    split (hi, mid, lo = `fc.split_parts(w)`) where bf16 products pack them
+    rounded; f32 products on an f32 set have no tensor-core route;
   * the fragment walk: a torch walk over the packed fragments with the
     lane, K permutation and column order of `tmma`, x split into its three
     parts, each step's products summed exactly and truncated to f32 and
     added in f32, gives (x @ q) * scale against an f64 reference (rtol and
     atol 1e-6), on a K tail with NaN planted past K, an 84-column output,
     K ranges that start inside K, and the six-product walk of a split f32
-    matrix (MIXED wgg, and a K tail of one);
+    matrix (MIXED wgg, and a K tail of one); on the unmerged decoder and the
+    encoder too (the encoder's with its compensation of the steps'
+    truncation): the encoder's dense_1 (K = 84, a tail inside a 16-wide
+    step; int8 and kept in f32), a GRU wih chunk and whh (int8 and kept in
+    f32), and the unmerged decoder's 84-column output (int8 and kept in
+    f32);
   * the arithmetic: the plain int8 step with its products computed the
-    route's way (`tools/split_flips.py` `xroute_products`, "xsplit3") stays
-    within chip_smoke.py's TOL of `decoder_merged_step_plain` over three
-    chained calls, merged and padded, full int8 and MIXED, latent 80 and
-    40 (B=8).
+    route's way (`tools/split_flips.py` `xroute_products`, "xsplit3", and
+    "xsplit3c" for the encoder's compensated route) stays within
+    chip_smoke.py's TOL of the plain int8 step over
+    three chained calls: `decoder_merged_step_plain` merged and padded,
+    `decoder_step_plain` and `encoder_step_plain`, full int8 and MIXED,
+    latent 80 and 40 (B=8).
 """
 
 import os
@@ -35,14 +45,21 @@ import pytest
 import torch
 
 from chip_smoke import MIXED, TOL
+from radae_tpu_torch.config import flagship_config
 from radae_tpu_torch.convert import load_checkpoint
 from radae_tpu_torch.ops import fused_core as fc
-from tools.split_flips import XPAIRS, _trunc, x_parts, xroute_products
+from tools.split_flips import XPAIRS, _trunc, pow2, x_parts, xroute_products
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 F32, BF = torch.float32, torch.bfloat16
 EXCL = MIXED["fused_decoder_merged_step_int8"]      # ("wgg",)
+# a set's kind -> its int8 form (the key of MIXED) and its rounding rule
+# under bf16 products (fc._rounds)
+FORMS = {"merged": ("fused_decoder_merged_step_int8", "none"),
+         "pad": ("fused_decoder_merged_step_int8", "none"),
+         "unmerged": ("fused_decoder_step_int8", "gru"),
+         "enc": ("fused_encoder_step_int8", "gru")}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,9 +79,22 @@ def trees():
 
 
 def _set(trees, latent, layout="merged", mixed=False):
-    return fc.decoder_weights(trees[latent]["decoder"], "cpu",
-                              merged="pad" if layout == "pad" else True,
-                              quant="int8", quant_exclude=EXCL if mixed else ())
+    """An int8 set of `layout` (a key of FORMS), its MIXED matrices kept in
+    f32 when mixed."""
+    excl = MIXED[FORMS[layout][0]] if mixed else ()
+    if layout == "enc":
+        return fc.encoder_weights(trees[latent]["encoder"], "cpu",
+                                  quant="int8", quant_exclude=excl)
+    merged = {"merged": True, "pad": "pad", "unmerged": False}[layout]
+    return fc.decoder_weights(trees[latent]["decoder"], "cpu", merged=merged,
+                              quant="int8", quant_exclude=excl)
+
+
+def _kept(w, layout):
+    """The indices of w's matrices that its MIXED set keeps in f32."""
+    excl = MIXED[FORMS[layout][0]]
+    return [j for j, n in enumerate(w.names)
+            if w.arrays[j].dim() == 2 and n.endswith(excl)]
 
 
 def _bits(m):
@@ -72,7 +102,7 @@ def _bits(m):
 
 
 @pytest.mark.parametrize("latent", [80, 40])
-@pytest.mark.parametrize("layout", ["merged", "pad"])
+@pytest.mark.parametrize("layout", ["merged", "pad", "unmerged", "enc"])
 def test_f32_products_pack_as_mm(trees, layout, latent):
     """An int8 set packs the same for f32 products as for bf16 products
     (every matrix of kind 1, widened to bf16), and a launch of either keeps
@@ -84,23 +114,25 @@ def test_f32_products_pack_as_mm(trees, layout, latent):
     mats = [j for j, a in enumerate(w.arrays) if a.dim() == 2]
     assert [j for j, o in enumerate(mf.offsets) if o >= 0] == mats
     assert {mf.kinds[j] for j in mats} == {1}
-    kf = fc._kinds(w, fc._rounds(w, F32, "none"))
-    kb = fc._kinds(w, fc._rounds(w, BF, "none"))
+    kf = fc._kinds(w, fc._rounds(w, F32, FORMS[layout][1]))
+    kb = fc._kinds(w, fc._rounds(w, BF, FORMS[layout][1]))
     assert kf == kb
     a, b = fc._mma_args(w, kf, F32), fc._mma_args(w, kb)
     assert a[0] == b[0] and len(w.mma) == 1
     assert list(a[1]) == list(mf.offsets)
 
 
-@pytest.mark.parametrize("layout", ["merged", "pad"])
+@pytest.mark.parametrize("layout", ["merged", "pad", "unmerged", "enc"])
 def test_mixed_packs_f32_split(trees, layout):
-    """A MIXED set with f32 products: its wgg matrices (kept in f32) are of
-    kind 0 and packed as hi, mid and lo (`fc.split_parts`), three copies a
-    K step; with bf16 products they are of kind 3 and packed rounded."""
+    """A MIXED set with f32 products: its matrices kept in f32 (the merged
+    decoder's wgg, the unmerged decoder's whh and out_w, the encoder's whh
+    and d1_w) are of kind 0 and packed as hi, mid and lo
+    (`fc.split_parts`), three copies a K step; with bf16 products they are
+    of kind 3 and packed rounded."""
     w = _set(trees, 80, layout, mixed=True)
     mf, mb = fc.mma_weights(w, F32), fc.mma_weights(w)
-    wgg = [j for j, n in enumerate(w.names) if n.endswith("_wgg")]
-    assert len(wgg) == 5
+    wgg = _kept(w, layout)
+    assert len(wgg) == (5 if layout in ("merged", "pad") else 6)
     mats = [j for j, a in enumerate(w.arrays) if a.dim() == 2]
     for j in mats:
         want = (0, 3) if j in wgg else (1, 1)
@@ -124,26 +156,42 @@ def test_mixed_packs_f32_split(trees, layout):
                                            .numpy()).ravel()), w.names[j]
 
 
-@pytest.mark.parametrize("what", ["unmerged-int8", "merged-f32"])
+@pytest.mark.parametrize("what", ["unmerged-int8", "merged-f32",
+                                  "unmerged-f32", "encoder-f32",
+                                  "encoder-int8", "frame-f32"])
 def test_f32_products_only_on_merged_int8(trees, what):
-    """f32 products reach the tensor cores only on the chain-merged
-    decoder's int8 sets."""
-    tree = trees[80]["decoder"]
-    w = (fc.decoder_weights(tree, "cpu", quant="int8") if what == "unmerged-int8"
-         else fc.decoder_weights(tree, "cpu", merged=True))
-    with pytest.raises(ValueError, match="chain-merged decoder's int8"):
+    """f32 products reach the tensor cores on every int8 set (each matrix
+    packed) and on no f32 set (the decoders', the encoder's and the frame
+    kernel's raise)."""
+    tree = trees[80]
+    kind, dtype = what.split("-")
+    quant = "int8" if dtype == "int8" else None
+    if kind == "encoder":
+        w = fc.encoder_weights(tree["encoder"], "cpu", quant=quant)
+    elif kind == "frame":
+        w = fc.fused_rx_weights(tree["decoder"], flagship_config(), "cpu")
+    else:
+        w = fc.decoder_weights(tree["decoder"], "cpu", quant=quant,
+                               merged=kind == "merged")
+    if quant:
+        m = fc.mma_weights(w, F32)
+        assert [j for j, o in enumerate(m.offsets) if o >= 0] == [
+            j for j, a in enumerate(w.arrays) if a.dim() == 2]
+        return
+    with pytest.raises(ValueError, match="only int8 weights"):
         fc.mma_weights(w, F32)
 
 
-def _xs_walk(x, buf, off, K, out, k0, k1, n_w):
-    """Y = x[:, k0:k1] @ W[k0:k1] for 16 rows of x, as tmma<n_w == 3, true>
+def _xs_walk(x, buf, off, K, out, k0, k1, n_w, comp=False):
+    """Y = x[:, k0:k1] @ W[k0:k1] for 16 rows of x, as tmma<n_w == 3, XS>
     computes it: per 16-column group and K step, each lane's x (two float4,
     zero at k >= k1) split into hi, mid and lo (xparts), assembled with
     the lane's B registers of each of W's n_w packed copies into the
     m16n8k16 fragments of the PTX ISA; the step's products of the route's
     (x part, W copy) pairs summed exactly and truncated to f32, and the
     step sum added to the lane's f32 sums (rows g, g + 8, columns
-    4t..4t+3)."""
+    4t..4t+3).  comp (XS_COMP): each step sum's pow2 summed apart in f32 and
+    added times 2^-24 at the end (one rounding, as fmaf)."""
     nks, ncg = -(-K // 16), -(-out // 16)
     blk = buf[8 * off:8 * off + ncg * nks * 256 * n_w].float().reshape(
         ncg, nks, n_w, 32, 8)
@@ -151,6 +199,7 @@ def _xs_walk(x, buf, off, K, out, k0, k1, n_w):
     y = torch.zeros((16, 16 * ncg))
     for cg in range(ncg):
         acc = torch.zeros((32, 2, 4))            # lane, row g / g+8, column
+        cmp = torch.zeros((32, 2, 4))            # comp: the steps' pow2
         for k in range(k0, k1, 16):
             A = torch.zeros((3, 16, 16))          # x part, fragment row, k
             Bn = torch.zeros((n_w, 2, 16, 8))     # copy, tile, fragment k, col
@@ -175,9 +224,12 @@ def _xs_walk(x, buf, off, K, out, k0, k1, n_w):
                 g, t = lane >> 2, lane & 3
                 for h in range(2):
                     r = g + 8 * h
-                    acc[lane, h] += torch.stack([
-                        D[0, r, 2 * t], D[0, r, 2 * t + 1],
-                        D[1, r, 2 * t], D[1, r, 2 * t + 1]])
+                    e = torch.stack([D[0, r, 2 * t], D[0, r, 2 * t + 1],
+                                     D[1, r, 2 * t], D[1, r, 2 * t + 1]])
+                    acc[lane, h] += e
+                    cmp[lane, h] += pow2(e)
+        if comp:
+            acc = (acc.double() + cmp.double() * 2.0 ** -24).float()
         for lane in range(32):
             g, t = lane >> 2, lane & 3
             c = 16 * cg + 4 * t
@@ -230,6 +282,83 @@ def test_fragment_walk_xsplit_f32_tail():
     want = (x[:, 16:40].double() @ torch.from_numpy(wf).double()[16:40]).float()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout, latent, mixed, name, k0, k1, shape", [
+    ("enc", 80, False, "d1_w", 64, 84, (84, 64)),
+    ("enc", 80, True, "d1_w", 64, 84, (84, 64)),
+    ("enc", 80, True, "d1_w", 0, 84, (84, 64)),
+    ("enc", 40, False, "g2_wih", 0, 224, (224, 192)),
+    ("enc", 80, False, "g3_whh", 0, 64, (64, 192)),
+    ("enc", 80, True, "g3_whh", 0, 64, (64, 192)),
+    ("unmerged", 80, False, "g2_wih", 160, 224, (224, 288)),
+    ("unmerged", 80, True, "g1_whh", 0, 96, (96, 288)),
+    ("unmerged", 80, False, "out_w", 384, 736, (736, 84)),
+    ("unmerged", 40, True, "out_w", 384, 736, (736, 84))],
+    ids=["enc-d1-tail", "enc-d1-split-tail", "enc-d1-split", "enc-wih",
+         "enc-whh", "enc-whh-split", "dec-wih-chunk1", "dec-whh-split",
+         "dec-out84-chunk", "dec-out84-split-40"])
+def test_fragment_walk_xsplit_unmerged(trees, layout, latent, mixed, name, k0,
+                                       k1, shape):
+    """The walk over the encoder's and the unmerged decoder's packed int8
+    sets with x in three parts gives (x @ q) * scale over the kernels' K
+    ranges (x past k1 holds NaN, zeroed, not multiplied), and over a MIXED
+    set's matrices kept in f32 (split) the six products give (x @ w) * 1:
+    the encoder's dense_1 (K = 84 ends inside a 16-wide step, its third K
+    chunk from 64), GRU wih and whh, and the unmerged decoder's second wih
+    half (from 160), whh and its 84-column output (second K chunk)."""
+    w = _set(trees, latent, layout, mixed)
+    m = fc.mma_weights(w, F32)
+    j = w.names.index(name)
+    a = w.arrays[j]
+    kept = mixed and j in _kept(w, layout)
+    assert tuple(a.shape) == shape and (a.dtype == torch.float32) == kept
+    assert m.kinds[j] == (0 if kept else 1)
+    K, out = shape
+    rng = np.random.default_rng(K * 5 + k0 + out + latent)
+    x = np.tanh(rng.standard_normal((16, 16 * -(-K // 16) + 8))).astype(np.float32)
+    x[:, k1:] = np.nan
+    x = torch.from_numpy(x)
+    scale = w.scales[[i for i, b in enumerate(w.arrays) if b.dim() == 2].index(j)]
+    got = _xs_walk(x, m.buf, m.offsets[j], K, out, k0, k1,
+                   3 if kept else 1, comp=layout == "enc") * scale
+    want = ((x[:, k0:k1].double() @ a.double()[k0:k1]) * scale.double()).float()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("latent", [80, 40])
+@pytest.mark.parametrize("mixed", [False, True], ids=["int8", "mixed"])
+@pytest.mark.parametrize("layout", ["unmerged", "enc"])
+def test_route_step_within_tol_unmerged(trees, monkeypatch, layout, mixed,
+                                        latent):
+    """Three chained calls of the unmerged decoder's and the encoder's plain
+    int8 steps with their products computed their kernels' way (x's three
+    parts, 16-wide step sums truncated to f32 and added in f32, the
+    encoder's truncation compensated: "xsplit3c"; six products on a
+    kept-f32 matrix) stay within TOL of `decoder_step_plain` and
+    `encoder_step_plain`, full int8 and MIXED."""
+    w = _set(trees, latent, layout, mixed)
+    mm = xroute_products(w, "xsplit3c" if layout == "enc" else "xsplit3")
+    rng = np.random.default_rng(17 + latent + 2 * mixed + (layout == "enc"))
+    B = 8
+    if layout == "enc":
+        sk = sp = fc.encoder_state_zero(B, "cpu")
+        step = lambda x, st: fc.encoder_step_plain(w, x, st)
+        draw = lambda: (0.3 * rng.standard_normal((B, 12, 21))).astype(np.float32)
+    else:
+        sk = sp = fc.decoder_state_zero(B, "cpu")
+        step = lambda x, st: fc.decoder_step_plain(w, x, st)
+        draw = lambda: np.tanh(rng.standard_normal((B, 3, latent))).astype(np.float32)
+    real = fc._products
+    for _ in range(3):
+        x = torch.from_numpy(draw())
+        fp, sp = step(x, sp)
+        monkeypatch.setattr(fc, "_products", lambda *a, **k: mm)
+        fk, sk = step(x, sk)
+        monkeypatch.setattr(fc, "_products", real)
+        for g, want in zip((fk,) + sk, (fp,) + sp):
+            torch.testing.assert_close(g, want, **TOL)
 
 
 @pytest.mark.parametrize("latent", [80, 40])

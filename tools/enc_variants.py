@@ -9,6 +9,7 @@ in one run.
                                   [--forms A,B]
                                   [--src NAME=PATH[@G,O] ...] [--out DIR]
                                   [--reps N] [--seeds N] [--latent 80|40]
+                                  [--exact] [--mixed] [--chain N]
 
 Builds radae_tpu_torch/csrc/fused_core.cu as it is and, beside it, one copy
 for each form in FORMS that applies to the kernel (the source with a few
@@ -31,8 +32,16 @@ inputs of N seeds (for the bf16 instances printing, per seed and form, the
 elements past chip_smoke.py's BF16_TOL and the max and mean error of a
 tensor over its scale) and times them on the first.
 The checked forms are held against the plain version (rtol 1e-4, atol
-1e-4); the forms that take a cost out on purpose give wrong results and are
-timed only.  For each form it prints the ptxas line of the kernel, the max
+1e-4: each seed's largest |err| / (atol + rtol |want|) is printed, and a
+form past it is listed and fails the run after the timing); the forms that
+take a cost out on purpose give wrong results and are timed only.  --exact
+(f32 products, not the frame kernel) also holds each form and the plain
+version against the plain version run in f64 (every product, bias and gate
+in f64: the sums rounded once), so a form's own error shows apart from the
+plain version's.  --mixed runs the int8 weights with chip_smoke.py's
+MIXED matrices kept in f32; --chain N holds each seed's N calls chained
+from the zero state (chip_smoke.py's phase 2) instead of one call from a
+random state (the timing keeps the first seed's random state).  For each form it prints the ptxas line of the kernel, the max
 abs err, whether two launches give the same bits, the device time (CUDA
 graph replays; the forms in turns, the order reversed every round) and the
 weight bytes a launch fetches into the SMs (the encoder's or the decoder's
@@ -57,12 +66,14 @@ through `NoMmaEntries` and runs those forms on its FMA loops, and one
 without a kernel's split instance (`SPLIT_KERNELS` names the launch it
 looks for) runs that kernel's f32-weight forms on its FMA loops, so
 `--bf16 f32 --src parent=` of such a source times the split instance in
-turns against the FMA instance it replaced.  `--kernel decm --quant int8
-[--pad]` times the merged decoder's int8 instance with f32 products, which
-runs on the tensor cores on x's three bf16 parts (KindSplitXArgs); a --src
-library without that instance (`XSPLIT_KERNEL`) runs the merged layout's
-int8 launches through its FMA entry (`FmaInt8Merged`) and the padded
-layout's on its FMA instance, so `--src parent=` times the two in turns.
+turns against the FMA instance it replaced.  `--kernel dec|enc|decm
+--quant int8 [--pad]` times the int8 instance with f32 products, which runs
+on the tensor cores on x's three bf16 parts (KindSplitXArgs); a --src
+library without it (`XSPLIT_KERNELS`) runs those launches on its FMA int8
+instance: the unmerged decoder's and the encoder's through its f32 entry
+(`FmaInt8Entries`), the merged layout's through its merged entry
+(`FmaInt8Merged`) and the padded layout's through its x entry, so `--src
+parent=` times the two in turns.
 For each --src library it also prints, instance by instance of every
 kernel, whether its SASS equals the committed build's.
 """
@@ -84,7 +95,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (BF16_FLIPS, BF16_MAX, BF16_MEAN,  # noqa: E402
-                        RX_NOISE, TOL, bf16_errs, card_line, check_close,
+                        MIXED, RX_NOISE, TOL, bf16_errs, card_line,
                         graph_ms, max_err, packed_sizes, weight_fetch_bytes)
 
 B = 2048
@@ -110,9 +121,11 @@ NO_MMA = set()       # the libraries that run the kernel's form on FMA loops
 SPLIT_KERNELS = {"enc": "enc_kernel<true, true, KindSplitArgs",
                  "dec": "dec_kernel<true, true, KindSplitArgs",
                  "decm": "dec_merged_kernel<true, true, true, KindSplitArgs"}
-# the merged decoder's int8 instance with f32 products (on x's parts): the
-# text of its launch in a source that has it
-XSPLIT_KERNEL = "dec_merged_kernel<true, false, true, KindSplitXArgs"
+# the int8 instances with f32 products (on x's parts): the text of each
+# one's launch in a source that has it
+XSPLIT_KERNELS = {"enc": "enc_kernel<true, false, KindSplitXArgs",
+                  "dec": "dec_kernel<true, false, KindSplitXArgs",
+                  "decm": "dec_merged_kernel<true, false, true, KindSplitXArgs"}
 # --kernel -> its entry with bf16 products, which takes the packed weights
 MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
              "dec": "radae_fused_decoder_bf16_step",
@@ -306,8 +319,8 @@ FORMS = {
     mma16816(e0, a0, a1, a2, a3, l.x, l.y);
     mma16816(e1, a0, a1, a2, a3, l.z, l.w);
   }""")]),
-    # the split route (and the merged decoder's f32-product route on int8
-    # weights, --quant int8) with B two K-step pairs ahead, not one
+    # the split route (and the f32-product route on int8 weights, --quant
+    # int8) with B two K-step pairs ahead, not one
     "splitpairs2": (SPLIT_KERNELS, True, [
         ("constexpr int MMA_SPLIT_PAIRS = 1;", "constexpr int MMA_SPLIT_PAIRS = 2;")]),
     "mmanoxload": (MMA_KERNELS, False, [   # A from registers
@@ -316,9 +329,15 @@ FORMS = {
          """    const float4 pa = make_float4(ka, t, va, vb), pb = pa, qa = pa, qb = pa;""")]),
     "mmawfixed": (MMA_KERNELS, False, [    # every pair reloads the first
         ("    wp += 2 * WS;\n    const int ka", "    const int ka")]),   # pairs' B
-    # the int8 instance with f32 products (--quant int8, decm): x in two
-    # bf16 parts, hi and mid, against an int8 matrix (lo's MMAs dropped)
-    "xsplit2": (("decm",), True, [
+    # the encoder's int8 instance with f32 products (--quant int8) without
+    # the compensation of the steps' truncation (XS_SPLIT, the decoders'
+    # route)
+    "xsnocomp": (("enc",), True, [
+        ("constexpr int XS = has_xsplit<KA> ? XS_COMP : 0;",
+         "constexpr int XS = has_xsplit<KA> ? XS_SPLIT : 0;")]),
+    # the int8 instances with f32 products (--quant int8): x in two bf16
+    # parts, hi and mid, against an int8 matrix (lo's MMAs dropped)
+    "xsplit2": (tuple(XSPLIT_KERNELS), True, [
         ("    mma2(e0, e1, xl, b);                // x lo: the third part\n", "")]),
     "mmanoproducts": (MMA_KERNELS, False, [  # no tmma loops
         ("  static_assert(ET == 16, \"an mma.sync A tile is the item's 16 rows\");\n",
@@ -370,7 +389,7 @@ class F32OnlyEntries:
 
 class FmaInt8Merged:
     """A library built from a source whose merged decoder has no int8
-    instance on the tensor cores (before XSPLIT_KERNEL): an int8 launch of
+    instance on the tensor cores (before XSPLIT_KERNELS["decm"]): an int8 launch of
     the merged layout, which the wrapper sends to the x entry with the
     packed weights, goes to its radae_fused_decoder_merged_step (its FMA
     int8 instance) without the layout flags and the packed weights."""
@@ -385,6 +404,27 @@ class FmaInt8Merged:
             x, m = getattr(self._lib, name), self._lib.radae_fused_decoder_merged_step
             return lambda *a: (m(*a[:12], *a[16:]) if a[5] and not a[12]
                                and not a[13] else x(*a))
+        return getattr(self._lib, name)
+
+
+class FmaInt8Entries:
+    """A library built from a source whose unmerged decoder and encoder
+    have no int8 instance on the tensor cores (before their x entries): an
+    int8 launch with f32 products, which the wrapper sends to the x entry
+    with the packed weights, goes to the f32 entry (then its FMA int8
+    instance) without the packed weights."""
+
+    X = {"radae_fused_decoder_x_step": ("radae_fused_decoder_step", 12),
+         "radae_fused_encoder_x_step": ("radae_fused_encoder_step", 13)}
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name in self.X and not hasattr(self._lib, name):
+            fn, i = self.X[name]
+            f = getattr(self._lib, fn)
+            return lambda *a: f(*a[:i], *a[i + 2:])
         return getattr(self._lib, name)
 
 
@@ -536,6 +576,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=1,
                     help="hold the forms against the plain version on the "
                     "inputs of this many seeds (the first is timed)")
+    ap.add_argument("--exact", action="store_true",
+                    help="f32 products: also the TOL ratio of each form and of "
+                    "the plain version against the plain version in f64")
+    ap.add_argument("--mixed", action="store_true",
+                    help="int8 weights with chip_smoke.py's MIXED matrices "
+                    "kept in f32")
+    ap.add_argument("--chain", type=int, default=1, metavar="N",
+                    help="hold N chained calls from the zero state a seed")
     ap.add_argument("--latent", type=int, choices=sorted(CHECKPOINTS),
                     default=80, help="the model: the flagship (80) or the "
                     "latent-40 fixture")
@@ -543,6 +591,7 @@ def main(argv=None) -> int:
     kernel = args.kernel
     kname, wrapper, rows_entry = KERNELS[kernel]
     tag = (kernel + ("_pad" if args.pad else "") + ("_int8" if args.quant else "")
+           + ("_mixed" if args.mixed else "")
            + (f"_bf16_{args.bf16}" if args.bf16 else "")
            + ("_l40" if args.latent == 40 else ""))   # output file names
     if args.quant and args.bf16:
@@ -551,6 +600,10 @@ def main(argv=None) -> int:
         ap.error("the frame kernel has no int8 instance")
     if args.pad and kernel != "decm":
         ap.error("--pad is the merged decoder's layout")
+    if args.exact and (args.bf16 or kernel == "frame"):
+        ap.error("--exact holds the f32-product forms of enc, dec and decm")
+    if args.mixed and "int8" not in (args.quant, args.bf16):
+        ap.error("--mixed is an int8 set: --quant int8 or --bf16 int8")
     forms = [n for n, (ks, _, _) in FORMS.items() if kernel in ks]
     if args.forms is not None:
         asked = [n for n in args.forms.split(",") if n]
@@ -626,10 +679,13 @@ def main(argv=None) -> int:
         if (args.bf16 == "f32" and kernel in SPLIT_KERNELS
                 and SPLIT_KERNELS[kernel] not in src_text):
             NO_MMA.add(v)      # its entry runs f32 weights on FMA loops
-        if kernel == "decm" and XSPLIT_KERNEL not in src_text:
+        if "radae_fused_decoder_x_step" not in src_text:
+            lib = FmaInt8Entries(lib)
+        if kernel == "decm" and XSPLIT_KERNELS["decm"] not in src_text:
             lib = FmaInt8Merged(lib)
-            if args.quant:
-                NO_MMA.add(v)  # its int8 instances run on FMA loops
+        if (args.quant and kernel in XSPLIT_KERNELS
+                and XSPLIT_KERNELS[kernel] not in src_text):
+            NO_MMA.add(v)      # its int8 instances run on FMA loops
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
@@ -668,6 +724,10 @@ def main(argv=None) -> int:
     # the weights' kind: f32 or int8 (--quant), or under bf16 products
     kind = dict(quant="int8" if "int8" in (args.quant, args.bf16) else None,
                 dtype=bf if args.bf16 == "bf16" else torch.float32)
+    if args.mixed:
+        kind["quant_exclude"] = MIXED[{"enc": "fused_encoder_step_int8",
+                                       "dec": "fused_decoder_step_int8",
+                                       "decm": "fused_decoder_merged_step_int8"}[kernel]]
     if kernel == "enc":
         w = fetch_w = fc.encoder_weights(tree["encoder"], dev, **kind)
         zero = fc.encoder_state_zero(B, dev)
@@ -694,10 +754,10 @@ def main(argv=None) -> int:
     if args.bf16:              # bf16 products
         args_k += (bf,)
 
-    def draw(seed):
+    def draw(seed, gen=None):
         """The kernel's input and state from a seed (seed 0: the timed
-        ones)."""
-        gen = np.random.default_rng(seed)
+        ones), or the next input and a state from the generator gen."""
+        gen = np.random.default_rng(seed) if gen is None else gen
 
         def rand(shape, scale):
             return torch.as_tensor((scale * gen.standard_normal(shape))
@@ -715,6 +775,15 @@ def main(argv=None) -> int:
             x = (sig[:, :n] + rand((B, n, 2), RX_NOISE)).contiguous()
         return x, tuple(rand(tuple(s.shape), 0.5) for s in zero)
 
+    def calls(seed):
+        """[(input, state)] of a seed's calls: one from a random state, or
+        (--chain N) N inputs from one generator, the first state zero (each
+        later call takes the state its own chain carries)."""
+        if args.chain == 1:
+            return [draw(seed)]
+        gen = np.random.default_rng(seed)
+        return [(draw(seed, gen)[0], zero) for _ in range(args.chain)]
+
     block_rows = libs["committed"].radae_block_rows()
     blocks = -(-B // block_rows)
 
@@ -722,16 +791,41 @@ def main(argv=None) -> int:
         with mock.patch.object(_kernels, "library", lambda name: libs[v]):
             return getattr(fc, wrapper)(w, x, state, *args_k)
 
-    broke = []      # (seed, form) of a checked form past a BF16_* limit
+    broke = []      # (seed, form) of a checked form past TOL or a BF16_* limit
+
+    def tol_ratio(got, want):
+        """The largest |got - want| / (atol + rtol |want|) of TOL over the
+        tensors, in f64."""
+        return max(float(((a.double() - b.double()).abs() / (
+            TOL["atol"] + TOL["rtol"] * b.double().abs())).max())
+            for a, b in zip(got, want))
+
+    def plain_f64(x, state):
+        """The plain version in f64: each product x @ w (times its int8
+        scale row) and everything after it in f64."""
+        ws = [a.double() for a in w.arrays]
+        rows = iter(w.scales)
+        sc = [next(rows).double() if w.scales and a.dim() == 2 else 1.0
+              for a in w.arrays]
+        mm = lambda v, j: (v.double() @ ws[j]) * sc[j]
+        with mock.patch.object(fc, "_products", lambda *a, **k: mm):
+            o, st = plain(w, x.double(), tuple(t.double() for t in state),
+                          *args_k)
+        return (o,) + tuple(st)
 
     def held(v, got, want, seed):
-        """check_close, or under bf16 products chip_smoke.py's limits (a
-        form past them is listed in `broke`, and the run goes on to time
-        the forms and then fails); returns bf16_errs summed over the
-        tensors (past the tolerance, of, max, mean), or None"""
+        """TOL, or under bf16 products chip_smoke.py's limits (a form past
+        them is listed in `broke`, and the run goes on to time the forms and
+        then fails); returns bf16_errs summed over the tensors (past the
+        tolerance, of, max, mean), or with f32 products the largest |err| /
+        (atol + rtol |want|) of TOL"""
         if not args.bf16:
-            if info[v]["checked"]:
-                check_close(f"form {v}", got, want, TOL)
+            ratio = tol_ratio(got, want)
+            print(f"seed {seed}, {v}: {ratio:.4f} of TOL"
+                  + (f" (against f64: {tol_ratio(got, exact):.4f})"
+                     if args.exact else ""), flush=True)
+            if info[v]["checked"] and not ratio <= 1.0:
+                broke.append((seed, v))
             return None
         errs = bf16_errs(got, want)
         lim = BF16_MAX["fused_rx_frame_step" if kernel == "frame" else ""]
@@ -744,31 +838,47 @@ def main(argv=None) -> int:
 
     with torch.no_grad():
         for seed in range(args.seeds):
-            x, state = draw(seed)
-            op, sp = plain(w, x, state, *args_k)
-            want = (op,) + sp
-            for v in libs:
-                (o1, s1), (o2, s2) = run(v, x, state), run(v, x, state)
-                torch.cuda.synchronize()
-                got = (o1,) + s1
-                flips = held(v, got, want, seed)
-                if v == "committed":
-                    ref_out = got
-                r = info[v].setdefault("seeds", [])
-                r.append({"max_abs_err": max_err(got, want),
-                          "same_bits": all(torch.equal(a, b) for a, b in
-                                           zip(got, (o2,) + s2)),
-                          "bits_as_committed": all(torch.equal(a, b) for a, b
-                                                   in zip(got, ref_out)),
-                          "bf16": flips})
-                if flips:
-                    print(f"seed {seed}, {v}: {flips[0]} of {flips[1]} past "
-                          f"the bf16 tolerance, max {flips[2]:.4f} and mean "
-                          f"{flips[3]:.3g} of the scale"
-                          + (" PAST A LIMIT" if (seed, v) in broke else ""),
-                          flush=True)
+            seq = calls(seed)
+            s_plain = s64 = seq[0][1]
+            s_form = {v: seq[0][1] for v in libs}
+            for call, (x, _) in enumerate(seq):
+                op, s_plain = plain(w, x, s_plain, *args_k)
+                want = (op,) + s_plain
+                if args.exact:
+                    exact = plain_f64(x, s64)
+                    s64 = exact[1:]
+                    print(f"seed {seed} call {call}, plain f32 against f64: "
+                          f"{tol_ratio(want, exact):.4f} of TOL", flush=True)
+                for v in libs:
+                    state = s_form[v]
+                    (o1, s1), (o2, s2) = run(v, x, state), run(v, x, state)
+                    torch.cuda.synchronize()
+                    s_form[v] = s1
+                    got = (o1,) + s1
+                    flips = held(v, got, want, seed)
+                    if v == "committed":
+                        ref_out = got
+                    r = info[v].setdefault("seeds", [])
+                    r.append({"max_abs_err": max_err(got, want),
+                              "same_bits": all(torch.equal(a, b) for a, b in
+                                               zip(got, (o2,) + s2)),
+                              "bits_as_committed": all(
+                                  torch.equal(a, b) for a, b in zip(got, ref_out)),
+                              "bf16": flips})
+                    if not args.bf16:
+                        r[-1]["tol_ratio"] = tol_ratio(got, want)
+                    if args.exact:
+                        r[-1]["tol_ratio_f64"] = tol_ratio(got, exact)
+                    if flips:
+                        print(f"seed {seed}, {v}: {flips[0]} of {flips[1]} past "
+                              f"the bf16 tolerance, max {flips[2]:.4f} and mean "
+                              f"{flips[3]:.3g} of the scale"
+                              + (" PAST A LIMIT" if (seed, v) in broke else ""),
+                              flush=True)
         for v in libs:
             r = info[v]["seeds"]
+            if not args.bf16:
+                info[v]["tol_ratio"] = max(e["tol_ratio"] for e in r)
             info[v].update(max_abs_err=max(e["max_abs_err"] for e in r),
                            same_bits=all(e["same_bits"] for e in r),
                            bits_as_committed=all(e["bits_as_committed"]
@@ -779,7 +889,7 @@ def main(argv=None) -> int:
     # once a z-step (the frame's dft_w once)
     packed_read = None
     kept = list(((w.w if kernel == "frame" else w).mma or {}).values())
-    if ((args.bf16 or (args.quant and kernel == "decm")) and kept
+    if ((args.bf16 or args.quant) and kept
             and any(o >= 0 for o in kept[0].offsets)):
         dft = len(kept[0].offsets) - 2 if kernel == "frame" else -1
         packed_read = sum(b * blocks * (1 if j == dft else nz)
@@ -800,7 +910,9 @@ def main(argv=None) -> int:
                        weight_tb_s=fetch / (ms * 1e-3) / 1e12)
         print(f"{v}: {ms:.4f} ms (rounds {[round(t, 4) for t in times[v]]}), "
               f"err {info[v]['max_abs_err']:.3g}"
-              f"{'' if info[v]['checked'] else ' (not checked)'}, same bits "
+              + (f" ({info[v]['tol_ratio']:.3f} of TOL)" if "tol_ratio" in info[v]
+                 else "")
+              + f"{'' if info[v]['checked'] else ' (not checked)'}, same bits "
               f"{info[v]['same_bits']} (as committed's: "
               f"{info[v]['bits_as_committed']}), weights {fetch / 1e9:.4f} GB a launch "
               f"({info[v]['weight_tb_s']:.2f} TB/s)")
@@ -812,7 +924,8 @@ def main(argv=None) -> int:
                    "past_limits": broke}, fh, indent=1)
     print(card)
     if broke:
-        print(f"past the BF16_* limits (seed, form): {broke}", file=sys.stderr)
+        print(f"past TOL or the BF16_* limits (seed, form): {broke}",
+              file=sys.stderr)
         return 1
     return 0
 

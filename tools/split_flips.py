@@ -35,10 +35,10 @@ the kernel runs a padded matrix packed as its merged one, in K steps of
 the merged rows.  Nothing here runs a kernel: it sizes a route's rounding
 error, not its bits on a card.
 
---quant int8 (--kernel decm, either layout) sizes the chain-merged
-decoder's int8 instance with f32 products instead: radae_tpu multiplies the
-f32 x by the int8 matrix q as f32 (then the column scale), and the kernel
-runs x @ q on the tensor cores as bf16 products of x's parts (`x_parts`:
+--quant int8 (--kernel dec, enc or decm, the last in either layout) sizes
+the int8 instances with f32 products instead: radae_tpu multiplies the f32
+x by the int8 matrix q as f32 (then the column scale), and the kernel runs
+x @ q on the tensor cores as bf16 products of x's parts (`x_parts`:
 hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)) and q widened to
 bf16 (exact).  Against the plain int8 step (f32 products) it prints, per
 route, the largest |err| / (atol + rtol |want|) of chip_smoke.py's TOL over
@@ -49,9 +49,16 @@ and the elements past TOL:
   xsplit2    x hi + x mid, two parts (the remainder reaches 2^-18 |x|);
   xsplit3    x hi + x mid + x lo, three parts: the kernel's route; a
              matrix that quant_exclude keeps in f32 (--mixed: chip_smoke.py's
-             MIXED set, wgg in f32) as the six products of x's and w's parts
+             MIXED set of the kernel's int8 form: the merged decoder's wgg,
+             the unmerged decoder's whh and out_w, the encoder's whh and
+             d1_w) as the six products of x's and w's parts
              (`fc.split_parts`) at or above 2^-18 of hi hi;
-  xsplit3w9  the same with all nine products on such a matrix.
+  xsplit3w9  the same with all nine products on such a matrix;
+  xsplit3c   xsplit3 with each step's truncation compensated: the
+             encoder's route (the tensor cores truncate a step sum t toward
+             zero, by half an ulp of t on average, so enc_kernel adds
+             sign(t) 2^(exponent of t) 2^-24 a step, summed apart, to the
+             sums at the end).
 
 Each 16-wide K step's products are summed exactly and truncated to f32,
 then added to an f32 running sum, as on the bf16 routes.
@@ -75,7 +82,7 @@ from radae_tpu_torch.ops import fused_core as fc  # noqa: E402
 
 BF = torch.bfloat16
 ROUTES = ("exact", "split2", "split3")
-QROUTES = ("exact", "xsplit2", "xsplit3", "xsplit3w9")
+QROUTES = ("exact", "xsplit2", "xsplit3", "xsplit3w9", "xsplit3c")
 # the (x part, w part) products of a K step on the f32-product routes:
 # against an int8 matrix (one w part) and against one kept in f32 (three)
 XPAIRS = {"xsplit2": ([(1, 0), (0, 0)],
@@ -84,6 +91,7 @@ XPAIRS = {"xsplit2": ([(1, 0), (0, 0)],
                       [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]),
           "xsplit3w9": ([(2, 0), (1, 0), (0, 0)],
                         [(i, k) for i in range(3) for k in range(3)])}
+XPAIRS["xsplit3c"] = XPAIRS["xsplit3"]
 CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 # --kernel -> the rounding rule of its plain version (fc._rounds)
 RULES = {"dec": "gru", "enc": "gru", "decm": "none"}
@@ -114,11 +122,19 @@ def _wsteps(a):
     return a.reshape(-1, 16, a.shape[1])
 
 
-def _steps(pairs, xs, ws):
+def pow2(t: torch.Tensor) -> torch.Tensor:
+    """sign(t) 2^(exponent of t) of f32 values: t's bits with the
+    significand cleared (zero and subnormals give zero)."""
+    return (t.view(torch.int32) & -(1 << 23)).view(torch.float32)
+
+
+def _steps(pairs, xs, ws, comp=False):
     """sum over (i, k) in pairs of xs[i] @ ws[k] (ws as `_wsteps`) for each
     16-wide K step, in f64, truncated to f32 (the tensor cores' one
     truncation a step), then added in f32 in K order.  (The x parts that
-    meet one w part are added first: exact in f64.)"""
+    meet one w part are added first: exact in f64.)  comp: each step's
+    pow2(truncated sum) summed in f32 apart and added times 2^-24 at the
+    end (half an ulp a step, the mean truncation)."""
     B, K = xs[0].shape
     xw = {}
     for i, k in pairs:
@@ -128,9 +144,12 @@ def _steps(pairs, xs, ws):
             for k, x in xw.items())                      # (steps, B, out)
     s = _trunc(s)
     d = torch.zeros((B, s.shape[-1]))
+    c = torch.zeros_like(d)
     for k in range(s.shape[0]):
         d = d + s[k]
-    return d
+        if comp:
+            c = c + pow2(s[k])
+    return d + c * 2.0 ** -24 if comp else d
 
 
 def xroute_products(w, route):
@@ -145,7 +164,8 @@ def xroute_products(w, route):
         if route == "exact":
             return (x.double() @ w.arrays[j].double()).float() * scale[j]
         pairs = XPAIRS[route][len(ws[j]) > 1]
-        return _steps(pairs, x_parts(x), ws[j]) * scale[j]
+        return _steps(pairs, x_parts(x), ws[j],
+                      route == "xsplit3c") * scale[j]
     return mm
 
 
@@ -228,6 +248,30 @@ def flips(side, w, batch, latent, seed, w_route=None, quant=False):
     return out
 
 
+# --kernel -> its int8 form (the key of chip_smoke.py's MIXED)
+INT8_FORMS = {"dec": "fused_decoder_step_int8",
+              "enc": "fused_encoder_step_int8",
+              "decm": "fused_decoder_merged_step_int8"}
+
+
+def int8_sets(tree, side, pad=False, mixed=False):
+    """(the int8 weights of the kernel's plain version, the weights its
+    route runs on) for --kernel side: the chain-merged decoder's route runs a
+    padded set (pad) on the merged one, as the kernel does; mixed: the
+    kernel's MIXED set (quant_exclude)."""
+    kw = dict(quant="int8",
+              quant_exclude=MIXED[INT8_FORMS[side]] if mixed else ())
+    if side == "enc":
+        w = fc.encoder_weights(tree["encoder"], "cpu", **kw)
+        return w, w
+    if side == "dec":
+        w = fc.decoder_weights(tree["decoder"], "cpu", **kw)
+        return w, w
+    return (fc.decoder_weights(tree["decoder"], "cpu",
+                               merged="pad" if pad else True, **kw),
+            fc.decoder_weights(tree["decoder"], "cpu", merged=True, **kw))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(RULES), action="append",
@@ -241,36 +285,35 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=1,
                     help="--quant int8: seeds --seed.. summed over")
     ap.add_argument("--quant", choices=["int8"], default=None,
-                    help="the merged decoder's int8 weights with f32 "
-                    "products (QROUTES)")
+                    help="int8 weights with f32 products (QROUTES)")
     ap.add_argument("--mixed", action="store_true",
-                    help="--quant int8: chip_smoke.py's MIXED set (wgg f32)")
+                    help="--quant int8: chip_smoke.py's MIXED set of the "
+                    "kernel's int8 form")
     args = ap.parse_args(argv)
     sides = args.kernel or ["dec", "enc"]
-    if (args.pad or args.quant) and sides != ["decm"]:
-        ap.error("--pad and --quant are the merged decoder's: --kernel decm")
+    if args.pad and sides != ["decm"]:
+        ap.error("--pad is the merged decoder's layout: --kernel decm")
     if args.mixed and not args.quant:
         ap.error("--mixed is an int8 set: --quant int8")
     tree, _ = load_checkpoint(os.path.join(ROOT, "fixtures",
                                            CHECKPOINTS[args.latent]))
     if args.quant:
-        kw = dict(quant="int8", quant_exclude=(
-            MIXED["fused_decoder_merged_step_int8"] if args.mixed else ()))
-        w = fc.decoder_weights(tree["decoder"], "cpu",
-                               merged="pad" if args.pad else True, **kw)
-        w_route = fc.decoder_weights(tree["decoder"], "cpu", merged=True, **kw)
-        tot = {r: [0, 0, 0.0] for r in QROUTES}
-        for seed in range(args.seed, args.seed + args.seeds):
-            for r, (n_over, n, mx) in flips("decm", w, args.batch, args.latent,
-                                            seed, w_route, quant=True).items():
-                tot[r] = [tot[r][0] + n_over, tot[r][1] + n, max(tot[r][2], mx)]
-        name = ("decm" + (" pad" if args.pad else "") + " int8"
-                + (" mixed" if args.mixed else ""))
-        for r, (n_over, n, mx) in tot.items():
-            print(f"{name} latent {args.latent} B={args.batch} seeds "
-                  f"{args.seed}..{args.seed + args.seeds - 1} {r}: largest "
-                  f"|err| / (atol + rtol |want|) {mx:.4f} (TOL {TOL}: 1), "
-                  f"{n_over} of {n} past TOL", flush=True)
+        for side in sides:
+            w, w_route = int8_sets(tree, side, args.pad, args.mixed)
+            tot = {r: [0, 0, 0.0] for r in QROUTES}
+            for seed in range(args.seed, args.seed + args.seeds):
+                for r, (n_over, n, mx) in flips(side, w, args.batch,
+                                                args.latent, seed, w_route,
+                                                quant=True).items():
+                    tot[r] = [tot[r][0] + n_over, tot[r][1] + n,
+                              max(tot[r][2], mx)]
+            name = (side + (" pad" if args.pad else "") + " int8"
+                    + (" mixed" if args.mixed else ""))
+            for r, (n_over, n, mx) in tot.items():
+                print(f"{name} latent {args.latent} B={args.batch} seeds "
+                      f"{args.seed}..{args.seed + args.seeds - 1} {r}: largest "
+                      f"|err| / (atol + rtol |want|) {mx:.4f} (TOL {TOL}: 1), "
+                      f"{n_over} of {n} past TOL", flush=True)
         return 0
     for side in sides:
         w_route = None
