@@ -41,12 +41,12 @@ EQ, coarse magnitude):
      decoder's two on f32 weights are also held at latent 40 (B=2048 and
      37, and to the same bits), and the four int8 forms with f32 products
      on their MIXED sets too, and at latent 40 on full int8 and MIXED sets
-     (B=2048 and 37, to the same bits; the encoder's there against its
-     plain version in f64: within TOL of it, or no farther from it than the
-     f32 plain version is, whose own rounding passes TOL of it at latent
-     40); an int8 launch through an f32
-     entry, or through an x entry without the packed matrices, is refused
-     and writes nothing (no FMA int8 instance is left to fall back on);
+     (B=2048 and 37, to the same bits; the encoder's there within TOL of
+     its plain version in f64, since the f32 plain version's own rounding
+     passes TOL of it at latent 40); an int8 launch through an f32
+     entry, or with f32 products through an mma or x entry without the
+     packed matrices, is refused and writes nothing (no FMA int8 instance
+     is left to fall back on);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -202,11 +202,10 @@ XSPLIT_PARTS = 3
 XW_PRODUCTS = 6
 # of those, the encoder's: its int8 step is so ill-conditioned (its z
 # output cancels in its sums) that the f32 plain version's own rounding
-# takes it past TOL of the same step in f64 at latent 40 (up to 2.2 times
+# takes it past TOL of the same step in f64 at latent 40 (up to 3.2 times
 # on an H100, PERF.md), and so does every f32 kernel now and then, the FMA
-# loops too.  Its MIXED and latent-40 checks hold it against the plain
-# version in f64 (plain_f64): within TOL of it, or no farther from it than
-# the f32 plain version is
+# loops too.  Its MIXED and latent-40 checks hold it within TOL of the
+# plain version in f64 (plain_f64)
 XS_F64 = ("fused_encoder_step_int8",)
 # bf16 products against their plain version: an input of a product that
 # sits on a bf16 rounding boundary rounds the other way under another f32
@@ -841,16 +840,16 @@ def main(argv=None) -> int:
                     held(name, f"{batch} latent 40", f"call {frame}",
                          (ok_,) + sk, (op,) + sp)
         # the int8 forms with f32 products (x split on the tensor cores) at
-        # TOL (own seeds: 8 for the merged decoder's, as before the
-        # unmerged decoder's and the encoder's joined, 9 for those): on
+        # TOL, on draws of their own generator (seed 8, in this order): on
         # the MIXED sets (the matrices kept in f32 take six products: the
         # merged decoder's wgg, the unmerged decoder's whh and 84-column
         # out_w, the encoder's whh and d1_w, whose K = 84 ends inside a K
         # step) and at latent 40 (the decoders' dense_1 K = 40 ends inside a
         # K step, the encoder's z_dense has 40 columns) on full int8 and
-        # MIXED sets; the encoder's against its plain version in f64
-        # (XS_F64): within TOL of it, or no farther from it than the f32
-        # plain version is.
+        # MIXED sets; the encoder's (XS_F64) within TOL of its plain version
+        # in f64 on every call.  The first call of its latent-40 MIXED set
+        # at B=2048 holds a row whose dense_1 sums cancel, where the f32
+        # plain version is 3.2 TOL from the f64 one (PERF.md)
         def xs_weights(name, tr, excl):
             if name.startswith("fused_encoder_step"):
                 return fc.encoder_weights(tr["encoder"], dev, quant="int8",
@@ -859,16 +858,15 @@ def main(argv=None) -> int:
             return fc.decoder_weights(tr["decoder"], dev, merged=merged,
                                       quant="int8", quant_exclude=excl)
 
-        xrng, xrng9 = np.random.default_rng(8), np.random.default_rng(9)
-        xrngs = {n: xrng if "merged" in n else xrng9 for n in XS_FORMS}
+        xrng = np.random.default_rng(8)
         xs_sets = [(name, latent, excl, xs_weights(name, tr, excl))
                    for name in sorted(XS_FORMS, key=lambda n: "merged" not in n)
                    for latent, tr in ((cfg.latent_dim, tree), (cfg40.latent_dim, tree40))
                    for excl in ((), MIXED[name.replace("_pad", "")])
                    if excl or latent != cfg.latent_dim]
-        xs_err, xs_f64 = {}, {}
+        xs_err, xs_f64, xs_calls, past_f64 = {}, {}, {}, []
         for name, latent, excl, w in xs_sets:
-            kern, plain, zero_state, draw = kernel_form(name, xrngs[name], latent)
+            kern, plain, zero_state, draw = kernel_form(name, xrng, latent)
             tag = f"latent {latent}" + (f" {excl} in f32" if excl else "")
             for batch in (B, RAGGED_B):
                 sk = sp = s64 = zero_state(batch)
@@ -886,13 +884,18 @@ def main(argv=None) -> int:
                     exact = (o64,) + s64
                     torch.cuda.synchronize()
                     r_k, r_p = tol_ratio(got, exact), tol_ratio(want, exact)
-                    if not r_k <= max(1.0, r_p):
-                        raise AssertionError(
-                            f"{name} B={batch} {tag} call {frame}: "
-                            f"{r_k:.3f} of TOL from the plain step in f64, "
-                            f"the f32 plain step {r_p:.3f}")
+                    if not r_k <= 1.0:
+                        past_f64.append(
+                            f"{name} B={batch} {tag} call {frame}: {r_k:.3f} "
+                            f"of TOL from the plain step in f64 (the f32 plain "
+                            f"step {r_p:.3f}, {max_err(got, want):.3g} from it)")
                     k0, p0 = xs_f64.get((name, tag), (0.0, 0.0))
                     xs_f64[name, tag] = (max(k0, r_k), max(p0, r_p))
+                    xs_calls.setdefault((name, tag), []).append(
+                        f"B={batch} call {frame} {r_k:.3f} "
+                        f"({max_err(got, want):.3g})")
+        if past_f64:
+            raise AssertionError("; ".join(past_f64))
         for (name, batch), (n_over, n) in flips.items():
             if n_over > BF16_FLIPS * n:
                 raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
@@ -920,7 +923,9 @@ def main(argv=None) -> int:
             raise AssertionError("a refused frame geometry was launched")
         # int8 launches the C entries refuse, writing nothing (outputs and
         # state stay NaN): through the f32 entries (no FMA int8 instance is
-        # left) and through the x entries without the packed matrices
+        # left) and, with f32 products (bf16 flag 0), through the mma
+        # entries and the merged decoder's x entry without the packed
+        # matrices
         clib = _kernels.library("fused_core")
         n_before = dict(fc.LAUNCHES)
 
@@ -949,16 +954,16 @@ def main(argv=None) -> int:
         refused_q = [
             refuse("unmerged int8", "radae_fused_decoder_step", dwq, zq, dq,
                    zs, da, "gru"),
-            refuse("unmerged int8", "radae_fused_decoder_x_step", dwq, zq, dq,
-                   zs, da + (None, None), "gru"),
+            refuse("unmerged int8", "radae_fused_decoder_mma_step", dwq, zq,
+                   dq, zs, da + (0, None, None), "gru"),
             refuse("merged int8", "radae_fused_decoder_merged_step", dwmq, zq,
                    dq, zms, da, "none"),
             refuse("merged int8", "radae_fused_decoder_merged_x_step", dwmq,
                    zq, dq, zms, da + (0, 0, None, None), "none"),
             refuse("encoder int8", "radae_fused_encoder_step", ewq, fq, eq,
                    es0, ea, "gru"),
-            refuse("encoder int8", "radae_fused_encoder_x_step", ewq, fq, eq,
-                   es0, ea + (None, None), "gru")]
+            refuse("encoder int8", "radae_fused_encoder_mma_step", ewq, fq,
+                   eq, es0, ea + (0, None, None), "gru")]
         if dict(fc.LAUNCHES) != n_before:
             raise AssertionError("a refused int8 launch was counted")
         # the tile kernels give the same bits on two launches (own seeds, so
@@ -1013,8 +1018,8 @@ def main(argv=None) -> int:
                 x, st = draw(batch, nz), rand_state(lrng, zero_state(batch))
                 same_bits(f"{name} latent 40", batch, lambda: kern(w, x, st))
             for name, latent, excl, w in xs_sets:
-                kern, _, zero_state, draw = kernel_form(name, xrngs[name], latent)
-                x, st = draw(batch, nz), rand_state(xrngs[name], zero_state(batch))
+                kern, _, zero_state, draw = kernel_form(name, xrng, latent)
+                x, st = draw(batch, nz), rand_state(xrng, zero_state(batch))
                 same_bits(f"{name} latent {latent} {excl}", batch,
                           lambda: kern(w, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
@@ -1033,9 +1038,11 @@ def main(argv=None) -> int:
           f"{XSPLIT_PARTS} parts), max abs err against the plain version at "
           f"B={B} and B={RAGGED_B} (within {TOL} but {XS_F64}; for those, the "
           "largest |err| / (atol + rtol |want|) against the plain version in "
-          "f64, and the f32 plain version's, in brackets): " + ", ".join(
+          "f64, and the f32 plain version's, in brackets, then each call's, "
+          "with its max abs err against the f32 plain version): " + ", ".join(
               f"{n} {t} {e:.3g}" + (f" (f64: {xs_f64[n, t][0]:.3f}, the f32 "
-                                   f"plain version {xs_f64[n, t][1]:.3f})"
+                                   f"plain version {xs_f64[n, t][1]:.3f}; "
+                                   + ", ".join(xs_calls[n, t]) + ")"
                                    if (n, t) in xs_f64 else "")
               for (n, t), e in xs_err.items()))
     print(f"refused without a launch: {refused}")

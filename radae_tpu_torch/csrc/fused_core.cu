@@ -5,8 +5,8 @@
 // Replaces the Pallas TPU kernels in radae_tpu/ops/fused_core.py:
 //   radae_fused_decoder_step         <- make_fused_decoder_step, body `kernel`
 //                                       (unmerged, f32)
-//   radae_fused_decoder_x_step       <- the same with quant="int8"
-//   radae_fused_decoder_bf16_step    <- the same with compute_dtype=bf16
+//   radae_fused_decoder_mma_step     <- the same with quant="int8" or
+//                                       compute_dtype=bf16 (bf16 flag)
 //   radae_fused_decoder_merged_step  <- make_fused_decoder_step, body
 //                                       `kernel_merged` (merged=True, f32)
 //   radae_fused_decoder_merged_x_step <- the same with quant="int8" (either
@@ -18,8 +18,8 @@
 //                                       paths)
 //   radae_fused_rx_frame_bf16_step   <- the same with compute_dtype=bf16
 //   radae_fused_encoder_step         <- make_fused_encoder_step (f32)
-//   radae_fused_encoder_x_step       <- the same with quant="int8"
-//   radae_fused_encoder_bf16_step    <- the same with compute_dtype=bf16
+//   radae_fused_encoder_mma_step     <- the same with quant="int8" or
+//                                       compute_dtype=bf16 (bf16 flag)
 // and computes the same functions as the plain PyTorch versions in
 // radae_tpu_torch/ops/fused_core.py (decoder_step_plain,
 // decoder_merged_step_plain, rx_frame_step_plain, encoder_step_plain).
@@ -164,9 +164,9 @@
 // 2^-18 of the largest (tmma<true, XS>).  Their results are held to the
 // f32 instances' tolerance, not to the bf16 products' one.  On an H100 the
 // merged one takes 0.30 ms in either layout against 0.48 and 0.50 for the
-// FMA instances it replaced, the unmerged decoder's 0.31 against 0.44 and
-// the encoder's (which also compensates each step's truncation, XS_COMP
-// below) 0.36 against 0.48 (tools/enc_variants.py, in turns); two x parts
+// FMA instances it replaced and the unmerged decoder's 0.31 against 0.44
+// (tools/enc_variants.py, in turns; the encoder's, which sums x hi's
+// products apart, XS_SEP below, in PERF.md); two x parts
 // would take 0.25-0.31 (the decoders within the tolerance, but at a third
 // of it on the CPU estimate of tools/split_flips.py against a fiftieth with
 // three; the encoder 15 times past it).
@@ -771,28 +771,19 @@ __device__ __forceinline__ void mma2(float4& e0, float4& e1,
   mma16816(e1, a[0], a[1], a[2], a[3], b.z, b.w);
 }
 
-// sign(v) 2^(v's exponent) of each element: v with its significand cleared
-// (zero for zero and subnormals)
-__device__ __forceinline__ float4 pow2(float4 v) {
-  constexpr unsigned E = 0xff800000u;
-  return make_float4(__uint_as_float(__float_as_uint(v.x) & E),
-                     __uint_as_float(__float_as_uint(v.y) & E),
-                     __uint_as_float(__float_as_uint(v.z) & E),
-                     __uint_as_float(__float_as_uint(v.w) & E));
-}
-
 // The f32-product routes of the int8 instances (tmma's XS): x in three
-// bf16 parts (XS_SPLIT, both decoders'), and the same with each K step's
-// truncation compensated (XS_COMP, enc_kernel's).  The tensor cores
-// truncate a step sum t toward zero, by half an ulp of t on average, and
-// the encoder's int8 step is so ill-conditioned that the bias shows: on an
-// H100 its output against the plain step in f64 read up to 0.96 of
-// chip_smoke.py's TOL without the compensation and 0.57 with it, where the
-// FMA loops read 0.65 (latent 40, tools/enc_variants.py --exact; the
-// decoders read 0.01 either way).  XS_COMP sums sign(t) 2^(t's exponent)
-// apart, in c0 and c1, and adds 2^-24 of it, half an ulp a step, to the
-// sums at the end, at 7% of the encoder's time.
-constexpr int XS_SPLIT = 1, XS_COMP = 2;
+// bf16 parts (xparts) against each int8 matrix widened to bf16, or against
+// a kept-f32 matrix's three copies; a K step's products summed from zero in
+// the tensor cores, the smallest first, and added to the f32 sums.
+// XS_SPLIT (both decoders'): the step's products in one sum.  XS_SEP
+// (enc_kernel's): x hi's products (x hi b) summed apart from the rest, the
+// two added in f32.  The tensor cores truncate a sum's terms, the running
+// sum included, below the largest one's 24 bits, so in one sum the small
+// parts' partial sum loses its low bits where x hi's products join it.  The
+// encoder's int8 step is so ill-conditioned (its z output cancels) that this
+// shows: on an H100 its chained form read past chip_smoke.py's TOL, apart
+// it stays within (PERF.md); the decoders read 0.01 of TOL either way.
+constexpr int XS_SPLIT = 1, XS_SEP = 2;
 
 // One K step of the f32-product route (tmma's XS): the lane's x of rows g
 // (r0) and g + 8 (r1), f32, split into hi, mid and lo (xparts) in
@@ -802,11 +793,11 @@ constexpr int XS_SPLIT = 1, XS_COMP = 2;
 // b, x mid m, x hi l, x mid b, x hi m, x hi b; the three left out are below
 // 2^-26 of it).  The step's products are summed from zero in the tensor
 // cores, the smallest first, and the step sum added to d0, d1 in f32, as in
-// mstep<true>.  COMP: the step sum's pow2 added to c0, c1 (XS_COMP).
-template <bool SPLIT, bool COMP>
-__device__ __forceinline__ void xstep(float4& d0, float4& d1, float4& c0,
-                                      float4& c1, float4 r0, float4 r1,
-                                      uint4 b, uint4 m, uint4 l) {
+// mstep<true>; SEP: x hi b summed from zero apart, and added to the rest's
+// sum in f32 first.
+template <bool SPLIT, bool SEP>
+__device__ __forceinline__ void xstep(float4& d0, float4& d1, float4 r0,
+                                      float4 r1, uint4 b, uint4 m, uint4 l) {
   unsigned xh[4], xm[4], xl[4];         // a0..a3 of each part
   xparts(r0.x, r0.y, xh[0], xm[0], xl[0]);
   xparts(r1.x, r1.y, xh[1], xm[1], xl[1]);
@@ -823,12 +814,15 @@ __device__ __forceinline__ void xstep(float4& d0, float4& d1, float4& c0,
     mma2(e0, e1, xl, b);                // x lo: the third part
     mma2(e0, e1, xm, b);
   }
-  mma2(e0, e1, xh, b);
-  d0 = add4(d0, e0);
-  d1 = add4(d1, e1);
-  if constexpr (COMP) {
-    c0 = add4(c0, pow2(e0));
-    c1 = add4(c1, pow2(e1));
+  if constexpr (SEP) {
+    float4 h0 = make_float4(0.f, 0.f, 0.f, 0.f), h1 = h0;
+    mma2(h0, h1, xh, b);
+    d0 = add4(d0, add4(h0, e0));
+    d1 = add4(d1, add4(h1, e1));
+  } else {
+    mma2(e0, e1, xh, b);
+    d0 = add4(d0, e0);
+    d1 = add4(d1, e1);
   }
 }
 
@@ -843,10 +837,10 @@ __device__ __forceinline__ void xstep(float4& d0, float4& d1, float4& c0,
 // MMA_PAIRS pairs ahead of its products.  SPLIT: W is a split matrix (hi,
 // mid and lo copies, 96 words a step, MMA_SPLIT_PAIRS pairs ahead), and each
 // step runs the two n8 tiles on lo, mid and hi with the same A registers
-// (mstep<true>).  XS (f32 products, XS_SPLIT or XS_COMP): x is not
-// rounded but split into three bf16 parts at each step (xstep), against W
-// (int8 widened) or, SPLIT, against its three copies; B MMA_SPLIT_PAIRS
-// pairs ahead; XS_COMP: the steps' truncation compensated at the end.
+// (mstep<true>).  XS (f32 products, XS_SPLIT or XS_SEP): x is not rounded
+// but split into three bf16 parts at each step (xstep), against W (int8
+// widened) or, SPLIT, against its three copies; B MMA_SPLIT_PAIRS pairs
+// ahead.
 template <bool SPLIT = false, int XS = 0>
 __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
                                      int r0, const uint4* __restrict__ W,
@@ -864,7 +858,6 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
   const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
   float4 d0 = make_float4(acc[0].x, acc[0].y, acc[1].x, acc[1].y);
   float4 d1 = make_float4(acc[0].z, acc[0].w, acc[1].z, acc[1].w);
-  [[maybe_unused]] float4 c0 = z, c1 = z;       // XS_COMP: the steps' pow2
   uint4 bq[NB];                                 // hi (or the only) copy
   [[maybe_unused]] uint4 mq[SPLIT ? NB : 1], lq[SPLIT ? NB : 1];  // mid, lo
 #pragma unroll
@@ -900,12 +893,12 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
     const float4 pa = va ? ld4(x0 + ka) : z, pb = va ? ld4(x1 + ka) : z;
     const float4 qa = vb ? ld4(x0 + kb) : z, qb = vb ? ld4(x1 + kb) : z;
     if constexpr (XS != 0) {   // each step's rows selected as f32, then split
-      constexpr bool C = XS == XS_COMP;
-      xstep<SPLIT, C>(d0, d1, c0, c1, sel4(odd, qa, pa), sel4(odd, qb, pb), b0,
-                      m0, l0);
+      constexpr bool SEP = XS == XS_SEP;
+      xstep<SPLIT, SEP>(d0, d1, sel4(odd, qa, pa), sel4(odd, qb, pb), b0, m0,
+                        l0);
       if (k + 16 < k1)
-        xstep<SPLIT, C>(d0, d1, c0, c1, sel4(odd, pa, qa), sel4(odd, pb, qb),
-                        b1, m1, l1);
+        xstep<SPLIT, SEP>(d0, d1, sel4(odd, pa, qa), sel4(odd, pb, qb), b1, m1,
+                          l1);
     } else {
       const unsigned u0 = bf2(pa.x, pa.y), u1 = bf2(pb.x, pb.y);
       const unsigned u2 = bf2(pa.z, pa.w), u3 = bf2(pb.z, pb.w);
@@ -917,13 +910,6 @@ __device__ __forceinline__ void tmma(float4 (&acc)[ET], const float* X, int ld,
         mstep<SPLIT>(d0, d1, odd ? u0 : w0, odd ? u1 : w1, odd ? u2 : w2,
                      odd ? u3 : w3, b1, m1, l1);
     }
-  }
-  if constexpr (XS == XS_COMP) {
-    constexpr float H = 0x1p-24f;       // half an ulp of 1
-    d0 = make_float4(fmaf(c0.x, H, d0.x), fmaf(c0.y, H, d0.y),
-                     fmaf(c0.z, H, d0.z), fmaf(c0.w, H, d0.w));
-    d1 = make_float4(fmaf(c1.x, H, d1.x), fmaf(c1.y, H, d1.y),
-                     fmaf(c1.z, H, d1.z), fmaf(c1.w, H, d1.w));
   }
   acc[0] = make_float4(d0.x, d0.y, d1.x, d1.y);
   acc[1] = make_float4(d0.z, d0.w, d1.z, d1.w);
@@ -1786,15 +1772,15 @@ __global__ void __launch_bounds__(NT) rx_frame_kernel(const FrameArgsOf<BF> a) {
 // qa) the MM instance <true, true, KindMmaArgs> on weights of kinds 1, 2 and
 // 3 (tmma), the split instance <true, true, KindSplitArgs> on f32 weights
 // (kind 3 through tmma, kind 0 through tmma<true> on hi, mid, lo); with f32
-// products the int8 instance <true, false, KindSplitXArgs> (XS_COMP: the
-// steps' truncation compensated), x in three bf16 parts against each int8
+// products the int8 instance <true, false, KindSplitXArgs> (XS_SEP: x hi's
+// products summed apart), x in three bf16 parts against each int8
 // matrix widened to bf16 and each matrix that quant_exclude keeps in f32 as
 // its three copies (tmma<false, XS> and tmma<true, XS>).
 template <bool Q, bool BF = false, class KA = QuantArgs<ENC_NS>>
 __global__ void __launch_bounds__(NT)
     enc_kernel(const EncArgs a, const __grid_constant__ KA qa) {
   constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
-  constexpr int XS = has_xsplit<KA> ? XS_COMP : 0;
+  constexpr int XS = has_xsplit<KA> ? XS_SEP : 0;
   static_assert(MM || !Q, "the int8 instances run on the tensor cores");
   static_assert(BF || !MM || (Q && XS),
                 "an MM instance with f32 products is the int8 one on x's parts");
@@ -2153,10 +2139,11 @@ extern "C" {
 // n_soff 0 for f32 weights, the layout's number of matrices for int8 ones).
 // Every launch on int8 weights runs on the tensor cores and takes the
 // matrices packed into wm at moff[n_off] (16-byte words, fc.mma_weights):
-// the unmerged decoder's and the encoder's x entries (f32 products) and
-// bf16 entries (bf16 products), and the merged decoder's x entry.  Those
-// entries refuse a launch without them, and the f32 entries refuse int8
-// weights (n_soff > 0): there is no FMA int8 instance to fall back on.
+// the unmerged decoder's and the encoder's mma entries and the merged
+// decoder's x entry, each with a bf16 flag (bf16 products, else f32
+// products on x's bf16 parts).  Those entries refuse a launch without
+// them, and the f32 entries refuse int8 weights (n_soff > 0): there is no
+// FMA int8 instance to fall back on.
 
 int radae_fused_decoder_step(const void* w, const int* off, int n_off,
                              const int* kinds, const int* soff, int n_soff,
@@ -2172,49 +2159,35 @@ int radae_fused_decoder_step(const void* w, const int* off, int n_off,
   return launch(dec_kernel<false>, DEC_SMEM, B, stream, a, q);
 }
 
-// radae_fused_decoder_step on int8 weights (n_soff > 0), with f32 products:
-// the x-split instance (KindSplitXArgs), every product on the tensor cores
-// on the matrices packed into wm at moff[n_off], each int8 matrix (kind 1)
-// widened to bf16, each that quant_exclude keeps in f32 (kind 0) as hi,
-// mid, lo; refused without them or without int8 scale rows.
-int radae_fused_decoder_x_step(const void* w, const int* off, int n_off,
-                               const int* kinds, const int* soff, int n_soff,
-                               const void* z, void* feats, int B, int nz,
-                               int in_dim, int out_dim, const void* wm,
-                               const int* moff, void* const* state_in,
-                               void* const* state_out, void* stream) {
+// radae_fused_decoder_step on the tensor cores, on the matrices packed into
+// wm at moff[n_off] (16-byte words), refused without them (there is no FMA
+// instance to fall back on).  With bf16 products (bf16): kinds 0..3
+// (kind_args); with no matrix of kind 0 (int8, bf16 or rounded matrices:
+// every product bf16 x bf16) the MM instance, else (f32 weights) the split
+// instance, each kind-0 matrix packed as hi, mid, lo.  With f32 products
+// (int8 weights only, n_soff > 0): the x-split instance (KindSplitXArgs),
+// each int8 matrix (kind 1) widened to bf16, each that quant_exclude keeps
+// in f32 (kind 0) as hi, mid, lo.
+int radae_fused_decoder_mma_step(const void* w, const int* off, int n_off,
+                                 const int* kinds, const int* soff, int n_soff,
+                                 const void* z, void* feats, int B, int nz,
+                                 int in_dim, int out_dim, int bf16,
+                                 const void* wm, const int* moff,
+                                 void* const* state_in, void* const* state_out,
+                                 void* stream) {
   DecArgs a;
   KindSplitArgs<DEC_NS, DEC_NW> km;
-  if (!mma_launch_args(kinds, n_off, soff, n_soff, DEC_MATS, false, wm, moff,
-                       km) ||
+  if (!mma_launch_args(kinds, n_off, soff, n_soff, DEC_MATS, bf16 != 0, wm,
+                       moff, km) ||
       !dec_args(w, off, n_off, z, feats, B, nz, in_dim, out_dim, state_in,
                 state_out, a))
     return (int)cudaErrorInvalidValue;
-  KindSplitXArgs<DEC_NS, DEC_NW> kx;
-  static_cast<KindMmaArgs<DEC_NS, DEC_NW>&>(kx) = km;
-  return launch(dec_kernel<true, false, KindSplitXArgs<DEC_NS, DEC_NW>>,
-                DEC_SMEM_Q, B, stream, a, kx);
-}
-
-// radae_fused_decoder_step with bf16 products: kinds 0..3 (kind_args), on
-// the matrices packed into wm at moff[n_off] (16-byte words), refused without
-// them (there is no FMA instance): with no matrix of kind 0 (int8, bf16 or
-// rounded matrices: every product bf16 x bf16) the MM instance, else (f32
-// weights) the split instance, each kind-0 matrix packed as hi, mid, lo.
-int radae_fused_decoder_bf16_step(const void* w, const int* off, int n_off,
-                                  const int* kinds, const int* soff,
-                                  int n_soff, const void* z, void* feats,
-                                  int B, int nz, int in_dim, int out_dim,
-                                  const void* wm, const int* moff,
-                                  void* const* state_in,
-                                  void* const* state_out, void* stream) {
-  DecArgs a;
-  KindSplitArgs<DEC_NS, DEC_NW> km;
-  if (!mma_launch_args(kinds, n_off, soff, n_soff, DEC_MATS, true, wm, moff,
-                       km) ||
-      !dec_args(w, off, n_off, z, feats, B, nz, in_dim, out_dim, state_in,
-                state_out, a))
-    return (int)cudaErrorInvalidValue;
+  if (!bf16) {
+    KindSplitXArgs<DEC_NS, DEC_NW> kx;
+    static_cast<KindMmaArgs<DEC_NS, DEC_NW>&>(kx) = km;
+    return launch(dec_kernel<true, false, KindSplitXArgs<DEC_NS, DEC_NW>>,
+                  DEC_SMEM_Q, B, stream, a, kx);
+  }
   if ((km.i8 | km.bf | km.rw) == DEC_MATS)
     return launch(dec_kernel<true, true, KindMmaArgs<DEC_NS, DEC_NW>>,
                   DEC_SMEM_Q, B, stream, a,
@@ -2436,44 +2409,28 @@ int radae_fused_encoder_step(const void* w, const int* off, int n_off,
   return launch(enc_kernel<false>, ENC_SMEM, B, stream, a, q);
 }
 
-// radae_fused_encoder_step on int8 weights (n_soff > 0), with f32 products:
-// the x-split instance, as radae_fused_decoder_x_step
-int radae_fused_encoder_x_step(const void* w, const int* off, int n_off,
-                               const int* kinds, const int* soff, int n_soff,
-                               const void* f, void* z, int B, int nz,
-                               int in_dim, int out_dim, int bottleneck,
-                               const void* wm, const int* moff,
-                               void* const* state_in, void* const* state_out,
-                               void* stream) {
+// radae_fused_encoder_step on the tensor cores: the MM, split or x-split
+// instance as in radae_fused_decoder_mma_step
+int radae_fused_encoder_mma_step(const void* w, const int* off, int n_off,
+                                 const int* kinds, const int* soff, int n_soff,
+                                 const void* f, void* z, int B, int nz,
+                                 int in_dim, int out_dim, int bottleneck,
+                                 int bf16, const void* wm, const int* moff,
+                                 void* const* state_in, void* const* state_out,
+                                 void* stream) {
   EncArgs a;
   KindSplitArgs<ENC_NS, ENC_NW> km;
-  if (!mma_launch_args(kinds, n_off, soff, n_soff, ENC_MATS, false, wm, moff,
-                       km) ||
+  if (!mma_launch_args(kinds, n_off, soff, n_soff, ENC_MATS, bf16 != 0, wm,
+                       moff, km) ||
       !enc_args(w, off, n_off, f, z, B, nz, in_dim, out_dim, bottleneck,
                 state_in, state_out, a))
     return (int)cudaErrorInvalidValue;
-  KindSplitXArgs<ENC_NS, ENC_NW> kx;
-  static_cast<KindMmaArgs<ENC_NS, ENC_NW>&>(kx) = km;
-  return launch(enc_kernel<true, false, KindSplitXArgs<ENC_NS, ENC_NW>>,
-                ENC_SMEM_Q, B, stream, a, kx);
-}
-
-// radae_fused_encoder_step with bf16 products: kinds 0..3 (kind_args), the
-// MM or the split instance as in radae_fused_decoder_bf16_step
-int radae_fused_encoder_bf16_step(const void* w, const int* off, int n_off,
-                                  const int* kinds, const int* soff,
-                                  int n_soff, const void* f, void* z, int B,
-                                  int nz, int in_dim, int out_dim,
-                                  int bottleneck, const void* wm,
-                                  const int* moff, void* const* state_in,
-                                  void* const* state_out, void* stream) {
-  EncArgs a;
-  KindSplitArgs<ENC_NS, ENC_NW> km;
-  if (!mma_launch_args(kinds, n_off, soff, n_soff, ENC_MATS, true, wm, moff,
-                       km) ||
-      !enc_args(w, off, n_off, f, z, B, nz, in_dim, out_dim, bottleneck,
-                state_in, state_out, a))
-    return (int)cudaErrorInvalidValue;
+  if (!bf16) {
+    KindSplitXArgs<ENC_NS, ENC_NW> kx;
+    static_cast<KindMmaArgs<ENC_NS, ENC_NW>&>(kx) = km;
+    return launch(enc_kernel<true, false, KindSplitXArgs<ENC_NS, ENC_NW>>,
+                  ENC_SMEM_Q, B, stream, a, kx);
+  }
   if ((km.i8 | km.bf | km.rw) == ENC_MATS)
     return launch(enc_kernel<true, true, KindMmaArgs<ENC_NS, ENC_NW>>,
                   ENC_SMEM_Q, B, stream, a,

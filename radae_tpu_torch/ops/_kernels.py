@@ -26,8 +26,9 @@ _F = ctypes.c_float
 # Every launch entry takes (weights, offsets, n_off, [kinds, scale offsets,
 # n_scales,] input, output, <sizes>, state_in[], state_out[], stream) and
 # returns the launch's cudaError_t (the bracketed three: all but the f32
-# frame entry; the x entries and the bf16 entries also take the packed
-# buffer and its offsets, `mma_weights`, after the sizes);
+# frame entry; the mma entries, the merged decoder's x entry and the
+# frame's bf16 entry also take the packed buffer and its offsets,
+# `mma_weights`, after the sizes and their flags);
 # the entries with no arguments return a constant of the
 # kernels' tiling, and radae_rx_frame_limit the frame kernel's limit a
 # modem geometry breaks.
@@ -38,11 +39,8 @@ _SIGNATURES = {
         "radae_dec_tile_rows": [],
         "radae_fused_decoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _P, _P, _P],
-        "radae_fused_decoder_x_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
-                                       _I, _I, _I, _P, _P, _P, _P, _P],
-        "radae_fused_decoder_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P,
-                                          _I, _I, _I, _I, _P, _P, _P, _P,
-                                          _P],
+        "radae_fused_decoder_mma_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
+                                         _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "radae_fused_decoder_merged_step": [_P, _P, _I, _P, _P, _I, _P, _P,
                                             _I, _I, _I, _I, _P, _P, _P],
         "radae_fused_decoder_merged_x_step": [_P, _P, _I, _P, _P, _I, _P, _P,
@@ -56,11 +54,9 @@ _SIGNATURES = {
                                            _I, _P, _P, _P, _P, _P],
         "radae_fused_encoder_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _I, _P, _P, _P],
-        "radae_fused_encoder_x_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
-                                       _I, _I, _I, _I, _P, _P, _P, _P, _P],
-        "radae_fused_encoder_bf16_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
-                                          _I, _I, _I, _I, _P, _P, _P, _P,
-                                          _P],
+        "radae_fused_encoder_mma_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                         _P],
     },
 }
 

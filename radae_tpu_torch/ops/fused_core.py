@@ -917,11 +917,10 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     state); their kind and compute_dtype the instance: f32 or int8
     matrices with f32 products, or f32, bf16 or int8 matrices with bf16
     products.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (unmerged: radae_fused_decoder_step on f32 weights,
-    radae_fused_decoder_x_step on int8 ones, radae_fused_decoder_bf16_step
-    with bf16 products; chain-merged: radae_fused_decoder_merged_step on
-    f32 weights, else, padded, int8 or with bf16 products,
-    radae_fused_decoder_merged_x_step).  With bf16 products every product
+    kernel (unmerged: radae_fused_decoder_step on f32 weights, else, int8
+    or with bf16 products, radae_fused_decoder_mma_step; chain-merged:
+    radae_fused_decoder_merged_step on f32 weights, else, padded, int8 or
+    with bf16 products, radae_fused_decoder_merged_x_step).  With bf16 products every product
     of every layout runs on the tensor cores, on the weights packed on
     first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
     weights each bf16 x f32 product as three bf16 products, on the
@@ -963,8 +962,8 @@ def fused_decoder_step(weights: PackedWeights, z, state,
         name = "radae_fused_decoder_merged_x_step"
         args += (int(layout == "pad"), int(bf))
     else:
-        name = "radae_" + entry.replace(
-            "_step", "_bf16_step" if bf else "_x_step" if mma else "_step")
+        name = "radae_" + (entry.replace("_step", "_mma_step") if mma else entry)
+        args += (int(bf),) if mma else ()
     if mma or layout == "pad":
         args += (_mma_args(weights, kinds, compute_dtype) if mma
                  else (None, None))
@@ -1091,13 +1090,13 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
                        compute_dtype=torch.float32):
     """Encoder stack: feats (B, 4*nz, F) -> (z (B, nz, latent), new_state).
     The weights' kind and compute_dtype pick the instance: f32 matrices
-    with f32 products (radae_fused_encoder_step, on FMA loops), int8 ones
-    with f32 products (radae_fused_encoder_x_step: x's hi, mid and lo bf16
-    parts against each int8 matrix widened to bf16, six products on a
-    matrix kept in f32), or f32, bf16 or int8 ones with bf16 products
-    (radae_fused_encoder_bf16_step; on f32 weights each bf16 x f32 product
-    as three bf16 products, on the weight's hi, mid and lo copies:
-    `split_parts`); but for the first, every product on the tensor cores, on
+    with f32 products (radae_fused_encoder_step, on FMA loops), else
+    radae_fused_encoder_mma_step: int8 ones with f32 products (x's hi, mid
+    and lo bf16 parts against each int8 matrix widened to bf16, six
+    products on a matrix kept in f32), or f32, bf16 or int8 ones with bf16
+    products (on f32 weights each bf16 x f32 product as three bf16
+    products, on the weight's hi, mid and lo copies: `split_parts`); but
+    for the first, every product on the tensor cores, on
     the weights packed on first use (`_mma_args`).  CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
     _check_compute(compute_dtype)
@@ -1125,12 +1124,11 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
     new_state = [torch.empty(sh, device=dev) for sh in shapes]
     bf = compute_dtype == torch.bfloat16
     mma = bf or bool(weights.quant)     # on the tensor cores
-    name = "radae_fused_encoder_" + ("bf16_step" if bf else
-                                     "x_step" if mma else "step")
+    name = "radae_fused_encoder_" + ("mma_step" if mma else "step")
     kinds = _kinds(weights, _rounds(weights, compute_dtype, "gru"))
     args = (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck))
     if mma:
-        args += _mma_args(weights, kinds, compute_dtype)
+        args += (int(bf),) + _mma_args(weights, kinds, compute_dtype)
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
                      x, z, state, new_state, args, kinds)
     _kernels.check(status, name)

@@ -24,14 +24,14 @@ x's and w's parts.  These tests hold:
     atol 1e-6), on a K tail with NaN planted past K, an 84-column output,
     K ranges that start inside K, and the six-product walk of a split f32
     matrix (MIXED wgg, and a K tail of one); on the unmerged decoder and the
-    encoder too (the encoder's with its compensation of the steps'
-    truncation): the encoder's dense_1 (K = 84, a tail inside a 16-wide
+    encoder too (the encoder's with x hi's products summed apart): the
+    encoder's dense_1 (K = 84, a tail inside a 16-wide
     step; int8 and kept in f32), a GRU wih chunk and whh (int8 and kept in
     f32), and the unmerged decoder's 84-column output (int8 and kept in
     f32);
   * the arithmetic: the plain int8 step with its products computed the
     route's way (`tools/split_flips.py` `xroute_products`, "xsplit3", and
-    "xsplit3c" for the encoder's compensated route) stays within
+    "xsplit3s" for the encoder's, x hi's products summed apart) stays within
     chip_smoke.py's TOL of the plain int8 step over
     three chained calls: `decoder_merged_step_plain` merged and padded,
     `decoder_step_plain` and `encoder_step_plain`, full int8 and MIXED,
@@ -48,7 +48,7 @@ from chip_smoke import MIXED, TOL
 from radae_tpu_torch.config import flagship_config
 from radae_tpu_torch.convert import load_checkpoint
 from radae_tpu_torch.ops import fused_core as fc
-from tools.split_flips import XPAIRS, _trunc, pow2, x_parts, xroute_products
+from tools.split_flips import XPAIRS, _trunc, x_parts, xroute_products
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
@@ -182,7 +182,7 @@ def test_f32_products_only_on_merged_int8(trees, what):
         fc.mma_weights(w, F32)
 
 
-def _xs_walk(x, buf, off, K, out, k0, k1, n_w, comp=False):
+def _xs_walk(x, buf, off, K, out, k0, k1, n_w, sep=False):
     """Y = x[:, k0:k1] @ W[k0:k1] for 16 rows of x, as tmma<n_w == 3, XS>
     computes it: per 16-column group and K step, each lane's x (two float4,
     zero at k >= k1) split into hi, mid and lo (xparts), assembled with
@@ -190,8 +190,8 @@ def _xs_walk(x, buf, off, K, out, k0, k1, n_w, comp=False):
     m16n8k16 fragments of the PTX ISA; the step's products of the route's
     (x part, W copy) pairs summed exactly and truncated to f32, and the
     step sum added to the lane's f32 sums (rows g, g + 8, columns
-    4t..4t+3).  comp (XS_COMP): each step sum's pow2 summed apart in f32 and
-    added times 2^-24 at the end (one rounding, as fmaf)."""
+    4t..4t+3).  sep (XS_SEP): x hi w hi's step sum truncated apart and
+    added to the rest's in f32 first."""
     nks, ncg = -(-K // 16), -(-out // 16)
     blk = buf[8 * off:8 * off + ncg * nks * 256 * n_w].float().reshape(
         ncg, nks, n_w, 32, 8)
@@ -199,7 +199,6 @@ def _xs_walk(x, buf, off, K, out, k0, k1, n_w, comp=False):
     y = torch.zeros((16, 16 * ncg))
     for cg in range(ncg):
         acc = torch.zeros((32, 2, 4))            # lane, row g / g+8, column
-        cmp = torch.zeros((32, 2, 4))            # comp: the steps' pow2
         for k in range(k0, k1, 16):
             A = torch.zeros((3, 16, 16))          # x part, fragment row, k
             Bn = torch.zeros((n_w, 2, 16, 8))     # copy, tile, fragment k, col
@@ -217,9 +216,12 @@ def _xs_walk(x, buf, off, K, out, k0, k1, n_w, comp=False):
                     for n in range(2):
                         Bn[p, n, 2 * t:2 * t + 2, g] = b[4 * n:4 * n + 2]
                         Bn[p, n, 2 * t + 8:2 * t + 10, g] = b[4 * n + 2:4 * n + 4]
-            D = _trunc(sum(torch.stack([A[i].double() @ Bn[p, 0].double(),
-                                        A[i].double() @ Bn[p, 1].double()])
-                           for i, p in pairs))             # (tile, 16, 8)
+            def step_sum(prs):                             # (tile, 16, 8)
+                return _trunc(sum(torch.stack([A[i].double() @ Bn[p, 0].double(),
+                                               A[i].double() @ Bn[p, 1].double()])
+                                  for i, p in prs))
+            D = (step_sum(pairs[:-1]) + step_sum(pairs[-1:]) if sep
+                 else step_sum(pairs))
             for lane in range(32):
                 g, t = lane >> 2, lane & 3
                 for h in range(2):
@@ -227,9 +229,6 @@ def _xs_walk(x, buf, off, K, out, k0, k1, n_w, comp=False):
                     e = torch.stack([D[0, r, 2 * t], D[0, r, 2 * t + 1],
                                      D[1, r, 2 * t], D[1, r, 2 * t + 1]])
                     acc[lane, h] += e
-                    cmp[lane, h] += pow2(e)
-        if comp:
-            acc = (acc.double() + cmp.double() * 2.0 ** -24).float()
         for lane in range(32):
             g, t = lane >> 2, lane & 3
             c = 16 * cg + 4 * t
@@ -321,7 +320,7 @@ def test_fragment_walk_xsplit_unmerged(trees, layout, latent, mixed, name, k0,
     x = torch.from_numpy(x)
     scale = w.scales[[i for i, b in enumerate(w.arrays) if b.dim() == 2].index(j)]
     got = _xs_walk(x, m.buf, m.offsets[j], K, out, k0, k1,
-                   3 if kept else 1, comp=layout == "enc") * scale
+                   3 if kept else 1, sep=layout == "enc") * scale
     want = ((x[:, k0:k1].double() @ a.double()[k0:k1]) * scale.double()).float()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
@@ -335,11 +334,11 @@ def test_route_step_within_tol_unmerged(trees, monkeypatch, layout, mixed,
     """Three chained calls of the unmerged decoder's and the encoder's plain
     int8 steps with their products computed their kernels' way (x's three
     parts, 16-wide step sums truncated to f32 and added in f32, the
-    encoder's truncation compensated: "xsplit3c"; six products on a
+    encoder's x hi's products summed apart: "xsplit3s"; six products on a
     kept-f32 matrix) stay within TOL of `decoder_step_plain` and
     `encoder_step_plain`, full int8 and MIXED."""
     w = _set(trees, latent, layout, mixed)
-    mm = xroute_products(w, "xsplit3c" if layout == "enc" else "xsplit3")
+    mm = xroute_products(w, "xsplit3s" if layout == "enc" else "xsplit3")
     rng = np.random.default_rng(17 + latent + 2 * mixed + (layout == "enc"))
     B = 8
     if layout == "enc":

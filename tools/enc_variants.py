@@ -71,9 +71,10 @@ turns against the FMA instance it replaced.  `--kernel dec|enc|decm
 on the tensor cores on x's three bf16 parts (KindSplitXArgs); a --src
 library without it (`XSPLIT_KERNELS`) runs those launches on its FMA int8
 instance: the unmerged decoder's and the encoder's through its f32 entry
-(`FmaInt8Entries`), the merged layout's through its merged entry
-(`FmaInt8Merged`) and the padded layout's through its x entry, so `--src
-parent=` times the two in turns.
+(`BeforeMmaEntries`, which also sends their bf16-product launches to the
+bf16 entries such a source has in place of the mma entries), the merged
+layout's through its merged entry (`FmaInt8Merged`) and the padded
+layout's through its x entry, so `--src parent=` times the two in turns.
 For each --src library it also prints, instance by instance of every
 kernel, whether its SASS equals the committed build's.
 """
@@ -126,12 +127,16 @@ SPLIT_KERNELS = {"enc": "enc_kernel<true, true, KindSplitArgs",
 XSPLIT_KERNELS = {"enc": "enc_kernel<true, false, KindSplitXArgs",
                   "dec": "dec_kernel<true, false, KindSplitXArgs",
                   "decm": "dec_merged_kernel<true, false, true, KindSplitXArgs"}
-# --kernel -> its entry with bf16 products, which takes the packed weights
+# --kernel -> its entry with bf16 products in a source whose entries may
+# predate the packed weights (`NoMmaEntries`)
 MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
              "dec": "radae_fused_decoder_bf16_step",
              "decm": "radae_fused_decoder_merged_x_step",
              "frame": "radae_fused_rx_frame_bf16_step"}
 MMA_KERNELS = ("enc", "dec", "decm", "frame")   # those with an MM instance
+# the mma entries, by where their bf16 flag sits
+MMA_FLAG = {"radae_fused_decoder_mma_step": 12,
+            "radae_fused_encoder_mma_step": 13}
 
 # the weight loads staged by cp.async in a 2-stage ring of 16-byte slots, one
 # a lane and weight row, behind the scratch (4 KB a warp)
@@ -329,11 +334,11 @@ FORMS = {
          """    const float4 pa = make_float4(ka, t, va, vb), pb = pa, qa = pa, qb = pa;""")]),
     "mmawfixed": (MMA_KERNELS, False, [    # every pair reloads the first
         ("    wp += 2 * WS;\n    const int ka", "    const int ka")]),   # pairs' B
-    # the encoder's int8 instance with f32 products (--quant int8) without
-    # the compensation of the steps' truncation (XS_SPLIT, the decoders'
+    # the encoder's int8 instance with f32 products (--quant int8) with x
+    # hi's products in the one sum of the step (XS_SPLIT, the decoders'
     # route)
-    "xsnocomp": (("enc",), True, [
-        ("constexpr int XS = has_xsplit<KA> ? XS_COMP : 0;",
+    "xschain": (("enc",), True, [
+        ("constexpr int XS = has_xsplit<KA> ? XS_SEP : 0;",
          "constexpr int XS = has_xsplit<KA> ? XS_SPLIT : 0;")]),
     # the int8 instances with f32 products (--quant int8): x in two bf16
     # parts, hi and mid, against an int8 matrix (lo's MMAs dropped)
@@ -407,24 +412,28 @@ class FmaInt8Merged:
         return getattr(self._lib, name)
 
 
-class FmaInt8Entries:
+class BeforeMmaEntries:
     """A library built from a source whose unmerged decoder and encoder
-    have no int8 instance on the tensor cores (before their x entries): an
-    int8 launch with f32 products, which the wrapper sends to the x entry
-    with the packed weights, goes to the f32 entry (then its FMA int8
-    instance) without the packed weights."""
-
-    X = {"radae_fused_decoder_x_step": ("radae_fused_decoder_step", 12),
-         "radae_fused_encoder_x_step": ("radae_fused_encoder_step", 13)}
+    have bf16 entries in place of the mma entries (before their int8
+    instances with f32 products ran on the tensor cores): an mma launch
+    with bf16 products goes to the bf16 entry without the flag, one with
+    f32 products (int8 weights) to the f32 entry (then its FMA int8
+    instance) without the flag and the packed weights."""
 
     def __init__(self, lib):
         self._lib = lib
 
     def __getattr__(self, name):
-        if name in self.X and not hasattr(self._lib, name):
-            fn, i = self.X[name]
-            f = getattr(self._lib, fn)
-            return lambda *a: f(*a[:i], *a[i + 2:])
+        if name in MMA_FLAG:
+            lib, i = self._lib, MMA_FLAG[name]
+
+            def call(*a):
+                if a[i]:
+                    return getattr(lib, name.replace("_mma_", "_bf16_"))(
+                        *a[:i], *a[i + 1:])
+                return getattr(lib, name.replace("_mma_", "_"))(
+                    *a[:i], *a[i + 3:])
+            return call
         return getattr(self._lib, name)
 
 
@@ -629,6 +638,12 @@ def main(argv=None) -> int:
     print(f"card: {card}; kernel {kname}")
     os.makedirs(args.out, exist_ok=True)
     committed = str(_kernels.SRC_DIR / "fused_core.cu")
+    # the C signatures of the library's entries and of the bf16 entries an
+    # older source has in place of the mma entries (the same without the
+    # flag)
+    sigs = dict(_kernels._SIGNATURES["fused_core"])
+    sigs.update({fn.replace("_mma_", "_bf16_"): sigs[fn][:i] + sigs[fn][i + 1:]
+                 for fn, i in MMA_FLAG.items()})
     with open(committed) as fh:
         text = fh.read()
     srcs = {"committed": committed}
@@ -661,7 +676,7 @@ def main(argv=None) -> int:
         ptxas = [x.strip() for i in at for x in lines[i:i + 4]
                  if "registers" in x or "spill" in x]
         lib = ctypes.CDLL(os.path.join(args.out, f"lib{tag}_{v}.so"))
-        for fn, argtypes in _kernels._SIGNATURES["fused_core"].items():
+        for fn, argtypes in sigs.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -671,16 +686,16 @@ def main(argv=None) -> int:
             src_text = fh.read()
         no_mma = entries_without_mma(src_text)
         if "n_soff" not in src_text:
-            lib = F32OnlyEntries(lib, _kernels._SIGNATURES["fused_core"])
+            lib = F32OnlyEntries(lib, sigs)
         elif no_mma:
-            lib = NoMmaEntries(lib, _kernels._SIGNATURES["fused_core"], no_mma)
+            lib = NoMmaEntries(lib, sigs, no_mma)
             if MMA_ENTRY[kernel] in no_mma:
                 NO_MMA.add(v)
         if (args.bf16 == "f32" and kernel in SPLIT_KERNELS
                 and SPLIT_KERNELS[kernel] not in src_text):
             NO_MMA.add(v)      # its entry runs f32 weights on FMA loops
-        if "radae_fused_decoder_x_step" not in src_text:
-            lib = FmaInt8Entries(lib)
+        if "radae_fused_decoder_mma_step" not in src_text:
+            lib = BeforeMmaEntries(lib)
         if kernel == "decm" and XSPLIT_KERNELS["decm"] not in src_text:
             lib = FmaInt8Merged(lib)
         if (args.quant and kernel in XSPLIT_KERNELS

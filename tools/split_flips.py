@@ -54,11 +54,9 @@ and the elements past TOL:
              d1_w) as the six products of x's and w's parts
              (`fc.split_parts`) at or above 2^-18 of hi hi;
   xsplit3w9  the same with all nine products on such a matrix;
-  xsplit3c   xsplit3 with each step's truncation compensated: the
-             encoder's route (the tensor cores truncate a step sum t toward
-             zero, by half an ulp of t on average, so enc_kernel adds
-             sign(t) 2^(exponent of t) 2^-24 a step, summed apart, to the
-             sums at the end).
+  xsplit3s   xsplit3 with x hi's products summed apart: the encoder's
+             route (XS_SEP: the step's x hi w sum and the rest's each
+             truncated to f32, then added in f32).
 
 Each 16-wide K step's products are summed exactly and truncated to f32,
 then added to an f32 running sum, as on the bf16 routes.
@@ -82,7 +80,7 @@ from radae_tpu_torch.ops import fused_core as fc  # noqa: E402
 
 BF = torch.bfloat16
 ROUTES = ("exact", "split2", "split3")
-QROUTES = ("exact", "xsplit2", "xsplit3", "xsplit3w9", "xsplit3c")
+QROUTES = ("exact", "xsplit2", "xsplit3", "xsplit3w9", "xsplit3s")
 # the (x part, w part) products of a K step on the f32-product routes:
 # against an int8 matrix (one w part) and against one kept in f32 (three)
 XPAIRS = {"xsplit2": ([(1, 0), (0, 0)],
@@ -91,7 +89,7 @@ XPAIRS = {"xsplit2": ([(1, 0), (0, 0)],
                       [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]),
           "xsplit3w9": ([(2, 0), (1, 0), (0, 0)],
                         [(i, k) for i in range(3) for k in range(3)])}
-XPAIRS["xsplit3c"] = XPAIRS["xsplit3"]
+XPAIRS["xsplit3s"] = XPAIRS["xsplit3"]
 CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 # --kernel -> the rounding rule of its plain version (fc._rounds)
 RULES = {"dec": "gru", "enc": "gru", "decm": "none"}
@@ -122,34 +120,28 @@ def _wsteps(a):
     return a.reshape(-1, 16, a.shape[1])
 
 
-def pow2(t: torch.Tensor) -> torch.Tensor:
-    """sign(t) 2^(exponent of t) of f32 values: t's bits with the
-    significand cleared (zero and subnormals give zero)."""
-    return (t.view(torch.int32) & -(1 << 23)).view(torch.float32)
-
-
-def _steps(pairs, xs, ws, comp=False):
+def _steps(pairs, xs, ws, sep=False):
     """sum over (i, k) in pairs of xs[i] @ ws[k] (ws as `_wsteps`) for each
     16-wide K step, in f64, truncated to f32 (the tensor cores' one
     truncation a step), then added in f32 in K order.  (The x parts that
-    meet one w part are added first: exact in f64.)  comp: each step's
-    pow2(truncated sum) summed in f32 apart and added times 2^-24 at the
-    end (half an ulp a step, the mean truncation)."""
+    meet one w part are added first: exact in f64.)  sep: the last pair's
+    (x hi w hi's) step sum truncated apart and added to the rest's in f32
+    before the running sum."""
     B, K = xs[0].shape
-    xw = {}
-    for i, k in pairs:
-        xw[k] = xw.get(k, 0) + xs[i].double()
-    s = sum(torch.bmm(torch.nn.functional.pad(x, (0, -K % 16))
-                      .reshape(B, -1, 16).transpose(0, 1), ws[k])
-            for k, x in xw.items())                      # (steps, B, out)
-    s = _trunc(s)
+
+    def step_sums(prs):                                  # (steps, B, out)
+        xw = {}
+        for i, k in prs:
+            xw[k] = xw.get(k, 0) + xs[i].double()
+        return _trunc(sum(torch.bmm(torch.nn.functional.pad(x, (0, -K % 16))
+                                    .reshape(B, -1, 16).transpose(0, 1), ws[k])
+                          for k, x in xw.items()))
+    s = (step_sums(pairs[:-1]) + step_sums(pairs[-1:]) if sep
+         else step_sums(pairs))
     d = torch.zeros((B, s.shape[-1]))
-    c = torch.zeros_like(d)
     for k in range(s.shape[0]):
         d = d + s[k]
-        if comp:
-            c = c + pow2(s[k])
-    return d + c * 2.0 ** -24 if comp else d
+    return d
 
 
 def xroute_products(w, route):
@@ -165,7 +157,7 @@ def xroute_products(w, route):
             return (x.double() @ w.arrays[j].double()).float() * scale[j]
         pairs = XPAIRS[route][len(ws[j]) > 1]
         return _steps(pairs, x_parts(x), ws[j],
-                      route == "xsplit3c") * scale[j]
+                      route == "xsplit3s") * scale[j]
     return mm
 
 
