@@ -30,23 +30,28 @@ EQ, coarse magnitude):
      weights and on f32 weights, where each bf16 x f32 product runs as
      three bf16 products, on the weight's hi, mid and lo parts, and the
      frame kernel on f32 and bf16 weights, on the weights packed by
-     fc.mma_weights at a set's first such launch), and so do the four int8
-     forms with f32 products (XS_FORMS: the unmerged decoder, the
-     chain-merged one in either layout and the encoder; each f32 x int8
-     product as three bf16 products, x's hi, mid and lo parts against the
-     int8 matrix widened to bf16, and a matrix kept in f32 as six), held
-     at the f32 tolerance; the timing phase fails unless exactly those
-     eighteen ran on the tensor cores; the frame kernel's two, the
-     unmerged decoder's and the encoder's six and the merged and padded
-     decoder's two on f32 weights are also held at latent 40 (B=2048 and
+     fc.mma_weights at a set's first such launch), and so do the five
+     forms with f32 products (XS_FORMS: the int8 ones of the unmerged
+     decoder, the chain-merged one in either layout and the encoder, each
+     f32 x int8 product as three bf16 products, x's hi, mid and lo parts
+     against the int8 matrix widened to bf16, and a matrix kept in f32 as
+     six; and the padded decoder's f32 form, PAD_F32, every product as
+     those six), held at the f32 tolerance; the timing phase fails unless
+     exactly those nineteen ran on the tensor cores; the frame kernel's
+     two, the unmerged decoder's and the encoder's six and the merged and
+     padded decoder's two with bf16 products on f32 weights are also held
+     at latent 40 (B=2048 and
      37, and to the same bits), and the four int8 forms with f32 products
      on their MIXED sets too, and at latent 40 on full int8 and MIXED sets
      (B=2048 and 37, to the same bits; the encoder's there within TOL of
      its plain version in f64, since the f32 plain version's own rounding
-     passes TOL of it at latent 40); an int8 launch through an f32
-     entry, or with f32 products through an mma or x entry without the
-     packed matrices, is refused and writes nothing (no FMA int8 instance
-     is left to fall back on);
+     passes TOL of it at latent 40), and PAD_F32 at latent 40 too (B=2048
+     and 37, to the same bits; its distance from its plain version in f64
+     printed at both latents); an int8 launch through an f32 entry, or
+     with f32 products through an mma or x entry without the packed
+     matrices, and a padded f32 launch through the x entry without them,
+     are refused and write nothing (no FMA int8 or padded instance is left
+     to fall back on);
   3. drives the batched streaming serving path on the fixture checkpoint:
      2048 streams of fixtures/speech_feats.f32 through 20 fused tx steps,
      then the frame-aligned rx windows through 20 rx steps, on each rx
@@ -190,14 +195,16 @@ MMA_FORMS = ("fused_decoder_step_bf16", "fused_encoder_step_bf16",
              "fused_encoder_step_bf16w_bf16", "fused_encoder_step_int8_bf16",
              "fused_decoder_step_int8", "fused_encoder_step_int8",
              "fused_decoder_merged_step_int8",
-             "fused_decoder_merged_step_pad_int8")
-# of those, the int8 forms with f32 products: x split into XSPLIT_PARTS bf16
+             "fused_decoder_merged_step_pad_int8",
+             "fused_decoder_merged_step_pad")
+# of those, the forms with f32 products: x split into XSPLIT_PARTS bf16
 # parts against each int8 matrix (exact in bf16), and XW_PRODUCTS products
-# of x's and w's parts for a matrix kept in f32; held at TOL like every
-# f32-product form
+# of x's and w's parts for a matrix kept in f32, every matrix of the padded
+# f32 form (PAD_F32); held at TOL like every f32-product form
+PAD_F32 = "fused_decoder_merged_step_pad"
 XS_FORMS = ("fused_decoder_step_int8", "fused_encoder_step_int8",
             "fused_decoder_merged_step_int8",
-            "fused_decoder_merged_step_pad_int8")
+            "fused_decoder_merged_step_pad_int8", PAD_F32)
 XSPLIT_PARTS = 3
 XW_PRODUCTS = 6
 # of those, the encoder's: its int8 step is so ill-conditioned (its z
@@ -861,6 +868,7 @@ def main(argv=None) -> int:
         xrng = np.random.default_rng(8)
         xs_sets = [(name, latent, excl, xs_weights(name, tr, excl))
                    for name in sorted(XS_FORMS, key=lambda n: "merged" not in n)
+                   if name != PAD_F32
                    for latent, tr in ((cfg.latent_dim, tree), (cfg40.latent_dim, tree40))
                    for excl in ((), MIXED[name.replace("_pad", "")])
                    if excl or latent != cfg.latent_dim]
@@ -896,6 +904,31 @@ def main(argv=None) -> int:
                         f"({max_err(got, want):.3g})")
         if past_f64:
             raise AssertionError("; ".join(past_f64))
+        # the padded f32 form on x's parts (every matrix six products) at
+        # latent 40 as well as at 80 (B=2048 and 37), held at TOL against its
+        # plain version, and its distance from the plain version in f64 (own
+        # seed 10)
+        prng = np.random.default_rng(10)
+        pad_sets = [(c.latent_dim, fc.decoder_weights(tr["decoder"], dev,
+                                                      merged="pad"))
+                    for c, tr in ((cfg, tree), (cfg40, tree40))]
+        pad_f64 = {}
+        for latent, w in pad_sets:
+            kern, plain, zero_state, draw = kernel_form(PAD_F32, prng, latent)
+            for batch in (B, RAGGED_B):
+                sk = sp = s64 = zero_state(batch)
+                for frame in range(3):
+                    x = draw(batch, nz, frame)
+                    ok_, sk = kern(w, x, sk)
+                    op, sp = plain(w, x, sp)
+                    got, want = (ok_,) + sk, (op,) + sp
+                    held(PAD_F32, f"{batch} latent {latent}", f"call {frame}",
+                         got, want)
+                    o64, s64 = plain_f64(plain, w, x, s64)
+                    exact = (o64,) + s64
+                    k0, p0 = pad_f64.get(latent, (0.0, 0.0))
+                    pad_f64[latent] = (max(k0, tol_ratio(got, exact)),
+                                       max(p0, tol_ratio(want, exact)))
         for (name, batch), (n_over, n) in flips.items():
             if n_over > BF16_FLIPS * n:
                 raise AssertionError(f"{name} B={batch}: {n_over} of {n} "
@@ -921,11 +954,12 @@ def main(argv=None) -> int:
             raise AssertionError("fused_rx_frame_step ran latent 112")
         if fc.LAUNCHES["fused_rx_frame_step"] != n_before:
             raise AssertionError("a refused frame geometry was launched")
-        # int8 launches the C entries refuse, writing nothing (outputs and
-        # state stay NaN): through the f32 entries (no FMA int8 instance is
-        # left) and, with f32 products (bf16 flag 0), through the mma
+        # launches the C entries refuse, writing nothing (outputs and state
+        # stay NaN): int8 ones through the f32 entries (no FMA int8 instance
+        # is left) and, with f32 products (bf16 flag 0), through the mma
         # entries and the merged decoder's x entry without the packed
-        # matrices
+        # matrices; a padded f32 one through the x entry without them (no
+        # FMA padded instance is left)
         clib = _kernels.library("fused_core")
         n_before = dict(fc.LAUNCHES)
 
@@ -938,7 +972,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if status == 0 or not all(bool(torch.isnan(t).all())
                                       for t in [out] + new):
-                raise AssertionError(f"{what}: {entry} took an int8 launch "
+                raise AssertionError(f"{what}: {entry} took the launch "
                                      f"(status {status})")
             return f"{what} through {entry} (cudaError_t {status})"
 
@@ -963,9 +997,11 @@ def main(argv=None) -> int:
             refuse("encoder int8", "radae_fused_encoder_step", ewq, fq, eq,
                    es0, ea, "gru"),
             refuse("encoder int8", "radae_fused_encoder_mma_step", ewq, fq,
-                   eq, es0, ea + (0, None, None), "gru")]
+                   eq, es0, ea + (0, None, None), "gru"),
+            refuse("padded f32", "radae_fused_decoder_merged_x_step", dwp,
+                   zq, dq, zms, da + (1, 0, None, None), "none")]
         if dict(fc.LAUNCHES) != n_before:
-            raise AssertionError("a refused int8 launch was counted")
+            raise AssertionError("a refused launch was counted")
         # the tile kernels give the same bits on two launches (own seeds, so
         # the inputs above and below stay as they were)
         def same_bits(name, batch, call):
@@ -1022,6 +1058,11 @@ def main(argv=None) -> int:
                 x, st = draw(batch, nz), rand_state(xrng, zero_state(batch))
                 same_bits(f"{name} latent {latent} {excl}", batch,
                           lambda: kern(w, x, st))
+            for latent, w in pad_sets:
+                kern, _, zero_state, draw = kernel_form(PAD_F32, prng, latent)
+                x, st = draw(batch, nz), rand_state(prng, zero_state(batch))
+                same_bits(f"{PAD_F32} latent {latent}", batch,
+                          lambda: kern(w, x, st))
     print("kernels vs plain (rtol 1e-4, atol 1e-4; the bf16-product forms "
           f"{BF16_TOL} but for at most {BF16_FLIPS} of a run's elements, "
           f"max and mean err within {BF16_MAX} and {BF16_MEAN} of the scale),"
@@ -1045,8 +1086,13 @@ def main(argv=None) -> int:
                                    + ", ".join(xs_calls[n, t]) + ")"
                                    if (n, t) in xs_f64 else "")
               for (n, t), e in xs_err.items()))
+    print(f"{PAD_F32} on x's parts ({XW_PRODUCTS} products a matrix), within "
+          f"{TOL} of the plain version at B={B} and B={RAGGED_B}; the largest "
+          "|err| / (atol + rtol |want|) against the plain version in f64 (the "
+          "f32 plain version's in brackets): " + ", ".join(
+              f"latent {lat} {k:.4f} ({p:.4f})" for lat, (k, p) in pad_f64.items()))
     print(f"refused without a launch: {refused}")
-    print("int8 launches refused, nothing written: " + "; ".join(refused_q))
+    print("launches refused, nothing written: " + "; ".join(refused_q))
     print(f"all {len(FORMS)} kernel forms: two launches bit-identical at B={B} "
           f"and B={RAGGED_B} (the frame kernel's bf16 forms, the unmerged "
           "decoder's and the encoder's tensor-core forms and the merged "
@@ -1408,7 +1454,9 @@ def main(argv=None) -> int:
                   f"ms over {GRAPH_REPS} replays); products "
                   f"on {'the tensor cores (mma.sync)' if name in mma_of else 'FMA loops'}"
                   + (f" (f32 x int8: x split, {XSPLIT_PARTS} bf16 products)"
-                     if name in XS_FORMS else
+                     if name in XS_FORMS and name != PAD_F32 else
+                     f" (f32 x f32: x and w split, {XW_PRODUCTS} bf16 products)"
+                     if name == PAD_F32 else
                      f" (f32 matrices split, {SPLIT_PARTS} bf16 products)"
                      if SPLIT_PARTS in (mask or ()) else "")
                   + (f", packed weights {packed_b} B (the bound counts "

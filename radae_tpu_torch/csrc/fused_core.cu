@@ -161,7 +161,9 @@
 // remainder past lo is below 2^-27 |x|), three MMAs a step on one B copy
 // (tmma<false, XS>); a matrix that quant_exclude keeps in f32 is packed
 // split and multiplied as the six products of x's and w's parts at or above
-// 2^-18 of the largest (tmma<true, XS>).  Their results are held to the
+// 2^-18 of the largest (tmma<true, XS>).  The padded layout's f32 form
+// runs on the merged decoder's x-split instance too, every matrix so
+// (Q false: no scale rows).  Their results are held to the
 // f32 instances' tolerance, not to the bf16 products' one.  On an H100 the
 // merged one takes 0.30 ms in either layout against 0.48 and 0.50 for the
 // FMA instances it replaced and the unmerged decoder's 0.31 against 0.44
@@ -181,8 +183,8 @@
 // step, where tmac rounded every float4 it read for each column quad), and
 // the weights come as B fragments packed once per weight set on the host
 // (ops/fused_core.py mma_weights: bf16, int8 widened to bf16, exact, the
-// scale rows kept on the outputs; a padded matrix packs to its merged one,
-// so the padded layout needs no pmac), one 16-byte coalesced load a lane and
+// scale rows kept on the outputs; a padded matrix packs to its merged one),
+// one 16-byte coalesced load a lane and
 // K step.  The work items, K chunks, partials and epilogues stay as they
 // are (an item's rows are then g and g + 8 instead of ksum's rk, rk + 1);
 // sums stay f32 in a fixed order.  On an H100 they take 0.212 (merged) and
@@ -198,14 +200,13 @@
 // store each x segment (x0, then each layer's GLU and conv outputs) in a
 // 128-lane window, and its x operands (wih, [tap1 | tap0], out) then hold
 // segment j's rows from row 128 j, zero rows between.  Here x stays
-// contiguous in shared memory; pmac runs tmac once a segment, with the
-// weight pointer at the segment's rows, and skips the zero rows, so the
-// padded operands fetch no extra bytes.  The sums run per segment, so they
-// are reassociated against the merged kernel's (radae_tpu promises about
-// 1e-6 relative between the two layouts too).  The merged decoder's PAD
-// instances take both layouts (the flag in KindArgs): f32 on the padded one
-// (pmac), and the tensor-core ones (int8 weights, bf16 products) on either,
-// where a padded matrix packs as its merged one.
+// contiguous in shared memory and every padded matrix is packed as its
+// merged one (mma_weights drops the zero rows), so the merged decoder's
+// tensor-core instances run both layouts alike and the padded operands
+// fetch no extra bytes (radae_tpu promises about 1e-6 relative between the
+// two layouts).  Each padded form runs on those instances: with bf16
+// products, on int8 weights, and on f32 weights with f32 products (the
+// x-split instance with Q false).
 //
 // Built by radae_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -310,15 +311,7 @@ static_assert(DECM_CONV_KS * R * 2 * DEC_CO <= DEC_SCR &&
               "every partial buffer fits the scratch");
 static_assert(DECM_SMEM <= 232448, "opt-in shared memory of one block");
 
-// the padded merged layout: x segment j (widths DEC_H, then DEC_H and DEC_CO
-// a layer) is read against rows DEC_SEG * j.. of an x operand
-constexpr int DEC_SEG = 128;
-__host__ __device__ constexpr int seg_width(int j) {
-  return j == 0 || j % 2 ? DEC_H : DEC_CO;
-}
-static_assert(DEC_H % 4 == 0 && DEC_CO % 4 == 0 && DEC_H <= DEC_SEG &&
-                  DEC_CO <= DEC_SEG,
-              "every x segment a whole number of float4 within its rows");
+// x: dense_1's output, then each layer's GLU and conv outputs
 static_assert(DEC_H + 5 * (DEC_H + DEC_CO) == DEC_X, "x is its segments");
 
 // frame kernel (rx_frame_kernel): the modem geometry of one frame
@@ -388,11 +381,13 @@ struct QuantArgs {
 };
 
 // The second kernel argument of the BF instances (bf16 products) and of the
-// merged decoder's PAD instances (in the frame kernel's, a member of its
-// arguments): array j's kind (bit j of i8: int8; of bf: bf16; of rw: f32
-// rounded to bf16 at its products; none: f32), the ns scale rows' starts (ns
-// 0: no int8 matrix), and, for the merged decoder, whether the x operands
-// are padded.
+// x-split ones (in the frame kernel's, a member of its arguments): array
+// j's kind (bit j of i8: int8; of bf: bf16; of rw: f32 rounded to bf16 at
+// its products; none: f32) and the ns scale rows' starts (ns 0: no int8
+// matrix).  pad stays 0 and is read by no kernel (a padded matrix is
+// packed as its merged one); without it soff and the packed matrices' MmaW
+// would sit at other parameter offsets, and every instance that takes a
+// KindArgs would compile to other SASS.
 template <int NS>
 struct KindArgs {
   unsigned long long i8, bf, rw;
@@ -417,10 +412,10 @@ struct KindMmaArgs : KindArgs<NS> {
 // matrix of kind 0 is packed as its hi, mid and lo copies (tmma<true>)
 template <int NS, int NW>
 struct KindSplitArgs : KindMmaArgs<NS, NW> {};
-// The same for the merged decoder's int8 instance with f32 products: x is
-// split into hi, mid and lo against each int8 matrix widened to bf16 (kind
-// 1), and against the hi, mid and lo copies of a matrix that quant_exclude
-// keeps in f32 (kind 0): tmma<false, XS> and tmma<true, XS>
+// The same for an instance with f32 products (the int8 ones, and the merged
+// decoder's on f32 weights): x is split into hi, mid and lo against each
+// int8 matrix widened to bf16 (kind 1), and against the hi, mid and lo
+// copies of an f32 matrix (kind 0): tmma<false, XS> and tmma<true, XS>
 template <int NS, int NW>
 struct KindSplitXArgs : KindMmaArgs<NS, NW> {};
 template <class KA>
@@ -953,22 +948,6 @@ __device__ __forceinline__ void kput(float4 (&acc)[ET], int kl, int r0,
   }
 }
 
-// tmac on a padded f32 operand of the chain-merged decoder: x's segment j
-// (columns s.. of X, seg_width(j) wide) against the rows DEC_SEG * j.. of
-// W, for the part of each segment in [k0, k1); W's zero rows between are
-// skipped (the padded int8 and bf16-product forms run on the tensor cores,
-// on the packed merged matrices)
-__device__ __forceinline__ void pmac(float4 (&acc)[ET], const float* X, int ld,
-                                     int r0, const float* W, int out, int c,
-                                     int k0, int k1, int kl) {
-  for (int j = 0, s = 0; s < k1; s += seg_width(j), ++j) {
-    const int lo = max(k0, s), hi = min(k1, s + seg_width(j));
-    if (lo < hi)
-      tmac(acc, X, ld, r0, W + (long long)(DEC_SEG * j - s) * out, out, c, lo,
-           hi, kl);
-  }
-}
-
 // tmma on the packed matrix wm (K rows) of kind q: in a split instance (SP)
 // a kind-0 matrix on its hi, mid and lo copies; in an int8 instance with
 // f32 products (XS, its route) x in three parts against an int8 matrix (q
@@ -1059,18 +1038,16 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
 // 32), taken by the warps in turn.  Chunk ch's partial goes to
 // part[ch][R][out], with bias (when not null) added to chunk 0; the pass
 // after the barrier adds the chunks in order.  W is f32 (tmac), and in an
-// int8 instance each partial is scaled by the row sc.  PAD: W is a padded
-// f32 x operand when pad (pmac).  MM: on the tensor cores (kmma), W's packed
-// copy wm of kind q (pad is then moot: a padded matrix packs as its merged
-// one); SP: a split instance; XS: an int8 one with f32 products.
-template <bool Q, bool BF = false, bool PAD = false, bool MM = false,
-          bool SP = false, int XS = 0>
+// int8 instance each partial is scaled by the row sc.  MM: on the tensor
+// cores (kmma), W's packed copy wm of kind q (a padded matrix packs as its
+// merged one); SP: a split instance; XS: one with f32 products on x's parts.
+template <bool Q, bool BF = false, bool MM = false, bool SP = false,
+          int XS = 0>
 __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
                                       int q, const float* sc, int K, int out,
                                       int ng, int ks,
                                       const float* __restrict__ bias,
                                       float* part, int warp, int kl, int cq,
-                                      bool pad = false,
                                       const uint4* wm = nullptr) {
   static_assert(MM || !Q, "the int8 instances run on the tensor cores");
   const int kc = ((K + ks - 1) / ks + 31) & ~31;
@@ -1085,8 +1062,6 @@ __device__ __forceinline__ void tprod(const float* X, int ld, const float* W,
     zero(acc);
     if constexpr (MM)
       kmma<SP, XS>(acc, X, ld, r0, wm, q, K, c, kb, ke, kl);
-    else if (PAD && pad)
-      pmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
     else
       tmac(acc, X, ld, r0, W, out, c, kb, ke, kl);
     kputq<Q, MM>(acc, kl, r0, part + ch * R * out + c, out, scl<Q, BF>(sc, c, out), b,
@@ -1136,12 +1111,6 @@ template <bool BF, class KA>
 __device__ __forceinline__ Kinds kinds_of(const KA& k) {
   if constexpr (BF) return Kinds{k.i8, k.bf, k.rw, k.ns};
   else return Kinds{0, 0, 0, 0};
-}
-// whether the x operands are padded (the KindArgs of a PAD instance)
-template <bool PAD, class KA>
-__device__ __forceinline__ bool padded(const KA& k) {
-  if constexpr (PAD) return k.pad != 0;
-  else return false;
 }
 
 // h' of one GRU unit from its gate sums (biases included) and the old h
@@ -1226,9 +1195,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     float* const Xp = xb + prv * R * DEC_X;
 
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF, false, MM, SP, XS>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
-                                    a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr,
-                                    warp, kl, cq, false, mw(0));
+    tprod<Q, BF, MM, SP, XS>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                             a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
+                             kl, cq, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1320,10 +1289,9 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
       __syncthreads();
 
       // GLU: X[:, gin:cin] = h * sigmoid(h @ glu_w), K in 2 chunks
-      tprod<Q, BF, false, MM, SP, XS>(hc, DEC_H, w + o[4], q8(j0 + 4),
-                                      sc(3 + 5 * i), DEC_H, DEC_H, DEC_NG, 2,
-                                      nullptr, scr, warp, kl, cq, false,
-                                      mw(j0 + 4));
+      tprod<Q, BF, MM, SP, XS>(hc, DEC_H, w + o[4], q8(j0 + 4),
+                               sc(3 + 5 * i), DEC_H, DEC_H, DEC_NG, 2, nullptr,
+                               scr, warp, kl, cq, mw(j0 + 4));
       __syncthreads();
       {
         const float4 v = add4(ld4(scr + fr * DEC_H + fc),
@@ -1367,10 +1335,10 @@ __device__ __forceinline__ void dec_body(const DecArgs& a, const KA& qa,
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, false, MM, SP, XS>(X, DEC_X, w + off[DEC_NW - 2],
-                                    q8(DEC_NW - 2), sc(DEC_NS - 1), DEC_X, od,
-                                    (od + 15) / 16, 2, w + off[DEC_NW - 1], scr,
-                                    warp, kl, cq, false, mw(DEC_NW - 2));
+    tprod<Q, BF, MM, SP, XS>(X, DEC_X, w + off[DEC_NW - 2], q8(DEC_NW - 2),
+                             sc(DEC_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                             w + off[DEC_NW - 1], scr, warp, kl, cq,
+                             mw(DEC_NW - 2));
     __syncthreads();
     if (t < nv * (od / 4)) {
       const int r = t / (od / 4), c = t % (od / 4) * 4;
@@ -1429,28 +1397,28 @@ __global__ void __launch_bounds__(NT)
 // shared memory and updated in place.  smem holds DECM_SMEM bytes.  In the
 // int8 instances (Q) the carried projections are the scaled ones, as in the
 // TPU kernel: bhh is added where they are used.  BF: bf16 products, the
-// kinds in qa (KindArgs); PAD: the x operands are padded when qa.pad
-// (pmac).  The instances: <false> f32 and <false, false, true> f32 in
-// either layout (KindArgs) on FMA loops; every other one on the tensor
-// cores, either layout, on the packed matrices qa.m: with bf16 products the
-// MM instance <true, true, true, KindMmaArgs> on weights of kinds 1, 2 and
-// 3 (int8, bf16, f32 rounded at the product; tmma), and the split instance
-// <true, true, true, KindSplitArgs> on f32 weights, every matrix of kind 0
-// (the GRU's too: radae_tpu's merged kernel rounds none of its f32
-// matrices) on its hi, mid and lo copies (tmma<true>); with f32 products
-// the int8 instance <true, false, true, KindSplitXArgs>, x in three bf16
-// parts against each int8 matrix widened to bf16 and each matrix that
-// quant_exclude keeps in f32 as its three copies (tmma<false, XS> and
-// tmma<true, XS>).
-template <bool Q, bool BF = false, bool PAD = false,
-          class KA = QuantArgs<DECM_NS>>
+// kinds in qa (KindArgs).  The instances: <false> f32 on the merged layout
+// on FMA loops; every other one on the tensor cores, either layout, on the
+// packed matrices qa.m (a padded matrix packed as its merged one, so x
+// stays contiguous): with bf16 products the MM instance <true, true,
+// KindMmaArgs> on weights of kinds 1, 2 and 3 (int8, bf16, f32 rounded at
+// the product; tmma), and the split instance <true, true, KindSplitArgs>
+// on f32 weights, every matrix of kind 0 (the GRU's too: radae_tpu's merged
+// kernel rounds none of its f32 matrices) on its hi, mid and lo copies
+// (tmma<true>); with f32 products the instances on x's parts
+// (KindSplitXArgs): <true, false, KindSplitXArgs> on int8 weights, x in
+// three bf16 parts against each int8 matrix widened to bf16 and each matrix
+// that quant_exclude keeps in f32 as its three copies (tmma<false, XS> and
+// tmma<true, XS>), and <false, false, KindSplitXArgs> on f32 weights (the
+// padded layout's f32 form), every matrix kind 0 and no scale row read.
+template <bool Q, bool BF = false, class KA = QuantArgs<DECM_NS>>
 __global__ void __launch_bounds__(NT)
     dec_merged_kernel(const DecMergedArgs a, const __grid_constant__ KA qa) {
   constexpr bool MM = has_mma<KA>, SP = has_split<KA>;
   constexpr int XS = has_xsplit<KA> ? XS_SPLIT : 0;
   static_assert(MM || !BF, "bf16 products run on the tensor cores");
-  static_assert(BF || !MM || (Q && XS),
-                "an MM instance with f32 products is the int8 one on x's parts");
+  static_assert(BF || !MM || XS,
+                "an MM instance with f32 products runs on x's parts");
   extern __shared__ float4 smem4[];
   float* const X = reinterpret_cast<float*>(smem4);     // [R][DEC_X]
   float* const hs = X + R * DEC_X;                      // [5][R][DEC_H]
@@ -1473,7 +1441,8 @@ __global__ void __launch_bounds__(NT)
   // Q: array j's kind and scale row si (d1, per layer wih wgg cw, out;
   // XS: kmma's kind, 1 int8, 0 kept in f32).  BF: kmma's kind 0 (the MM
   // instance's route reads none; the split instance runs only on f32
-  // weights, every matrix of kind 0)
+  // weights, every matrix of kind 0).  Neither Q nor BF (f32 weights on
+  // x's parts): kind 0, no scale row
   const unsigned long long i8 = qa.i8;
   const int* const soff = qa.soff;
   const Kinds kd = kinds_of<BF>(qa);
@@ -1485,7 +1454,6 @@ __global__ void __launch_bounds__(NT)
     if constexpr (BF) return Q && kd.ns ? w + soff[si] : nullptr;
     else return Q ? w + soff[si] : nullptr;
   };
-  const bool pad = padded<PAD>(qa);
   // MM: array j's packed copy
   auto mw = [&](int j) -> const uint4* {
     if constexpr (MM) return qa.m.p + qa.m.off[j];
@@ -1512,10 +1480,9 @@ __global__ void __launch_bounds__(NT)
 
   for (int k = 0; k < a.nz; ++k) {
     // dense_1: X[:, :96] = tanh(z_k @ d1_w + d1_b), K in 2 chunks
-    tprod<Q, BF, false, MM, SP, XS>(X + DEC_H, DEC_X, w + off[0], q8(0),
-                                    sc(0), a.in_dim, DEC_H, DEC_NG, 2,
-                                    w + off[1], scr, warp, kl, cq, false,
-                                    mw(0));
+    tprod<Q, BF, MM, SP, XS>(X + DEC_H, DEC_X, w + off[0], q8(0), sc(0),
+                             a.in_dim, DEC_H, DEC_NG, 2, w + off[1], scr, warp,
+                             kl, cq, mw(0));
     __syncthreads();
     st4(X + fr * DEC_X + fc, tanh4(add4(ld4(scr + fr * DEC_H + fc),
                                         ld4(scr + (R + fr) * DEC_H + fc))));
@@ -1532,9 +1499,9 @@ __global__ void __launch_bounds__(NT)
 
       // xg = X[:, :gin] @ wih + bih: 18 column groups x 2 K halves, 36
       // units in 3 rounds, partials [half][R][DEC_G], bih on half 0
-      tprod<Q, BF, PAD, MM, SP, XS>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i),
-                                    gin, DEC_G, DEC_G / 16, 2, w + o[2], scr, warp,
-                                    kl, cq, pad, mw(j0));
+      tprod<Q, BF, MM, SP, XS>(X, DEC_X, w + o[0], q8(j0), sc(1 + 3 * i), gin,
+                               DEC_G, DEC_G / 16, 2, w + o[2], scr, warp, kl, cq,
+                               mw(j0));
       __syncthreads();
 
       // GRU gates from xg and the carried hh projection + bhh; h in place
@@ -1593,9 +1560,9 @@ __global__ void __launch_bounds__(NT)
 
       // cc = X[:, :cin] @ [tap1 | tap0]: 4 column groups x DECM_CONV_KS K
       // chunks, partials [chunk][R][64]
-      tprod<Q, BF, PAD, MM, SP, XS>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i),
-                                    cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
-                                    nullptr, scr, warp, kl, cq, pad, mw(j0 + 4));
+      tprod<Q, BF, MM, SP, XS>(X, DEC_X, w + o[4], q8(j0 + 4), sc(3 + 3 * i),
+                               cin, 2 * DEC_CO, 2 * DEC_CO / 16, DECM_CONV_KS,
+                               nullptr, scr, warp, kl, cq, mw(j0 + 4));
       __syncthreads();
       // X[:, cin:cin+32] = tanh(tap-0 projection + tap 1 + cb); the tap-0
       // half of cc is the next step's projection (each float4 of it read
@@ -1618,10 +1585,10 @@ __global__ void __launch_bounds__(NT)
     }
 
     // output: feats[:, k] = X @ out_w + out_b, K in 2 chunks
-    tprod<Q, BF, PAD, MM, SP, XS>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
-                                  sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
-                                  w + off[DEC_NWM - 1], scr, warp, kl, cq, pad,
-                                  mw(DEC_NWM - 2));
+    tprod<Q, BF, MM, SP, XS>(X, DEC_X, w + off[DEC_NWM - 2], q8(DEC_NWM - 2),
+                             sc(DECM_NS - 1), DEC_X, od, (od + 15) / 16, 2,
+                             w + off[DEC_NWM - 1], scr, warp, kl, cq,
+                             mw(DEC_NWM - 2));
     __syncthreads();
     for (int it = t; it < nv * (od / 4); it += NT) {
       const int r = it / (od / 4), c = it % (od / 4) * 4;
@@ -2023,7 +1990,7 @@ bool quant_args(const int* kinds, int n, const int* soff, int n_soff,
   return (q.i8 & ~mats) == 0 && (n_soff > 0 || q.i8 == 0);
 }
 
-// The same for a BF or PAD instance (k): kinds[j] 0 f32, 1 int8,
+// The same for an MM instance (k): kinds[j] 0 f32, 1 int8,
 // 2 bf16, 3 f32 rounded to bf16 at its products; bf16 and rounded kinds
 // only with bf16 products (bf), all at matrices (mats), int8 only with the
 // ns scale rows
@@ -2229,18 +2196,17 @@ int radae_fused_decoder_merged_step(const void* w, const int* off, int n_off,
 
 // radae_fused_decoder_merged_step on the padded layout (pad; f32 or int8
 // matrices), with int8 matrices (n_soff > 0; either layout), or with bf16
-// products (bf16; either layout): the x operands' rows from DEC_SEG * j for
-// x segment j (seg_width: every one a multiple of 4, static_assert above).
-// On int8 weights or with bf16 products every product runs on the tensor
-// cores, on the matrices packed into wm at moff[n_off] (16-byte words:
-// their merged rows in either layout), and the launch is refused without
-// them (there is no FMA instance).  With bf16 products: with every matrix
-// of kinds 1..3 (int8, bf16 or rounded) the MM instance, with every one of
-// kind 0 (f32 weights) the split instance, each packed as hi, mid, lo; a
-// mix is refused.  With f32 products on int8 weights (kinds 0 and 1) the
-// instance on x's parts (KindSplitXArgs): each int8 matrix packed once
-// (widened to bf16), each kept in f32 as hi, mid, lo.  wm and moff are
-// read only on the tensor cores.
+// products (bf16; either layout).  Every product runs on the tensor cores,
+// on the matrices packed into wm at moff[n_off] (16-byte words: their
+// merged rows in either layout), and the launch is refused without them
+// (there is no FMA instance).  With bf16
+// products: with every matrix of kinds 1..3 (int8, bf16 or rounded) the MM
+// instance, with every one of kind 0 (f32 weights) the split instance, each
+// packed as hi, mid, lo; a mix is refused.  With f32 products the
+// instances on x's parts (KindSplitXArgs): on int8 weights (kinds 0 and 1)
+// each int8 matrix packed once (widened to bf16), each kept in f32 as hi,
+// mid, lo; on the padded layout's f32 weights (n_soff 0, every matrix kind
+// 0) each as hi, mid, lo, with no scale rows.
 int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
                                       const int* kinds, const int* soff,
                                       int n_soff, const void* z, void* feats,
@@ -2256,7 +2222,6 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
       (!pad && !bf16 && !n_soff) ||
       !kind_args(kinds, n_off, soff, n_soff, DECM_MATS, bf16, k))
     return (int)cudaErrorInvalidValue;
-  k.pad = pad != 0;
   a.w = static_cast<const float*>(w);
   for (int i = 0; i < DEC_NWM; ++i) a.off[i] = off[i];
   a.z = static_cast<const float*>(z);
@@ -2270,28 +2235,27 @@ int radae_fused_decoder_merged_x_step(const void* w, const int* off, int n_off,
     a.hgp_out[i] = static_cast<float*>(state_out[5 + i]);
     a.hpp_out[i] = static_cast<float*>(state_out[10 + i]);
   }
-  if (bf16 || n_soff) {
-    KindSplitArgs<DECM_NS, DEC_NWM> km;
-    static_cast<KindArgs<DECM_NS>&>(km) = k;
-    const unsigned long long kq = k.i8 | k.bf | k.rw;
-    if ((bf16 && kq != 0 && kq != DECM_MATS) ||
-        !mma_args(wm, moff, n_off, DECM_MATS, km.m))
-      return (int)cudaErrorInvalidValue;
-    if (!bf16) {
-      KindSplitXArgs<DECM_NS, DEC_NWM> kx;
-      static_cast<KindMmaArgs<DECM_NS, DEC_NWM>&>(kx) = km;
-      return launch(dec_merged_kernel<true, false, true, KindSplitXArgs<DECM_NS, DEC_NWM>>,
+  KindSplitArgs<DECM_NS, DEC_NWM> km;
+  static_cast<KindArgs<DECM_NS>&>(km) = k;
+  const unsigned long long kq = k.i8 | k.bf | k.rw;
+  if ((bf16 && kq != 0 && kq != DECM_MATS) ||
+      !mma_args(wm, moff, n_off, DECM_MATS, km.m))
+    return (int)cudaErrorInvalidValue;
+  if (!bf16) {
+    KindSplitXArgs<DECM_NS, DEC_NWM> kx;
+    static_cast<KindMmaArgs<DECM_NS, DEC_NWM>&>(kx) = km;
+    if (!n_soff)
+      return launch(dec_merged_kernel<false, false, KindSplitXArgs<DECM_NS, DEC_NWM>>,
                     DECM_SMEM, B, stream, a, kx);
-    }
-    if (kq)
-      return launch(dec_merged_kernel<true, true, true, KindMmaArgs<DECM_NS, DEC_NWM>>,
-                    DECM_SMEM, B, stream, a,
-                    static_cast<const KindMmaArgs<DECM_NS, DEC_NWM>&>(km));
-    return launch(dec_merged_kernel<true, true, true, KindSplitArgs<DECM_NS, DEC_NWM>>,
-                  DECM_SMEM, B, stream, a, km);
+    return launch(dec_merged_kernel<true, false, KindSplitXArgs<DECM_NS, DEC_NWM>>,
+                  DECM_SMEM, B, stream, a, kx);
   }
-  return launch(dec_merged_kernel<false, false, true, KindArgs<DECM_NS>>,
-                DECM_SMEM, B, stream, a, k);
+  if (kq)
+    return launch(dec_merged_kernel<true, true, KindMmaArgs<DECM_NS, DEC_NWM>>,
+                  DECM_SMEM, B, stream, a,
+                  static_cast<const KindMmaArgs<DECM_NS, DEC_NWM>&>(km));
+  return launch(dec_merged_kernel<true, true, KindSplitArgs<DECM_NS, DEC_NWM>>,
+                DECM_SMEM, B, stream, a, km);
 }
 
 int radae_rx_frame_limit(int ns, int nc, int samp, int latent, int nz) {

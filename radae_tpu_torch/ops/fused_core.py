@@ -38,7 +38,8 @@ middle and low parts), the kernel multiplies on the tensor cores, on the
 weights packed by `mma_weights`: the launch packs them on its first use of
 a weight set and keeps them in the set (`PackedWeights.mma`).  So do both
 decoders and the encoder on int8 weights with f32 products (x's three bf16
-parts against each int8 matrix, exact in bf16).
+parts against each int8 matrix, exact in bf16), and the padded decoder on
+f32 weights with f32 products (x's three parts against each weight's).
 State is a tuple of tensors:
   decoder, unmerged: 5 GRU h (B, 96) + 5 conv histories (B, in)
   decoder, merged:   5 GRU h (B, 96) + 5 projected hh rows h @ whh (B, 288)
@@ -521,11 +522,14 @@ def _mma_kinds(weights, compute_dtype=torch.bfloat16):
     With f32 products the int8 sets of both decoders (either layout of the
     chain-merged one) and of the encoder: every matrix, the int8 ones (kind
     1) packed once and those that quant_exclude keeps in f32 (kind 0)
-    split; no f32 set and no frame set."""
+    split; and the chain-merged decoder's padded f32 set, every matrix of
+    kind 0, split; no other f32 set and no frame set."""
     if compute_dtype != torch.bfloat16:
-        if not (isinstance(weights, PackedWeights) and weights.quant):
+        if not (isinstance(weights, PackedWeights) and (
+                weights.quant or merged_layout(weights) == "pad")):
             raise ValueError("mma_weights: with f32 products only int8 "
-                             "weights run on the tensor cores")
+                             "weights and the padded f32 decoder run on the "
+                             "tensor cores")
         kinds = _kinds(weights, _rounds(weights, compute_dtype, "none"))
         return kinds, [j for j, a in enumerate(weights.arrays) if a.dim() == 2]
     if isinstance(weights, RxFrameWeights):
@@ -545,9 +549,10 @@ def mma_weights(weights, compute_dtype=torch.bfloat16) -> MmaWeights:
     """The weights that the tensor-core (MM and split) instances read, built
     on the host: for either decoder layout (`decoder_weights`), the encoder
     (`encoder_weights`) and the frame kernel (`fused_rx_weights`) with bf16
-    products, and for their int8 sets with f32 products too (compute_dtype
-    f32: the same bytes as with bf16 products but for a matrix kept in f32,
-    which is packed split, not rounded), each
+    products, and for their int8 sets and the padded f32 decoder set with
+    f32 products too (compute_dtype f32: the same bytes as with bf16
+    products but for a matrix kept in f32, which is packed split, not
+    rounded), each
     matrix that `_mma_kinds` names copied into bf16 (int8
     exactly, its scale row staying on the output; f32 rounded at the
     product, kind 3, to nearest even, as `_bf16`) in `_mma_pack`'s order,
@@ -878,7 +883,8 @@ def _ready_state(state, shapes, dev):
 
 def _check_pad(weights: PackedWeights):
     """Raise unless each x operand of a "pad" set has SEG rows for each x
-    segment it reads (the kernel reads segment j's rows from row SEG*j)."""
+    segment it reads (`mma_weights` packs segment j's rows from row
+    SEG*j)."""
     segs = [_x_operand_segs(j) for j in range(N_DEC_MERGED)]
     bad = [weights.names[j] for j, sg in enumerate(segs)
            if sg and weights.arrays[j].shape[0] != SEG * len(sg)]
@@ -920,14 +926,16 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     kernel (unmerged: radae_fused_decoder_step on f32 weights, else, int8
     or with bf16 products, radae_fused_decoder_mma_step; chain-merged:
     radae_fused_decoder_merged_step on f32 weights, else, padded, int8 or
-    with bf16 products, radae_fused_decoder_merged_x_step).  With bf16 products every product
-    of every layout runs on the tensor cores, on the weights packed on
-    first use (`_mma_args`): int8 and bf16 matrices as bf16, and on f32
-    weights each bf16 x f32 product as three bf16 products, on the
-    weight's hi, mid and lo copies (`split_parts`).  So does every layout
-    on int8 weights with f32 products: each f32 x int8 product as three
-    bf16 products, x's hi, mid and lo against the int8 matrix widened to
-    bf16 (a matrix kept in f32 as six, against its three copies)."""
+    with bf16 products, radae_fused_decoder_merged_x_step).  With bf16
+    products every product of every layout runs on the tensor cores, on
+    the weights packed on first use (`_mma_args`): int8 and bf16 matrices
+    as bf16, and on f32 weights each bf16 x f32 product as three bf16
+    products, on the weight's hi, mid and lo copies (`split_parts`).  So
+    does every layout on int8 weights with f32 products: each f32 x int8
+    product as three bf16 products, x's hi, mid and lo against the int8
+    matrix widened to bf16 (a matrix kept in f32 as six, against its three
+    copies); and the padded layout on f32 weights, each f32 x f32 product
+    as those six."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
     if z.device.type == "cpu":
@@ -956,17 +964,17 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     args = (B, nz, latent, out_dim)
     kinds = _kinds(weights, _rounds(weights, compute_dtype,
                                     "none" if layout else "gru"))
-    # on the tensor cores: bf16 products, and the int8 forms
-    mma = bf or bool(weights.quant)
-    if layout and (mma or layout == "pad"):
+    # on the tensor cores: bf16 products, the int8 forms and the padded
+    # layout (all but the unmerged and merged layouts' f32 forms)
+    mma = bf or bool(weights.quant) or layout == "pad"
+    if layout and mma:
         name = "radae_fused_decoder_merged_x_step"
         args += (int(layout == "pad"), int(bf))
     else:
         name = "radae_" + (entry.replace("_step", "_mma_step") if mma else entry)
         args += (int(bf),) if mma else ()
-    if mma or layout == "pad":
-        args += (_mma_args(weights, kinds, compute_dtype) if mma
-                 else (None, None))
+    if mma:
+        args += _mma_args(weights, kinds, compute_dtype)
     status = _launch(getattr(_kernels.library("fused_core"), name), weights,
                      z, feats, state, new_state, args, kinds)
     _kernels.check(status, name)

@@ -1,6 +1,7 @@
 """The int8 forms with f32 products on the tensor cores (both decoders,
-the chain-merged one in either layout, and the encoder), on the CPU, where
-the kernels cannot run.
+the chain-merged one in either layout, and the encoder), and the padded
+decoder's f32 form on the same route, on the CPU, where the kernels cannot
+run.
 
 radae_tpu multiplies the f32 x by the int8 matrix q in f32 (then scales the
 output columns).  The kernels' int8 instances (csrc/fused_core.cu,
@@ -16,7 +17,9 @@ x's and w's parts.  These tests hold:
     (chip_smoke.py's: the merged decoder's wgg, the unmerged decoder's whh
     and out_w, the encoder's whh and d1_w in f32) packs its f32 matrices
     split (hi, mid, lo = `fc.split_parts(w)`) where bf16 products pack them
-    rounded; f32 products on an f32 set have no tensor-core route;
+    rounded; with f32 products the padded f32 set packs every matrix split
+    from its merged rows, the same bytes as an int8 set that keeps every
+    matrix in f32, and no other f32 set has a tensor-core route;
   * the fragment walk: a torch walk over the packed fragments with the
     lane, K permutation and column order of `tmma`, x split into its three
     parts, each step's products summed exactly and truncated to f32 and
@@ -28,14 +31,16 @@ x's and w's parts.  These tests hold:
     encoder's dense_1 (K = 84, a tail inside a 16-wide
     step; int8 and kept in f32), a GRU wih chunk and whh (int8 and kept in
     f32), and the unmerged decoder's 84-column output (int8 and kept in
-    f32);
+    f32); and the padded f32 set's dense_1 at latent 40 (a K tail) and a
+    [tap1 | tap0] chunk across the x segments' seams;
   * the arithmetic: the plain int8 step with its products computed the
     route's way (`tools/split_flips.py` `xroute_products`, "xsplit3", and
     "xsplit3s" for the encoder's, x hi's products summed apart) stays within
     chip_smoke.py's TOL of the plain int8 step over
     three chained calls: `decoder_merged_step_plain` merged and padded,
     `decoder_step_plain` and `encoder_step_plain`, full int8 and MIXED,
-    latent 80 and 40 (B=8).
+    latent 80 and 40 (B=8); and the padded f32 step with every product as
+    six, against `decoder_merged_step_plain` on the padded f32 set.
 """
 
 import os
@@ -54,6 +59,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 F32, BF = torch.float32, torch.bfloat16
 EXCL = MIXED["fused_decoder_merged_step_int8"]      # ("wgg",)
+PAD_F32 = ("_w", "_wih", "_wgg")    # quant_exclude: every decoder matrix f32
 # a set's kind -> its int8 form (the key of MIXED) and its rounding rule
 # under bf16 products (fc._rounds)
 FORMS = {"merged": ("fused_decoder_merged_step_int8", "none"),
@@ -158,11 +164,13 @@ def test_mixed_packs_f32_split(trees, layout):
 
 @pytest.mark.parametrize("what", ["unmerged-int8", "merged-f32",
                                   "unmerged-f32", "encoder-f32",
-                                  "encoder-int8", "frame-f32"])
+                                  "encoder-int8", "frame-f32", "pad-f32"])
 def test_f32_products_only_on_merged_int8(trees, what):
     """f32 products reach the tensor cores on every int8 set (each matrix
-    packed) and on no f32 set (the decoders', the encoder's and the frame
-    kernel's raise)."""
+    packed) and on the padded f32 decoder set (each matrix split from its
+    merged rows, bit for bit as an int8 set packs the matrices that
+    quant_exclude keeps in f32), and on no other f32 set (the merged and
+    unmerged decoders', the encoder's and the frame kernel's raise)."""
     tree = trees[80]
     kind, dtype = what.split("-")
     quant = "int8" if dtype == "int8" else None
@@ -172,11 +180,28 @@ def test_f32_products_only_on_merged_int8(trees, what):
         w = fc.fused_rx_weights(tree["decoder"], flagship_config(), "cpu")
     else:
         w = fc.decoder_weights(tree["decoder"], "cpu", quant=quant,
-                               merged=kind == "merged")
-    if quant:
+                               merged="pad" if kind == "pad" else kind == "merged")
+    if quant or kind == "pad":
         m = fc.mma_weights(w, F32)
-        assert [j for j, o in enumerate(m.offsets) if o >= 0] == [
-            j for j, a in enumerate(w.arrays) if a.dim() == 2]
+        mats = [j for j, a in enumerate(w.arrays) if a.dim() == 2]
+        assert [j for j, o in enumerate(m.offsets) if o >= 0] == mats
+        if kind != "pad":
+            return
+        assert {m.kinds[j] for j in mats} == {0}
+        for j in mats:
+            a = w.arrays[j].numpy()
+            if fc._x_operand_segs(j):                   # its merged rows
+                a = np.concatenate([a[fc.SEG * k:fc.SEG * k + wd] for k, wd in
+                                    enumerate(fc._x_operand_segs(j))])
+            n = 3 * fc._mma_pack(a).size
+            got = _bits(m)[8 * m.offsets[j]:8 * m.offsets[j] + n]
+            assert np.array_equal(got.numpy().view(np.uint16),
+                                  fc._mma_pack_split(a).ravel()), w.names[j]
+        kept = fc.decoder_weights(tree["decoder"], "cpu", merged="pad",
+                                  quant="int8", quant_exclude=PAD_F32)
+        mk = fc.mma_weights(kept, F32)
+        assert mk.offsets == m.offsets and mk.kinds == m.kinds
+        assert torch.equal(_bits(mk), _bits(m))
         return
     with pytest.raises(ValueError, match="only int8 weights"):
         fc.mma_weights(w, F32)
@@ -283,6 +308,36 @@ def test_fragment_walk_xsplit_f32_tail():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("latent, name, k0, k1, shape", [
+    (40, "d1_w", 32, 40, (40, 96)),
+    (80, "c2_w", 128, 256, (320, 64))],
+    ids=["d1-40-tail", "cw-segments-chunk1"])
+def test_fragment_walk_pad_f32(trees, latent, name, k0, k1, shape):
+    """The six-product walk over the padded f32 set's packed matrices (every
+    one split, from its merged rows) gives x @ w over the kernel's K ranges
+    with x contiguous, x past k1 holding NaN: dense_1 at latent 40 (K = 40
+    ends inside a 16-wide step, its second K chunk from 32) and the second
+    layer's [tap1 | tap0] (its second K chunk of three, across the x
+    segments' seams at 192 and 224)."""
+    w = fc.decoder_weights(trees[latent]["decoder"], "cpu", merged="pad")
+    m = fc.mma_weights(w, F32)
+    j = w.names.index(name)
+    a = w.arrays[j]
+    if fc._x_operand_segs(j):
+        a = torch.cat([a[fc.SEG * k:fc.SEG * k + wd] for k, wd in
+                       enumerate(fc._x_operand_segs(j))])
+    assert tuple(a.shape) == shape and m.kinds[j] == 0
+    K, out = shape
+    rng = np.random.default_rng(K * 3 + k0 + out)
+    x = np.tanh(rng.standard_normal((16, 16 * -(-K // 16) + 8))).astype(np.float32)
+    x[:, k1:] = np.nan
+    x = torch.from_numpy(x)
+    got = _xs_walk(x, m.buf, m.offsets[j], K, out, k0, k1, 3)
+    want = (x[:, k0:k1].double() @ a.double()[k0:k1]).float()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("layout, latent, mixed, name, k0, k1, shape", [
     ("enc", 80, False, "d1_w", 64, 84, (84, 64)),
     ("enc", 80, True, "d1_w", 64, 84, (84, 64)),
@@ -373,6 +428,31 @@ def test_route_step_within_tol(trees, monkeypatch, layout, mixed, latent):
     w_route = _set(trees, latent, "merged", mixed)
     mm = xroute_products(w_route, "xsplit3")
     rng = np.random.default_rng(latent + 2 * mixed + (layout == "pad"))
+    B = 8
+    sk = sp = fc.decoder_state_zero(B, "cpu", merged=True)
+    real = fc._products
+    for _ in range(3):
+        z = torch.from_numpy(np.tanh(rng.standard_normal((B, 3, latent)))
+                             .astype(np.float32))
+        fp, sp = fc.decoder_merged_step_plain(w, z, sp)
+        monkeypatch.setattr(fc, "_products", lambda *a, **k: mm)
+        fk, sk = fc.decoder_merged_step_plain(w_route, z, sk)
+        monkeypatch.setattr(fc, "_products", real)
+        for g, want in zip((fk,) + sk, (fp,) + sp):
+            torch.testing.assert_close(g, want, **TOL)
+
+
+@pytest.mark.parametrize("latent", [80, 40])
+def test_route_step_within_tol_pad_f32(trees, monkeypatch, latent):
+    """Three chained calls of the padded f32 step with every product computed
+    its kernel's way (x's three parts against the three parts of each
+    matrix, kind 0: six products, 16-wide step sums truncated to f32 and
+    added in f32), on the merged weights as the kernel reads a padded set,
+    stay within TOL of `decoder_merged_step_plain` on the padded set."""
+    w = fc.decoder_weights(trees[latent]["decoder"], "cpu", merged="pad")
+    w_route = fc.decoder_weights(trees[latent]["decoder"], "cpu", merged=True)
+    mm = xroute_products(w_route, "xsplit3")
+    rng = np.random.default_rng(31 + latent)
     B = 8
     sk = sp = fc.decoder_state_zero(B, "cpu", merged=True)
     real = fc._products

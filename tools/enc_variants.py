@@ -75,6 +75,11 @@ instance: the unmerged decoder's and the encoder's through its f32 entry
 bf16 entries such a source has in place of the mma entries), the merged
 layout's through its merged entry (`FmaInt8Merged`) and the padded
 layout's through its x entry, so `--src parent=` times the two in turns.
+`--kernel decm --pad` (no --quant, no --bf16) times the padded f32 form,
+which runs every matrix on x's parts as six bf16 products (the merged
+decoder's instance <false, false, KindSplitXArgs>); a --src library
+without it (`PAD_F32_XSPLIT`) runs that form on its FMA loops, so `--src
+parent=` times the two in turns.
 For each --src library it also prints, instance by instance of every
 kernel, whether its SASS equals the committed build's.
 """
@@ -117,16 +122,20 @@ KERNELS = {"enc": ("enc_kernel", "fused_encoder_step", "radae_enc_tile_rows"),
 ALL = tuple(KERNELS)
 CHECKPOINTS = {80: "model_fs_flagship.npz", 40: "model_l40.npz"}
 NO_MMA = set()       # the libraries that run the kernel's form on FMA loops
-# those with a split instance (f32 weights): the text of its launch in a
-# source that has it
-SPLIT_KERNELS = {"enc": "enc_kernel<true, true, KindSplitArgs",
-                 "dec": "dec_kernel<true, true, KindSplitArgs",
-                 "decm": "dec_merged_kernel<true, true, true, KindSplitArgs"}
-# the int8 instances with f32 products (on x's parts): the text of each
+# those with a split instance (f32 weights): a pattern of its launch in a
+# source that has it (the merged decoder's instances had a third bool, the
+# padded layout, before its padded f32 form ran on the tensor cores)
+SPLIT_KERNELS = {"enc": r"enc_kernel<true, true, KindSplitArgs",
+                 "dec": r"dec_kernel<true, true, KindSplitArgs",
+                 "decm": r"dec_merged_kernel<true, true, (true, )?KindSplitArgs"}
+# the int8 instances with f32 products (on x's parts): a pattern of each
 # one's launch in a source that has it
-XSPLIT_KERNELS = {"enc": "enc_kernel<true, false, KindSplitXArgs",
-                  "dec": "dec_kernel<true, false, KindSplitXArgs",
-                  "decm": "dec_merged_kernel<true, false, true, KindSplitXArgs"}
+XSPLIT_KERNELS = {"enc": r"enc_kernel<true, false, KindSplitXArgs",
+                  "dec": r"dec_kernel<true, false, KindSplitXArgs",
+                  "decm": r"dec_merged_kernel<true, false, (true, )?KindSplitXArgs"}
+# the padded f32 form on x's parts (--kernel decm --pad without --quant and
+# --bf16): the pattern of its launch in a source that has it
+PAD_F32_XSPLIT = r"dec_merged_kernel<false, false, KindSplitXArgs"
 # --kernel -> its entry with bf16 products in a source whose entries may
 # predate the packed weights (`NoMmaEntries`)
 MMA_ENTRY = {"enc": "radae_fused_encoder_bf16_step",
@@ -473,7 +482,7 @@ def entries_without_mma(src_text):
     return out
 
 
-def instance(name, kname, quant=None, bf16=None):
+def instance(name, kname, quant=None, bf16=None, pad=False):
     """Whether the mangled `name` is an instance of kernel `kname` that the
     tool takes: its template bools after the first all false, and the first
     (Q) false, or true with quant; any for the frame kernel (FIX).  With
@@ -481,13 +490,18 @@ def instance(name, kname, quant=None, bf16=None):
     bool, BF), for the encoder and both decoders the tensor-core one
     (KindMmaArgs) unless the weights are f32, and then the split one
     (KindSplitArgs), or in a source from before the merged decoder's split
-    instance that decoder's FMA one (KindArgs)."""
+    instance that decoder's FMA one (KindArgs).  pad (the merged decoder's
+    padded f32 form): its instance on x's parts (KindSplitXArgs), or in a
+    source from before it the FMA one (KindArgs)."""
     m = re.search(kname + r"I((?:Lb[01]E)+)", name)
     if not m:
         return False
     flags = re.findall(r"Lb([01])E", m.group(1))
     if quant and kname == "dec_merged_kernel":   # the int8 ones with f32
         return flags[:2] == ["1", "0"]           # products, either layout
+    if kname == "dec_merged_kernel" and not (quant or bf16):   # f32 forms
+        ka = r"(KindSplitXArgs|KindArgs)" if pad else r"QuantArgs"
+        return flags[:2] == ["0", "0"] and re.search(ka + r"ILi", name) is not None
     if bf16:
         args = (("KindMmaArgs",) if bf16 != "f32" else
                 ("KindSplitArgs", "KindArgs") if kname == "dec_merged_kernel"
@@ -501,13 +515,19 @@ def instance(name, kname, quant=None, bf16=None):
 
 def instance_key(name):
     """A kernel instance by its kernel, template bools and argument class,
-    whatever else its mangled name says (None for no kernel)."""
+    whatever else its mangled name says (None for no kernel).  The merged
+    decoder's third bool (the padded layout, in a source from before its
+    padded f32 form ran on the tensor cores) is dropped: each of its
+    instances but the FMA padded one took either layout alike."""
     m = re.search(r"([a-z][a-z_]*_kernel)I((?:Lb[01]E)+)", name)
     if not m:
         return None
     ka = re.search(r"(QuantArgs|KindSplitXArgs|KindSplitArgs|KindMmaArgs|"
                    r"KindArgs)ILi", name)
-    return (m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E", m.group(2)))
+    flags = re.findall(r"Lb([01])E", m.group(2))
+    if m.group(1) == "dec_merged_kernel":
+        flags = flags[:2]
+    return (m.group(1) + "<" + ",".join(flags)
             + (", " + ka.group(1) if ka else "") + ">")
 
 
@@ -529,7 +549,7 @@ def sass_by_instance(lib_path, cuobjdump):
     return res
 
 
-def sass(lib_path, kname, cuobjdump, quant=None, bf16=None):
+def sass(lib_path, kname, cuobjdump, quant=None, bf16=None, pad=False):
     """The SASS of the kernel's instances that the tool takes (`instance`),
     without addresses, encodings and the source-dependent mangled names
     (None without cuobjdump)."""
@@ -538,7 +558,7 @@ def sass(lib_path, kname, cuobjdump, quant=None, bf16=None):
     out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                          text=True, check=True).stdout
     body = [b for b in out.split("Function : ")[1:]
-            if instance(b.splitlines()[0], kname, quant, bf16)]
+            if instance(b.splitlines()[0], kname, quant, bf16, pad)]
     if not body:
         return None
     lines = []
@@ -613,6 +633,8 @@ def main(argv=None) -> int:
         ap.error("--exact holds the f32-product forms of enc, dec and decm")
     if args.mixed and "int8" not in (args.quant, args.bf16):
         ap.error("--mixed is an int8 set: --quant int8 or --bf16 int8")
+    # the padded f32 form: f32 weights, f32 products, on x's parts
+    pad_f32 = args.pad and not (args.quant or args.bf16)
     forms = [n for n, (ks, _, _) in FORMS.items() if kernel in ks]
     if args.forms is not None:
         asked = [n for n in args.forms.split(",") if n]
@@ -672,7 +694,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"nvcc failed for {v}:\n" + "\n".join(lines))
         at = [i for i, x in enumerate(lines)
               if "entry function" in x and kname in x
-              and instance(x, kname, args.quant, args.bf16)]
+              and instance(x, kname, args.quant, args.bf16, args.pad)]
         ptxas = [x.strip() for i in at for x in lines[i:i + 4]
                  if "registers" in x or "spill" in x]
         lib = ctypes.CDLL(os.path.join(args.out, f"lib{tag}_{v}.so"))
@@ -692,21 +714,23 @@ def main(argv=None) -> int:
             if MMA_ENTRY[kernel] in no_mma:
                 NO_MMA.add(v)
         if (args.bf16 == "f32" and kernel in SPLIT_KERNELS
-                and SPLIT_KERNELS[kernel] not in src_text):
+                and not re.search(SPLIT_KERNELS[kernel], src_text)):
             NO_MMA.add(v)      # its entry runs f32 weights on FMA loops
         if "radae_fused_decoder_mma_step" not in src_text:
             lib = BeforeMmaEntries(lib)
-        if kernel == "decm" and XSPLIT_KERNELS["decm"] not in src_text:
+        if kernel == "decm" and not re.search(XSPLIT_KERNELS["decm"], src_text):
             lib = FmaInt8Merged(lib)
         if (args.quant and kernel in XSPLIT_KERNELS
-                and XSPLIT_KERNELS[kernel] not in src_text):
+                and not re.search(XSPLIT_KERNELS[kernel], src_text)):
             NO_MMA.add(v)      # its int8 instances run on FMA loops
+        if pad_f32 and not re.search(PAD_F32_XSPLIT, src_text):
+            NO_MMA.add(v)      # its padded f32 form runs on FMA loops
         libs[v] = lib
         rows = src_rows.get(v) or ((getattr(lib, rows_entry)(),) * 2
                                    if hasattr(lib, rows_entry) else FIRST_ROWS)
         cuobjdump = os.path.join(os.path.dirname(_kernels.nvcc()), "cuobjdump")
         code = sass(os.path.join(args.out, f"lib{tag}_{v}.so"), kname,
-                    cuobjdump, args.quant, args.bf16)
+                    cuobjdump, args.quant, args.bf16, args.pad)
         every = sass_by_instance(os.path.join(args.out, f"lib{tag}_{v}.so"),
                                  cuobjdump)
         if code:
@@ -904,7 +928,7 @@ def main(argv=None) -> int:
     # once a z-step (the frame's dft_w once)
     packed_read = None
     kept = list(((w.w if kernel == "frame" else w).mma or {}).values())
-    if ((args.bf16 or args.quant) and kept
+    if ((args.bf16 or args.quant or pad_f32) and kept
             and any(o >= 0 for o in kept[0].offsets)):
         dft = len(kept[0].offsets) - 2 if kernel == "frame" else -1
         packed_read = sum(b * blocks * (1 if j == dft else nz)

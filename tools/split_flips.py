@@ -4,7 +4,7 @@ how far the f32-product route on int8 weights is from the f32 tolerance.
 
     python3 tools/split_flips.py [--kernel dec|enc|decm ...] [--pad]
                                  [--latent 80|40] [--batch 2048] [--seed 6]
-                                 [--seeds 1] [--quant int8 [--mixed]]
+                                 [--seeds 1] [--quant int8 [--mixed] | none]
 
 The unmerged decoder (dec), the encoder (enc) and the chain-merged decoder
 (decm) with bf16 products on f32 weights multiply bf16 x by f32 w (kind 0).
@@ -60,6 +60,11 @@ and the elements past TOL:
 
 Each 16-wide K step's products are summed exactly and truncated to f32,
 then added to an f32 running sum, as on the bf16 routes.
+
+--quant none (--kernel decm, either layout) sizes the same routes on the
+f32 weights against the plain f32 step: the padded f32 form's instance
+runs every matrix as the six products of x's and w's parts (xsplit3), as
+the int8 instance runs a matrix kept in f32.
 """
 
 from __future__ import annotations
@@ -145,10 +150,12 @@ def _steps(pairs, xs, ws, sep=False):
 
 
 def xroute_products(w, route):
-    """mm(x, j) = x @ arrays[j] times its scale row, as the int8 instance
-    with f32 products computes it on `route` (QROUTES)."""
+    """mm(x, j) = x @ arrays[j] times its scale row (none on f32 weights),
+    as the instances with f32 products compute it on `route` (QROUTES):
+    each int8 matrix as one w part, each f32 one as three."""
     sc = iter(w.scales)
-    scale = [next(sc) if a.dim() == 2 else None for a in w.arrays]
+    scale = [(next(sc) if w.scales else 1.0) if a.dim() == 2 else None
+             for a in w.arrays]
     ws = [None if a.dim() != 2 else [_wsteps(a)] if a.dtype == torch.int8
           else [_wsteps(p) for p in fc.split_parts(a)] for a in w.arrays]
 
@@ -246,12 +253,12 @@ INT8_FORMS = {"dec": "fused_decoder_step_int8",
               "decm": "fused_decoder_merged_step_int8"}
 
 
-def int8_sets(tree, side, pad=False, mixed=False):
+def int8_sets(tree, side, pad=False, mixed=False, quant="int8"):
     """(the int8 weights of the kernel's plain version, the weights its
     route runs on) for --kernel side: the chain-merged decoder's route runs a
     padded set (pad) on the merged one, as the kernel does; mixed: the
-    kernel's MIXED set (quant_exclude)."""
-    kw = dict(quant="int8",
+    kernel's MIXED set (quant_exclude); quant None: the f32 set."""
+    kw = dict(quant=quant,
               quant_exclude=MIXED[INT8_FORMS[side]] if mixed else ())
     if side == "enc":
         w = fc.encoder_weights(tree["encoder"], "cpu", **kw)
@@ -276,8 +283,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=6)
     ap.add_argument("--seeds", type=int, default=1,
                     help="--quant int8: seeds --seed.. summed over")
-    ap.add_argument("--quant", choices=["int8"], default=None,
-                    help="int8 weights with f32 products (QROUTES)")
+    ap.add_argument("--quant", choices=["int8", "none"], default=None,
+                    help="int8 weights with f32 products (QROUTES); none: "
+                    "decm's f32 weights on the same routes")
     ap.add_argument("--mixed", action="store_true",
                     help="--quant int8: chip_smoke.py's MIXED set of the "
                     "kernel's int8 form")
@@ -285,13 +293,17 @@ def main(argv=None) -> int:
     sides = args.kernel or ["dec", "enc"]
     if args.pad and sides != ["decm"]:
         ap.error("--pad is the merged decoder's layout: --kernel decm")
-    if args.mixed and not args.quant:
+    if args.mixed and args.quant != "int8":
         ap.error("--mixed is an int8 set: --quant int8")
+    if args.quant == "none" and sides != ["decm"]:
+        ap.error("--quant none sizes the merged decoder's f32 form: --kernel "
+                 "decm")
     tree, _ = load_checkpoint(os.path.join(ROOT, "fixtures",
                                            CHECKPOINTS[args.latent]))
     if args.quant:
         for side in sides:
-            w, w_route = int8_sets(tree, side, args.pad, args.mixed)
+            w, w_route = int8_sets(tree, side, args.pad, args.mixed,
+                                   None if args.quant == "none" else "int8")
             tot = {r: [0, 0, 0.0] for r in QROUTES}
             for seed in range(args.seed, args.seed + args.seeds):
                 for r, (n_over, n, mx) in flips(side, w, args.batch,
@@ -299,7 +311,8 @@ def main(argv=None) -> int:
                                                 quant=True).items():
                     tot[r] = [tot[r][0] + n_over, tot[r][1] + n,
                               max(tot[r][2], mx)]
-            name = (side + (" pad" if args.pad else "") + " int8"
+            name = (side + (" pad" if args.pad else "")
+                    + (" f32" if args.quant == "none" else " int8")
                     + (" mixed" if args.mixed else ""))
             for r, (n_over, n, mx) in tot.items():
                 print(f"{name} latent {args.latent} B={args.batch} seeds "
