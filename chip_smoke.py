@@ -81,7 +81,19 @@ EQ, coarse magnitude):
      radae_tpu gives on the CPU (tools/batch_pair_reference.py); the int8
      receiver once more with bf16 products (fused_dtype), held like the
      merged one; then the port's tx_batch --fused and rx_batch CLIs on
-     three fixture files; then the port's benchmark as a user runs it,
+     three fixture files; then the per-frame product path (product_phase:
+     apps/txe.py and apps/rxe.py, one radio, one 120 ms frame a call):
+     the unmerged f32 decoder kernel at B=1 against its plain version (3
+     chained calls, TOL, the same bits on two launches), 40 fixture frames
+     + the EOO frame with data bits + 3000 zeros through RadaeTx and
+     RadaeRx on the card (sync, at least 34x12 feature rows, aligned loss
+     below the checkpoint's + 0.15, EOO BER below 0.05, the decoder kernel
+     launched once a decoded frame), the same stream through RadaeRx on the
+     CPU (each call's return code, state, nin, tmax and fmax equal,
+     features at TOL, SNR estimate within 0.01 dB) and RadaeTx's noise-off
+     step on the card against the CPU (3 frames, 1e-4); it prints both
+     apps' ms a frame and the B=1 kernel's time beside its bound; then the
+     port's benchmark as a user runs it,
      `python -m radae_tpu_torch.bench` (its one line must carry a value
      from a fused rung at B >= 2048), and its run_bench for the modes that
      are not on its ladder, at B=2048;
@@ -237,6 +249,20 @@ BENCH_SCAN = 64
 MIXED = {"fused_decoder_step_int8": ("whh", "out_w"),
          "fused_decoder_merged_step_int8": ("wgg",),
          "fused_encoder_step_int8": ("whh", "d1_w")}
+
+
+# the per-frame product path (product_phase): modem frames transmitted, the
+# silence after the EOO frame, the EOO bits' seed (apps/txe.py
+# --eoo_data_test), the rx features' rows and loss margin and the EOO BER
+# (tests/test_streaming_trained.py), the card-against-CPU SNR estimate
+PRODUCT_FRAMES = 40
+PRODUCT_ZEROS = 3000
+EOO_SEED = 65647
+PRODUCT_MIN_ROWS = 34 * 12
+PRODUCT_LOSS_MARGIN = 0.15
+EOO_BER_LIMIT = 0.05
+SNR_TOL_DB = 0.01
+B1_CALLS = 3             # chained calls of the decoder kernel at B=1
 
 
 def stream_features(raw, n_streams, n_frames, feature_dim):
@@ -509,6 +535,198 @@ def fetch_line(weights, rows, block_rows, nz, batch, ms) -> str:
     return (f"weight fetch {per} B per block per z-step x {blocks} blocks x "
             f"nz {nz} = {total / 1e9:.4f} GB a launch, "
             f"{total / (ms * 1e-3) / 1e12:.2f} TB/s at {ms:.4f} ms")
+
+
+def rx_frames(rx, stream, timed=False):
+    """Feed stream to the per-frame receiver rx (apps/rxe.py) nin samples a
+    call.  Returns per call (return code, state, nin, tmax, fmax, SNR
+    estimate, features or EOO soft bits when the code is not 0, host ms of
+    the call when timed)."""
+    import torch
+    out = np.zeros(rx.get_n_floats_out(), np.float32)
+    recs, ptr = [], 0
+    while ptr + rx.get_nin() <= len(stream):
+        nin = rx.get_nin()
+        t0 = time.perf_counter()
+        ret = rx.do_radae_rx(stream[ptr:ptr + nin], out)
+        if timed:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        ptr += nin
+        recs.append((ret, rx.state, rx.nin, rx.tmax, rx.fmax,
+                     rx.receiver.snrdB_3k_est, out.copy() if ret else None,
+                     ms))
+    return recs
+
+
+def product_phase(dev, raw, card):
+    """The per-frame product path as an operator runs it (apps/txe.py,
+    apps/rxe.py: one radio, one 120 ms frame a call) on the card, on the
+    fixture checkpoint with auxdata.  First the unmerged f32 decoder
+    kernel at B=1 (its 16-row tile with 15 rows masked) against its plain
+    version over B1_CALLS chained calls at TOL and to the same bits on two
+    launches; then PRODUCT_FRAMES frames of the fixture's features through
+    RadaeTx, the EOO frame with data bits and PRODUCT_ZEROS zeros, received
+    frame by frame: sync, the rows, the aligned loss and the EOO BER gates
+    of tests/test_streaming_trained.py, the decoder kernel launched once a
+    decoded frame and nothing else; the same stream through RadaeRx on the
+    CPU, frame by frame; RadaeTx's noise-off step on the card against the
+    CPU over 3 chained frames.  Prints the ms a frame of both apps and the
+    B=1 kernel's time beside its bound.  Returns the product path's
+    decoder launches and the kernel's B=1 readings."""
+    import torch
+    from radae_tpu_torch.apps.rxe import RadaeRx
+    from radae_tpu_torch.apps.txe import RadaeTx
+    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.models.core import distortion_loss
+    from radae_tpu_torch.ops import fused_core as fc
+
+    tree, meta = load_checkpoint(os.path.join(HERE, "fixtures",
+                                              "model_fs_flagship.npz"))
+    rx = RadaeRx(params=tree, auxdata=True, v=0, device=dev)
+    w, cfg = rx.weights, rx.cfg
+    gen = np.random.default_rng(12)
+    zs = [torch.as_tensor(np.tanh(gen.standard_normal(
+        (1, cfg.Nzmf, cfg.latent_dim))).astype(np.float32), device=dev)
+        for _ in range(B1_CALLS)]
+    b1_err = 0.0
+    with torch.no_grad():
+        sk = sp = fc.decoder_state_zero(1, dev)
+        for k, z in enumerate(zs):
+            fk, sk1 = fc.fused_decoder_step(w, z, sk)
+            again = fc.fused_decoder_step(w, z, sk)
+            fp, sp1 = fc.decoder_step_plain(w, z, sp)
+            torch.cuda.synchronize()
+            check_close(f"fused_decoder_step B=1 call {k}", (fk,) + sk1,
+                        (fp,) + sp1, TOL)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (fk,) + sk1, (again[0],) + again[1])):
+                raise AssertionError(f"fused_decoder_step B=1 call {k}: two "
+                                     "launches gave different bits")
+            b1_err = max(b1_err, max_err((fk,) + sk1, (fp,) + sp1))
+            sk, sp = sk1, sp1
+    print(f"fused_decoder_step at B=1: {B1_CALLS} chained calls within TOL "
+          f"of its plain version (max abs err {b1_err:.3g}), the same bits "
+          "on two launches")
+
+    # -- the round trip on the card, then the same stream on the CPU ------
+    tx = RadaeTx(params=tree, auxdata=True, device=dev)
+    bits = np.sign(np.random.default_rng(EOO_SEED).random(
+        tx.get_Neoo_bits()) - 0.5).astype(np.float32)
+    tx.set_eoo_bits(bits)
+    rx = RadaeRx(params=tree, auxdata=True, v=0, device=dev)
+    n_in = tx.get_n_floats_in()
+    fc.reset_launches()
+    frames, tx_ms = [], []
+    for k in range(PRODUCT_FRAMES):
+        t0 = time.perf_counter()
+        frames.append(tx.do_radae_tx(raw[12 * k:12 * (k + 1)].reshape(n_in)))
+        tx_ms.append(1e3 * (time.perf_counter() - t0))
+    stream = np.concatenate(frames + [tx.do_eoo(), np.zeros(
+        PRODUCT_ZEROS, np.complex64)])
+    if not np.isfinite(stream.view(np.float32)).all():
+        raise AssertionError("product path: tx samples not finite")
+    recs = rx_frames(rx, stream, timed=True)
+    torch.cuda.synchronize()
+    n_valid = sum(r[0] & 1 for r in recs)
+    launches = dict(fc.LAUNCHES)
+    if (launches["fused_decoder_step"] != n_valid
+            or sum(launches.values()) != n_valid):
+        raise AssertionError(
+            f"product path: kernels launched "
+            f"{ {n: c for n, c in launches.items() if c} }, not "
+            f"{n_valid} fused_decoder_step (one a decoded frame)")
+    out = np.concatenate([r[6].reshape(-1, 36) for r in recs if r[0] & 1]
+                         or [np.zeros((0, 36), np.float32)])
+    eoo = [r[6] for r in recs if r[0] & 2]
+    if out.shape[0] < PRODUCT_MIN_ROWS or not np.isfinite(out).all():
+        raise AssertionError(f"product path: {out.shape[0]} feature rows "
+                             f"(at least {PRODUCT_MIN_ROWS}), finite "
+                             f"{bool(np.isfinite(out).all())}")
+    n = out.shape[0]
+    ref = torch.as_tensor(raw[:12 * PRODUCT_FRAMES, :NUM_USED])
+    got = torch.as_tensor(out[None, :, :NUM_USED])
+    loss = min(float(distortion_loss(ref[None, s:s + n], got)[0])
+               for s in range(0, 12 * PRODUCT_FRAMES - n + 1))
+    limit = float(meta["loss"]) + PRODUCT_LOSS_MARGIN
+    if not loss < limit:
+        raise AssertionError(f"product path: aligned loss {loss:.4f} >= "
+                             f"{limit:.4f}")
+    if len(eoo) != 1:
+        raise AssertionError(f"product path: {len(eoo)} EOO frames found")
+    ber = float((eoo[0][:len(bits)] * bits < 0).mean())
+    if not ber < EOO_BER_LIMIT:
+        raise AssertionError(f"product path: EOO BER {ber:.3f}")
+
+    with torch.no_grad():
+        recs_cpu = rx_frames(RadaeRx(params=tree, auxdata=True, v=0,
+                                     device="cpu"), stream)
+    if len(recs_cpu) != len(recs):
+        raise AssertionError(f"product path: {len(recs)} rx calls on the "
+                             f"card, {len(recs_cpu)} on the CPU")
+    f_err = snr_err = 0.0
+    for k, (a, b) in enumerate(zip(recs, recs_cpu)):
+        if a[:5] != b[:5]:
+            raise AssertionError(f"product path frame {k}: card (ret, state, "
+                                 f"nin, tmax, fmax) {a[:5]}, CPU {b[:5]}")
+        snr_err = max(snr_err, abs(a[5] - b[5]))
+        if snr_err > SNR_TOL_DB:
+            raise AssertionError(f"product path frame {k}: SNR estimate "
+                                 f"{a[5]:.4f} dB on the card, {b[5]:.4f} "
+                                 "on the CPU")
+        if a[0]:
+            if not np.allclose(a[6], b[6], **TOL):
+                raise AssertionError(
+                    f"product path frame {k}: features max abs err "
+                    f"{float(np.abs(a[6] - b[6]).max()):.3g} outside {TOL}")
+            f_err = max(f_err, float(np.abs(a[6] - b[6]).max()))
+
+    # -- the tx step, noise off, on the card against the CPU --------------
+    tx_cpu = RadaeTx(params=tree, auxdata=True, device="cpu")
+    sg, sc = tx.encoder.zero_state(1, dev), tx_cpu.encoder.zero_state(1, "cpu")
+    tx_err = 0.0
+    with torch.no_grad():
+        for k in range(3):
+            f = np.full((1, 12, cfg.feature_dim), -1.0, np.float32)
+            f[0, :, :NUM_USED] = raw[12 * k:12 * (k + 1), :NUM_USED]
+            a, sg = tx._step(tx.params, torch.as_tensor(f, device=dev), sg,
+                             None)
+            b, sc = tx_cpu._step(tx_cpu.params, torch.as_tensor(f), sc, None)
+            tx_err = max(tx_err, float((a.cpu() - b).abs().max()))
+    if not tx_err <= TOL["atol"]:
+        raise AssertionError(f"product path: tx noise off, card against CPU "
+                             f"max abs err {tx_err:.3g} > {TOL['atol']}")
+
+    sync_ms = [r[7] for r in recs if r[0] & 1]
+    period = 1e3 * cfg.Tmf
+    print(f"product path on the card: {PRODUCT_FRAMES} frames + EOO + "
+          f"{PRODUCT_ZEROS} zeros; sync, {n} feature rows, aligned loss "
+          f"{loss:.4f} (limit {limit:.4f}), EOO BER {ber:.4f}; "
+          f"fused_decoder_step launched {n_valid} times, once a decoded "
+          f"frame; against RadaeRx on the CPU: {len(recs)} calls with the "
+          f"same return code, state, nin, tmax and fmax, features max abs "
+          f"err {f_err:.3g}, SNR estimate max diff {snr_err:.3g} dB; tx noise "
+          f"off card against CPU max abs err {tx_err:.3g}")
+    print(f"product path ms a frame (host clock; min/median/max): "
+          f"do_radae_tx {spread(tx_ms)} over {len(tx_ms)} frames, "
+          f"do_radae_rx {spread(sync_ms)} over the {len(sync_ms)} decoded "
+          f"frames, against the {period:.0f} ms frame period ({card})")
+
+    # -- the decoder kernel's time at B=1 beside its bound ----------------
+    z, s0 = zs[0], fc.decoder_state_zero(1, dev)
+    with torch.no_grad():
+        kern = lambda: fc.fused_decoder_step(w, z, s0)
+        plain = lambda: fc.decoder_step_plain(w, z, s0)
+        ms = time_ms(kern, 50)
+        runs = graph_runs(kern, reps=GRAPH_REPS)
+        plain_ms = time_ms(plain, 10)
+        out1, s1 = plain()
+        b_ms, b_by = bound(w, (z,) + s0, (out1,) + s1, cfg.Nzmf, 1)
+    print(f"fused_decoder_step at B=1: {ms:.4f} ms (CUDA events), CUDA graph "
+          f"replay min/median/max {spread(runs)} ms over {GRAPH_REPS} "
+          f"replays, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+          f"({card})")
+    return n_valid
 
 
 def main(argv=None) -> int:
@@ -1318,6 +1536,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"rx_batch: {line}")
     print("tx_batch --fused: " + "; ".join(tx_lines.splitlines()))
     print("rx_batch: " + "; ".join(rx_lines.splitlines()))
+
+    # -- the per-frame product path: txe and rxe --------------------------
+    launches["fused_decoder_step"] += product_phase(dev, raw, card)
     print(f"launches on the main paths: {launches}")
 
     # -- the port's benchmark, as a user runs it, then its other modes ------

@@ -9,6 +9,11 @@ the caller asks for the CPU.  Submodules are imported on demand:
   ops           split-complex modem math, pilot EQ, fused core kernels
   models        stateful core encoder/decoder
   runtime       batched streaming tx/rx serving steps
+  dsp           the per-frame transmitter and receiver, BPF, acquisition
+  apps          the per-frame product path: txe and rxe
+  channel       fading samples (numpy)
+  tools         the batch tools tx_batch and rx_batch
+  __main__      `python -m radae_tpu_torch <tool>`
   bench         the serving benchmark (`python -m radae_tpu_torch.bench`),
                 whose supervising process imports no torch: so neither
                 does this file until resolve_device is called

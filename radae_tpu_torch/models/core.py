@@ -11,9 +11,11 @@ Architecture (DenseNet-style concatenative skip stacks):
            with concat skips -> dense(864 -> latent_dim) [+tanh if bottleneck 1]
   Decoder: dense(96) -> 5x[GRU(96)+GLU | conv k2(32)] -> dense(736 -> 4*out)
 
-Quantization noise is out of scope for the port: the serving steps call the
-core nets with key=None (radae_tpu/runtime.py:110,503), so only that path
-exists here and any other key raises.
+8-bit quantization noise n(x) follows every activation where radae_tpu
+applies it (reference: radae_base.py:80-81) when `key` is a torch.Generator
+on the input's device; key=None turns it off (the serving steps, and every
+parity test: torch cannot reproduce jax's stream, so noise is held to its
+distribution only).
 """
 
 from __future__ import annotations
@@ -40,10 +42,20 @@ _DEC_CONV_DIMS = [(192, 32, 1), (320, 32, 1), (448, 32, 1), (576, 32, 1), (704, 
 _DEC_CAT_DIM = 736
 
 
-def _no_noise(key):
-    if key is not None:
-        raise NotImplementedError(
-            "quantization noise is not ported; call with key=None")
+class _NoiseStream:
+    """The quantization-noise applications of one call: quant_noise with
+    the generator `key`, or nothing when key is None."""
+
+    def __init__(self, key: Optional[torch.Generator]):
+        if key is not None and not isinstance(key, torch.Generator):
+            # radae_tpu takes a jax key here: its stream is not ported
+            raise NotImplementedError(
+                f"key must be a torch.Generator or None, got "
+                f"{type(key).__name__}")
+        self.key = key
+
+    def __call__(self, x):
+        return x if self.key is None else L.quant_noise(self.key, x)
 
 
 def _zero_state(gru_dims, conv_dims, batch, device, dtype) -> State:
@@ -76,21 +88,21 @@ class CoreEncoder:
                  state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
         """features (B, T10ms, F), T10ms divisible by 4 ->
         (z (B, T10ms//4, output_dim), new_state)."""
-        _no_noise(key)
         B, T, F = features.shape
         if state is None:
             state = self.zero_state(B, features.device, features.dtype)
+        n = _NoiseStream(key)
         new_state: State = {}
         # group FRAMES_PER_STEP frames into one step (radae_base.py:199)
         x = features.reshape(B, T // FRAMES_PER_STEP, FRAMES_PER_STEP * F)
-        x = torch.tanh(L.dense(params["dense_1"], x))
+        x = n(torch.tanh(L.dense(params["dense_1"], x)))
         for i, (_, _, dil) in enumerate(_ENC_CONV_DIMS, start=1):
             y, new_state[f"gru{i}"] = L.gru(params[f"gru{i}"], x,
                                             state[f"gru{i}"])
-            x = torch.cat([x, y], dim=-1)
+            x = torch.cat([x, n(y)], dim=-1)
             y, new_state[f"conv{i}"] = L.conv2tap(
                 params[f"conv{i}"], x, state[f"conv{i}"], dilation=dil)
-            x = torch.cat([x, y], dim=-1)
+            x = torch.cat([x, n(y)], dim=-1)
         z = L.dense(params["z_dense"], x)
         if self.bottleneck == 1:
             z = torch.tanh(z)
@@ -127,19 +139,19 @@ class CoreDecoder:
     def __call__(self, params: Params, z, key=None,
                  state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
         """z (B, Tz, input_dim) -> (features (B, 4*Tz, output_dim), new_state)."""
-        _no_noise(key)
         B, Tz, _ = z.shape
         if state is None:
             state = self.zero_state(B, z.device, z.dtype)
+        n = _NoiseStream(key)
         new_state: State = {}
-        x = torch.tanh(L.dense(params["dense_1"], z))
+        x = n(torch.tanh(L.dense(params["dense_1"], z)))
         for i, (_, _, dil) in enumerate(_DEC_CONV_DIMS, start=1):
             y, new_state[f"gru{i}"] = L.gru(params[f"gru{i}"], x,
                                             state[f"gru{i}"])
-            x = torch.cat([x, L.glu(params[f"glu{i}"], y)], dim=-1)
+            x = torch.cat([x, n(L.glu(params[f"glu{i}"], n(y)))], dim=-1)
             y, new_state[f"conv{i}"] = L.conv2tap(
                 params[f"conv{i}"], x, state[f"conv{i}"], dilation=dil)
-            x = torch.cat([x, y], dim=-1)
+            x = torch.cat([x, n(y)], dim=-1)
         x = L.dense(params["output"], x)
         return x.reshape(B, Tz * FRAMES_PER_STEP, self.output_dim), new_state
 

@@ -15,6 +15,16 @@ import numpy as np
 import torch
 
 
+def quant_noise(gen: torch.Generator, x: torch.Tensor) -> torch.Tensor:
+    """Simulated 8-bit quantization noise: clamp(x + U(-.5,.5)/127, -1, 1)
+    (reference: radae/radae_base.py:80-81).  gen is a torch.Generator on
+    x's device; it cannot reproduce radae_tpu's jax stream, only its
+    distribution."""
+    u = torch.rand(x.shape, generator=gen, device=x.device,
+                   dtype=x.dtype) - 0.5
+    return torch.clamp(x + u / 127.0, -1.0, 1.0)
+
+
 def as_rng(seed) -> np.random.Generator:
     """A numpy Generator from an int seed (or the Generator itself).
     radae_tpu also takes a jax key here; the port takes seeds only."""

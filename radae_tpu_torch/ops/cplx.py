@@ -103,3 +103,19 @@ def stack_last(x: C) -> torch.Tensor:
 def from_last(x: torch.Tensor) -> C:
     """Unpack an interleaved (..., 2) float tensor."""
     return C(x[..., 0], x[..., 1])
+
+
+def from_c64(x: np.ndarray, device) -> torch.Tensor:
+    """Host complex64 samples (...,) -> an interleaved (..., 2) float32
+    tensor on `device` (one host-to-device copy; on the CPU a copy too, so
+    the tensor never shares a caller's, maybe read-only, buffer)."""
+    x = np.array(x, np.complex64)
+    return torch.as_tensor(x.view(np.float32).reshape(x.shape + (2,)),
+                           device=device)
+
+
+def to_c64(x: torch.Tensor) -> np.ndarray:
+    """An interleaved (..., 2) float tensor -> host complex64 (...,) (one
+    device-to-host copy)."""
+    x = np.ascontiguousarray(x.detach().cpu().numpy(), np.float32)
+    return x.view(np.complex64).reshape(x.shape[:-1])

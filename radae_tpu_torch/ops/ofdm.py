@@ -7,6 +7,7 @@ as pairs of real matrix products, batched over streams x symbol rows.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cplx
@@ -69,3 +70,42 @@ def strip_cp(rx: C, M: int, Ncp: int, time_offset: int = 0) -> C:
     """(B, T, M+Ncp) -> (B, T, M) sampling at Ncp+time_offset."""
     st = Ncp + time_offset
     return rx[:, :, st:st + M]
+
+
+def modulate(cfg, z: torch.Tensor, P: C, Winv: C) -> torch.Tensor:
+    """Latents z (B, Tz, latent_dim), Tz a whole number of modem frames ->
+    packed samples (B, T, 2): QPSK map, one pilot row a modem frame, IDFT,
+    CP and the PA tanh (bottleneck 3) (reference: radae.py:482-526).  P and
+    Winv: cfg.P and cfg.Winv made by cplx.const."""
+    B = z.shape[0]
+    n_rs = z.shape[1] * cfg.latent_dim // (cfg.bps * cfg.Nc)
+    tx_sym = qpsk_map(z)
+    if cfg.bottleneck == 2:
+        tx_sym = magnitude_bottleneck(tx_sym)
+    tx_sym = insert_pilots(tx_sym.reshape(B, n_rs, cfg.Nc), P,
+                           cfg.pilot_gain, cfg.Ns)
+    tx = add_cp(idft(tx_sym, Winv), cfg.Ncp).reshape(B, -1)
+    if cfg.bottleneck == 3:
+        tx = magnitude_bottleneck(tx)
+    return cplx.stack_last(tx)
+
+
+def set_eoo_bits(cfg, eoo_bits) -> np.ndarray:
+    """Embed (Ns-1)*Nc QPSK symbols worth of +/-1 bits in the EOO frame.
+
+    Returns a new (1, Nmf+M+Ncp) complex64 EOO frame (reference:
+    radae/radae.py:441-455).  Host numpy: the frame is built once and sent
+    as it is."""
+    Ns, Ncp, M, Nc, Nmf = cfg.Ns, cfg.Ncp, cfg.M, cfg.Nc, cfg.Nmf
+    if not Ncp:
+        raise ValueError("EOO data needs a cyclic prefix")
+    eoo_bits = np.asarray(eoo_bits, dtype=np.float32)
+    eoo_syms = (eoo_bits[::2] + 1j * eoo_bits[1::2]).reshape(1, Ns - 1, Nc)
+    eoo_tx = eoo_syms @ cfg.Winv
+    eoo_tx_cp = np.concatenate([eoo_tx[:, :, -Ncp:], eoo_tx], axis=-1)
+    eoo_tx = eoo_tx_cp.reshape(1, (Ns - 1) * (M + Ncp)) * cfg.pilot_gain
+    if cfg.bottleneck == 3:
+        eoo_tx = np.tanh(np.abs(eoo_tx)) * np.exp(1j * np.angle(eoo_tx))
+    eoo = cfg.eoo.copy()
+    eoo[0, 2 * (M + Ncp):Nmf] = eoo_tx
+    return eoo.astype(np.complex64)

@@ -56,9 +56,11 @@ def _check_quant(weights, fused_quant, what):
                          f"weights of quant={weights.quant!r}")
 
 
-def _device(device) -> torch.device:
+def f32_device(device) -> torch.device:
+    """resolve_device(device), with TF32 switched off: the products of the
+    port's entry points must be full f32 to hold parity with the
+    reference."""
     dev = resolve_device(device)
-    # the products here must be full f32 to hold parity with the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
@@ -91,7 +93,7 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
     equalised from its own two bracketing pilot rows (the same math as N
     chained calls)."""
     cd = _check_fused(fused, fused_quant, fused_dtype, fused_merged)
-    dev = _device(device)
+    dev = f32_device(device)
     Ns, Nc = cfg.Ns, cfg.Nc
     fps = int(frames_per_step)
     if fps < 1:
@@ -159,8 +161,7 @@ def make_streaming_tx_step(cfg: RADAEConfig, encoder: CoreEncoder,
     fused=True: enc_params comes from `fused_core.encoder_weights` (with
     quant=fused_quant) and enc_state from `encoder_state_zero`."""
     _check_fused(fused, fused_quant)
-    dev = _device(device)
-    n_rs = cfg.Nzmf * cfg.latent_dim // (cfg.bps * cfg.Nc)
+    dev = f32_device(device)
     Winv = cplx.const(cfg.Winv, dev)
     P = cplx.const(cfg.P, dev)
 
@@ -175,16 +176,7 @@ def make_streaming_tx_step(cfg: RADAEConfig, encoder: CoreEncoder,
         else:
             z, enc_state = encoder(enc_params, features, key=None,
                                    state=enc_state)
-        tx_sym = ofdm.qpsk_map(z)
-        if cfg.bottleneck == 2:
-            tx_sym = ofdm.magnitude_bottleneck(tx_sym)
-        tx_sym = tx_sym.reshape(B, n_rs, cfg.Nc)
-        tx_sym = ofdm.insert_pilots(tx_sym, P, cfg.pilot_gain, cfg.Ns)
-        tx = ofdm.idft(tx_sym, Winv)
-        tx = ofdm.add_cp(tx, cfg.Ncp).reshape(B, -1)
-        if cfg.bottleneck == 3:
-            tx = ofdm.magnitude_bottleneck(tx)
-        return cplx.stack_last(tx), enc_state
+        return ofdm.modulate(cfg, z, P, Winv), enc_state
 
     return step
 
@@ -239,7 +231,7 @@ def make_batched_receiver(cfg: RADAEConfig, decoder: CoreDecoder,
                                      make_refine)
 
     _check_fused(fused, fused_quant, fused_dtype, fused_merged)
-    dev = _device(device)
+    dev = f32_device(device)
     M, Ncp, Nmf, Fs, Ns, Nc = cfg.M, cfg.Ncp, cfg.Nmf, cfg.Fs, cfg.Ns, cfg.Nc
     extended = (n_windows > 1) or refine or eoo
     if n_windows > 1:

@@ -56,8 +56,11 @@ def test_importing_the_port_loads_no_jax():
 
 def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from radae_tpu_torch import runtime
+    from radae_tpu_torch.apps.rxe import RadaeRx
+    from radae_tpu_torch.apps.txe import RadaeTx
     from radae_tpu_torch.config import flagship_config
-    from radae_tpu_torch.convert import params_to_torch
+    from radae_tpu_torch.convert import load_checkpoint, params_to_torch
+    from radae_tpu_torch.dsp.streaming import ReceiverOne, TransmitterOne
     from radae_tpu_torch.models.core import CoreDecoder, CoreEncoder
     from radae_tpu_torch.ops import fused_core
 
@@ -73,6 +76,13 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         fused_core.make_fused_rx_frame_step(cfg, 4)
     with pytest.raises(RuntimeError, match="is_available"):
         fused_core.decoder_state_zero(4, merged=True)
+    tree, _ = load_checkpoint(str(ROOT / "fixtures" / "model_fs_flagship.npz"))
+    for make in (lambda: TransmitterOne(cfg), lambda: ReceiverOne(cfg),
+                 lambda: RadaeTx(params=tree), lambda: RadaeRx(params=tree),
+                 lambda: RadaeTx(bypass_enc=True),
+                 lambda: RadaeRx(bypass_dec=True)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
 
 
 
