@@ -93,7 +93,20 @@ EQ, coarse magnitude):
      features at TOL, SNR estimate within 0.01 dB) and RadaeTx's noise-off
      step on the card against the CPU (3 frames, 1e-4); it prints both
      apps' ms a frame and the B=1 kernel's time beside its bound; then the
-     port's benchmark as a user runs it,
+     file tools (file_tools_phase: tools/inference.py, rx.py, loss.py,
+     stateful.py on the first 30 s of the fixture, 750 z-steps): the f32
+     decoder and encoder kernels at B=1 against their plain versions over
+     the whole file in one launch and chained at nz=1 (decoder) and nz=3
+     (encoder), TOL and the same bits on two launches; `python -m
+     radae_tpu_torch inference` with the flagship flags at 10 dB, a 2 Hz
+     offset, the EOO and pre/appended noise written as IQ, then rx, rx
+     --stateful, loss (acquisition time below 1.5 s, loss below the
+     checkpoint's + 0.15, the two decodes within 0.01), inference
+     --ber_test (BER 0.000) and both stateful tools (PASS), each with its
+     kernel launches counted; the card's noise-off RADAE.forward (the
+     channel's draw shared) and receiver against the CPU's (TOL); it
+     prints each tool's wall time and both kernels' times at these shapes
+     beside their bounds; then the port's benchmark as a user runs it,
      `python -m radae_tpu_torch.bench` (its one line must carry a value
      from a fused rung at B >= 2048), and its run_bench for the modes that
      are not on its ladder, at B=2048;
@@ -263,6 +276,18 @@ PRODUCT_LOSS_MARGIN = 0.15
 EOO_BER_LIMIT = 0.05
 SNR_TOL_DB = 0.01
 B1_CALLS = 3             # chained calls of the decoder kernel at B=1
+# the file tools (file_tools_phase): the first FILE_SECONDS of the fixture's
+# features at B=1, the channel's Eb/No, the chained calls of the per-step
+# checks, the acquisition-time gate (tests/test_tools.py) and the seed of
+# the channel draw the card's and the CPU's forward share
+FILE_SECONDS = 30
+FILE_EBNODB = 10.0
+FILE_CALLS = 3
+FILE_ACQ_S = 1.5
+FILE_DRAW_SEED = 17
+FLAGSHIP_FLAGS = ["--rate_Fs", "--pilots", "--pilot_eq", "--eq_ls", "--cp",
+                  "0.004", "--bottleneck", "3", "--coarse_mag", "--auxdata",
+                  "--time_offset", "-16"]
 
 
 def stream_features(raw, n_streams, n_frames, feature_dim):
@@ -727,6 +752,268 @@ def product_phase(dev, raw, card):
           f"replays, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
           f"({card})")
     return n_valid
+
+
+def file_tools_phase(dev, raw, card):
+    """The file tools (tools/inference.py, rx.py, loss.py, stateful.py) on
+    the card at full width, on the fixture checkpoint and the first
+    FILE_SECONDS of the fixture's features.  First the two kernels on their
+    path at B=1 against their plain versions (TOL, the same bits on two
+    launches): the unmerged f32 decoder over the whole file in one launch
+    (nz in the hundreds, on the encoder's latents) and at nz=1 over
+    FILE_CALLS chained calls; the f32 encoder over the whole file and at
+    nz=3 over FILE_CALLS chained calls.  Then the tools as a user runs them:
+    `python -m radae_tpu_torch inference` (a subprocess) with the flagship
+    flags, a 2 Hz offset, the EOO and pre/appended noise written as IQ; rx,
+    rx --stateful, loss (the acquisition-time gate and the checkpoint's
+    loss + PRODUCT_LOSS_MARGIN, the two decodes compared), inference
+    --ber_test at 100 dB and both stateful tools, through the dispatcher's
+    table in this process, each with the launch counts at 0 before it and
+    checked after it.  Last the card's noise-off forward (the channel's
+    draw shared) and receiver against the CPU's.  Prints each tool's wall
+    time and both kernels' times at these shapes beside their bounds;
+    returns the launches of each kernel form on these paths."""
+    import importlib
+    import torch
+    from radae_tpu_torch.__main__ import TOOLS
+    from radae_tpu_torch.channel import simulate
+    from radae_tpu_torch.config import flagship_config
+    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.models.radae import RADAE
+    from radae_tpu_torch.ops import fused_core as fc
+    from radae_tpu_torch.ops.cplx import C
+
+    ckpt = os.path.join(HERE, "fixtures", "model_fs_flagship.npz")
+    tree, meta = load_checkpoint(ckpt)
+    cfg = flagship_config()
+    rows = cfg.num_10ms_times_steps_rounded_to_modem_frames(
+        100 * FILE_SECONDS)
+    nz = rows // 4
+    f = np.full((1, rows, cfg.feature_dim), -1.0, np.float32)
+    f[0, :, :NUM_USED] = raw[:rows, :NUM_USED]
+    feats = torch.as_tensor(f, device=dev)
+    model = RADAE(cfg, dev)
+    ew = model.kernel_weights(tree, "encoder")
+    dw = model.kernel_weights(tree, "decoder")
+
+    # -- the two kernels at B=1 against their plain versions --------------
+    enc = (lambda x, s: fc.fused_encoder_step(ew, x, s, cfg.bottleneck),
+           lambda x, s: fc.encoder_step_plain(ew, x, s, cfg.bottleneck),
+           lambda: fc.encoder_state_zero(1, dev))
+    dec = (lambda x, s: fc.fused_decoder_step(dw, x, s),
+           lambda x, s: fc.decoder_step_plain(dw, x, s),
+           lambda: fc.decoder_state_zero(1, dev))
+
+    def held(what, form, xs):
+        """form's kernel and plain version over the inputs xs, chained from
+        the zero state: TOL and the same bits on two launches.  Returns the
+        max abs err and the plain outputs."""
+        kern, plain, zero = form
+        sk = sp = zero()
+        err, outs = 0.0, []
+        for k, x in enumerate(xs):
+            ok, sk1 = kern(x, sk)
+            again = kern(x, sk)
+            op, sp1 = plain(x, sp)
+            torch.cuda.synchronize()
+            got, want = (ok,) + sk1, (op,) + sp1
+            check_close(f"{what} call {k}", got, want, TOL)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, (again[0],) + again[1])):
+                raise AssertionError(f"{what} call {k}: two launches gave "
+                                     "different bits")
+            err = max(err, max_err(got, want))
+            outs.append((ok, op))
+            sk, sp = sk1, sp1
+        return err, outs
+
+    with torch.no_grad():
+        e_file, ((zk, z),) = held(f"fused_encoder_step B=1 nz={nz}", enc,
+                                  [feats])
+        e_frames, _ = held("fused_encoder_step B=1 nz=3", enc, [
+            feats[:, 12 * k:12 * (k + 1)] for k in range(FILE_CALLS)])
+        d_file, ((fk, fp),) = held(f"fused_decoder_step B=1 nz={nz}", dec,
+                                   [z])
+        d_steps, _ = held("fused_decoder_step B=1 nz=1", dec, [
+            z[:, k:k + 1] for k in range(FILE_CALLS)])
+    # does the error grow over a long launch?  first and last tenth
+    tenth = nz // 10
+    step_err = lambda a, b: (a - b).abs().reshape(nz, -1).amax(dim=1)
+    ze, fe = step_err(zk, z), step_err(fk, fp)
+    print(f"file kernels at B=1 within TOL of their plain versions, the "
+          f"same bits on two launches: fused_encoder_step nz={nz} (one "
+          f"launch) max abs err {e_file:.3g} (first/last {tenth} z-steps "
+          f"{float(ze[:tenth].max()):.3g}/{float(ze[-tenth:].max()):.3g}), "
+          f"nz=3 x {FILE_CALLS} chained {e_frames:.3g}; fused_decoder_step "
+          f"nz={nz} (one launch) {d_file:.3g} (first/last "
+          f"{float(fe[:tenth].max()):.3g}/{float(fe[-tenth:].max()):.3g}), "
+          f"nz=1 x {FILE_CALLS} chained {d_steps:.3g}")
+
+    # -- the tools as a user runs them ----------------------------------
+    work = os.path.join(HERE, "build", "chip_smoke_files")
+    os.makedirs(work, exist_ok=True)
+    fin = os.path.join(work, "s30.f32")
+    f36 = np.zeros((rows, 36), np.float32)
+    f36[:, :NUM_USED] = raw[:rows, :NUM_USED]
+    f36.tofile(fin)
+    path = {n: os.path.join(work, n + ".f32") for n in (
+        "rx", "fh", "fh_vanilla", "fh_stateful", "z")}
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    wall = {}
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "radae_tpu_torch", "inference", ckpt, fin,
+         path["fh"], "--EbNodB", str(FILE_EBNODB), "--freq_offset", "2",
+         "--write_rx", path["rx"], "--end_of_over", "--prepend_noise", "0.5",
+         "--append_noise", "0.3"] + FLAGSHIP_FLAGS + dev_args, cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    wall["inference (subprocess)"] = time.perf_counter() - t0
+    if run.returncode != 0 or "loss:" not in run.stdout:
+        raise AssertionError(f"inference: {run.stdout!r} {run.stderr[-2000:]!r}")
+    inf_lines = [ln for ln in run.stdout.splitlines()
+                 if ln.startswith(("Measured", "loss"))]
+
+    launched = {}
+
+    def tool(name, *argv, want=None):
+        """Run a tool through the dispatcher's table with the counts at 0;
+        want, where given, is the launches it must make.  Returns (rc,
+        stdout, launches)."""
+        mod, fn = TOOLS[name]
+        out = io.StringIO()
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = getattr(importlib.import_module(mod), fn)(
+                list(argv) + dev_args)
+        torch.cuda.synchronize()
+        label = " ".join([name] + [a for a in argv
+                                   if a in ("--stateful", "--ber_test")])
+        wall[label] = time.perf_counter() - t0
+        counts = {k: v for k, v in fc.LAUNCHES.items() if v}
+        if want is not None and counts != want:
+            raise AssertionError(f"{label}: kernels launched {counts}, not "
+                                 f"{want}")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+        return rc, out.getvalue(), counts
+
+    rows_of = lambda fn: np.fromfile(fn, np.float32).size // 36
+    tool("rx", ckpt, path["rx"], path["fh_vanilla"], "--auxdata",
+         want={"fused_decoder_step": 1})
+    n_vanilla = rows_of(path["fh_vanilla"])
+    counts = tool("rx", ckpt, path["rx"], path["fh_stateful"], "--auxdata",
+                  "--stateful")[2]
+    n_stateful = rows_of(path["fh_stateful"])
+    n_frames = n_stateful // 12
+    if not n_frames or counts != {"fused_decoder_step": n_frames}:
+        raise AssertionError(f"rx --stateful: {n_stateful} rows from "
+                             f"launches {counts} (one a frame)")
+    limit = float(meta["loss"]) + PRODUCT_LOSS_MARGIN
+    rc, loss_out, _ = tool("loss", fin, path["fh_vanilla"], "--acq_time_test",
+                        str(FILE_ACQ_S), "--loss_test", f"{limit:.4f}",
+                        "--clip_end", "100", "--features_hat2",
+                        path["fh_stateful"], "--compare", want={})
+    if rc != 0 or loss_out.count("PASS") != 2:
+        raise AssertionError(f"loss: {loss_out!r} (limit {limit:.4f})")
+    rc, ber_out, _ = tool("inference", ckpt, fin, "/dev/null", "--ber_test",
+                       *FLAGSHIP_FLAGS, want={})
+    if "BER: 0.000" not in ber_out:
+        raise AssertionError(f"inference --ber_test: {ber_out!r}")
+    rc_e, enc_out, _ = tool("stateful_encoder", ckpt, fin, "--auxdata",
+                         "--write_latent", path["z"],
+                         want={"fused_encoder_step": 1 + rows // 12})
+    rc_d, dec_out, _ = tool("stateful_decoder", ckpt, fin, "--auxdata",
+                         want={"fused_encoder_step": 1,
+                               "fused_decoder_step": 1 + nz})
+    if (rc_e, rc_d) != (0, 0) or "PASS" not in enc_out + dec_out:
+        raise AssertionError(f"stateful tools: {enc_out!r} {dec_out!r}")
+
+    # -- the card's noise-off forward and receiver against the CPU's ------
+    # (no frequency offset: its phase is a cumsum over the whole file, whose
+    # f32 sum order differs between the card and the CPU by enough to move
+    # the features past TOL over 30 s)
+    real_draw = simulate.complex_normal
+
+    def shared_draw(gen, shape):
+        x = np.random.default_rng(FILE_DRAW_SEED).standard_normal(
+            tuple(shape) + (2,)) / np.sqrt(2)
+        t = torch.as_tensor(x.astype(np.float32), device=gen.device)
+        return C(t[..., 0], t[..., 1])
+
+    ncfg = flagship_config(quant_noise=False, EbNodB=FILE_EBNODB)
+    outs = []
+    simulate.complex_normal = shared_draw
+    try:
+        with torch.no_grad():
+            for where in (dev, torch.device("cpu")):
+                m = RADAE(ncfg, where)
+                fc.reset_launches()
+                out = m.forward(tree, f)
+                rx = (out["rx"].re[0] + 1j * out["rx"].im[0]).cpu().numpy()
+                fh, zh = m.receiver(tree, rx.astype(np.complex64))
+                torch.cuda.synchronize()
+                if not outs:
+                    counts = {k: v for k, v in fc.LAUNCHES.items() if v}
+                    if dev.type == "cuda" and counts != {
+                            "fused_encoder_step": 1, "fused_decoder_step": 2}:
+                        raise AssertionError(
+                            f"forward + receiver: kernels launched {counts}, "
+                            "not one encoder and two decoder launches")
+                    for k, v in counts.items():
+                        launched[k] = launched.get(k, 0) + v
+                outs.append([(k, out[k]) for k in sorted(out)] + [
+                    ("receiver features", fh), ("receiver z_hat", zh)])
+    finally:
+        simulate.complex_normal = real_draw
+    fr_err = 0.0
+    for (k, a), (_, b) in zip(*outs):
+        if a is None:
+            continue
+        a, b = ((torch.stack([t.re, t.im]) if isinstance(t, C) else t).cpu()
+                for t in (a, b))
+        check_close(f"forward/receiver {k} card against CPU", (a,), (b,), TOL)
+        fr_err = max(fr_err, float((a - b).abs().max()))
+
+    # -- the kernels' times at these shapes beside their bounds -----------
+    def times(name, form, w, x, n, reps):
+        kern, plain, zero = form
+        s0 = zero()
+        steps = x.shape[1] // (4 if form is enc else 1)
+        with torch.no_grad():
+            k = lambda: kern(x, s0)
+            ms = time_ms(k, n, warmup=1)
+            runs = graph_runs(k, n=n, reps=reps)
+            plain_ms = time_ms(lambda: plain(x, s0), 2, warmup=1)
+            o, s1 = plain(x, s0)
+            b_ms, b_by = bound(w, (x,) + s0, (o,) + s1, steps, 1)
+        print(f"{name} at B=1, nz={steps}:"
+              f" {ms:.4f} ms (CUDA events), CUDA graph replay min/median/max "
+              f"{spread(runs)} ms over {reps} replays, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by} ({card})")
+
+    times("fused_encoder_step", enc, ew, feats, 2, 3)
+    times("fused_encoder_step", enc, ew, feats[:, :12].contiguous(), 20,
+          GRAPH_REPS)
+    times("fused_decoder_step", dec, dw, z, 2, 3)
+    times("fused_decoder_step", dec, dw, z[:, :1].contiguous(), 20,
+          GRAPH_REPS)
+
+    loss_line = next(ln for ln in loss_out.splitlines() if "loss:" in ln)
+    print(f"file tools on the card ({FILE_SECONDS} s, the checkpoint, "
+          f"{FILE_EBNODB} dB, 2 Hz): inference {'; '.join(inf_lines)}; rx "
+          f"{n_vanilla} rows (one decoder launch), rx --stateful "
+          f"{n_stateful} rows ({n_frames} launches, nz=3); {loss_line.strip()} "
+          f"(limit {limit:.4f}, acq. time gate {FILE_ACQ_S} s), the two "
+          f"decodes: {loss_out.splitlines()[-2].strip()}; --ber_test "
+          f"{ber_out.strip().splitlines()[-2].strip()}; "
+          f"{enc_out.splitlines()[0]}; {dec_out.splitlines()[0]}; noise-off "
+          f"forward and receiver card against CPU max abs err {fr_err:.3g}")
+    print("file tools wall time (host clock): " + "; ".join(
+        f"{k} {v:.2f} s" for k, v in wall.items()) + f" ({card})")
+    print(f"file tools launches: {launched}")
+    return launched
 
 
 def main(argv=None) -> int:
@@ -1539,6 +1826,10 @@ def main(argv=None) -> int:
 
     # -- the per-frame product path: txe and rxe --------------------------
     launches["fused_decoder_step"] += product_phase(dev, raw, card)
+
+    # -- the file tools: inference, rx, loss, stateful --------------------
+    for name, n in file_tools_phase(dev, raw, card).items():
+        launches[name] += n
     print(f"launches on the main paths: {launches}")
 
     # -- the port's benchmark, as a user runs it, then its other modes ------

@@ -7,12 +7,14 @@ the caller asks for the CPU.  Submodules are imported on demand:
   config        modem geometry (numpy)
   convert       npz checkpoints -> torch parameter trees
   ops           split-complex modem math, pilot EQ, fused core kernels
-  models        stateful core encoder/decoder
+  models        stateful core encoder/decoder, the RADAE model (forward
+                with the simulated channel, the vanilla receiver)
   runtime       batched streaming tx/rx serving steps
   dsp           the per-frame transmitter and receiver, BPF, acquisition
   apps          the per-frame product path: txe and rxe
-  channel       fading samples (numpy)
-  tools         the batch tools tx_batch and rx_batch
+  channel       fading samples (numpy), the simulated channel
+  tools         the batch tools tx_batch and rx_batch, and the file tools
+                inference, rx, loss and stateful
   __main__      `python -m radae_tpu_torch <tool>`
   bench         the serving benchmark (`python -m radae_tpu_torch.bench`),
                 whose supervising process imports no torch: so neither

@@ -8,6 +8,11 @@ TOOLS = {
     "rxe": ("radae_tpu_torch.apps.rxe", "main"),
     "tx_batch": ("radae_tpu_torch.tools.tx_batch", "main"),
     "rx_batch": ("radae_tpu_torch.tools.rx_batch", "main"),
+    "inference": ("radae_tpu_torch.tools.inference", "main"),
+    "rx": ("radae_tpu_torch.tools.rx", "main"),
+    "loss": ("radae_tpu_torch.tools.loss", "main"),
+    "stateful_encoder": ("radae_tpu_torch.tools.stateful", "stateful_encoder"),
+    "stateful_decoder": ("radae_tpu_torch.tools.stateful", "stateful_decoder"),
 }
 
 

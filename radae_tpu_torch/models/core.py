@@ -80,6 +80,18 @@ class CoreEncoder:
         self.bottleneck = bottleneck
         self.input_dim = FRAMES_PER_STEP * feature_dim
 
+    def init(self, seed) -> Params:
+        """Random weights (numpy) from an int seed: radae_tpu's
+        `CoreEncoder.init(seed)` draw for draw."""
+        rng = L.as_rng(seed)
+        p: Params = {"dense_1": L.init_dense(rng, self.input_dim, 64)}
+        for i, ((gin, gh), (cin, cout, _)) in enumerate(
+                zip(_ENC_GRU_DIMS, _ENC_CONV_DIMS), start=1):
+            p[f"gru{i}"] = L.init_gru(rng, gin, gh)
+            p[f"conv{i}"] = L.init_conv2tap(rng, cin, cout)
+        p["z_dense"] = L.init_dense(rng, _ENC_CAT_DIM, self.output_dim)
+        return p
+
     def zero_state(self, batch: int, device="cuda",
                    dtype=torch.float32) -> State:
         return _zero_state(_ENC_GRU_DIMS, _ENC_CONV_DIMS, batch, device, dtype)

@@ -60,8 +60,18 @@ class C(NamedTuple):
 
     __rmul__ = __mul__
 
+    def __truediv__(self, o):
+        if isinstance(o, C):
+            d = o.re * o.re + o.im * o.im
+            return C((self.re * o.re + self.im * o.im) / d,
+                     (self.im * o.re - self.re * o.im) / d)
+        return C(self.re / o, self.im / o)
+
     def abs2(self):
         return self.re * self.re + self.im * self.im
+
+    def abs(self):
+        return torch.sqrt(self.abs2())
 
     def unit(self, eps=1e-12):
         """self / |self| — the phase factor, without computing the angle."""
@@ -78,6 +88,16 @@ def const(z_np: np.ndarray, device) -> C:
                                device=device)
 
     return C(plane(z_np.real), plane(z_np.imag))
+
+
+def zeros(shape, device) -> C:
+    return C(torch.zeros(shape, device=device),
+             torch.zeros(shape, device=device))
+
+
+def expj(theta: torch.Tensor) -> C:
+    """e^{j theta} for a real tensor theta."""
+    return C(torch.cos(theta), torch.sin(theta))
 
 
 def matmul_const(a: C, w: C) -> C:

@@ -49,6 +49,15 @@ def insert_pilots(tx_sym: C, P: C, pilot_gain: float, Ns: int) -> C:
     return out.reshape(B, nmf * (Ns + 1), Nc)
 
 
+def strip_pilots(rx_sym: C, Ns: int) -> C:
+    """Drop the pilot row of each PD...D modem frame.
+
+    rx_sym: (B, T', Nc) with T' divisible by Ns+1 -> (B, nmf, Ns, Nc)."""
+    B, T, Nc = rx_sym.shape
+    nmf = T // (Ns + 1)
+    return rx_sym.reshape(B, nmf, Ns + 1, Nc)[:, :, 1:, :]
+
+
 def idft(tx_sym: C, Winv: C) -> C:
     """Carriers -> time samples: (B, T, Nc) @ (Nc, M) -> (B, T, M)."""
     return cplx.matmul_const(tx_sym, Winv)

@@ -51,6 +51,8 @@ def main(argv=None):
                         "longest input)")
     p.add_argument("--no-refine", dest="refine", action="store_false")
     p.add_argument("--no-eoo", dest="eoo", action="store_false")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random model (model_name random)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
     p.set_defaults(refine=True, eoo=True)
@@ -61,7 +63,8 @@ def main(argv=None):
                           latent_dim=args.latent_dim,
                           bottleneck=args.bottleneck)
     decoder = CoreDecoder(cfg.latent_dim, cfg.feature_dim)
-    params = load_params(p, args)
+    params = load_params(args.model_name,
+                         lambda: {"decoder": decoder.init(args.seed)})
 
     streams = [np.fromfile(f, dtype=np.complex64) for f in args.rx_files]
     B = len(streams)

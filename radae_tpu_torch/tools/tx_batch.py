@@ -32,14 +32,14 @@ from ..ops import fused_core
 from ..runtime import make_streaming_tx_step
 
 
-def load_params(p, args):
-    """The model's params tree (numpy) from an .npz or a .pth checkpoint."""
-    if args.model_name in ("", "random"):
-        p.error("a random model is drawn by radae_tpu's jax.random init, "
-                "which the port does not have: give a checkpoint")
-    if args.model_name.endswith(".pth"):
-        return load_torch_checkpoint(args.model_name)
-    return load_checkpoint(args.model_name)[0]
+def load_params(model_name, random_params):
+    """The model's params tree (numpy) from an .npz or a .pth checkpoint,
+    or random_params() for a model name of "random" or ""."""
+    if model_name in ("", "random"):
+        return random_params()
+    if model_name.endswith(".pth"):
+        return load_torch_checkpoint(model_name)
+    return load_checkpoint(model_name)[0]
 
 
 def main(argv=None):
@@ -54,6 +54,8 @@ def main(argv=None):
     p.add_argument("--no-eoo", dest="eoo", action="store_false")
     p.add_argument("--fused", action="store_true",
                    help="the fused int8 encoder kernel (any batch)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random model (model_name random)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions)")
@@ -66,7 +68,8 @@ def main(argv=None):
                           bottleneck=args.bottleneck)
     encoder = CoreEncoder(num_features, args.latent_dim,
                           bottleneck=args.bottleneck)
-    params = load_params(p, args)
+    params = load_params(args.model_name,
+                         lambda: {"encoder": encoder.init(args.seed)})
 
     rows_per_frame = cfg.Nzmf * cfg.enc_stride          # 12 x 10 ms
     feats_in = []

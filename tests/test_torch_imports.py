@@ -115,3 +115,23 @@ def test_batch_serving_entry_points_default_to_the_card(monkeypatch,
                                    str(tmp_path), str(feat)])):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
+
+
+def test_file_tools_default_to_the_card(monkeypatch, tmp_path):
+    from radae_tpu_torch.config import flagship_config
+    from radae_tpu_torch.models.radae import RADAE
+    from radae_tpu_torch.tools import inference, loss, rx, stateful
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feat = str(tmp_path / "f.f32")
+    np.zeros((24, 36), np.float32).tofile(feat)
+    iq = str(tmp_path / "iq.f32")
+    np.zeros(4000, np.complex64).tofile(iq)
+    for make in (lambda: RADAE(flagship_config()),
+                 lambda: inference.main(["random", feat, "/dev/null"]),
+                 lambda: rx.main(["random", iq, "/dev/null"]),
+                 lambda: loss.main([feat, feat]),
+                 lambda: stateful.stateful_encoder(["random", feat]),
+                 lambda: stateful.stateful_decoder(["random", feat])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
