@@ -106,7 +106,25 @@ EQ, coarse magnitude):
      kernel launches counted; the card's noise-off RADAE.forward (the
      channel's draw shared) and receiver against the CPU's (TOL); it
      prints each tool's wall time and both kernels' times at these shapes
-     beside their bounds; then the port's benchmark as a user runs it,
+     beside their bounds; then training (train_phase: parallel/
+     trainstep.py, tools/train.py, tools/evaluate.py, the flagship's
+     training flags): one train step from the checkpoint on 8 fixture
+     sequences on the card and on the CPU (quant noise off, a fixed
+     Eb/No, the channel's draw shared; loss within 1e-4 relative, each of
+     the 78 gradient leaves within 1e-3 of its max |g|, all finite and
+     nonzero on the card, no kernel launched), `python -m radae_tpu_torch
+     train` for 2 epochs with a --g_file of mpp fading (the loss falls,
+     the checkpoint loads with radae_tpu's meta keys and its noise-free
+     forward runs both kernels), the hand-off to serving (the noise-free
+     forward and receiver under no_grad on the tree the optimizer updated
+     in place launch both kernels on weights packed again, within TOL of
+     the plain nets), the step's times at B=32 and 512 (and remat at 512,
+     whose gradients must match the plain step's and whose peak memory
+     must stay under REMAT_PEAK_MAX of the plain step's),
+     T=252, forward, backward and optimizer apart, with audio-s/s and
+     peak memory, a one-rank NCCL group against no group, and a short
+     `evaluate` sweep (every cell finite, 10 dB no worse than 0 dB);
+     then the port's benchmark as a user runs it,
      `python -m radae_tpu_torch.bench` (its one line must carry a value
      from a fused rung at B >= 2048), and its run_bench for the modes that
      are not on its ladder, at B=2048;
@@ -1016,6 +1034,402 @@ def file_tools_phase(dev, raw, card):
     return launched
 
 
+TRAIN_FLAGS = ["--rate_Fs", "--pilots", "--pilot_eq", "--eq_ls", "--cp",
+               "0.004", "--bottleneck", "3", "--range_EbNo", "--auxdata"]
+# the configuration tools/train.py builds from TRAIN_FLAGS
+TRAIN_CFG = dict(feature_dim=21, latent_dim=80, EbNodB=0.0, range_EbNo=True,
+                 rate_Fs=True, bottleneck=3, pilots=True, pilot_eq=True,
+                 eq_mean6=False, cyclic_prefix=0.004)
+# frames a sequence: train.py's default, 256, is not a whole number of
+# 120 ms modem frames (12 feature frames), on which the forward reshapes
+# (radae_tpu's too), so the nearest below it
+TRAIN_T = 252
+TRAIN_CHECK_B = 8        # the card's step against the CPU's
+TRAIN_CHECK_EBNODB = 5.0
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3    # of each leaf's max |g|
+TRAIN_TIMED = ((32, False), (512, False), (512, True))   # (B, remat)
+REMAT_PEAK_MAX = 0.75    # remat's peak memory over the plain step's, same B
+TRAIN_WARMUP, TRAIN_REPS = 1, 3
+TRAIN_TOOL_SEQ, TRAIN_TOOL_SEQS, TRAIN_TOOL_B = 120, 48, 8
+TRAIN_TOOL_EPOCHS = 2
+TRAIN_G_SEED = 23
+EVAL_ARGS = ["--channels", "awgn,mpp", "--EbNodB", "0,6,10", "--reps", "2",
+             "--seconds", "4"]
+CKPT_META = {"model_args", "dataset_args", "batch_size", "lr",
+             "lr_decay_factor", "sequence_length", "adam_betas", "epoch",
+             "loss"}
+
+
+def train_phase(dev, raw, card):
+    """Training (parallel/trainstep.py, tools/train.py, tools/evaluate.py)
+    on the card at the flagship's full width (TRAIN_FLAGS).
+
+    1. One train step from the fixture checkpoint on TRAIN_CHECK_B fixture
+       sequences of TRAIN_T frames, on the card and on the CPU: quant noise
+       off, a fixed Eb/No, the channel's Gaussian draw shared (the only
+       draw left); the loss within TRAIN_LOSS_RTOL, each of the 78 gradient
+       leaves within TRAIN_GRAD_TOL of its max |g|, and every leaf's
+       gradient on the card finite and nonzero.  The step launches no
+       kernel (the kernels have no backward).
+    2. `python -m radae_tpu_torch train` (through the dispatcher's table,
+       in this process) with TRAIN_FLAGS
+       and a --g_file written by channel/doppler.multipath_samples("mpp")
+       for TRAIN_TOOL_EPOCHS epochs: the epoch loss falls, the last
+       checkpoint loads in the port with radae_tpu's meta keys, and its
+       noise-free forward runs both kernels.
+    3. The hand-off to serving on the tree the optimizer of 1 updated in
+       place: the noise-free forward and receiver under no_grad launch
+       the encoder and decoder kernels on weights packed again after the
+       update, within TOL of the plain nets on the same tensors.
+    4. Times the step (host-issued, CUDA events): forward, backward and
+       optimizer apart and the whole train_step, min/median/max of
+       TRAIN_REPS, audio-s/s (B*T*0.01/step) and the peak memory, for each
+       of TRAIN_TIMED, quant noise and the Eb/No draw on; remat's loss and
+       gradients against the plain step's on the same draws (TRAIN_LOSS_RTOL,
+       TRAIN_GRAD_TOL), and its peak under REMAT_PEAK_MAX of the plain
+       step's at the same B.
+    5. A one-rank group (NCCL on the card): two steps give the losses of
+       two steps without a group.
+    6. `evaluate` on the fixture checkpoint (EVAL_ARGS): every cell finite,
+       each channel's loss at 10 dB no higher than at 0 dB.
+    Returns the kernel launches of 2 and 3."""
+    import importlib
+    import re
+    import socket
+    import torch
+    import torch.distributed as dist
+    from radae_tpu_torch.__main__ import TOOLS
+    from radae_tpu_torch.channel import doppler, simulate
+    from radae_tpu_torch.config import RADAEConfig
+    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.data.dataset import make_aux_symbols
+    from radae_tpu_torch.models.radae import RADAE, tree_leaves
+    from radae_tpu_torch.ops import fused_core as fc
+    from radae_tpu_torch.ops.cplx import C
+    from radae_tpu_torch.parallel.distributed import initialize
+    from radae_tpu_torch.parallel.trainstep import (make_loss_fn,
+                                                    make_train_step,
+                                                    step_generator)
+
+    ckpt = os.path.join(HERE, "fixtures", "model_fs_flagship.npz")
+    tree, _ = load_checkpoint(ckpt)
+    cpu = torch.device("cpu")
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    T = TRAIN_T
+    n_seq = raw.shape[0] // T
+    aux_rng = np.random.default_rng(0)
+
+    def batch(B):
+        """B fixture sequences of T frames (repeated past the fixture's),
+        the auxdata column drawn as the dataset draws it."""
+        f = np.stack([raw[(i % n_seq) * T:(i % n_seq + 1) * T, :NUM_USED]
+                      for i in range(B)])
+        aux = np.stack([make_aux_symbols(T, aux_rng) for _ in range(B)])
+        return np.concatenate([f, aux], axis=2).astype(np.float32)
+
+    def names(t):
+        return [k for k, _ in _named_leaves(t)]
+
+    launched = {}
+    fc.reset_launches()
+
+    def count(what, want=None):
+        """Check the launches since the last count (or the phase's start)
+        against want, add them to the phase's and set the counts to 0."""
+        counts = {k: v for k, v in fc.LAUNCHES.items() if v}
+        if want is not None and counts != want:
+            raise AssertionError(f"{what}: kernels launched {counts}, not "
+                                 f"{want}")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+        fc.reset_launches()
+
+    # -- 1. one step, card against CPU ------------------------------------
+    ncfg = RADAEConfig(**dict(TRAIN_CFG, quant_noise=False, range_EbNo=False,
+                              EbNodB=TRAIN_CHECK_EBNODB))
+    f8 = batch(TRAIN_CHECK_B)
+    real_draw = simulate.complex_normal
+
+    def shared_draw(gen, shape):
+        x = np.random.default_rng(FILE_DRAW_SEED).standard_normal(
+            tuple(shape) + (2,)) / np.sqrt(2)
+        t = torch.as_tensor(x.astype(np.float32), device=gen.device)
+        return C(t[..., 0], t[..., 1])
+
+    steps = {}
+    simulate.complex_normal = shared_draw
+    try:
+        for where in (dev, cpu):
+            m = RADAE(ncfg, where)
+            init, step = make_train_step(m, aux_ber=True)
+            st = init(tree)
+            if where == dev:
+                # pack the kernels' weights before the update (3. below)
+                with torch.no_grad():
+                    m.forward(st.params, f8[:1])
+                packed_before = {s: m.kernel_weights(st.params, s)
+                                 for s in ("encoder", "decoder")}
+                bufs_before = {s: w.buf.clone()
+                               for s, w in packed_before.items()}
+                count("forward before the step", {
+                    "fused_encoder_step": 1, "fused_decoder_step": 1})
+            t0 = time.perf_counter()
+            st, met = step(st, torch.as_tensor(f8, device=where), None, None,
+                           0)
+            torch.cuda.synchronize()
+            steps[where.type] = (m, st, float(met["loss"][0]),
+                                 float(met["ber"][0]),
+                                 [t.grad.cpu() for t in tree_leaves(st.params)],
+                                 time.perf_counter() - t0)
+            if where == dev:
+                count("the train step", {})
+    finally:
+        simulate.complex_normal = real_draw
+    (m, st, loss_d, ber_d, g_d, s_d), (_, _, loss_c, _, g_c, s_c) = (
+        steps[dev.type], steps["cpu"])
+    if not abs(loss_d - loss_c) <= TRAIN_LOSS_RTOL * abs(loss_c):
+        raise AssertionError(f"train step loss card {loss_d} CPU {loss_c}")
+    leaf_names = names(st.params)
+    if len(leaf_names) != 78:
+        raise AssertionError(f"{len(leaf_names)} leaves, not 78")
+    worst = (0.0, "")
+    for k, a, b in zip(leaf_names, g_d, g_c):
+        if not (torch.isfinite(a).all() and a.abs().max() > 0):
+            raise AssertionError(f"gradient of {k} on the card: not finite "
+                                 "and nonzero")
+        r = float((a - b).abs().max() / b.abs().max())
+        if not r <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient of {k}: card against CPU {r:.3g} "
+                                 f"of its max |g|, limit {TRAIN_GRAD_TOL}")
+        worst = max(worst, (r, k))
+    print(f"train step B={TRAIN_CHECK_B} T={T} (quant noise off, "
+          f"{TRAIN_CHECK_EBNODB} dB, the channel's draw shared), card against "
+          f"CPU: loss {loss_d:.6f} / {loss_c:.6f} (rel "
+          f"{abs(loss_d - loss_c) / abs(loss_c):.3g}), aux BER {ber_d:.3f}; "
+          f"78 leaves finite and nonzero on the card, the largest gradient "
+          f"difference {worst[0]:.3g} of the leaf's max |g| ({worst[1]}); "
+          f"first step (host clock) card {s_d:.2f} s, CPU {s_c:.2f} s")
+
+    # -- 3. the hand-off: kernels on the tree updated in place ------------
+    tol_err = 0.0
+    with torch.no_grad():
+        f1 = torch.as_tensor(f8[:2], device=dev)
+        out = m.forward(st.params, f1)
+        count("forward after the step", {"fused_encoder_step": 1,
+                                         "fused_decoder_step": 1})
+        for s in ("encoder", "decoder"):
+            w = m.kernel_weights(st.params, s)
+            if w is packed_before[s] or torch.equal(w.buf, bufs_before[s]):
+                raise AssertionError(f"the {s}'s kernel weights were not "
+                                     "packed again after the update")
+        z = m.core_encoder(st.params["encoder"], f1)[0]
+        fh = m.core_decoder(st.params["decoder"], out["z_hat"])[0]
+        check_close("forward z, kernel against the plain net", (out["z"],),
+                    (z,), TOL)
+        check_close("forward features_hat, kernel against the plain net",
+                    (out["features_hat"],), (fh,), TOL)
+        rx = (out["rx"].re[0] + 1j * out["rx"].im[0]).cpu().numpy()
+        fr, zr = m.receiver(st.params, rx.astype(np.complex64))
+        count("receiver", {"fused_decoder_step": 1})
+        fr_plain = m.core_decoder(st.params["decoder"], zr)[0]
+        check_close("receiver, kernel against the plain net", (fr,),
+                    (fr_plain,), TOL)
+        tol_err = max(max_err((out["z"], out["features_hat"], fr),
+                              (z, fh, fr_plain)), tol_err)
+    print(f"hand-off: the noise-free forward and receiver on the updated tree "
+          f"ran the encoder and decoder kernels on weights packed again, "
+          f"within TOL of the plain nets (max abs err {tol_err:.3g})")
+
+    # -- 2. the train tool ------------------------------------------------
+    work = os.path.join(HERE, "build", "chip_smoke_train")
+    os.makedirs(work, exist_ok=True)
+    fin = os.path.join(work, "train.f32")
+    rows = TRAIN_TOOL_SEQ * TRAIN_TOOL_SEQS
+    f36 = np.zeros((rows, 36), np.float32)
+    f36[:, :NUM_USED] = raw[:rows, :NUM_USED]
+    f36.tofile(fin)
+    gfile = os.path.join(work, "mpp.g")
+    tcfg = RADAEConfig(**TRAIN_CFG)
+    doppler.multipath_samples("mpp", tcfg.Fs, tcfg.Rs_dash, tcfg.Nc, 30.0,
+                              G_fn=gfile,
+                              rng=np.random.default_rng(TRAIN_G_SEED))
+    out_dir = os.path.join(work, "out")
+    mod, fn = TOOLS["train"]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        rc = getattr(importlib.import_module(mod), fn)(
+            [fin, out_dir] + TRAIN_FLAGS + [
+                "--g_file", gfile, "--sequence-length", str(TRAIN_TOOL_SEQ),
+                "--batch-size", str(TRAIN_TOOL_B), "--epochs",
+                str(TRAIN_TOOL_EPOCHS)] + dev_args)
+    tool_s = time.perf_counter() - t0
+    count("train", {})
+    epochs = [ln for ln in log.getvalue().splitlines()
+              if re.match(r"epoch \d+: loss", ln)]
+    losses = [float(re.search(r"loss ([-\d.]+)", ln).group(1))
+              for ln in epochs]
+    if rc or len(losses) != TRAIN_TOOL_EPOCHS or not (
+            losses[-1] < losses[0]):
+        raise AssertionError(f"train: rc {rc}, epochs {epochs} "
+                             f"{log.getvalue()[-2000:]!r}")
+    last = os.path.join(out_dir, "checkpoints",
+                        f"checkpoint_epoch_{TRAIN_TOOL_EPOCHS}.npz")
+    trained, meta = load_checkpoint(last)
+    if sorted(names(trained)) != sorted(names(tree)) or \
+            set(meta) != CKPT_META or \
+            meta["epoch"] != TRAIN_TOOL_EPOCHS:
+        raise AssertionError(f"checkpoint {last}: meta {sorted(meta)}")
+    tm = RADAE(RADAEConfig(**dict(TRAIN_CFG, quant_noise=False,
+                                  range_EbNo=False, EbNodB=10.0)), dev)
+    with torch.no_grad():
+        fh = tm.forward(trained, f8[:2])["features_hat"]
+    count("the trained checkpoint's forward", {"fused_encoder_step": 1,
+                                               "fused_decoder_step": 1})
+    if not torch.isfinite(fh).all():
+        raise AssertionError("the trained checkpoint's forward: not finite")
+    print(f"train tool ({TRAIN_TOOL_SEQS} sequences of {TRAIN_TOOL_SEQ}, "
+          f"B={TRAIN_TOOL_B}, --g_file mpp, {tool_s:.1f} s through "
+          "the dispatcher's table): "
+          + "; ".join(epochs) + f"; checkpoint epoch {meta['epoch']} loaded, "
+          "its noise-free forward on both kernels finite")
+
+    # -- 4. timing ----------------------------------------------------------
+    model = RADAE(RADAEConfig(**TRAIN_CFG), dev)
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    peaks = {}
+    for B, remat in TRAIN_TIMED:
+        # what earlier phases hold is not the step's
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        fb = torch.as_tensor(batch(B), device=dev)
+        init, step = make_train_step(model, aux_ber=True, remat=remat)
+        loss_fn = make_loss_fn(model, aux_ber=True, remat=remat)
+        st = init(tree)
+        if remat:
+            # the same draws through both: the blocks' runs again in the
+            # backward must draw the noise of their first runs
+            leaves = list(tree_leaves(st.params))
+            got = [torch.autograd.grad(l, leaves) + (l.detach(),) for l in (
+                make_loss_fn(model, aux_ber=True, remat=r)(
+                    st.params, fb, None, None, step_generator(dev, 0, 0))[0]
+                for r in (False, True))]
+            worst = max(float((a - b).abs().max() / a.abs().max())
+                        for a, b in zip(got[0][:-1], got[1][:-1]))
+            rel = float(abs(got[1][-1] - got[0][-1]) / abs(got[0][-1]))
+            print(f"train step B={B} remat against the plain step on the "
+                  f"card, the same draws: loss rel {rel:.1e}, the largest "
+                  f"gradient difference {worst:.2e} of the leaf's max |g|")
+            if not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+                raise AssertionError(f"train step B={B}: remat's loss or "
+                                     "gradient differs from the plain step's")
+            del got
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        parts = []
+        for i in range(TRAIN_WARMUP + TRAIN_REPS):
+            e = [ev() for _ in range(4)]
+            e[0].record()
+            st.optimizer.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(st.params, fb, None, None,
+                              step_generator(dev, 0, i))
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            st.optimizer.step()
+            st.scheduler.step()
+            e[3].record()
+            if i >= TRAIN_WARMUP:
+                parts.append(e)
+        whole = []
+        for i in range(TRAIN_WARMUP + TRAIN_REPS):
+            e = [ev(), ev()]
+            e[0].record()
+            st, met = step(st, fb, None, None, 0)
+            e[1].record()
+            if i >= TRAIN_WARMUP:
+                whole.append(e)
+        torch.cuda.synchronize()
+        peak = peaks[B, remat] = (torch.cuda.max_memory_allocated()
+                                  - held) / 2 ** 20
+        fwd, bwd, opt = ([e[j].elapsed_time(e[j + 1]) for e in parts]
+                         for j in range(3))
+        ms = [e[0].elapsed_time(e[1]) for e in whole]
+        med = sorted(ms)[len(ms) // 2]
+        if not np.isfinite(float(met["loss"][0])):
+            raise AssertionError(f"train step B={B}: loss not finite")
+        print(f"train step B={B} T={T}{' remat' if remat else ''} (flagship "
+              f"flags, quant noise on): train_step min/median/max "
+              f"{spread(ms)} ms, {B * T * 0.01 / (med / 1e3):.1f} audio-s/s; "
+              f"forward {spread(fwd)}, backward {spread(bwd)}, optimizer "
+              f"{spread(opt)} ms (CUDA events, host-issued, {TRAIN_REPS} "
+              f"steps); peak memory {peak:.1f} MiB (the state, the batch "
+              f"and the step's); loss "
+              f"{float(met['loss'][0]):.4f} ({card})")
+    for B, remat in TRAIN_TIMED:
+        if dev.type != "cuda":          # no allocator to read on the CPU
+            break
+        if remat and not peaks[B, True] < REMAT_PEAK_MAX * peaks[B, False]:
+            raise AssertionError(
+                f"train step B={B}: remat's peak {peaks[B, True]:.1f} MiB "
+                f"is not under {REMAT_PEAK_MAX} of {peaks[B, False]:.1f}")
+
+    # -- 5. a one-rank group ----------------------------------------------
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    group = initialize(backend, 1, 0, f"tcp://127.0.0.1:{port}",
+                       device=dev if dev.type == "cuda" else None)
+    f32b = torch.as_tensor(batch(32), device=dev)
+    try:
+        got = []
+        for g in (None, group):
+            init, step = make_train_step(model, aux_ber=True, group=g)
+            st = init(tree)
+            got.append([float(step(st, f32b, None, None, 0)[1]["loss"][0])
+                        for _ in range(2)])
+    finally:
+        dist.destroy_process_group()
+    if not np.allclose(got[1], got[0], rtol=1e-5, atol=0):
+        raise AssertionError(f"one-rank {backend} group: losses {got[1]}, "
+                             f"without a group {got[0]}")
+    print(f"one-rank {backend} group: two steps' losses {got[1]}, without a "
+          f"group {got[0]}")
+
+    # -- 6. evaluate --------------------------------------------------------
+    fev = os.path.join(work, "eval.f32")
+    f36[:400].tofile(fev)
+    js = os.path.join(work, "eval.json")
+    mod, fn = TOOLS["evaluate"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        getattr(importlib.import_module(mod), fn)(
+            [ckpt, fev] + EVAL_ARGS + ["--json", js] + dev_args)
+    ev_s = time.perf_counter() - t0
+    count("evaluate", {})
+    with open(js) as fj:
+        table = json.load(fj)
+    if not all(np.isfinite(v) for v in table.values()) or not all(
+            table[f"{ch}@10.0"] <= table[f"{ch}@0.0"]
+            for ch in ("awgn", "mpp")):
+        raise AssertionError(f"evaluate: {table}")
+    print(f"evaluate ({ev_s:.1f} s): " + "; ".join(
+        ln.strip() for ln in out.getvalue().splitlines()))
+    print(f"train phase launches: {launched}")
+    return launched
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(
         description="Smoke test of radae_tpu_torch on one CUDA card; takes "
@@ -1829,6 +2243,10 @@ def main(argv=None) -> int:
 
     # -- the file tools: inference, rx, loss, stateful --------------------
     for name, n in file_tools_phase(dev, raw, card).items():
+        launches[name] += n
+
+    # -- training: the step, the train and evaluate tools, the hand-off ---
+    for name, n in train_phase(dev, raw, card).items():
         launches[name] += n
     print(f"launches on the main paths: {launches}")
 

@@ -9,12 +9,15 @@ the caller asks for the CPU.  Submodules are imported on demand:
   ops           split-complex modem math, pilot EQ, fused core kernels
   models        stateful core encoder/decoder, the RADAE model (forward
                 with the simulated channel, the vanilla receiver)
+  data          feature files, the training dataset
+  parallel      the train step (autograd, Adam, LR decay), data parallel
+                over a torch.distributed group
   runtime       batched streaming tx/rx serving steps
   dsp           the per-frame transmitter and receiver, BPF, acquisition
   apps          the per-frame product path: txe and rxe
   channel       fading samples (numpy), the simulated channel
-  tools         the batch tools tx_batch and rx_batch, and the file tools
-                inference, rx, loss and stateful
+  tools         the batch tools tx_batch and rx_batch, the file tools
+                inference, rx, loss and stateful, train and evaluate
   __main__      `python -m radae_tpu_torch <tool>`
   bench         the serving benchmark (`python -m radae_tpu_torch.bench`),
                 whose supervising process imports no torch: so neither

@@ -13,6 +13,8 @@ TOOLS = {
     "loss": ("radae_tpu_torch.tools.loss", "main"),
     "stateful_encoder": ("radae_tpu_torch.tools.stateful", "stateful_encoder"),
     "stateful_decoder": ("radae_tpu_torch.tools.stateful", "stateful_decoder"),
+    "train": ("radae_tpu_torch.tools.train", "main"),
+    "evaluate": ("radae_tpu_torch.tools.evaluate", "main"),
 }
 
 

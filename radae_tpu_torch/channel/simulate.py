@@ -6,7 +6,8 @@ path Watterson multipath with Doppler-spread gains G1/G2, phase, frequency
 and df/dt offsets, per-sequence random phase/frequency and gain draws
 (training), and AWGN with the per-bottleneck sigma formulas copied exactly.
 
-Every random draw comes from an explicit torch.Generator on the device, in
+Every random draw comes from an explicit torch.Generator on the device (or
+a `ops.draws.BatchRows`: this process's rows of a global batch's draw), in
 radae_tpu's order (Eb/No, then per channel call: phase, frequency, noise,
 gain).  torch cannot reproduce jax's stream, so the draws agree with
 radae_tpu's in distribution only; everything else agrees value for value.
@@ -19,12 +20,12 @@ from typing import Tuple
 
 import torch
 
-from ..ops import cplx
+from ..ops import cplx, draws
 from ..ops.cplx import C
 
 
 def _uniform(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=gen.device)
+    return draws.rand(gen, shape)
 
 
 def draw_EbNodB(cfg, gen: torch.Generator, num_batches: int) -> torch.Tensor:
@@ -39,21 +40,22 @@ def complex_normal(gen: torch.Generator, shape) -> C:
     """Unit-total-variance circular complex Gaussian (the variance
     convention of torch.randn_like on complex tensors)."""
     s = 1.0 / math.sqrt(2.0)
-    return C(s * torch.randn(shape, generator=gen, device=gen.device),
-             s * torch.randn(shape, generator=gen, device=gen.device))
+    return C(s * draws.randn(gen, shape), s * draws.randn(gen, shape))
 
 
-def multipath_two_path(tx: C, G: C, d_samples: int) -> C:
+def multipath_two_path(tx: C, G: C, d_samples: int, mean=torch.mean) -> C:
     """Two-path Watterson model: rx = tx*G1 + delay(tx, d)*G2, power
     normalised so the measured SNR stays calibrated (reference:
-    radae.py:529-539).  tx: (B, N); G: (B, N, 2) Doppler gains."""
+    radae.py:529-539).  tx: (B, N); G: (B, N, 2) Doppler gains; mean: the
+    mean over the batch of the normalisation (`draws.batch_mean` for a
+    batch split over processes)."""
     d = d_samples
     G1, G2 = G[:, :, 0], G[:, :, 1]
     tail = tx[:, :-d] * G2[:, :-d]
     delayed = cplx.concatenate(
         [cplx.zeros(tx.re[:, :d].shape, tx.re.device), tail], axis=1)
     tx_mp = tx * G1 + delayed
-    mp_gain = torch.sqrt(tx.abs2().mean() / tx_mp.abs2().mean())
+    mp_gain = torch.sqrt(mean(tx.abs2()) / mean(tx_mp.abs2()))
     return tx_mp * mp_gain
 
 
@@ -86,7 +88,8 @@ def rate_fs_channel(cfg, gen: torch.Generator, tx: C, G: C,
     inference.py:267-272)."""
     B, N = tx.shape
     dev = tx.re.device
-    tx = multipath_two_path(tx, G, cfg.d_samples)
+    tx = multipath_two_path(tx, G, cfg.d_samples,
+                            mean=lambda x: draws.batch_mean(gen, x))
     final_phase = C(torch.ones((B,), device=dev), torch.zeros((B,), device=dev))
 
     # deterministic impairments given by the user (inference time)

@@ -14,7 +14,9 @@ torch tensors with the same keys and layouts:
 
 so both packages compute the same function from one npz.
 `load_torch_checkpoint` reads a reference .pth checkpoint into the same
-tree (`radae_tpu/convert.py:18-99`).
+tree (`radae_tpu/convert.py:18-99`).  `save_checkpoint` writes a tree of
+numpy arrays or tensors in the native format, so a checkpoint written by
+either package loads in the other with the same leaves and meta.
 """
 
 from __future__ import annotations
@@ -103,6 +105,21 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     return torch_state_dict_to_params(sd)
 
 
+def _flatten(tree: Dict[str, Any], prefix="") -> Dict[str, np.ndarray]:
+    """Nested dict -> {"side/layer/name": numpy array} (tensors copied to
+    the host)."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}" if not prefix else f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        elif isinstance(v, torch.Tensor):
+            out[key] = v.detach().cpu().numpy()
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for k, v in flat.items():
@@ -112,6 +129,16 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[parts[-1]] = v
     return tree
+
+
+def save_checkpoint(path: str, params: Dict[str, Any],
+                    meta: Dict[str, Any] | None = None):
+    """Write a native .npz checkpoint: the flattened tree plus `__meta__`,
+    the meta dict as JSON bytes (`radae_tpu/convert.py:128-133`)."""
+    flat = _flatten(params)
+    flat["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
 
 
 def load_checkpoint(path: str):

@@ -16,6 +16,10 @@ applies it (reference: radae_base.py:80-81) when `key` is a torch.Generator
 on the input's device; key=None turns it off (the serving steps, and every
 parity test: torch cannot reproduce jax's stream, so noise is held to its
 distribution only).
+
+remat=True (training, radae_tpu's jax.checkpoint) stores for the backward
+only each GRU/conv block's input and outputs: the backward runs the blocks
+again one at a time, so only one block's activations are held at once.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..ops import draws
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -44,18 +50,47 @@ _DEC_CAT_DIM = 736
 
 class _NoiseStream:
     """The quantization-noise applications of one call: quant_noise with
-    the generator `key`, or nothing when key is None."""
+    the generator `key` (a torch.Generator or an `ops.draws.BatchRows`), or
+    nothing when key is None."""
 
     def __init__(self, key: Optional[torch.Generator]):
-        if key is not None and not isinstance(key, torch.Generator):
+        if key is not None and not isinstance(key, (torch.Generator,
+                                                    draws.BatchRows)):
             # radae_tpu takes a jax key here: its stream is not ported
             raise NotImplementedError(
-                f"key must be a torch.Generator or None, got "
+                f"key must be a torch.Generator, BatchRows or None, got "
                 f"{type(key).__name__}")
         self.key = key
 
     def __call__(self, x):
         return x if self.key is None else L.quant_noise(self.key, x)
+
+
+def _run_block(block, x, key, remat: bool):
+    """block(x), or under remat (when a gradient is being recorded) as a
+    torch.utils.checkpoint segment that the backward runs again.  The run
+    again sets the generator of `key` back to the state the first run
+    started from, and restores it after, so it draws the same quantization
+    noise (checkpoint's preserve_rng_state covers only the global
+    generators)."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(x)
+    run = block
+    if key is not None:
+        gen = key.gen if isinstance(key, draws.BatchRows) else key
+        start, first = gen.get_state(), [True]
+
+        def run(x):
+            if first[0]:
+                first[0] = False
+                return block(x)
+            now = gen.get_state()
+            gen.set_state(start)
+            try:
+                return block(x)
+            finally:
+                gen.set_state(now)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def _zero_state(gru_dims, conv_dims, batch, device, dtype) -> State:
@@ -97,7 +132,8 @@ class CoreEncoder:
         return _zero_state(_ENC_GRU_DIMS, _ENC_CONV_DIMS, batch, device, dtype)
 
     def __call__(self, params: Params, features, key=None,
-                 state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+                 state: Optional[State] = None,
+                 remat: bool = False) -> Tuple[torch.Tensor, State]:
         """features (B, T10ms, F), T10ms divisible by 4 ->
         (z (B, T10ms//4, output_dim), new_state)."""
         B, T, F = features.shape
@@ -109,12 +145,14 @@ class CoreEncoder:
         x = features.reshape(B, T // FRAMES_PER_STEP, FRAMES_PER_STEP * F)
         x = n(torch.tanh(L.dense(params["dense_1"], x)))
         for i, (_, _, dil) in enumerate(_ENC_CONV_DIMS, start=1):
-            y, new_state[f"gru{i}"] = L.gru(params[f"gru{i}"], x,
-                                            state[f"gru{i}"])
-            x = torch.cat([x, n(y)], dim=-1)
-            y, new_state[f"conv{i}"] = L.conv2tap(
-                params[f"conv{i}"], x, state[f"conv{i}"], dilation=dil)
-            x = torch.cat([x, n(y)], dim=-1)
+            def block(x, i=i, dil=dil):
+                y, h = L.gru(params[f"gru{i}"], x, state[f"gru{i}"])
+                x = torch.cat([x, n(y)], dim=-1)
+                y, hist = L.conv2tap(params[f"conv{i}"], x, state[f"conv{i}"],
+                                     dilation=dil)
+                return torch.cat([x, n(y)], dim=-1), h, hist
+            x, new_state[f"gru{i}"], new_state[f"conv{i}"] = _run_block(
+                block, x, key, remat)
         z = L.dense(params["z_dense"], x)
         if self.bottleneck == 1:
             z = torch.tanh(z)
@@ -149,7 +187,8 @@ class CoreDecoder:
         return _zero_state(_DEC_GRU_DIMS, _DEC_CONV_DIMS, batch, device, dtype)
 
     def __call__(self, params: Params, z, key=None,
-                 state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+                 state: Optional[State] = None,
+                 remat: bool = False) -> Tuple[torch.Tensor, State]:
         """z (B, Tz, input_dim) -> (features (B, 4*Tz, output_dim), new_state)."""
         B, Tz, _ = z.shape
         if state is None:
@@ -158,12 +197,14 @@ class CoreDecoder:
         new_state: State = {}
         x = n(torch.tanh(L.dense(params["dense_1"], z)))
         for i, (_, _, dil) in enumerate(_DEC_CONV_DIMS, start=1):
-            y, new_state[f"gru{i}"] = L.gru(params[f"gru{i}"], x,
-                                            state[f"gru{i}"])
-            x = torch.cat([x, n(L.glu(params[f"glu{i}"], n(y)))], dim=-1)
-            y, new_state[f"conv{i}"] = L.conv2tap(
-                params[f"conv{i}"], x, state[f"conv{i}"], dilation=dil)
-            x = torch.cat([x, n(y)], dim=-1)
+            def block(x, i=i, dil=dil):
+                y, h = L.gru(params[f"gru{i}"], x, state[f"gru{i}"])
+                x = torch.cat([x, n(L.glu(params[f"glu{i}"], n(y)))], dim=-1)
+                y, hist = L.conv2tap(params[f"conv{i}"], x, state[f"conv{i}"],
+                                     dilation=dil)
+                return torch.cat([x, n(y)], dim=-1), h, hist
+            x, new_state[f"gru{i}"], new_state[f"conv{i}"] = _run_block(
+                block, x, key, remat)
         x = L.dense(params["output"], x)
         return x.reshape(B, Tz * FRAMES_PER_STEP, self.output_dim), new_state
 

@@ -4,17 +4,30 @@
 The reference RADAE module's forward pass (reference: radae/radae.py:457-669),
 its vanilla batch receiver (radae.py:387-428) and the pilot-correlation SNR
 estimator (radae.py:433-439), on split-complex planes (ops/cplx.py) on one
-device.  `key` is a torch.Generator on that device, or None for a generator
-seeded 0 (radae_tpu's None is a fixed key, so noise stays on there too): it
-drives the Eb/No draw, the quantization noise, the BER-test bits and the
-channel, in radae_tpu's order.
+device.  `key` is a torch.Generator on that device (or an
+`ops.draws.BatchRows`, this process's rows of a batch split over
+processes), or None for a generator seeded 0 (radae_tpu's None is a fixed
+key, so noise stays on there too): it drives the Eb/No draw, the
+quantization noise, the BER-test bits and the channel, in radae_tpu's
+order.
 
 Without quantization noise (cfg.quant_noise False, or the receiver called
 without a key) the core nets run as the hand-written kernels
 (`ops.fused_core.fused_encoder_step` / `fused_decoder_step`, the unmerged f32
-forms) on weights packed once per params tree: each net over the whole
-sequence in one launch.  With noise they run as the plain nets, since the
-kernels compute the noise-free function.
+forms): each net over the whole sequence in one launch.  They run the plain
+nets instead where the kernels cannot compute what is asked:
+
+  * with noise, since the kernels compute the noise-free function;
+  * where a gradient is asked for (grad mode on, and a leaf of the net's
+    params, or its input, requires grad), since the kernels have no
+    backward: radae_tpu trains by differentiating its plain forward too,
+    and its kernels serve inference only.  Under torch.no_grad(), or on
+    params that require no grad, the kernels run.
+
+The kernels' weights are packed from the params tree's tensors and kept,
+stamped with each leaf's storage and version counter: an in-place update
+of a leaf (an optimizer step) bumps its counter, and the next kernel call
+packs again, so the kernels never run on weights older than the tree's.
 
 Complex-valued outputs (tx_sym, tx, rx, final_phase) are cplx.C pairs of
 tensors on the device.
@@ -28,12 +41,21 @@ import numpy as np
 import torch
 
 from ..channel.simulate import draw_EbNodB, rate_fs_channel, rate_rs_channel
-from ..ops import cplx, fused_core, ofdm
+from ..ops import cplx, draws, fused_core, ofdm
 from ..ops import pilots as pilots_ops
 from ..ops.cplx import C
 from ..runtime import f32_device
 from . import layers as L
 from .core import CoreDecoder, CoreEncoder
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, depth first in insertion order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
 
 
 class RADAE:
@@ -59,7 +81,9 @@ class RADAE:
 
     def _tensors(self, params):
         """The params tree's tensors on the device, made once per tree (the
-        tree given last is kept, by identity)."""
+        tree given last is kept, by identity).  A leaf that is already an
+        f32 tensor on the device is kept as it is, so gradients reach it
+        and in-place updates show."""
         if self._kept is None or self._kept[0] is not params:
             def conv(node):
                 if isinstance(node, dict):
@@ -71,33 +95,43 @@ class RADAE:
 
     def kernel_weights(self, params, side: str) -> fused_core.PackedWeights:
         """The kernel weights of one side ("encoder" or "decoder"), packed
-        once per params tree."""
-        tree = self._tensors(params)
+        from the tree's tensors and kept until a leaf's storage or version
+        counter moves (an in-place update), then packed again."""
+        tree = self._tensors(params)[side]
+        stamp = tuple((t.data_ptr(), t._version) for t in tree_leaves(tree))
         packed = self._kept[2]
-        if side not in packed:
+        if side not in packed or packed[side][0] != stamp:
             make = (fused_core.encoder_weights if side == "encoder"
                     else fused_core.decoder_weights)
-            packed[side] = make(tree[side], self.device)
-        return packed[side]
+            packed[side] = (stamp, make(tree, self.device))
+        return packed[side][1]
 
-    def _encode(self, params, features, key):
-        if key is None:
+    def _on_kernel(self, tree, x, key) -> bool:
+        """Whether a core call runs as its kernel: no noise, and no
+        gradient asked for through the net's params or its input."""
+        if key is not None:
+            return False
+        return not (torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in tree_leaves(tree))))
+
+    def _encode(self, params, features, key, remat=False):
+        tree = self._tensors(params)["encoder"]
+        if self._on_kernel(tree, features, key):
             B = features.shape[0]
             return fused_core.fused_encoder_step(
                 self.kernel_weights(params, "encoder"), features,
                 fused_core.encoder_state_zero(B, self.device),
                 self.cfg.bottleneck)[0]
-        return self.core_encoder(self._tensors(params)["encoder"], features,
-                                 key=key)[0]
+        return self.core_encoder(tree, features, key=key, remat=remat)[0]
 
-    def _decode(self, params, z_hat, key):
-        if key is None:
+    def _decode(self, params, z_hat, key, remat=False):
+        tree = self._tensors(params)["decoder"]
+        if self._on_kernel(tree, z_hat, key):
             B = z_hat.shape[0]
             return fused_core.fused_decoder_step(
                 self.kernel_weights(params, "decoder"), z_hat,
                 fused_core.decoder_state_zero(B, self.device))[0]
-        return self.core_decoder(self._tensors(params)["decoder"], z_hat,
-                                 key=key)[0]
+        return self.core_decoder(tree, z_hat, key=key, remat=remat)[0]
 
     # -- helpers (host-side numpy) -----------------------------------------
     def default_G(self, num_batches: int, n_fs: int):
@@ -151,7 +185,8 @@ class RADAE:
 
     # -- full autoencoder + channel forward --------------------------------
     def forward(self, params, features, H=None, G=None,
-                key: Optional[torch.Generator] = None, EbNodB=None):
+                key: Optional[torch.Generator] = None, EbNodB=None,
+                remat: bool = False):
         """Encoder -> channel -> decoder.
 
         features: (B, T10ms, feature_dim); H: (B, T_Rs, Nc) rate-Rs fade
@@ -159,10 +194,11 @@ class RADAE:
         gains as a C, complex numpy (B, N, 2) or packed float (B, N, 2, 2)
         (None: benign); key: a torch.Generator on the device, or None for
         one seeded 0; EbNodB: per-row Eb/No, shape (B,) or (B, 1, 1),
-        instead of the config's draw.  Returns the dict of radae_tpu's
-        forward: features_hat, z, z_hat, tx_sym, tx, rx, sigma, EbNodB,
-        final_phase (and n_bits, n_errors, ber_row with cfg.ber_test)
-        (reference: radae.py:457-669)."""
+        instead of the config's draw; remat: the plain core nets keep only
+        each block's input and outputs for the backward (models/core.py).
+        Returns the dict of radae_tpu's forward: features_hat, z, z_hat,
+        tx_sym, tx, rx, sigma, EbNodB, final_phase (and n_bits, n_errors,
+        ber_row with cfg.ber_test) (reference: radae.py:457-669)."""
         cfg = self.cfg
         dev = self.device
         features = self._tensor(features)
@@ -183,9 +219,9 @@ class RADAE:
         else:
             EbNodB = self._tensor(EbNodB).reshape(B, 1, 1)
 
-        z = self._encode(params, features, self._noise_key(gen))
+        z = self._encode(params, features, self._noise_key(gen), remat)
         if cfg.ber_test:
-            z = torch.sign(torch.rand(z.shape, generator=gen, device=dev) - 0.5)
+            z = torch.sign(draws.rand(gen, z.shape) - 0.5)
 
         qpsk_shape = (B, z.shape[1], cfg.latent_dim // 2)
         tx_sym = ofdm.qpsk_map(z)
@@ -262,7 +298,8 @@ class RADAE:
                               / (z.numel() // B))
 
         out.update({
-            "features_hat": self._decode(params, z_hat, self._noise_key(gen)),
+            "features_hat": self._decode(params, z_hat, self._noise_key(gen),
+                                         remat),
             "z": z,
             "z_hat": z_hat,
             "tx_sym": tx_sym,

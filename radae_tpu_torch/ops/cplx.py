@@ -134,6 +134,12 @@ def from_c64(x: np.ndarray, device) -> torch.Tensor:
                            device=device)
 
 
+def pack_np(x: np.ndarray) -> np.ndarray:
+    """Host complex64 (...,) -> an interleaved (..., 2) float32 array."""
+    x = np.ascontiguousarray(x, dtype=np.complex64)
+    return x.view(np.float32).reshape(x.shape + (2,))
+
+
 def to_c64(x: torch.Tensor) -> np.ndarray:
     """An interleaved (..., 2) float tensor -> host complex64 (...,) (one
     device-to-host copy)."""

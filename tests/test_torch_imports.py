@@ -63,6 +63,7 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from radae_tpu_torch.dsp.streaming import ReceiverOne, TransmitterOne
     from radae_tpu_torch.models.core import CoreDecoder, CoreEncoder
     from radae_tpu_torch.ops import fused_core
+    from radae_tpu_torch.tools import evaluate, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = flagship_config()
@@ -77,10 +78,13 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         fused_core.decoder_state_zero(4, merged=True)
     tree, _ = load_checkpoint(str(ROOT / "fixtures" / "model_fs_flagship.npz"))
+    feats = str(ROOT / "fixtures" / "speech_feats.f32")
     for make in (lambda: TransmitterOne(cfg), lambda: ReceiverOne(cfg),
                  lambda: RadaeTx(params=tree), lambda: RadaeRx(params=tree),
                  lambda: RadaeTx(bypass_enc=True),
-                 lambda: RadaeRx(bypass_dec=True)):
+                 lambda: RadaeRx(bypass_dec=True),
+                 lambda: train.main([feats, "/nonexistent", "--rate_Fs"]),
+                 lambda: evaluate.main(["random", feats])):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
 

@@ -196,6 +196,78 @@ def test_forward_routes_through_the_kernels(monkeypatch):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
+def _leaf_tensors(tree):
+    return {k: _leaf_tensors(v) if isinstance(v, dict)
+            else torch.tensor(v, requires_grad=True) for k, v in tree.items()}
+
+
+def _tensors(tree):
+    for v in tree.values():
+        yield from _tensors(v) if isinstance(v, dict) else (v,)
+
+
+def _count_kernel_calls(monkeypatch):
+    calls = []
+    for name in ("fused_encoder_step", "fused_decoder_step"):
+        real = getattr(fused_core, name)
+        monkeypatch.setattr(fused_core, name, lambda *a, _r=real, _n=name,
+                            **k: calls.append(_n) or _r(*a, **k))
+    return calls
+
+
+def test_forward_needing_a_gradient_runs_the_plain_nets(monkeypatch):
+    """Noise off, weights that require grad, grad mode on: the kernels have
+    no backward, so the core nets run plain and features_hat carries a
+    gradient to all 78 leaves; under no_grad, or on weights that need
+    none, the kernels run as before."""
+    calls = _count_kernel_calls(monkeypatch)
+    model = RADAE(flagship_config(quant_noise=False, EbNodB=8.0), "cpu")
+    tree = model.init(0)
+    params = _leaf_tensors(tree)
+    feats = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (2, 48, 21)).astype(np.float32) * 0.3)
+    out = model.forward(params, feats)
+    assert out["features_hat"].requires_grad and calls == []
+    out["features_hat"].square().sum().backward()
+    grads = [t.grad for t in _tensors(params)]
+    assert len(grads) == 78 and all(
+        g is not None and torch.isfinite(g).all() and g.abs().max() > 0
+        for g in grads)
+    with torch.no_grad():
+        model.forward(params, feats)
+    model.forward(tree, feats)
+    assert calls == ["fused_encoder_step", "fused_decoder_step"] * 2
+
+
+def test_kernels_repack_after_an_in_place_update(monkeypatch):
+    """The kernels' weights are packed from the tree's tensors; an in-place
+    update of the same tensors (what an optimizer step does) packs them
+    again: the noise-free forward and receiver then equal the plain nets on
+    the updated tensors."""
+    calls = _count_kernel_calls(monkeypatch)
+    model = RADAE(flagship_config(quant_noise=False, EbNodB=8.0), "cpu")
+    params = _leaf_tensors(model.init(0))
+    feats = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (2, 48, 21)).astype(np.float32) * 0.3)
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        model.forward(params, feats)
+        for t in _tensors(params):
+            t.add_(torch.as_tensor(0.05 * rng.standard_normal(t.shape)
+                                   .astype(np.float32)))
+        out = model.forward(params, feats)
+        z = model.core_encoder(params["encoder"], feats)[0]
+        fh = model.core_decoder(params["decoder"], out["z_hat"])[0]
+        rx = (out["rx"].re[0] + 1j * out["rx"].im[0]).numpy()
+        fr, zr = model.receiver(params, rx.astype(np.complex64))
+        fr_plain = model.core_decoder(params["decoder"], zr)[0]
+    assert calls == ["fused_encoder_step", "fused_decoder_step"] * 2 + [
+        "fused_decoder_step"]
+    np.testing.assert_allclose(out["z"].numpy(), z.numpy(), **TOL)
+    np.testing.assert_allclose(out["features_hat"].numpy(), fh.numpy(), **TOL)
+    np.testing.assert_allclose(fr.numpy(), fr_plain.numpy(), **TOL)
+
+
 # -- receiver -------------------------------------------------------------------
 
 @pytest.mark.parametrize("latent", [80, 40])
