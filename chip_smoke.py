@@ -124,6 +124,21 @@ EQ, coarse magnitude):
      T=252, forward, backward and optimizer apart, with audio-s/s and
      peak memory, a one-rank NCCL group against no group, and a short
      `evaluate` sweep (every cell finite, 10 dB no worse than 0 dB);
+     then BBFM and the speech back end (speech_phase: models/bbfm.py,
+     tools/{bbfm,sc_modem,wav_pipeline}.py, vocoder.py, vocoder_nn.py,
+     evaluate --audio, at 20 features on fixtures/model_bbfm.npz): the
+     loss at 10 dB below 0.2 on 24 s, the f32 encoder kernel with
+     bottleneck 1 (in_dim 80) and the f32 decoder kernel (out_dim 80) at
+     B=1 over 600 z-steps within TOL of their plain versions and to the
+     same bits on two launches, timed beside their bounds; z through the
+     single-carrier modem on a clean channel (correlation above 0.98, loss
+     within 0.02 of the direct decode), bbfm_inference and bbfm_rx; a
+     BBFM train loss and gradient card against CPU and train_bbfm at B=32
+     (the loss falls); a wav through `wav --vocoder neural`, the neural
+     vocoder's pcm card against CPU and its cepstral distance below
+     MelVocoder's, its synthesis time; vocoder_nn corpus and train on wavs
+     it writes; evaluate --audio on two cells; each path with the launch
+     counts at 0 before it and checked after it;
      then the port's benchmark as a user runs it,
      `python -m radae_tpu_torch.bench` (its one line must carry a value
      from a fused rung at B >= 2048), and its run_bench for the modes that
@@ -772,6 +787,82 @@ def product_phase(dev, raw, card):
     return n_valid
 
 
+def held_chain(what, form, xs):
+    """form = (kernel call, plain call, zero state) over the inputs xs,
+    chained from the zero state: TOL and the same bits on two launches.
+    Returns the max abs err and the (kernel, plain) outputs."""
+    import torch
+    kern, plain, zero = form
+    sk = sp = zero()
+    err, outs = 0.0, []
+    for k, x in enumerate(xs):
+        ok, sk1 = kern(x, sk)
+        again = kern(x, sk)
+        op, sp1 = plain(x, sp)
+        torch.cuda.synchronize()
+        got, want = (ok,) + sk1, (op,) + sp1
+        check_close(f"{what} call {k}", got, want, TOL)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, (again[0],) + again[1])):
+            raise AssertionError(f"{what} call {k}: two launches gave "
+                                 "different bits")
+        err = max(err, max_err(got, want))
+        outs.append((ok, op))
+        sk, sp = sk1, sp1
+    return err, outs
+
+
+def b1_times(name, form, w, x, frames_per_step, n, reps, card):
+    """Print the kernel of form (as `held_chain` takes it) on x from the zero
+    state: CUDA events over n calls, graph replays, its plain version and
+    its bound (one stream, x.shape[1] / frames_per_step z-steps).  Returns
+    (ms, plain ms, bound ms, bound by)."""
+    import torch
+    kern, plain, zero = form
+    s0 = zero()
+    steps = x.shape[1] // frames_per_step
+    with torch.no_grad():
+        k = lambda: kern(x, s0)
+        ms = time_ms(k, n, warmup=1)
+        runs = graph_runs(k, n=n, reps=reps)
+        plain_ms = time_ms(lambda: plain(x, s0), 2, warmup=1)
+        o, s1 = plain(x, s0)
+        b_ms, b_by = bound(w, (x,) + s0, (o,) + s1, steps, 1)
+    print(f"{name} at B=1, nz={steps}:"
+          f" {ms:.4f} ms (CUDA events), CUDA graph replay min/median/max "
+          f"{spread(runs)} ms over {reps} replays, plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms by {b_by} ({card})")
+    return ms, plain_ms, b_ms, b_by
+
+
+def run_tool(name, argv, want, launched, wall, label=None):
+    """Run a tool of radae_tpu_torch's dispatcher table in this process
+    with the launch counts at 0, its stdout and stderr captured; want,
+    where given, is the launches it must make.  Adds its launches to
+    `launched` and its wall time to `wall` under label (default: name).
+    Returns (rc, stdout, launches, stderr)."""
+    import importlib
+    import torch
+    from radae_tpu_torch.__main__ import TOOLS
+    from radae_tpu_torch.ops import fused_core as fc
+    mod, fn = TOOLS[name]
+    out, err = io.StringIO(), io.StringIO()
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = getattr(importlib.import_module(mod), fn)(list(argv))
+    torch.cuda.synchronize()
+    label = label or name
+    wall[label] = time.perf_counter() - t0
+    counts = {k: v for k, v in fc.LAUNCHES.items() if v}
+    if want is not None and counts != want:
+        raise AssertionError(f"{label}: kernels launched {counts}, not "
+                             f"{want}")
+    for k, v in counts.items():
+        launched[k] = launched.get(k, 0) + v
+    return rc, out.getvalue(), counts, err.getvalue()
+
+
 def file_tools_phase(dev, raw, card):
     """The file tools (tools/inference.py, rx.py, loss.py, stateful.py) on
     the card at full width, on the fixture checkpoint and the first
@@ -791,9 +882,7 @@ def file_tools_phase(dev, raw, card):
     draw shared) and receiver against the CPU's.  Prints each tool's wall
     time and both kernels' times at these shapes beside their bounds;
     returns the launches of each kernel form on these paths."""
-    import importlib
     import torch
-    from radae_tpu_torch.__main__ import TOOLS
     from radae_tpu_torch.channel import simulate
     from radae_tpu_torch.config import flagship_config
     from radae_tpu_torch.convert import load_checkpoint
@@ -822,37 +911,14 @@ def file_tools_phase(dev, raw, card):
            lambda x, s: fc.decoder_step_plain(dw, x, s),
            lambda: fc.decoder_state_zero(1, dev))
 
-    def held(what, form, xs):
-        """form's kernel and plain version over the inputs xs, chained from
-        the zero state: TOL and the same bits on two launches.  Returns the
-        max abs err and the plain outputs."""
-        kern, plain, zero = form
-        sk = sp = zero()
-        err, outs = 0.0, []
-        for k, x in enumerate(xs):
-            ok, sk1 = kern(x, sk)
-            again = kern(x, sk)
-            op, sp1 = plain(x, sp)
-            torch.cuda.synchronize()
-            got, want = (ok,) + sk1, (op,) + sp1
-            check_close(f"{what} call {k}", got, want, TOL)
-            if not all(torch.equal(a, b) for a, b in zip(
-                    got, (again[0],) + again[1])):
-                raise AssertionError(f"{what} call {k}: two launches gave "
-                                     "different bits")
-            err = max(err, max_err(got, want))
-            outs.append((ok, op))
-            sk, sp = sk1, sp1
-        return err, outs
-
     with torch.no_grad():
-        e_file, ((zk, z),) = held(f"fused_encoder_step B=1 nz={nz}", enc,
-                                  [feats])
-        e_frames, _ = held("fused_encoder_step B=1 nz=3", enc, [
+        e_file, ((zk, z),) = held_chain(
+            f"fused_encoder_step B=1 nz={nz}", enc, [feats])
+        e_frames, _ = held_chain("fused_encoder_step B=1 nz=3", enc, [
             feats[:, 12 * k:12 * (k + 1)] for k in range(FILE_CALLS)])
-        d_file, ((fk, fp),) = held(f"fused_decoder_step B=1 nz={nz}", dec,
-                                   [z])
-        d_steps, _ = held("fused_decoder_step B=1 nz=1", dec, [
+        d_file, ((fk, fp),) = held_chain(
+            f"fused_decoder_step B=1 nz={nz}", dec, [z])
+        d_steps, _ = held_chain("fused_decoder_step B=1 nz=1", dec, [
             z[:, k:k + 1] for k in range(FILE_CALLS)])
     # does the error grow over a long launch?  first and last tenth
     tenth = nz // 10
@@ -895,27 +961,10 @@ def file_tools_phase(dev, raw, card):
     launched = {}
 
     def tool(name, *argv, want=None):
-        """Run a tool through the dispatcher's table with the counts at 0;
-        want, where given, is the launches it must make.  Returns (rc,
-        stdout, launches)."""
-        mod, fn = TOOLS[name]
-        out = io.StringIO()
-        fc.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = getattr(importlib.import_module(mod), fn)(
-                list(argv) + dev_args)
-        torch.cuda.synchronize()
         label = " ".join([name] + [a for a in argv
                                    if a in ("--stateful", "--ber_test")])
-        wall[label] = time.perf_counter() - t0
-        counts = {k: v for k, v in fc.LAUNCHES.items() if v}
-        if want is not None and counts != want:
-            raise AssertionError(f"{label}: kernels launched {counts}, not "
-                                 f"{want}")
-        for k, v in counts.items():
-            launched[k] = launched.get(k, 0) + v
-        return rc, out.getvalue(), counts
+        return run_tool(name, list(argv) + dev_args, want, launched, wall,
+                        label)[:3]
 
     rows_of = lambda fn: np.fromfile(fn, np.float32).size // 36
     tool("rx", ckpt, path["rx"], path["fh_vanilla"], "--auxdata",
@@ -995,28 +1044,12 @@ def file_tools_phase(dev, raw, card):
         fr_err = max(fr_err, float((a - b).abs().max()))
 
     # -- the kernels' times at these shapes beside their bounds -----------
-    def times(name, form, w, x, n, reps):
-        kern, plain, zero = form
-        s0 = zero()
-        steps = x.shape[1] // (4 if form is enc else 1)
-        with torch.no_grad():
-            k = lambda: kern(x, s0)
-            ms = time_ms(k, n, warmup=1)
-            runs = graph_runs(k, n=n, reps=reps)
-            plain_ms = time_ms(lambda: plain(x, s0), 2, warmup=1)
-            o, s1 = plain(x, s0)
-            b_ms, b_by = bound(w, (x,) + s0, (o,) + s1, steps, 1)
-        print(f"{name} at B=1, nz={steps}:"
-              f" {ms:.4f} ms (CUDA events), CUDA graph replay min/median/max "
-              f"{spread(runs)} ms over {reps} replays, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by} ({card})")
-
-    times("fused_encoder_step", enc, ew, feats, 2, 3)
-    times("fused_encoder_step", enc, ew, feats[:, :12].contiguous(), 20,
-          GRAPH_REPS)
-    times("fused_decoder_step", dec, dw, z, 2, 3)
-    times("fused_decoder_step", dec, dw, z[:, :1].contiguous(), 20,
-          GRAPH_REPS)
+    b1_times("fused_encoder_step", enc, ew, feats, 4, 2, 3, card)
+    b1_times("fused_encoder_step", enc, ew, feats[:, :12].contiguous(), 4, 20,
+             GRAPH_REPS, card)
+    b1_times("fused_decoder_step", dec, dw, z, 1, 2, 3, card)
+    b1_times("fused_decoder_step", dec, dw, z[:, :1].contiguous(), 1, 20,
+             GRAPH_REPS, card)
 
     loss_line = next(ln for ln in loss_out.splitlines() if "loss:" in ln)
     print(f"file tools on the card ({FILE_SECONDS} s, the checkpoint, "
@@ -1420,6 +1453,389 @@ def train_phase(dev, raw, card):
     print(f"evaluate ({ev_s:.1f} s): " + "; ".join(
         ln.strip() for ln in out.getvalue().splitlines()))
     print(f"train phase launches: {launched}")
+    return launched
+
+
+SPEECH_T = 2400          # 24 s of the fixture: BBFM's operating point
+BBFM_CNRDB = 10.0
+BBFM_LOSS_LIMIT = 0.2    # radae_tpu's gate (tests/test_bbfm_trained.py)
+SC_T = 960               # feature frames through the single-carrier modem
+SC_CORR_MIN = 0.98       # radae_tpu's gates through the modem, clean channel
+SC_LOSS_DELTA = 0.02
+BBFM_TRAIN_B, BBFM_TRAIN_T = 32, 96     # train_bbfm on fixture sequences
+BBFM_TRAIN_EPOCHS = 2
+BBFM_TRAIN_LR = 1e-3
+BBFM_DRAW_SEED = 29
+VOC_CHECK_T = 50         # the neural vocoder card against CPU, frames
+VOC_PCM_TOL = 8          # of its int16 pcm: the render's rounding (PERF.md)
+VOC_CEP_T = 500          # frames of the cepstral-distance gate
+VOC_WAV_T = 400          # the wav the pipeline takes: 4 s
+VOC_CORPUS = ((1000, 300), (5000, 300))  # (first frame, frames) a wav
+VOC_EPOCHS = 2
+SPEECH_EVAL_ARGS = ["--channels", "awgn,mpp", "--EbNodB", "10", "--reps",
+                    "1", "--seconds", "4"]
+
+
+def modem_loopback(z):
+    """z frames (nz, 80) through the single-carrier modem on a clean
+    channel (tests/test_bbfm_trained.py): the frames the receiver gives
+    once in sync, scaled by its gain, cut to those that line up with z;
+    the correlation of the first with the best of z's first four; and
+    that offset."""
+    from radae_tpu_torch.dsp.single_carrier import SingleCarrier
+    tx, rx = SingleCarrier(fcentreHz=1500), SingleCarrier(fcentreHz=1500)
+    samples = np.concatenate([tx.tx(zk.astype(np.complex64)) for zk in z]
+                             + [tx.tx(np.zeros(z.shape[1], np.complex64))])
+    recovered, n = [], 0
+    while len(samples) - n >= rx.nin:
+        nin = rx.nin
+        syms = rx.rx(samples[n:n + nin])
+        if rx.state == "sync":
+            recovered.append((rx.g * syms.real).astype(np.float32))
+        n += nin
+    z_rx = np.stack(recovered)
+    corr, off = max((np.corrcoef(z_rx[0], z[o])[0, 1], o) for o in range(4))
+    return z_rx[:min(len(z_rx), len(z) - off)], corr, off
+
+
+def speech_phase(dev, raw, card):
+    """BBFM, the single-carrier modem and the speech back end (models/
+    bbfm.py, tools/{bbfm,sc_modem,wav_pipeline,evaluate}.py, vocoder.py,
+    vocoder_nn.py) on the card at full width, on the fixtures.
+
+    1. BBFM's operating point: fixtures/model_bbfm.npz at BBFM_CNRDB on
+       SPEECH_T frames, quant noise on (the plain nets): loss below
+       BBFM_LOSS_LIMIT.
+    2. Both kernels with noise off at BBFM's widths: the f32 encoder with
+       bottleneck 1 (in_dim 80) and the unmerged f32 decoder (out_dim 80)
+       at B=1 over the SPEECH_T/4 z-steps in one launch, each within TOL
+       of its plain version and the same bits on two launches, timed
+       beside their bounds; the noise-off forward launches each once.
+    3. z of SC_T frames (the encoder kernel) through SingleCarrier on a
+       clean channel, decoded by the decoder kernel: correlation above
+       SC_CORR_MIN, loss within SC_LOSS_DELTA of the direct decode's.
+       Then `bbfm_inference` (quant noise on) and `bbfm_rx` (one decoder
+       launch) as tools on the SPEECH_T frames.
+    4. One BBFM training loss and gradient on the card and on the CPU
+       (BBFM_TRAIN_B fixture sequences; the channel's draw and the quant
+       noise, which train_bbfm's loss always draws, shared): loss within
+       TRAIN_LOSS_RTOL, each leaf within TRAIN_GRAD_TOL of its max |g|;
+       then `train_bbfm` for
+       BBFM_TRAIN_EPOCHS epochs at B=BBFM_TRAIN_B: finite, falling loss.
+    5. Speech out: a wav made by MelVocoder from the fixture through `wav
+       --vocoder neural` (the flagship checkpoint); the neural vocoder's
+       pcm on VOC_CHECK_T frames card against CPU within VOC_PCM_TOL; on
+       VOC_CEP_T frames its cepstral distance below MelVocoder's; its
+       synthesis time a second of audio.
+    6. `vocoder_nn corpus` on wavs written under a temp dir, then `train`
+       for VOC_EPOCHS epochs: finite losses, weights written.
+    7. `evaluate --audio` on 4 s, two cells: each cell's wav pair and
+       README, the clean references.
+    Returns the kernel launches of 2 (the forward), 3 and the tools."""
+    import shutil
+    import tempfile
+    import wave
+    import torch
+    from radae_tpu_torch import vocoder_nn as V
+    from radae_tpu_torch.config import BBFMConfig
+    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.models import bbfm as bbfm_mod
+    from radae_tpu_torch.models import layers
+    from radae_tpu_torch.models.bbfm import BBFM
+    from radae_tpu_torch.models.core import distortion_loss
+    from radae_tpu_torch.models.radae import tree_leaves
+    from radae_tpu_torch.ops import fused_core as fc
+    from radae_tpu_torch.parallel.trainstep import leaf_tree
+    from radae_tpu_torch.tools.bbfm import make_loss_fn
+    from radae_tpu_torch.tools.wav_pipeline import read_wav, write_wav
+    from radae_tpu_torch.vocoder import NEURAL_WEIGHTS, MelVocoder
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    ckpt = os.path.join(HERE, "fixtures", "model_bbfm.npz")
+    flagship = os.path.join(HERE, "fixtures", "model_fs_flagship.npz")
+    fixture = os.path.join(HERE, "fixtures", "speech_feats.f32")
+    tree, _ = load_checkpoint(ckpt)
+    T, nz = SPEECH_T, SPEECH_T // 4
+    feats = torch.as_tensor(np.ascontiguousarray(raw[None, :T, :NUM_USED]),
+                            device=dev)
+    kw = dict(feature_dim=NUM_USED, latent_dim=80, CNRdB=BBFM_CNRDB)
+    model = BBFM(BBFMConfig(**kw), dev)
+    quiet = BBFM(BBFMConfig(quant_noise=False, **kw), dev)
+    H = np.ones((1, model.cfg.num_timesteps_at_rate_Rs(T), 1), np.float32)
+    launched, wall = {}, {}
+
+    def count(what, want):
+        counts = {k: v for k, v in fc.LAUNCHES.items() if v}
+        if dev.type == "cuda" and counts != want:
+            raise AssertionError(f"{what}: kernels launched {counts}, not "
+                                 f"{want}")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+
+    # -- 1. the operating point, quant noise on ---------------------------
+    with torch.no_grad():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        fc.reset_launches()
+        out = model.forward(tree, feats, H, key=gen)
+        torch.cuda.synchronize()
+        count("BBFM forward with quant noise", {})
+        loss_op = float(distortion_loss(feats, out["features_hat"])[0])
+    if not loss_op < BBFM_LOSS_LIMIT:
+        raise AssertionError(f"BBFM loss {loss_op} at {BBFM_CNRDB} dB, "
+                             f"limit {BBFM_LOSS_LIMIT}")
+
+    # -- 2. both kernels, noise off, at BBFM's widths ---------------------
+    ew = quiet.kernel_weights(tree, "encoder")
+    dw = quiet.kernel_weights(tree, "decoder")
+    enc = (lambda x, s: fc.fused_encoder_step(ew, x, s, 1),
+           lambda x, s: fc.encoder_step_plain(ew, x, s, 1),
+           lambda: fc.encoder_state_zero(1, dev))
+    dec = (lambda x, s: fc.fused_decoder_step(dw, x, s),
+           lambda x, s: fc.decoder_step_plain(dw, x, s),
+           lambda: fc.decoder_state_zero(1, dev))
+    with torch.no_grad():
+        e_err, ((zk, z),) = held_chain(
+            f"BBFM fused_encoder_step bottleneck 1 B=1 nz={nz}", enc, [feats])
+        d_err, _ = held_chain(f"BBFM fused_decoder_step F=20 B=1 nz={nz}",
+                              dec, [z])
+    print(f"BBFM kernels at B=1, nz={nz}, within TOL of their plain versions, "
+          f"the same bits on two launches: fused_encoder_step (bottleneck 1, "
+          f"in_dim 80) max abs err {e_err:.3g}, |z| max "
+          f"{float(z.abs().max()):.4f}; fused_decoder_step (out_dim 80) "
+          f"{d_err:.3g}")
+    b1_times("BBFM fused_encoder_step", enc, ew, feats, 4, 3, 3, card)
+    b1_times("BBFM fused_decoder_step", dec, dw, z, 1, 3, 3, card)
+    with torch.no_grad():
+        fc.reset_launches()
+        out0 = quiet.forward(tree, feats, H)
+        torch.cuda.synchronize()
+        count("BBFM noise-off forward", {"fused_encoder_step": 1,
+                                         "fused_decoder_step": 1})
+        loss_quiet = float(distortion_loss(feats, out0["features_hat"])[0])
+
+    # -- 3. z through the single-carrier modem, then the tools ------------
+    with torch.no_grad():
+        f_sc = feats[:, :SC_T].contiguous()
+        fc.reset_launches()
+        z_sc = fc.fused_encoder_step(ew, f_sc, fc.encoder_state_zero(1, dev),
+                                     1)[0]
+        fh_direct = quiet.receiver(tree, z_sc)
+        torch.cuda.synchronize()
+        count("BBFM encoder + direct decode", {"fused_encoder_step": 1,
+                                               "fused_decoder_step": 1})
+        loss_direct = float(distortion_loss(f_sc, fh_direct)[0])
+    t0 = time.perf_counter()
+    z_rx, corr, off = modem_loopback(z_sc[0].cpu().numpy())
+    modem_s = time.perf_counter() - t0
+    with torch.no_grad():
+        fc.reset_launches()
+        fh_modem = quiet.receiver(tree, z_rx[None])
+        torch.cuda.synchronize()
+        count("BBFM decode after the modem", {"fused_decoder_step": 1})
+        loss_modem = float(distortion_loss(
+            f_sc[:, off * 4:off * 4 + fh_modem.shape[1]], fh_modem)[0])
+    if not (corr > SC_CORR_MIN and abs(loss_modem - loss_direct)
+            < SC_LOSS_DELTA):
+        raise AssertionError(f"BBFM through the modem: correlation {corr}, "
+                             f"loss {loss_modem} against {loss_direct}")
+
+    work = os.path.join(HERE, "build", "chip_smoke_speech")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = {k: os.path.join(work, k + ".f32") for k in ("f", "fh", "z", "fh_rx")}
+    f36 = np.zeros((T, 36), np.float32)
+    f36[:, :NUM_USED] = raw[:T, :NUM_USED]
+    f36.tofile(path["f"])
+    _, inf_out, _, _ = run_tool(
+        "bbfm_inference", [ckpt, path["f"], path["fh"], "--CNRdB",
+                           str(BBFM_CNRDB), "--write_latent", path["z"],
+                           "--loss_test", str(BBFM_LOSS_LIMIT)] + dev_args,
+        {}, launched, wall)
+    run_tool("bbfm_rx", [ckpt, path["z"], path["fh_rx"]] + dev_args,
+             {"fused_decoder_step": 1}, launched, wall)
+    fh_rx = np.fromfile(path["fh_rx"], np.float32).reshape(-1, 36)
+    if "PASS" not in inf_out or fh_rx.shape[0] != T or not np.isfinite(
+            fh_rx).all():
+        raise AssertionError(f"bbfm_inference | bbfm_rx: {inf_out!r}, "
+                             f"{fh_rx.shape} rows")
+    print(f"BBFM ({BBFM_CNRDB} dB, {T} frames): loss {loss_op:.4f} (quant "
+          f"noise on, limit {BBFM_LOSS_LIMIT}), noise off {loss_quiet:.4f}; "
+          f"through the single-carrier modem ({SC_T} frames, clean, "
+          f"{len(z_rx)} frames recovered in line, host {modem_s:.2f} s): correlation "
+          f"{corr:.4f}, loss {loss_modem:.4f} against {loss_direct:.4f} "
+          f"direct; bbfm_inference {inf_out.strip().splitlines()[0]}")
+
+    # -- 4. training: the card's first loss and gradient, then the tool ----
+    B, Tt = BBFM_TRAIN_B, BBFM_TRAIN_T
+    n_seq = raw.shape[0] // Tt
+    fb = np.stack([raw[(k % n_seq) * Tt:(k % n_seq + 1) * Tt, :NUM_USED]
+                   for k in range(B)])
+    Hb = np.ones((B, quiet.cfg.num_timesteps_at_rate_Rs(Tt), 1), np.float32)
+    draw = np.random.default_rng(BBFM_DRAW_SEED).standard_normal(
+        Hb.shape).astype(np.float32)
+    qrng = np.random.default_rng(BBFM_DRAW_SEED + 1)
+    bank, seen = {}, {}
+
+    def shared_quant_noise(gen, x):
+        """The k-th application of a shape adds the same U(-.5, .5)/127 on
+        the card and on the CPU."""
+        shape = tuple(x.shape)
+        k = seen[shape] = seen.get(shape, -1) + 1
+        drawn = bank.setdefault(shape, [])
+        if k == len(drawn):
+            drawn.append(qrng.uniform(-0.5, 0.5, shape).astype(np.float32))
+        return torch.clamp(x + torch.as_tensor(drawn[k], device=x.device)
+                           / 127.0, -1.0, 1.0)
+
+    real = bbfm_mod.normal, layers.quant_noise
+    bbfm_mod.normal = lambda gen, shape: torch.as_tensor(draw,
+                                                         device=gen.device)
+    layers.quant_noise = shared_quant_noise
+    res = []
+    try:
+        for where in (dev, cpu):
+            seen.clear()
+            m = BBFM(BBFMConfig(**kw), where)
+            params = leaf_tree(tree, where)
+            gen = torch.Generator(device=where)
+            gen.manual_seed(0)
+            fc.reset_launches()
+            loss = make_loss_fn(m)(params, torch.as_tensor(fb, device=where),
+                                   torch.as_tensor(Hb, device=where), gen,
+                                   BBFM_CNRDB)
+            loss.backward()
+            if where == dev:
+                torch.cuda.synchronize()
+                count("BBFM train loss and gradient", {})
+            res.append((float(loss.detach()), [t.grad.cpu() for t in
+                                      tree_leaves(params)]))
+    finally:
+        bbfm_mod.normal, layers.quant_noise = real
+    (l_card, g_card), (l_cpu, g_cpu) = res
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    g_err = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(g_card, g_cpu))
+    if rel > TRAIN_LOSS_RTOL or g_err > TRAIN_GRAD_TOL or not all(
+            torch.isfinite(g).all() for g in g_card):
+        raise AssertionError(f"BBFM train step card against CPU: loss "
+                             f"{l_card} / {l_cpu}, gradient {g_err:.3g}")
+    run_dir = os.path.join(work, "train")
+    _, _, _, tr_err = run_tool(
+        "train_bbfm", [fixture, run_dir, "--epochs", str(BBFM_TRAIN_EPOCHS),
+                       "--batch-size", str(B), "--sequence-length", str(Tt),
+                       "--CNRdB", str(BBFM_CNRDB), "--lr", str(BBFM_TRAIN_LR)]
+        + dev_args, {}, launched, wall)
+    ep = [float(ln.split()[-1]) for ln in tr_err.splitlines()
+          if ln.startswith("epoch ")]
+    if len(ep) != BBFM_TRAIN_EPOCHS or not all(np.isfinite(ep)) or not (
+            ep[-1] < ep[0]) or not os.path.exists(os.path.join(
+                run_dir, "checkpoints",
+                f"checkpoint_epoch_{BBFM_TRAIN_EPOCHS}.npz")):
+        raise AssertionError(f"train_bbfm: {tr_err!r}")
+    print(f"BBFM training: loss card {l_card:.6f} CPU {l_cpu:.6f} (rel "
+          f"{rel:.3g}), gradient {g_err:.3g} of each leaf's max |g| "
+          f"(B={B}, T={Tt}, the draws shared); train_bbfm "
+          f"B={B}: epoch losses {ep} ({raw.shape[0] // Tt // B} steps an "
+          f"epoch)")
+
+    # -- 5. speech out ----------------------------------------------------
+    mel = MelVocoder()
+    wav_in, wav_out = (os.path.join(work, n) for n in ("mel.wav", "out.wav"))
+    write_wav(wav_in, mel.synthesize(raw[:VOC_WAV_T]))
+    _, _, _, wav_err = run_tool(
+        "wav", [flagship, wav_in, wav_out, "--vocoder", "neural",
+                "--auxdata"] + dev_args, {}, launched, wall)
+    y = read_wav(wav_out)
+    if len(y) < (VOC_WAV_T - 12) * 160 or not np.abs(y).max() > 0:
+        raise AssertionError(f"wav: {len(y)} samples; {wav_err[-2000:]!r}")
+    nv = V.NeuralVocoder(NEURAL_WEIGHTS, device=dev)
+    nc = V.NeuralVocoder(NEURAL_WEIGHTS, device=cpu)
+    pcm_d = nv.synthesize(raw[:VOC_CHECK_T]).astype(np.int32)
+    pcm_c = nc.synthesize(raw[:VOC_CHECK_T]).astype(np.int32)
+    pcm_err = int(np.abs(pcm_d - pcm_c).max())
+    f5 = np.ascontiguousarray(raw[None, :VOC_CEP_T, :20])
+    nz5 = np.random.default_rng(0).standard_normal(
+        (1, (VOC_CEP_T - 1) * 160)).astype(np.float32)
+    with torch.no_grad():
+        r_d = V.synth(nv.params, torch.as_tensor(f5, device=dev),
+                      torch.as_tensor(nz5, device=dev))[0].cpu().numpy()
+        r_c = V.synth(nc.params, torch.as_tensor(f5), torch.as_tensor(nz5)
+                      )[0].numpy()
+    r_rel = float(np.linalg.norm(r_d - r_c) / np.linalg.norm(r_c))
+    d_neural = V.cepstral_distance(raw[:VOC_CEP_T],
+                                   nv.synthesize(raw[:VOC_CEP_T]))
+    d_mel = V.cepstral_distance(raw[:VOC_CEP_T],
+                                mel.synthesize(raw[:VOC_CEP_T]))
+    if pcm_err > VOC_PCM_TOL or not d_neural < d_mel:
+        raise AssertionError(f"neural vocoder: pcm card against CPU "
+                             f"{pcm_err}, cepstral distance {d_neural} "
+                             f"against MelVocoder's {d_mel}")
+    secs = (VOC_CEP_T - 1) * 160 / 16000
+    with torch.no_grad():
+        fd, nzd = (torch.as_tensor(a, device=dev) for a in (f5, nz5))
+        synth_ms = time_ms(lambda: V.synth(nv.params, fd, nzd), 5)
+    t0 = time.perf_counter()
+    nv.synthesize(raw[:VOC_CEP_T])
+    synth_host_s = time.perf_counter() - t0
+    print(f"neural vocoder: pcm card against CPU on {VOC_CHECK_T} frames max "
+          f"{pcm_err} (limit {VOC_PCM_TOL}); render on {VOC_CEP_T} frames "
+          f"card against CPU {r_rel:.3g} normwise; cepstral distance on "
+          f"{VOC_CEP_T} frames {d_neural:.4f} against MelVocoder's "
+          f"{d_mel:.4f}; synth (torch.gru, cuDNN) {synth_ms:.3f} ms for "
+          f"{secs:.2f} s of audio ({synth_ms / secs:.3f} ms a second, CUDA "
+          f"events), synthesize with the host post-filter {synth_host_s:.3f} "
+          f"s ({synth_host_s / secs:.4f} real-time factor) ({card})")
+
+    # -- 6. vocoder training on wavs written here ---------------------------
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        wavs = os.path.join(tmp, "wavs")
+        os.makedirs(wavs)
+        for k, (a, n) in enumerate(VOC_CORPUS):
+            write_wav(os.path.join(wavs, f"s{k}.wav"),
+                      mel.synthesize(raw[a:a + n]))
+        corpus = os.path.join(tmp, "corpus.npz")
+        run_tool("vocoder_nn", ["corpus", wavs, corpus] + dev_args, {},
+                 launched, wall, "vocoder_nn corpus")
+        _, tr_out, _, _ = run_tool(
+            "vocoder_nn", ["train", corpus, os.path.join(tmp, "run"),
+                           "--epochs", str(VOC_EPOCHS)] + dev_args, {},
+            launched, wall, "vocoder_nn train")
+        vl = [float(ln.split()[-1]) for ln in tr_out.splitlines()
+              if ln.startswith("vocoder epoch")]
+        if len(vl) != VOC_EPOCHS or not all(np.isfinite(vl)) or not \
+                os.path.exists(os.path.join(tmp, "run",
+                                            f"vocoder_ep{VOC_EPOCHS}.npz")):
+            raise AssertionError(f"vocoder_nn train: {tr_out!r}")
+        n_frames = int(np.load(corpus)["bounds"][-1])
+    print(f"vocoder_nn: corpus of {n_frames} frames from {len(VOC_CORPUS)} "
+          f"wavs, train epoch losses {vl}")
+
+    # -- 7. evaluate --audio ----------------------------------------------
+    adir = os.path.join(work, "audio")
+    _, _, _, ev_err = run_tool(
+        "evaluate", [flagship, fixture] + SPEECH_EVAL_ARGS
+        + ["--audio", adir] + dev_args, {}, launched, wall, "evaluate --audio")
+    readme = []
+    for cell in ("speech_feats_10dB_awgn", "speech_feats_10dB_mpp"):
+        for suffix, fs in ((".wav", 16000), ("_ssb.wav", 8000)):
+            with wave.open(os.path.join(adir, cell + suffix), "rb") as w:
+                if w.getframerate() != fs or w.getnframes() < fs:
+                    raise AssertionError(f"evaluate --audio: {cell}{suffix}")
+        lines = open(os.path.join(adir, cell + "_zREADME.txt")).read(
+        ).splitlines()
+        readme.append(f"{cell}: {lines[3].split(':')[-1].strip()} fwSegSNR, "
+                      f"C/No {lines[1].split()[-2]} / SSB {lines[2].split()[-2]}")
+    if not all(os.path.exists(os.path.join(adir, f"zz_speech_feats_{k}.wav"))
+               for k in ("orig", "ssb")):
+        raise AssertionError(f"evaluate --audio: {sorted(os.listdir(adir))}")
+    print("evaluate --audio: " + "; ".join(readme))
+    print("speech tools wall time (host clock): " + "; ".join(
+        f"{k} {v:.2f} s" for k, v in wall.items()) + f" ({card})")
+    print(f"speech phase launches: {launched}")
+    print(f"speech phase: {time.perf_counter() - t_phase:.1f} s")
     return launched
 
 
@@ -2247,6 +2663,10 @@ def main(argv=None) -> int:
 
     # -- training: the step, the train and evaluate tools, the hand-off ---
     for name, n in train_phase(dev, raw, card).items():
+        launches[name] += n
+
+    # -- BBFM, the single-carrier modem, the speech back end --------------
+    for name, n in speech_phase(dev, raw, card).items():
         launches[name] += n
     print(f"launches on the main paths: {launches}")
 

@@ -4,20 +4,25 @@ The package imports torch and numpy only.  Its entry points take an explicit
 `device` that defaults to "cuda" and raise when no card is present, unless
 the caller asks for the CPU.  Submodules are imported on demand:
 
-  config        modem geometry (numpy)
+  config        modem geometry (numpy), the BBFM configuration
   convert       npz checkpoints -> torch parameter trees
   ops           split-complex modem math, pilot EQ, fused core kernels
   models        stateful core encoder/decoder, the RADAE model (forward
-                with the simulated channel, the vanilla receiver)
-  data          feature files, the training dataset
+                with the simulated channel, the vanilla receiver), BBFM
+  data          feature files, the training dataset, corpus augmentation
   parallel      the train step (autograd, Adam, LR decay), data parallel
                 over a torch.distributed group
   runtime       batched streaming tx/rx serving steps
-  dsp           the per-frame transmitter and receiver, BPF, acquisition
+  dsp           the per-frame transmitter and receiver, BPF, acquisition,
+                the single-carrier modem (numpy)
   apps          the per-frame product path: txe and rxe
-  channel       fading samples (numpy), the simulated channel
+  channel       fading samples (numpy), the simulated channel, analog FM
   tools         the batch tools tx_batch and rx_batch, the file tools
-                inference, rx, loss and stateful, train and evaluate
+                inference, rx, loss and stateful, train and evaluate,
+                the BBFM tools, sc_modem, ch and the wav pipeline
+  vocoder       FARGAN bridge, MelVocoder (numpy), back-end selection
+  vocoder_nn    the neural vocoder (synthesis, loss, training)
+  utils         fwSegSNR (numpy, scipy)
   __main__      `python -m radae_tpu_torch <tool>`
   bench         the serving benchmark (`python -m radae_tpu_torch.bench`),
                 whose supervising process imports no torch: so neither

@@ -15,6 +15,14 @@ TOOLS = {
     "stateful_decoder": ("radae_tpu_torch.tools.stateful", "stateful_decoder"),
     "train": ("radae_tpu_torch.tools.train", "main"),
     "evaluate": ("radae_tpu_torch.tools.evaluate", "main"),
+    "bbfm_inference": ("radae_tpu_torch.tools.bbfm", "bbfm_inference"),
+    "bbfm_rx": ("radae_tpu_torch.tools.bbfm", "bbfm_rx"),
+    "train_bbfm": ("radae_tpu_torch.tools.bbfm", "train_bbfm"),
+    "sc_tx": ("radae_tpu_torch.tools.sc_modem", "sc_tx"),
+    "sc_rx": ("radae_tpu_torch.tools.sc_modem", "sc_rx"),
+    "ch": ("radae_tpu_torch.tools.ch", "main"),
+    "wav": ("radae_tpu_torch.tools.wav_pipeline", "main"),
+    "vocoder_nn": ("radae_tpu_torch.vocoder_nn", "main"),
 }
 
 

@@ -1,8 +1,8 @@
 """Modem geometry and model configuration (numpy only).
 
-A copy of the JAX package's config module (`radae_tpu/config.py`) without
-`BBFMConfig`, so that the port shares the modem constants without importing
-the JAX package.
+A copy of the JAX package's config module (`radae_tpu/config.py`), so that
+the port shares the modem constants and the BBFM configuration without
+importing the JAX package.
 
 Reproduces the derived-parameter math of the reference OFDM modem setup
 (reference: radae/radae.py:128-235) as a frozen, hashable config object so
@@ -314,3 +314,53 @@ def flagship_config(**overrides) -> RADAEConfig:
     )
     base.update(overrides)
     return RADAEConfig(**base)
+
+
+@dataclass(frozen=True)
+class BBFMConfig:
+    """Baseband FM variant configuration (reference: radae/bbfm.py:42-95)."""
+
+    feature_dim: int = 20
+    latent_dim: int = 40
+    CNRdB: float = 100.0
+    fd_Hz: float = 5000.0
+    fm_Hz: float = 3000.0
+    quant_noise: bool = True
+
+    enc_stride: int = field(default=4, init=False)
+    dec_stride: int = field(default=4, init=False)
+
+    @property
+    def Tf(self) -> float:
+        return 0.01
+
+    @property
+    def Tz(self) -> float:
+        return self.Tf * self.enc_stride
+
+    @property
+    def Rz(self) -> float:
+        return 1.0 / self.Tz
+
+    @property
+    def Rb(self) -> float:
+        return self.latent_dim / self.Tz
+
+    @property
+    def beta(self) -> float:
+        return self.fd_Hz / self.fm_Hz          # FM deviation ratio
+
+    @property
+    def BWfm(self) -> float:
+        return 2 * (self.fd_Hz + self.fm_Hz)    # Carson's rule bandwidth
+
+    @property
+    def Gfm(self) -> float:
+        return 10 * math.log10(3 * (self.beta ** 2) * (self.beta + 1))
+
+    def num_timesteps_at_rate_Rs(self, num_ten_ms_timesteps: int) -> int:
+        num_seconds = num_ten_ms_timesteps * self.Tf
+        return int(num_seconds * self.Rb)
+
+    def num_10ms_times_steps_rounded_to_modem_frames(self, n: int) -> int:
+        return (n // self.enc_stride) * self.enc_stride

@@ -24,10 +24,12 @@ nets instead where the kernels cannot compute what is asked:
     and its kernels serve inference only.  Under torch.no_grad(), or on
     params that require no grad, the kernels run.
 
-The kernels' weights are packed from the params tree's tensors and kept,
-stamped with each leaf's storage and version counter: an in-place update
-of a leaf (an optimizer step) bumps its counter, and the next kernel call
-packs again, so the kernels never run on weights older than the tree's.
+The routing and the packed weights live in `CoreCodec`, which BBFM
+(models/bbfm.py) shares.  The kernels' weights are packed from the params
+tree's tensors and kept, stamped with each leaf's storage and version
+counter: an in-place update of a leaf (an optimizer step) bumps its
+counter, and the next kernel call packs again, so the kernels never run on
+weights older than the tree's.
 
 Complex-valued outputs (tx_sym, tx, rx, final_phase) are cplx.C pairs of
 tensors on the device.
@@ -58,23 +60,20 @@ def tree_leaves(tree):
             yield v
 
 
-class RADAE:
-    def __init__(self, cfg, device="cuda"):
-        self.cfg = cfg
-        dev = self.device = f32_device(device)
-        self.core_encoder = CoreEncoder(cfg.feature_dim, cfg.latent_dim,
-                                        bottleneck=cfg.bottleneck)
-        self.core_decoder = CoreDecoder(cfg.latent_dim, cfg.feature_dim)
-        self._Winv = cplx.const(cfg.Winv, dev)
-        self._Wfwd = cplx.const(cfg.Wfwd, dev)
-        self._P = cplx.const(cfg.P, dev)
-        self._eq = pilots_ops.ls_consts(cfg.P, cfg.w, cfg.Fs, dev)
+class CoreCodec:
+    """A model's core encoder and decoder on one device, each call routed
+    to its kernel or to the plain net (the part RADAE and BBFM share)."""
+
+    def __init__(self, core_encoder, core_decoder, device):
+        self.device = f32_device(device)
+        self.core_encoder = core_encoder
+        self.core_decoder = core_decoder
         self._kept = None     # (params, its tensors, packed weights by side)
 
     # -- parameters --------------------------------------------------------
     def init(self, seed) -> Dict:
         """Random weights (numpy) from an int seed: radae_tpu's
-        `RADAE.init(seed)` draw for draw."""
+        `init(seed)` draw for draw."""
         rng = L.as_rng(seed)
         return {"encoder": self.core_encoder.init(rng),
                 "decoder": self.core_decoder.init(rng)}
@@ -121,7 +120,7 @@ class RADAE:
             return fused_core.fused_encoder_step(
                 self.kernel_weights(params, "encoder"), features,
                 fused_core.encoder_state_zero(B, self.device),
-                self.cfg.bottleneck)[0]
+                self.core_encoder.bottleneck)[0]
         return self.core_encoder(tree, features, key=key, remat=remat)[0]
 
     def _decode(self, params, z_hat, key, remat=False):
@@ -133,6 +132,25 @@ class RADAE:
                 fused_core.decoder_state_zero(B, self.device))[0]
         return self.core_decoder(tree, z_hat, key=key, remat=remat)[0]
 
+    def _noise_key(self, key):
+        return key if (key is not None and self.cfg.quant_noise) else None
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+
+class RADAE(CoreCodec):
+    def __init__(self, cfg, device="cuda"):
+        super().__init__(CoreEncoder(cfg.feature_dim, cfg.latent_dim,
+                                     bottleneck=cfg.bottleneck),
+                         CoreDecoder(cfg.latent_dim, cfg.feature_dim), device)
+        self.cfg = cfg
+        dev = self.device
+        self._Winv = cplx.const(cfg.Winv, dev)
+        self._Wfwd = cplx.const(cfg.Wfwd, dev)
+        self._P = cplx.const(cfg.P, dev)
+        self._eq = pilots_ops.ls_consts(cfg.P, cfg.w, cfg.Fs, dev)
+
     # -- helpers (host-side numpy) -----------------------------------------
     def default_G(self, num_batches: int, n_fs: int):
         """Benign (AWGN) Doppler gains G1=1, G2=0, packed (B, N, 2, 2) f32."""
@@ -142,9 +160,6 @@ class RADAE:
 
     def default_H(self, num_batches: int, n_rs: int):
         return np.ones((num_batches, n_rs, self.cfg.Nc), np.float32)
-
-    def _noise_key(self, key):
-        return key if (key is not None and self.cfg.quant_noise) else None
 
     def _as_C(self, x) -> Optional[C]:
         """A C, a host complex numpy array, or a packed (..., 2) float array
@@ -157,9 +172,6 @@ class RADAE:
         if x.shape[-1] != 2:
             raise ValueError("packed complex arrays must end in (re, im)")
         return cplx.from_last(x)
-
-    def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
     # -- transmitter side --------------------------------------------------
     def transmitter(self, z, num_timesteps_at_rate_Rs: int) -> C:

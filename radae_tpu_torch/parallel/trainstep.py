@@ -58,6 +58,19 @@ def make_optimizer(lr: float, lr_decay_factor: float):
     return init
 
 
+def leaf_tree(params, device):
+    """The params tree (numpy or tensors) copied to f32 leaf tensors on
+    `device` that require grad, what an optimizer updates in place.
+    Contiguous: checkpoints may hold transposed arrays, and NCCL takes
+    contiguous tensors only."""
+    if isinstance(params, dict):
+        return {k: leaf_tree(v, device) for k, v in params.items()}
+    t = (params.detach().clone() if isinstance(params, torch.Tensor)
+         else torch.tensor(np.asarray(params, np.float32)))
+    return t.to(device=device, dtype=torch.float32).contiguous(
+    ).requires_grad_(True)
+
+
 def step_generator(device, seed: int, step: int) -> torch.Generator:
     """The generator of step `step` of a run seeded `seed`."""
     gen = torch.Generator(device=device)
@@ -128,16 +141,7 @@ def make_train_step(model, lr: float = 3e-4, lr_decay_factor: float = 2.5e-5,
         world, rank = dist.get_world_size(group), dist.get_rank(group)
 
     def init_state(params) -> TrainState:
-        def leaf(node):
-            if isinstance(node, dict):
-                return {k: leaf(v) for k, v in node.items()}
-            t = (node.detach().clone() if isinstance(node, torch.Tensor)
-                 else torch.tensor(np.asarray(node, np.float32)))
-            # contiguous: checkpoints may hold transposed arrays, and NCCL
-            # takes contiguous tensors only
-            return t.to(device=model.device, dtype=torch.float32
-                        ).contiguous().requires_grad_(True)
-        tree = leaf(params)
+        tree = leaf_tree(params, model.device)
         leaves = list(tree_leaves(tree))
         if group is not None:
             import torch.distributed as dist

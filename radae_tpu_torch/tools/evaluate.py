@@ -15,24 +15,28 @@ noise and keeps its rows (ops/draws.py), so a grid that splits evenly
 gives one process's table.  --shard_map is accepted, so radae_tpu's
 command lines run, and changes nothing: one function serves both.
 
---audio (per-cell listening material) needs the vocoder and
-utils/quality.py, which the port does not have yet: it is refused.
+--audio DIR writes, per (channel, Eb/No) cell, the decoded wav, the SSB
+comparison wav at the same C/No and a README of the measured numbers and
+the decoded audio's fwSegSNR (`write_audio_cells`, on rank 0).
 
     python -m radae_tpu_torch evaluate model.npz features.f32 \\
-        [--channels awgn,mpp] [--EbNodB 0,3,6,10] [--device cpu]
+        [--channels awgn,mpp] [--EbNodB 0,3,6,10] [--audio DIR] \\
+        [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
+import wave
 
 import numpy as np
 import torch
 
-from ..channel.doppler import multipath_samples
+from ..channel.doppler import fade_two_path, multipath_samples
 from ..config import RADAEConfig
 from ..convert import load_checkpoint
 from ..data.io import NB_TOTAL_FEATURES, NUM_USED_FEATURES, read_f32
@@ -43,6 +47,9 @@ from ..ops.draws import BatchRows
 from ..parallel.distributed import join_from_env
 from ..parallel.mesh import rank_rows
 from ..parallel.trainstep import step_generator
+from ..utils.quality import fwsegsnr_aligned
+from ..vocoder import SPEECH_FS, get_vocoder
+from .ch import analog_compressor, apply_ch
 from .tx_batch import load_params
 
 CHANNELS = ["awgn", "mpg", "mpp", "mpd"]
@@ -128,6 +135,120 @@ def run_sweep(model, params, feats_seq, channels, EbNodB_list, reps=2,
     return {k: float(means[i]) for k, i in cells.items()}
 
 
+def _write_wav(path, pcm, fs):
+    pcm = np.clip(np.asarray(pcm, np.float32), -32767, 32767)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(int(fs))
+        w.writeframes(pcm.astype(np.int16).tobytes())
+
+
+def _pad36(f20):
+    """Synthesis back-ends take the full 36-float-per-frame feature
+    layout (the FARGAN binary parses its input as 36-wide frames;
+    the built-in vocoders read the first 20 columns)."""
+    out = np.zeros((f20.shape[0], NB_TOTAL_FEATURES), np.float32)
+    out[:, :f20.shape[1]] = f20
+    return out
+
+
+def write_audio_cells(model, params, feats_seq, channels, EbNodB_list,
+                      outdir, seed=0, name="sample"):
+    """A/B listening material per sweep cell (reference: evaluate.sh).
+
+    For each (channel, EbNo) cell, writes next to each other:
+      <name>_<E>dB_<ch>.wav      decoded RADAE audio at that operating point
+      <name>_<E>dB_<ch>_ssb.wav  the SSB comparison: compressed speech +
+                                 calibrated noise at the SAME C/No as the
+                                 RADAE signal (via tools/ch, the independent
+                                 channel/measurement path)
+      <name>_<E>dB_<ch>_zREADME.txt  measured Eb/No / C/No / SNR3k / PAPR
+    plus once: zz_<name>_orig.wav (clean vocoder reference) and
+    zz_<name>_ssb.wav (compressed clean SSB tx signal).  The forward and
+    the neural vocoder run on the model's device; each cell's forward
+    draws from a generator seeded `seed` (radae_tpu's fixed key a cell).
+    """
+    from scipy.signal import decimate
+
+    os.makedirs(outdir, exist_ok=True)
+    cfg = model.cfg
+    voc = get_vocoder(device=model.device)
+    rng = np.random.default_rng(seed)
+
+    # clean references, written once
+    clean16k = np.asarray(voc.synthesize(_pad36(feats_seq[:, :20])),
+                          np.float32)
+    _write_wav(os.path.join(outdir, f"zz_{name}_orig.wav"), clean16k,
+               SPEECH_FS)
+    # SSB path runs at the modem rate (8 kHz): decimate by 2 post-LPF
+    clean8k = decimate(clean16k, int(SPEECH_FS // 8000)).astype(np.float32)
+    ssb_tx = analog_compressor(clean8k)
+    _write_wav(os.path.join(outdir, f"zz_{name}_ssb.wav"), ssb_tx, 8000)
+
+    T = feats_seq.shape[0]
+    n_rs = cfg.num_timesteps_at_rate_Rs(T)
+    n_fs = cfg.num_timesteps_at_rate_Fs(n_rs)
+    written = []
+    for ch in channels:
+        for e in EbNodB_list:
+            H = model.default_H(1, n_rs)
+            G = model.default_G(1, n_fs)
+            if ch != "awgn":
+                _, Gs, hf_gain = multipath_samples(
+                    ch, cfg.Fs, cfg.Rs_dash, cfg.Nc, n_fs / cfg.Fs + 1,
+                    rng=rng)
+                G = cplx.pack_np((hf_gain * Gs[:n_fs])[None])
+            key = torch.Generator(device=model.device)
+            key.manual_seed(seed)
+            with torch.no_grad():
+                out = model.forward(params, feats_seq[None], H, G, key=key,
+                                    EbNodB=np.full((1,), e, np.float32))
+            fh = out["features_hat"][0].cpu().numpy()
+            base = os.path.join(outdir, f"{name}_{e:g}dB_{ch}")
+            decoded = np.asarray(voc.synthesize(_pad36(fh[:, :20])),
+                                 np.float32)
+            _write_wav(base + ".wav", decoded, SPEECH_FS)
+            # end-to-end listening proxy: fwSegSNR of the decoded audio
+            # against the clean vocoder reference (utils/quality.py)
+            q_e2e = fwsegsnr_aligned(clean16k, decoded, fs=SPEECH_FS)
+
+            # measured RADAE operating point (tools/inference.py printout)
+            tx = (out["tx"].re + 1j * out["tx"].im).cpu().numpy()
+            sigma = float(out["sigma"].flatten()[0])
+            S = float(np.mean(np.abs(tx) ** 2))
+            CNodB = 10 * np.log10(S * cfg.Fs / sigma ** 2)
+            EbNodB_meas = CNodB + 10 * np.log10(
+                cfg.M / (cfg.Fs * cfg.Nc * cfg.bps))
+            SNRdB = CNodB - 10 * np.log10(3000.0)
+            PAPRdB = 20 * np.log10(np.max(np.abs(tx)) / np.sqrt(S))
+
+            # SSB at the SAME C/No: fade first, then calibrate the noise
+            # density from the post-fade power (reference: evaluate.sh
+            # measures RMS with --after_fade) via the independent ch path
+            ssb_sig = ssb_tx.astype(np.complex64)
+            if ch != "awgn":
+                ssb_sig = fade_two_path(ssb_sig, ch, 8000, rng=rng,
+                                        normalize=False)
+            C_ssb = float(np.mean(np.abs(ssb_sig) ** 2))
+            No_dB = 10 * np.log10(max(C_ssb, 1e-12)) - CNodB
+            ssb_rx, CNo_meas = apply_ch(ssb_sig, No_dB, Fs=8000, rng=rng)
+            ssb_rx = ssb_rx.real
+            peak = np.abs(ssb_rx).max() + 1e-9
+            _write_wav(base + "_ssb.wav", ssb_rx / peak * 16384, 8000)
+
+            with open(base + "_zREADME.txt", "w") as f:
+                f.write("Waveform           EbNo  PAPR  C/No  SNR3k\n")
+                f.write(f"Radio Autoencoder: {EbNodB_meas:5.2f} {PAPRdB:5.2f}"
+                        f" {CNodB:5.2f} {SNRdB:5.2f}\n")
+                f.write(f"SSB..............:   n/a   n/a {CNo_meas:5.2f}"
+                        f" {CNo_meas - 10 * np.log10(3000.0):5.2f}\n")
+                f.write(f"RADAE decoded-audio fwSegSNR vs clean reference: "
+                        f"{q_e2e:5.2f} dB\n")
+            written.append(base)
+    return written
+
+
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -149,8 +270,10 @@ def build_parser():
                    help="accepted for radae_tpu's command lines; the sweep "
                         "is the same with or without it")
     p.add_argument("--audio", type=str, default="",
-                   help="per-cell listening audio: not ported yet (needs "
-                        "the vocoder and utils/quality.py); refused")
+                   help="also write per-cell A/B listening audio to this "
+                        "directory: decoded RADAE wav + matched-C/No SSB "
+                        "comparison wav + measured-numbers README "
+                        "(reference: evaluate.sh)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; with torchrun, "
@@ -160,10 +283,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.audio:
-        raise SystemExit("evaluate --audio: the listening material needs the "
-                         "vocoder and utils/quality.py, which radae_tpu_torch "
-                         "does not have yet; run without --audio")
     device, group, rank, world = join_from_env(args.device)
     try:
         run(args, device, group, rank)
@@ -227,6 +346,13 @@ def run(args, device, group, rank):
     if args.json:
         with open(args.json, "w") as fj:
             json.dump({f"{ch}@{e}": v for (ch, e), v in table.items()}, fj)
+    if args.audio:
+        name = os.path.splitext(os.path.basename(args.features))[0]
+        written = write_audio_cells(model, params, feats_seq, channels,
+                                    ebnos, args.audio, seed=args.seed,
+                                    name=name)
+        print(f"audio: {len(written)} cell pairs in {args.audio}",
+              file=sys.stderr)
     return table
 
 

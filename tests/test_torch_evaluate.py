@@ -2,27 +2,31 @@
 batch against radae_tpu's, the sweep (each rank's rows reduced into
 per-cell sums, one all_reduce) over a real two-process Gloo group against
 one process and against per-row losses averaged in numpy, the --ber grid,
-and --audio refused until the vocoder is ported."""
+and --audio's listening material (write_audio_cells) against radae_tpu's
+on the same features, weights, seed and channel draw."""
 
 import json
 import os
 import socket
 import subprocess
 import sys
+import wave
 
 import numpy as np
 import pytest
 import torch
 
 from radae_tpu.config import RADAEConfig as JRADAEConfig
+from radae_tpu.models.radae import RADAE as JRADAE
 from radae_tpu.tools.evaluate import build_grid_batch as jbuild_grid_batch
+from radae_tpu.tools.evaluate import write_audio_cells as jwrite_audio_cells
 from radae_tpu_torch.config import RADAEConfig
 from radae_tpu_torch.models.core import distortion_loss
 from radae_tpu_torch.models.radae import RADAE
 from radae_tpu_torch.ops import cplx
 from radae_tpu_torch.parallel.trainstep import step_generator
 from radae_tpu_torch.tools import evaluate
-from tests.test_torch_channel import one_thread  # noqa: F401
+from tests.test_torch_channel import one_thread, same_noise  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FEATS = os.path.join(REPO, "fixtures", "speech_feats.f32")
@@ -30,6 +34,11 @@ EVAL_CFG = dict(feature_dim=20, latent_dim=80, EbNodB=100, rate_Fs=True,
                 pilots=True, pilot_eq=True, eq_mean6=False,
                 cyclic_prefix=0.004, coarse_mag=True, time_offset=-16,
                 bottleneck=3)
+# the neural vocoder's f32 phase cumsum rounds otherwise in torch than in
+# jax: up to 13 of the clean reference's pcm over 96 frames, and the SSB
+# wavs are made from it
+PCM_TOL = 16
+FWSEG_TOL = 0.05        # dB
 SWEEP = ["--channels", "awgn,mpp", "--EbNodB", "0,10", "--reps", "2",
          "--seconds", "1.2", "--shard_map"]
 
@@ -124,6 +133,45 @@ def test_ber_grid(tmp_path):
     assert table["awgn@0.0"] > 0.01
 
 
-def test_audio_is_refused_until_the_vocoder_is_ported():
-    with pytest.raises(SystemExit, match="vocoder"):
-        evaluate.main(["random", FEATS, "--audio", "out", "--device", "cpu"])
+def _wav(path):
+    with wave.open(path, "rb") as w:
+        return w.getframerate(), np.frombuffer(
+            w.readframes(w.getnframes()), np.int16).astype(np.int32)
+
+
+def test_audio_cells_match_jax(tmp_path, same_noise):
+    """write_audio_cells (evaluate --audio) against radae_tpu's on the same
+    features, weights (init(0)) and seed, quant noise off and the channel's
+    draw shared (same_noise): per file the same rate and length; the clean
+    reference zz_*_orig.wav, each cell's decoded wav, and the SSB wavs
+    (zz_*_ssb.wav and each cell's _ssb.wav, made from the clean reference
+    with the numpy rng both draw alike) within PCM_TOL; each README's measured
+    Eb/No, PAPR, C/No and SNR3k and SSB line equal as printed, and its
+    fwSegSNR within FWSEG_TOL dB."""
+    kw = dict(EVAL_CFG, quant_noise=False)
+    model, jmodel = RADAE(RADAEConfig(**kw), "cpu"), JRADAE(JRADAEConfig(**kw))
+    params = model.init(0)
+    feats = np.fromfile(FEATS, np.float32).reshape(-1, 36)[
+        :model.cfg.num_10ms_times_steps_rounded_to_modem_frames(96), :20]
+    dirs = [str(tmp_path / d) for d in ("ours", "ref")]
+    cells = (["awgn", "mpp"], [6.0])
+    got = evaluate.write_audio_cells(model, params, feats, *cells, dirs[0],
+                                     seed=3, name="f")
+    want = jwrite_audio_cells(jmodel, params, feats, *cells, dirs[1],
+                              seed=3, name="f")
+    assert [os.path.basename(b) for b in got] == \
+        [os.path.basename(b) for b in want] == ["f_6dB_awgn", "f_6dB_mpp"]
+    names = sorted(os.listdir(dirs[0]))
+    assert names == sorted(os.listdir(dirs[1])) and len(names) == 8
+    for name in names:
+        a, b = (os.path.join(d, name) for d in dirs)
+        if name.endswith(".wav"):
+            (fa, xa), (fb, xb) = _wav(a), _wav(b)
+            assert fa == fb and len(xa) == len(xb) > 1000, name
+            err = int(np.abs(xa - xb).max())
+            assert err <= PCM_TOL, (name, err)
+            continue
+        la, lb = open(a).read().splitlines(), open(b).read().splitlines()
+        assert la[:3] == lb[:3], (la, lb)
+        qa, qb = (float(ln[3].split()[-2]) for ln in (la, lb))
+        assert abs(qa - qb) <= FWSEG_TOL, (qa, qb)

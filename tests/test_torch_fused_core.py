@@ -1,6 +1,8 @@
 """The fused core kernels' plain versions (radae_tpu_torch/ops/fused_core.py)
 against radae_tpu's Pallas kernels in interpret mode, as tests/test_fused.py
-runs them on the CPU (fixture weights; rtol 1e-4, atol 1e-5).  The CUDA
+runs them on the CPU (fixture weights; rtol 1e-4, atol 1e-5): at the
+flagship's widths (21 features, the encoder's bottleneck 3) and at BBFM's
+(20 features, fixtures/model_bbfm.npz, the encoder's bottleneck 1).  The CUDA
 kernels themselves are held against these plain versions on the card by
 chip_smoke.py."""
 
@@ -21,6 +23,16 @@ def tree():
     return load_checkpoint("fixtures/model_fs_flagship.npz")[0]
 
 
+# model -> (fixture, features, the encoder's bottleneck)
+MODELS = {"flagship": ("fixtures/model_fs_flagship.npz", 21, 3),
+          "bbfm": ("fixtures/model_bbfm.npz", 20, 1)}
+
+
+@pytest.fixture(scope="module")
+def trees():
+    return {m: load_checkpoint(path)[0] for m, (path, _, _) in MODELS.items()}
+
+
 @pytest.mark.parametrize("side", ["decoder", "encoder"])
 def test_packed_weights_equal_jax(tree, side):
     ours = (fc.decoder_weights if side == "decoder"
@@ -39,12 +51,16 @@ def _z(rng):
     return np.tanh(rng.standard_normal((B, 3, 80))).astype(np.float32)
 
 
-@pytest.mark.parametrize("merged", [False, True], ids=["unmerged", "merged"])
-def test_decoder_plain_matches_pallas_interpret(tree, merged):
+@pytest.mark.parametrize("model, merged", [
+    ("flagship", False), ("flagship", True), ("bbfm", False), ("bbfm", True)],
+    ids=["unmerged", "merged", "bbfm-unmerged", "bbfm-merged"])
+def test_decoder_plain_matches_pallas_interpret(trees, merged, model):
     """3 chained frames with carried state; the JAX chain-merged layout
-    computes the same features as the unmerged form the port takes."""
+    computes the same features as the unmerged form the port takes (at
+    BBFM's 80-wide output too)."""
+    tree, F = trees[model], MODELS[model][1]
     w = fc.decoder_weights(tree["decoder"], "cpu")
-    step = jfc.make_fused_decoder_step(80, 21, B, tile=4, interpret=True,
+    step = jfc.make_fused_decoder_step(80, F, B, tile=4, interpret=True,
                                        merged=merged)
     jw = jfc.decoder_weights(tree["decoder"], merged=merged)
     jstate = jfc.decoder_state_zero(B, merged=merged)
@@ -70,16 +86,22 @@ def _enc_state_from_jax(jstate):
     return out
 
 
-def test_encoder_plain_matches_pallas_interpret(tree):
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_encoder_plain_matches_pallas_interpret(trees, model):
+    """3 chained calls with carried state; BBFM's encoder takes 80-wide
+    frames and ends in the bottleneck-1 tanh on z_dense."""
+    tree, F, bottleneck = trees[model], *MODELS[model][1:]
     w = fc.encoder_weights(tree["encoder"], "cpu")
-    step = jfc.make_fused_encoder_step(21, 80, B, tile=4, interpret=True)
+    step = jfc.make_fused_encoder_step(F, 80, B, tile=4, interpret=True,
+                                       bottleneck=bottleneck)
     jw = jfc.encoder_weights(tree["encoder"])
     jstate = jfc.encoder_state_zero(B)
     state = fc.encoder_state_zero(B, "cpu")
     rng = np.random.default_rng(1)
     for _ in range(3):
-        f = (0.3 * rng.standard_normal((B, 12, 21))).astype(np.float32)
-        z, state = fc.encoder_step_plain(w, torch.as_tensor(f), state)
+        f = (0.3 * rng.standard_normal((B, 12, F))).astype(np.float32)
+        z, state = fc.encoder_step_plain(w, torch.as_tensor(f), state,
+                                         bottleneck)
         z_ref, jstate = step(jw, f, *jstate)
         np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), **TOL)
         for s, r in zip(state, _enc_state_from_jax(jstate)):

@@ -139,3 +139,33 @@ def test_file_tools_default_to_the_card(monkeypatch, tmp_path):
                  lambda: stateful.stateful_decoder(["random", feat])):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
+
+
+def test_bbfm_and_speech_entry_points_default_to_the_card(monkeypatch,
+                                                          tmp_path):
+    from radae_tpu_torch import vocoder, vocoder_nn
+    from radae_tpu_torch.config import BBFMConfig
+    from radae_tpu_torch.models.bbfm import BBFM
+    from radae_tpu_torch.tools import bbfm, evaluate, wav_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feat = str(tmp_path / "f.f32")
+    np.zeros((24, 36), np.float32).tofile(feat)
+    wav = str(tmp_path / "in.wav")
+    wav_pipeline.write_wav(wav, np.zeros(1600, np.int16))
+    weights = str(ROOT / "fixtures" / "vocoder_nn.npz")
+    for make in (lambda: BBFM(BBFMConfig()),
+                 lambda: bbfm.bbfm_inference(["random", feat, "/dev/null"]),
+                 lambda: bbfm.bbfm_rx(["random", feat, "/dev/null"]),
+                 lambda: bbfm.train_bbfm([feat, str(tmp_path / "run")]),
+                 lambda: wav_pipeline.main(["random", wav, "/dev/null"]),
+                 lambda: vocoder_nn.main(["synth", weights, feat,
+                                          "/dev/null"]),
+                 lambda: vocoder_nn.NeuralVocoder(weights),
+                 lambda: vocoder_nn.params_to_torch(
+                     vocoder_nn.init_params(0)),
+                 lambda: vocoder.get_vocoder(backend="neural"),
+                 lambda: evaluate.main(["random", feat, "--audio",
+                                        str(tmp_path / "audio")])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
