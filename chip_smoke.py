@@ -139,6 +139,20 @@ EQ, coarse magnitude):
      MelVocoder's, its synthesis time; vocoder_nn corpus and train on wavs
      it writes; evaluate --audio on two cells; each path with the launch
      counts at 0 before it and checked after it;
+     then the last modules (tools_phase: tools/{ptt_loop,ota,est_snr,
+     webtx,ml_pilots,profile,scaling}.py on the flagship checkpoint): two
+     PTT sessions (tests/test_session.py's AWGN and MPP cases at 3 dB) made
+     by RadaeTx on the card and received by one RadaeRx across every over
+     and gap, the f32 decoder kernel launched once a decoded frame at B=1,
+     the session tests' gates and the CPU's receiving loop on the same
+     session IQ giving the same reports, each session's ms a frame and the
+     kernel's share of it; the ptt_loop CLI with its PTT hooks; ota at 50
+     dB on 10 s (exit 0, each tool's wall time); est_snr --refit and the
+     refit's raw estimates card against CPU (1e-4); a webtx round trip on
+     loopback received on the card (acquired, EOO); ml_pilots card against
+     CPU on shared draws (1e-5) and its CLI; profile (the plain rx step at
+     B=2048, the training-step breakdown at B=32, a torch.profiler trace)
+     and scaling over the cards present;
      then the port's benchmark as a user runs it,
      `python -m radae_tpu_torch.bench` (its one line must carry a value
      from a fused rung at B >= 2048), and its run_bench for the modes that
@@ -1839,6 +1853,268 @@ def speech_phase(dev, raw, card):
     return launched
 
 
+PTT_CASES = {   # tests/test_session.py's two sessions
+    "awgn": dict(n_overs=2, over_secs=4.0, gap_secs=2.0, snrdB=3.0, seed=1),
+    "mpp": dict(n_overs=2, over_secs=5.0, gap_secs=2.0, channel="mpp",
+                snrdB=3.0, seed=1)}
+OTA_ROWS = 1000          # 10 s of the fixture through the OTA driver
+OTA_CNODB = 50.0
+REFIT_SNRS = (0.0, 6.0, 12.0)
+REFIT_FRAMES = 4
+REFIT_RTOL = 1e-4
+PILOT_EPOCHS = 5
+PILOT_RTOL = 1e-5
+PILOT_DRAW_SEED = 31
+WEBTX_ROWS = 300         # 3 s of speech through the web tx service
+PROFILE_B = 32           # the training-step breakdown's batch (train.py's)
+PROFILE_T = 48           # and sequence; one chained iteration a call, one
+                         # slope (radae_tpu's T=240, 8 and 3 take minutes)
+SCALING_REPS = 2         # slopes of the eval and the train step (3 and 5)
+
+
+def ptt_gates(case, reports):
+    """tests/test_session.py's gates on one session's per-over reports."""
+    for i, r in enumerate(reports):
+        ok = r["acquired"] and r["frames_decoded"] >= (
+            20 if case == "awgn" else 25) and (r["eoo"] or case != "awgn")
+        if not ok:
+            raise AssertionError(f"ptt_loop {case} over {i}: {reports}")
+    if case == "awgn" and not any(r["unsynced_after"] for r in reports):
+        raise AssertionError(f"ptt_loop awgn: sync never dropped: {reports}")
+    if not any(r["eoo"] for r in reports):
+        raise AssertionError(f"ptt_loop {case}: no EOO found: {reports}")
+
+
+def tools_phase(dev, raw, card):
+    """The last modules (tools/{ptt_loop,ota,est_snr,webtx,ml_pilots,
+    profile,scaling}.py) on the card at the flagship's full width, on the
+    fixture checkpoint and the fixture's features.
+
+    1. The PTT session (the main path of this phase): each of PTT_CASES
+       (AWGN at 3 dB with two 4 s overs, MPP at 3 dB with two 5 s overs,
+       seed 1) made by the port's RadaeTx on the card and received by one
+       RadaeRx across every over and gap (`ptt_loop.make_session` and
+       `receive_session`, which `run_session` chains): the gates of
+       tests/test_session.py; the f32 decoder kernel launched once a
+       decoded frame at B=1 and nothing else; the same session IQ through
+       the receiving loop on the CPU gives the same reports.  Then the
+       `ptt_loop` CLI with its PTT hooks and --rig-out.
+    2. `ota` at OTA_CNODB dB on OTA_ROWS fixture rows: exit 0.
+    3. `est_snr --refit`, and refit_pipeline on REFIT_SNRS, REFIT_FRAMES
+       frames on the card against the CPU: raw estimates at REFIT_RTOL.
+    4. A `webtx` round trip on loopback: the IQ of a WEBTX_ROWS-frame wav
+       received on the card acquires and finds its EOO.
+    5. `ml_pilots`: PILOT_EPOCHS epochs on the card against the CPU on
+       shared host draws (params at PILOT_RTOL), then the CLI.
+    6. `profile` at B (the plain rx step, a torch.profiler trace of it),
+       its training-step breakdown at PROFILE_B, PROFILE_T, and `scaling`
+       over the cards present (SCALING_REPS slopes).
+    Prints each session's ms a frame, the B=1 kernel's share of it and
+    each tool's wall time; returns the kernel launches of 1 and 2."""
+    import contextlib
+    import shutil
+    import threading
+    import urllib.request
+    import wave
+    from http.server import ThreadingHTTPServer
+    import torch
+    from radae_tpu_torch.apps.rxe import RadaeRx
+    from radae_tpu_torch.convert import load_checkpoint
+    from radae_tpu_torch.ops import fused_core as fc
+    from radae_tpu_torch.tools import (est_snr, ml_pilots, profile, ptt_loop,
+                                       scaling)
+    from radae_tpu_torch.tools.webtx import make_handler
+    from radae_tpu_torch.vocoder import MelVocoder, SPEECH_FS
+
+    t_phase = time.perf_counter()
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    ckpt = os.path.join(HERE, "fixtures", "model_fs_flagship.npz")
+    fixture = os.path.join(HERE, "fixtures", "speech_feats.f32")
+    work = os.path.join(HERE, "build", "chip_smoke_tools")
+    os.makedirs(work, exist_ok=True)
+    tree, _ = load_checkpoint(ckpt)
+    launched, wall = {}, {}
+
+    # -- 1. the PTT session -------------------------------------------------
+    w = fc.decoder_weights(tree["decoder"], dev)
+    with torch.no_grad():
+        z = torch.as_tensor(np.tanh(np.random.default_rng(13).standard_normal(
+            (1, 3, 80))).astype(np.float32), device=dev)
+        s0 = fc.decoder_state_zero(1, dev)
+        k_ms = time_ms(lambda: fc.fused_decoder_step(w, z, s0), 50)
+    fc.reset_launches()
+    for case, kw in PTT_CASES.items():
+        t0 = time.perf_counter()
+        session, marks = ptt_loop.make_session(tree, raw, device=dev, **kw)
+        tx_s = time.perf_counter() - t0
+        fc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports, counts = ptt_loop.receive_session(tree, session, marks,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        rx_s = time.perf_counter() - t0
+        got = {k: v for k, v in fc.LAUNCHES.items() if v}
+        if got != {"fused_decoder_step": counts["decoded"]} or not \
+                counts["decoded"]:
+            raise AssertionError(f"ptt_loop {case}: kernels launched {got}, "
+                                 f"not {counts['decoded']} fused_decoder_step "
+                                 "(one a decoded frame)")
+        launched["fused_decoder_step"] = launched.get(
+            "fused_decoder_step", 0) + counts["decoded"]
+        ptt_gates(case, reports)
+        with torch.no_grad():
+            cpu_reports, cpu_counts = ptt_loop.receive_session(
+                tree, session, marks, device="cpu")
+        if (cpu_reports, cpu_counts) != (reports, counts):
+            raise AssertionError(f"ptt_loop {case}: card {reports} {counts}, "
+                                 f"CPU {cpu_reports} {cpu_counts}")
+        n_tx = kw["n_overs"] * (max(2, int(kw["over_secs"] / 0.12)) + 1)
+        rx_ms = 1e3 * rx_s / counts["frames"]
+        print(f"ptt_loop {case}: {len(session) / 8000:.2f} s session, "
+              f"{counts['frames']} frames received, {counts['decoded']} "
+              f"decoded, reports {reports} (the CPU's the same); tx "
+              f"{1e3 * tx_s / n_tx:.3f} ms a frame ({n_tx} frames with the "
+              f"EOO), rx {rx_ms:.3f} ms a frame against the 120 ms period; "
+              f"fused_decoder_step at B=1 {k_ms:.4f} ms (CUDA events), "
+              f"{counts['decoded'] * k_ms / (1e3 * rx_s):.4f} of the "
+              f"receiving loop's time ({card})")
+    rig = os.path.join(work, "rig.f32")
+    rc, _, counts_cli, err = run_tool(
+        "ptt_loop", [ckpt, fixture, "--over-secs", "4", "--snrdB", "3",
+                     "--seed", "1", "--rig-out", rig, "--ptt-on-cmd", "true",
+                     "--ptt-off-cmd", "true"] + dev_args, None, launched,
+        wall)
+    if rc != 0 or set(counts_cli) != {"fused_decoder_step"} or \
+            os.path.getsize(rig) < 2 * 4 * 8000 * 8:
+        raise AssertionError(f"ptt_loop CLI: rc {rc}, {counts_cli}: {err}")
+
+    # -- 2. the OTA driver --------------------------------------------------
+    feats = os.path.join(work, "ota_feats.f32")
+    raw[:OTA_ROWS].tofile(feats)
+    rc, out, counts_ota, err = run_tool(
+        "ota", [ckpt, feats, "--CNodB", str(OTA_CNODB)] + dev_args, None,
+        launched, wall)
+    if rc != 0 or "OTA PASS" not in out:
+        raise AssertionError(f"ota: rc {rc}: {out} {err}")
+    print(f"ota at {OTA_CNODB} dB on {OTA_ROWS / 100:.0f} s: PASS, kernels "
+          f"{counts_ota}; {next(ln for ln in err.splitlines() if ln.startswith('ota wall'))}; "
+          + "; ".join(ln.strip() for ln in out.splitlines()
+                      if ln.startswith("chirp C/No") or "acq_time" in ln))
+
+    # -- 3. est_snr --refit -------------------------------------------------
+    rc, out, _, _ = run_tool("est_snr", ["--refit"] + dev_args, {},
+                             launched, wall)
+    fit = next(ln for ln in out.splitlines() if ln.startswith("refit"))
+    got = est_snr.refit_pipeline(np.array(REFIT_SNRS), REFIT_FRAMES,
+                                 device=dev)
+    want = est_snr.refit_pipeline(np.array(REFIT_SNRS), REFIT_FRAMES,
+                                  device="cpu")
+    if not np.allclose(got[3], want[3], rtol=REFIT_RTOL, atol=0):
+        raise AssertionError(f"est_snr refit raw estimates: card {got[3]}, "
+                             f"CPU {want[3]}")
+    print(f"est_snr --refit: {fit}; on {REFIT_SNRS} dB, {REFIT_FRAMES} "
+          f"frames, raw estimates card {np.round(got[3], 5).tolist()} "
+          f"against the CPU's, max diff "
+          f"{float(np.abs(got[3] - want[3]).max()):.3g} dB")
+
+    # -- 4. webtx on loopback -------------------------------------------------
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(tree,
+                                                             device=dev))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        pcm = MelVocoder().synthesize(raw[:WEBTX_ROWS]).astype(np.int16)
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as wv:
+            wv.setnchannels(1)
+            wv.setsampwidth(2)
+            wv.setframerate(SPEECH_FS)
+            wv.writeframes(pcm.tobytes())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            iq = np.frombuffer(urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{srv.server_port}/tx", data=buf.getvalue(),
+                method="POST"), timeout=300).read(), np.float32).view(
+                    np.complex64)
+        wall["webtx POST"] = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    rx = RadaeRx(params=tree, auxdata=True, v=0, device=dev)
+    recs = rx_frames(rx, np.concatenate([iq, np.zeros(16000, np.complex64)]))
+    if not (any(r[0] & 1 for r in recs) and any(r[0] & 2 for r in recs)):
+        raise AssertionError(f"webtx: {len(iq)} samples, the receiver did "
+                             "not acquire and find the EOO")
+    print(f"webtx: {WEBTX_ROWS / 100:.0f} s wav -> {len(iq)} samples in "
+          f"{wall['webtx POST']:.3f} s, acquired with EOO on the card")
+
+    # -- 5. ml_pilots ----------------------------------------------------------
+    real_normal = ml_pilots.normal
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        host = np.random.default_rng(PILOT_DRAW_SEED)
+        ml_pilots.normal = lambda gen, shape, host=host: torch.as_tensor(
+            host.standard_normal(shape).astype(np.float32), device=gen.device)
+        try:
+            res[d.type] = ml_pilots.train_pilots(epochs=PILOT_EPOCHS,
+                                                 batches=10, device=d)
+        finally:
+            ml_pilots.normal = real_normal
+    pr_err = max(float(np.abs(res[dev.type][0][k] - res["cpu"][0][k]).max())
+                 for k in ("Pr", "Pi"))
+    if not all(np.allclose(res[dev.type][0][k], res["cpu"][0][k],
+                           rtol=PILOT_RTOL, atol=0) for k in ("Pr", "Pi")):
+        raise AssertionError(f"ml_pilots: card against CPU max abs err "
+                             f"{pr_err:.3g}")
+    rc, out, _, _ = run_tool("ml_pilots", ["--epochs", str(PILOT_EPOCHS)]
+                             + dev_args, {}, launched, wall)
+    print(f"ml_pilots: {PILOT_EPOCHS} epochs card against CPU on shared "
+          f"draws, params max abs err {pr_err:.3g}, PAPR "
+          f"{res[dev.type][1]:.4f} / {res['cpu'][1]:.4f} dB; the CLI: "
+          f"{out.strip().splitlines()[-1]}")
+
+    # -- 6. profile and scaling ---------------------------------------------
+    trace = os.path.join(work, "trace")
+    rc, out, _, _ = run_tool("profile", ["--batch", str(B), "--trace", trace]
+                             + dev_args, {}, launched, wall)
+    trace_b = os.path.getsize(os.path.join(trace, "rx_step_trace.json"))
+    shutil.rmtree(trace)
+    if not trace_b:
+        raise AssertionError("profile --trace wrote nothing")
+    o = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(o):
+        rows = profile.train_breakdown([PROFILE_B], T=PROFILE_T, scan=1,
+                                       slopes=1, device=dev)
+    wall["profile train_breakdown"] = time.perf_counter() - t0
+    if set(rows[0]) != {"B", *profile.ROWS}:
+        raise AssertionError(f"profile train_breakdown: {rows}")
+    print(f"profile --batch {B} --trace (a torch.profiler trace of {trace_b} "
+          f"B) and train_breakdown([{PROFILE_B}], T={PROFILE_T}) ({card}):")
+    for ln in (out + o.getvalue()).strip().splitlines():
+        print(f"  {ln}")
+    t0 = time.perf_counter()
+    rows = scaling.measure_scaling(
+        (1,) if dev.type == "cpu" else (1, 2, 4, 8), device=dev.type,
+        eval_reps=SCALING_REPS, train_reps=SCALING_REPS)
+    wall["scaling"] = time.perf_counter() - t0
+    if not all(np.isfinite(r["loss0"]) for r in rows):
+        raise AssertionError(f"scaling: {rows}")
+    o = io.StringIO()
+    with contextlib.redirect_stdout(o):
+        scaling.print_rows(rows, dev.type)
+    print(f"scaling, {torch.cuda.device_count()} card(s) present, "
+          f"{SCALING_REPS} slopes ({card}):")
+    for ln in o.getvalue().strip().splitlines():
+        print(f"  {ln}")
+    print("last tools wall time (host clock): " + "; ".join(
+        f"{k} {v:.2f} s" for k, v in wall.items()) + f" ({card})")
+    print(f"tools phase launches: {launched}")
+    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def _named_leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2667,6 +2943,10 @@ def main(argv=None) -> int:
 
     # -- BBFM, the single-carrier modem, the speech back end --------------
     for name, n in speech_phase(dev, raw, card).items():
+        launches[name] += n
+
+    # -- the last modules: the PTT session, OTA, calibration, measurement ---
+    for name, n in tools_phase(dev, raw, card).items():
         launches[name] += n
     print(f"launches on the main paths: {launches}")
 

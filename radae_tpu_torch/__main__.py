@@ -1,5 +1,6 @@
 """Command-line dispatcher: `python -m radae_tpu_torch <tool> [args...]`
-(the tools the port has, in the form of `radae_tpu/__main__.py`)."""
+(the table of `radae_tpu/__main__.py`, every tool's port).  A tool's module
+is imported when it is called, not with this file."""
 
 import sys
 
@@ -23,6 +24,20 @@ TOOLS = {
     "ch": ("radae_tpu_torch.tools.ch", "main"),
     "wav": ("radae_tpu_torch.tools.wav_pipeline", "main"),
     "vocoder_nn": ("radae_tpu_torch.vocoder_nn", "main"),
+    "est_snr": ("radae_tpu_torch.tools.est_snr", "main"),
+    "est_cno": ("radae_tpu_torch.tools.chirp", "est_CNo_main"),
+    "chirp": ("radae_tpu_torch.tools.chirp", "chirp_main"),
+    "eoo_ber": ("radae_tpu_torch.tools.chirp", "eoo_ber_main"),
+    "f32toint16": ("radae_tpu_torch.tools.converters", "f32toint16"),
+    "int16tof32": ("radae_tpu_torch.tools.converters", "int16tof32"),
+    "ml_pilots": ("radae_tpu_torch.tools.ml_pilots", "main"),
+    "export": ("radae_tpu_torch.export", "main"),
+    "ota": ("radae_tpu_torch.tools.ota", "main"),
+    "ptt_loop": ("radae_tpu_torch.tools.ptt_loop", "main"),
+    "webtx": ("radae_tpu_torch.tools.webtx", "main"),
+    "report": ("radae_tpu_torch.tools.report", "main"),
+    "plots": ("radae_tpu_torch.tools.plots", "main"),
+    "profile": ("radae_tpu_torch.tools.profile", "main"),
 }
 
 

@@ -169,3 +169,65 @@ def test_bbfm_and_speech_entry_points_default_to_the_card(monkeypatch,
                                         str(tmp_path / "audio")])):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
+
+
+# the tools of radae_tpu/__main__.py that the port's last slice added, by
+# what they compute with: torch (an explicit --device, default cuda) or
+# numpy only (no --device)
+TORCH_TOOLS = ("est_snr", "ota", "ptt_loop", "webtx", "ml_pilots", "profile")
+NUMPY_TOOLS = ("est_cno", "chirp", "eoo_ber", "f32toint16", "int16tof32",
+               "export", "report", "plots")
+
+
+def test_tool_table_is_radae_tpus():
+    from radae_tpu.__main__ import TOOLS as JTOOLS
+    from radae_tpu_torch.__main__ import TOOLS
+    assert set(TOOLS) == set(JTOOLS)
+    assert set(TORCH_TOOLS + NUMPY_TOOLS) <= set(TOOLS)
+
+
+def _help(fn, capsys) -> str:
+    with pytest.raises(SystemExit) as e:
+        fn(["--help"])
+    assert e.value.code == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", TORCH_TOOLS + ("scaling",))
+def test_torch_tool_takes_a_device_defaulting_to_cuda(name, capsys):
+    import importlib
+    from radae_tpu_torch.__main__ import TOOLS
+    mod, fn = TOOLS.get(name, ("radae_tpu_torch.tools.scaling", "main"))
+    text = " ".join(_help(getattr(importlib.import_module(mod), fn),
+                          capsys).split())
+    assert "--device" in text and "default cuda" in text, text
+
+
+@pytest.mark.parametrize("name", NUMPY_TOOLS)
+def test_numpy_tool_takes_no_device(name, capsys):
+    import importlib
+    from radae_tpu_torch.__main__ import TOOLS
+    mod, fn = TOOLS[name]
+    assert "--device" not in _help(getattr(importlib.import_module(mod), fn),
+                                   capsys)
+
+
+def test_last_slice_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from radae_tpu_torch.tools import (est_snr, ml_pilots, ota, profile,
+                                       ptt_loop, scaling, webtx)
+    from radae_tpu_torch.utils.hostio import device_put_tree
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = str(ROOT / "fixtures" / "model_fs_flagship.npz")
+    feats = str(ROOT / "fixtures" / "speech_feats.f32")
+    for make in (lambda: est_snr.main(["--refit"]),
+                 lambda: ota.main(["random", feats]),
+                 lambda: ptt_loop.main([ckpt, feats]),
+                 lambda: webtx.main([ckpt, "--port", "0"]),
+                 lambda: ml_pilots.main(["--epochs", "1"]),
+                 lambda: profile.main(["--batch", "4"]),
+                 lambda: profile.train_breakdown([2], T=48),
+                 lambda: scaling.main([]),
+                 lambda: device_put_tree({"w": np.zeros(3, np.float32)})):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
