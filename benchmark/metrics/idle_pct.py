@@ -1,0 +1,7 @@
+"""The share of the traced window in which no device operation ran."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.busy_s <= 0.0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
