@@ -42,6 +42,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..channel.simulate import draw_EbNodB, rate_fs_channel, rate_rs_channel
 from ..ops import cplx, draws, fused_core, ofdm
 from ..ops import pilots as pilots_ops
@@ -95,15 +96,19 @@ class CoreCodec:
     def kernel_weights(self, params, side: str) -> fused_core.PackedWeights:
         """The kernel weights of one side ("encoder" or "decoder"), packed
         from the tree's tensors and kept until a leaf's storage or version
-        counter moves (an in-place update), then packed again."""
-        tree = self._tensors(params)[side]
-        stamp = tuple((t.data_ptr(), t._version) for t in tree_leaves(tree))
-        packed = self._kept[2]
-        if side not in packed or packed[side][0] != stamp:
-            make = (fused_core.encoder_weights if side == "encoder"
-                    else fused_core.decoder_weights)
-            packed[side] = (stamp, make(tree, self.device))
-        return packed[side][1]
+        counter moves (an in-place update), then packed again (counted in
+        trace.COUNTERS["pack"][side])."""
+        with trace.span("codec.weights"):
+            tree = self._tensors(params)[side]
+            stamp = tuple((t.data_ptr(), t._version)
+                          for t in tree_leaves(tree))
+            packed = self._kept[2]
+            if side not in packed or packed[side][0] != stamp:
+                make = (fused_core.encoder_weights if side == "encoder"
+                        else fused_core.decoder_weights)
+                packed[side] = (stamp, make(tree, self.device))
+                trace.count("pack", side)
+            return packed[side][1]
 
     def _on_kernel(self, tree, x, key) -> bool:
         """Whether a core call runs as its kernel: no noise, and no
@@ -337,22 +342,29 @@ class RADAE(CoreCodec):
         all frames (ops/pilots.pilot_eq), where the frame kernel sees one
         frame and its two pilots, so it would compute another function."""
         cfg = self.cfg
-        rx = self._as_C(rx)
-        Ns = cfg.Ns + 1 if cfg.pilots else cfg.Ns
-        n_rs = rx.shape[0] // (cfg.M + cfg.Ncp)
-        nmf = n_rs // Ns
-        n_rs = Ns * nmf
-        rx = rx[: n_rs * (cfg.M + cfg.Ncp)].reshape(1, n_rs, cfg.M + cfg.Ncp)
-        rx_dash = ofdm.strip_cp(rx, cfg.M, cfg.Ncp, cfg.time_offset)
-        rx_sym = ofdm.dft(rx_dash, self._Wfwd)
-        if cfg.pilots:
-            rx_sym_pilots = rx_sym.reshape(1, nmf, cfg.Ns + 1, cfg.Nc)
-            if cfg.pilot_eq:
-                rx_sym_pilots = pilots_ops.pilot_eq(cfg, rx_sym_pilots,
-                                                    self._eq)
-            rx_sym = rx_sym_pilots[:, :, 1:cfg.Ns + 1, :]
-        z_hat = ofdm.qpsk_demap(rx_sym.reshape(1, -1, cfg.latent_dim // 2))
-        return self._decode(params, z_hat, self._noise_key(key)), z_hat
+        with trace.span("file.front_end", self.device):
+            with trace.span("file.front_end.dft"):
+                rx = self._as_C(rx)
+                Ns = cfg.Ns + 1 if cfg.pilots else cfg.Ns
+                n_rs = rx.shape[0] // (cfg.M + cfg.Ncp)
+                nmf = n_rs // Ns
+                n_rs = Ns * nmf
+                rx = rx[: n_rs * (cfg.M + cfg.Ncp)].reshape(
+                    1, n_rs, cfg.M + cfg.Ncp)
+                rx_dash = ofdm.strip_cp(rx, cfg.M, cfg.Ncp, cfg.time_offset)
+                rx_sym = ofdm.dft(rx_dash, self._Wfwd)
+            with trace.span("file.front_end.pilot_eq"):
+                if cfg.pilots:
+                    rx_sym_pilots = rx_sym.reshape(1, nmf, cfg.Ns + 1, cfg.Nc)
+                    if cfg.pilot_eq:
+                        rx_sym_pilots = pilots_ops.pilot_eq(
+                            cfg, rx_sym_pilots, self._eq)
+                    rx_sym = rx_sym_pilots[:, :, 1:cfg.Ns + 1, :]
+            with trace.span("file.front_end.demap"):
+                z_hat = ofdm.qpsk_demap(
+                    rx_sym.reshape(1, -1, cfg.latent_dim // 2))
+        with trace.span("file.decode"):
+            return self._decode(params, z_hat, self._noise_key(key)), z_hat
 
     # -- SNR estimation from a received pilot (radae.py:433-439) ------------
     def est_snr(self, r, time_offset=0):

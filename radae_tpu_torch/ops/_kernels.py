@@ -11,7 +11,10 @@ import ctypes
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from .. import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -61,6 +64,7 @@ _SIGNATURES = {
 }
 
 _loaded: dict = {}
+_build_t0: dict = {}    # library name -> perf_counter at its nvcc's start
 
 
 def nvcc() -> str:
@@ -73,30 +77,41 @@ def nvcc() -> str:
 
 def start_build(name: str):
     """Start nvcc for one source (no-op when the library is up to date);
-    returns the Popen or None.  Several can run at once."""
+    returns the Popen or None.  Several can run at once.  Each run counts
+    in trace.COUNTERS["build"][name], its seconds (at finish_build) under
+    name + "_s"."""
     src, lib = SRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
     if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log = open(BUILD_DIR / f"{name}.log", "w")
     try:
-        return subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
-                                stdout=log, stderr=subprocess.STDOUT)
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(lib),
+                                 str(src)], stdout=log,
+                                stderr=subprocess.STDOUT)
     finally:
         log.close()
+    trace.count("build", name)
+    _build_t0[name] = time.perf_counter()
+    return proc
 
 
 def finish_build(name: str, proc) -> str:
     """Wait for a build started by start_build; returns the compiler log."""
-    if proc is not None and proc.wait() != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                           + (BUILD_DIR / f"{name}.log").read_text())
+    if proc is not None:
+        rc = proc.wait()
+        trace.count("build", f"{name}_s",
+                    time.perf_counter() - _build_t0.pop(name))
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n"
+                               + (BUILD_DIR / f"{name}.log").read_text())
     log = BUILD_DIR / f"{name}.log"
     return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The bound library `name`, built first if needed."""
+    """The bound library `name`, built first if needed (a load counts in
+    trace.COUNTERS["load"])."""
     if name not in _loaded:
         finish_build(name, start_build(name))
         lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
@@ -104,6 +119,7 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
+        trace.count("load", name)
     return _loaded[name]
 
 

@@ -10,7 +10,9 @@ the hand-written kernels of `csrc/fused_core.cu` for CUDA tensors and run
 their plain PyTorch versions (`decoder_step_plain`,
 `decoder_merged_step_plain`, `encoder_step_plain`, `rx_frame_step_plain`:
 the same math in the order of the Pallas kernels) for CPU tensors.  There
-is no fallback: a CUDA tensor goes to the kernel or the call raises.
+is no fallback: a CUDA tensor goes to the kernel or the call raises.  Each
+wrapper runs inside the span `kernel.<wrapper>` and counts its launches in
+`LAUNCHES`, which is `trace.COUNTERS["launch"]` (radae_tpu_torch/trace.py).
 
 Weights are packed once, pre-transposed to (in, out), into one contiguous
 buffer; the kernel takes the buffer plus the offset of each array.
@@ -65,7 +67,7 @@ import torch
 from ..models.core import (
     _DEC_CONV_DIMS, _DEC_GRU_DIMS, _ENC_CONV_DIMS, _ENC_GRU_DIMS,
     FRAMES_PER_STEP)
-from .. import resolve_device
+from .. import resolve_device, trace
 from . import _kernels
 from .pilots import LOCAL_PATH_DELAY_S, ls_pmat, window3_index
 
@@ -87,15 +89,18 @@ def _launch_key(entry, weights, compute_dtype, pad=False):
 
 
 # kernel launches per form (kernel instance and weight kind) since the last
-# reset_launches(): every form a wrapper can launch
-LAUNCHES = {e + p + k: 0
-            for e, pads, kinds in (
-                ("fused_decoder_step", ("",), ("", "_int8")),
-                ("fused_decoder_merged_step", ("", "_pad"), ("", "_int8")),
-                ("fused_rx_frame_step", ("",), ("",)),
-                ("fused_encoder_step", ("",), ("", "_int8")))
-            for p in pads
-            for k in kinds + tuple(x + "_bf16" for x in kinds + ("_bf16w",))}
+# reset_launches(): every form a wrapper can launch; the dict is
+# trace.COUNTERS["launch"]
+LAUNCHES = trace.COUNTERS["launch"]
+LAUNCHES.update({
+    e + p + k: 0
+    for e, pads, kinds in (
+        ("fused_decoder_step", ("",), ("", "_int8")),
+        ("fused_decoder_merged_step", ("", "_pad"), ("", "_int8")),
+        ("fused_rx_frame_step", ("",), ("",)),
+        ("fused_encoder_step", ("",), ("", "_int8")))
+    for p in pads
+    for k in kinds + tuple(x + "_bf16" for x in kinds + ("_bf16w",))})
 
 
 def reset_launches():
@@ -910,6 +915,7 @@ def _mma_args(weights, kinds, compute_dtype=torch.bfloat16):
     if stamp not in kept:
         kept.clear()
         kept[stamp] = mma_weights(weights, compute_dtype)
+        trace.count("pack", "mma")
     m = kept[stamp]
     return m.buf.data_ptr(), (ctypes.c_int * len(m.offsets))(*m.offsets)
 
@@ -938,49 +944,53 @@ def fused_decoder_step(weights: PackedWeights, z, state,
     as those six."""
     _check_compute(compute_dtype)
     layout = merged_layout(weights)
-    if z.device.type == "cpu":
-        return (decoder_merged_step_plain if layout
-                else decoder_step_plain)(weights, z, state, compute_dtype)
-    if z.device.type != "cuda":
-        raise ValueError(f"fused_decoder_step: unsupported device {z.device}")
     dev = z.device
-    B, nz, latent = z.shape
-    out_dim = weights.arrays[-1].shape[0]
-    if weights.buf.device != dev or len(weights.arrays) not in (N_DEC,
-                                                                N_DEC_MERGED):
-        raise ValueError("fused_decoder_step: weights must come from "
-                         f"decoder_weights(params, device={str(dev)!r})")
-    _check_kinds(weights, "fused_decoder_step", len(weights.arrays),
-                 compute_dtype)
-    if layout == "pad":
-        _check_pad(weights)
-    bf = compute_dtype == torch.bfloat16
-    z = _ready(z, (B, nz, latent), dev, "z")
-    shapes = _dec_state_shapes(B, layout)
-    state = _ready_state(state, shapes, dev)
-    feats = torch.empty((B, nz, out_dim), device=dev)
-    new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    entry = "fused_decoder_merged_step" if layout else "fused_decoder_step"
-    args = (B, nz, latent, out_dim)
-    kinds = _kinds(weights, _rounds(weights, compute_dtype,
-                                    "none" if layout else "gru"))
-    # on the tensor cores: bf16 products, the int8 forms and the padded
-    # layout (all but the unmerged and merged layouts' f32 forms)
-    mma = bf or bool(weights.quant) or layout == "pad"
-    if layout and mma:
-        name = "radae_fused_decoder_merged_x_step"
-        args += (int(layout == "pad"), int(bf))
-    else:
-        name = "radae_" + (entry.replace("_step", "_mma_step") if mma else entry)
-        args += (int(bf),) if mma else ()
-    if mma:
-        args += _mma_args(weights, kinds, compute_dtype)
-    status = _launch(getattr(_kernels.library("fused_core"), name), weights,
-                     z, feats, state, new_state, args, kinds)
-    _kernels.check(status, name)
-    LAUNCHES[_launch_key(entry, weights, compute_dtype, layout == "pad")] += 1
-    F = out_dim // FRAMES_PER_STEP
-    return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
+    with trace.span("kernel.fused_decoder_step"):
+        if dev.type == "cpu":
+            return (decoder_merged_step_plain if layout
+                    else decoder_step_plain)(weights, z, state, compute_dtype)
+        if dev.type != "cuda":
+            raise ValueError(f"fused_decoder_step: unsupported device {dev}")
+        B, nz, latent = z.shape
+        out_dim = weights.arrays[-1].shape[0]
+        if weights.buf.device != dev or len(weights.arrays) not in (
+                N_DEC, N_DEC_MERGED):
+            raise ValueError("fused_decoder_step: weights must come from "
+                             f"decoder_weights(params, device={str(dev)!r})")
+        _check_kinds(weights, "fused_decoder_step", len(weights.arrays),
+                     compute_dtype)
+        if layout == "pad":
+            _check_pad(weights)
+        bf = compute_dtype == torch.bfloat16
+        z = _ready(z, (B, nz, latent), dev, "z")
+        shapes = _dec_state_shapes(B, layout)
+        state = _ready_state(state, shapes, dev)
+        feats = torch.empty((B, nz, out_dim), device=dev)
+        new_state = [torch.empty(sh, device=dev) for sh in shapes]
+        entry = ("fused_decoder_merged_step" if layout
+                 else "fused_decoder_step")
+        args = (B, nz, latent, out_dim)
+        kinds = _kinds(weights, _rounds(weights, compute_dtype,
+                                        "none" if layout else "gru"))
+        # on the tensor cores: bf16 products, the int8 forms and the padded
+        # layout (all but the unmerged and merged layouts' f32 forms)
+        mma = bf or bool(weights.quant) or layout == "pad"
+        if layout and mma:
+            name = "radae_fused_decoder_merged_x_step"
+            args += (int(layout == "pad"), int(bf))
+        else:
+            name = "radae_" + (entry.replace("_step", "_mma_step") if mma
+                               else entry)
+            args += (int(bf),) if mma else ()
+        if mma:
+            args += _mma_args(weights, kinds, compute_dtype)
+        status = _launch(getattr(_kernels.library("fused_core"), name),
+                         weights, z, feats, state, new_state, args, kinds)
+        _kernels.check(status, name)
+        LAUNCHES[_launch_key(entry, weights, compute_dtype,
+                             layout == "pad")] += 1
+        F = out_dim // FRAMES_PER_STEP
+        return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
 
 
 # the frame kernel's limits on the modem geometry, by the number
@@ -1009,48 +1019,51 @@ def fused_rx_frame_step(weights: RxFrameWeights, rx_packed, state,
     packed on first use: `_mma_args`) with the weights' modem geometry, or raise
     naming the kernel's limit it breaks (FRAME_LIMITS)."""
     _check_compute(compute_dtype)
-    if rx_packed.device.type == "cpu":
-        return rx_frame_step_plain(weights, rx_packed, state, compute_dtype)
-    if rx_packed.device.type != "cuda":
-        raise ValueError(
-            f"fused_rx_frame_step: unsupported device {rx_packed.device}")
     dev = rx_packed.device
-    w = weights.w
-    B = rx_packed.shape[0]
-    ns, nc, samp, latent, nz = weights.geometry
-    if (w.buf.device != dev or len(w.arrays) != 4 + N_DEC + 2
-            or tuple(w.arrays[-2].shape) != (2 * samp, _frame_y_width(nc))):
-        raise ValueError("fused_rx_frame_step: the kernel takes "
-                         "fused_rx_weights(params, cfg, device="
-                         f"{str(dev)!r})")
-    _check_kinds(weights.decoder, "fused_rx_frame_step", N_DEC, compute_dtype)
-    lib = _kernels.library("fused_core")
-    limit = lib.radae_rx_frame_limit(ns, nc, samp, latent, nz)
-    if limit:
-        raise ValueError(
-            f"fused_rx_frame_step: the modem geometry (Ns={ns}, Nc={nc}, "
-            f"M+Ncp={samp}, latent={latent}, nz={nz}) is past the frame "
-            f"kernel's limit: {FRAME_LIMITS[limit]}")
-    rx = _ready(rx_packed, (B, weights.n_sym * samp, 2), dev, "rx_packed")
-    shapes = _dec_state_shapes(B)
-    state = _ready_state(state, shapes, dev)
-    out_dim = weights.decoder.arrays[-1].shape[0]
-    feats = torch.empty((B, nz, out_dim), device=dev)
-    new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    bf = compute_dtype == torch.bfloat16
-    name = "radae_fused_rx_frame_" + ("bf16_step" if bf else "step")
-    args = (B, out_dim, ctypes.c_float(weights.mag_k),
-            int(weights.coarse_mag), ns, nc, samp, latent, nz)
-    kinds = _kinds(w, _rounds(w, compute_dtype, "all")) if bf else None
-    if bf:
-        args += _mma_args(weights, kinds)
-    status = _launch(getattr(lib, name), w, rx, feats, state, new_state,
-                     args, kinds)
-    _kernels.check(status, name)
-    LAUNCHES[_launch_key("fused_rx_frame_step", weights.decoder,
-                         compute_dtype)] += 1
-    F = out_dim // FRAMES_PER_STEP
-    return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
+    with trace.span("kernel.fused_rx_frame_step"):
+        if dev.type == "cpu":
+            return rx_frame_step_plain(weights, rx_packed, state,
+                                       compute_dtype)
+        if dev.type != "cuda":
+            raise ValueError(f"fused_rx_frame_step: unsupported device {dev}")
+        w = weights.w
+        B = rx_packed.shape[0]
+        ns, nc, samp, latent, nz = weights.geometry
+        if (w.buf.device != dev or len(w.arrays) != 4 + N_DEC + 2
+                or tuple(w.arrays[-2].shape) != (2 * samp,
+                                                 _frame_y_width(nc))):
+            raise ValueError("fused_rx_frame_step: the kernel takes "
+                             "fused_rx_weights(params, cfg, device="
+                             f"{str(dev)!r})")
+        _check_kinds(weights.decoder, "fused_rx_frame_step", N_DEC,
+                     compute_dtype)
+        lib = _kernels.library("fused_core")
+        limit = lib.radae_rx_frame_limit(ns, nc, samp, latent, nz)
+        if limit:
+            raise ValueError(
+                f"fused_rx_frame_step: the modem geometry (Ns={ns}, Nc={nc}, "
+                f"M+Ncp={samp}, latent={latent}, nz={nz}) is past the frame "
+                f"kernel's limit: {FRAME_LIMITS[limit]}")
+        rx = _ready(rx_packed, (B, weights.n_sym * samp, 2), dev, "rx_packed")
+        shapes = _dec_state_shapes(B)
+        state = _ready_state(state, shapes, dev)
+        out_dim = weights.decoder.arrays[-1].shape[0]
+        feats = torch.empty((B, nz, out_dim), device=dev)
+        new_state = [torch.empty(sh, device=dev) for sh in shapes]
+        bf = compute_dtype == torch.bfloat16
+        name = "radae_fused_rx_frame_" + ("bf16_step" if bf else "step")
+        args = (B, out_dim, ctypes.c_float(weights.mag_k),
+                int(weights.coarse_mag), ns, nc, samp, latent, nz)
+        kinds = _kinds(w, _rounds(w, compute_dtype, "all")) if bf else None
+        if bf:
+            args += _mma_args(weights, kinds)
+        status = _launch(getattr(lib, name), w, rx, feats, state, new_state,
+                         args, kinds)
+        _kernels.check(status, name)
+        LAUNCHES[_launch_key("fused_rx_frame_step", weights.decoder,
+                             compute_dtype)] += 1
+        F = out_dim // FRAMES_PER_STEP
+        return feats.reshape(B, nz * FRAMES_PER_STEP, F), tuple(new_state)
 
 
 def make_fused_rx_frame_step(cfg, batch: int, device="cuda",
@@ -1108,37 +1121,39 @@ def fused_encoder_step(weights: PackedWeights, feats, state, bottleneck=3,
     the weights packed on first use (`_mma_args`).  CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
     _check_compute(compute_dtype)
-    if feats.device.type == "cpu":
-        return encoder_step_plain(weights, feats, state, bottleneck,
-                                  compute_dtype)
-    if feats.device.type != "cuda":
-        raise ValueError(f"fused_encoder_step: unsupported device {feats.device}")
     dev = feats.device
-    B, T, F = feats.shape
-    nz = T // FRAMES_PER_STEP
-    if T % FRAMES_PER_STEP:
-        raise ValueError(f"fused_encoder_step: {T} frames is not a multiple "
-                         f"of {FRAMES_PER_STEP}")
-    latent = weights.arrays[-1].shape[0]
-    if weights.buf.device != dev:
-        raise ValueError("fused_encoder_step: weights must come from "
-                         f"encoder_weights(params, device={str(dev)!r})")
-    _check_kinds(weights, "fused_encoder_step", N_ENC, compute_dtype)
-    x = _ready(feats, (B, T, F), dev, "feats")
-    shapes = ([(B, gh) for _, gh in _ENC_GRU_DIMS]
-              + [(B, d, cin) for cin, _, d in _ENC_CONV_DIMS])
-    state = _ready_state(state, shapes, dev)
-    z = torch.empty((B, nz, latent), device=dev)
-    new_state = [torch.empty(sh, device=dev) for sh in shapes]
-    bf = compute_dtype == torch.bfloat16
-    mma = bf or bool(weights.quant)     # on the tensor cores
-    name = "radae_fused_encoder_" + ("mma_step" if mma else "step")
-    kinds = _kinds(weights, _rounds(weights, compute_dtype, "gru"))
-    args = (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck))
-    if mma:
-        args += (int(bf),) + _mma_args(weights, kinds, compute_dtype)
-    status = _launch(getattr(_kernels.library("fused_core"), name), weights,
-                     x, z, state, new_state, args, kinds)
-    _kernels.check(status, name)
-    LAUNCHES[_launch_key("fused_encoder_step", weights, compute_dtype)] += 1
-    return z, tuple(new_state)
+    with trace.span("kernel.fused_encoder_step"):
+        if dev.type == "cpu":
+            return encoder_step_plain(weights, feats, state, bottleneck,
+                                      compute_dtype)
+        if dev.type != "cuda":
+            raise ValueError(f"fused_encoder_step: unsupported device {dev}")
+        B, T, F = feats.shape
+        nz = T // FRAMES_PER_STEP
+        if T % FRAMES_PER_STEP:
+            raise ValueError(f"fused_encoder_step: {T} frames is not a "
+                             f"multiple of {FRAMES_PER_STEP}")
+        latent = weights.arrays[-1].shape[0]
+        if weights.buf.device != dev:
+            raise ValueError("fused_encoder_step: weights must come from "
+                             f"encoder_weights(params, device={str(dev)!r})")
+        _check_kinds(weights, "fused_encoder_step", N_ENC, compute_dtype)
+        x = _ready(feats, (B, T, F), dev, "feats")
+        shapes = ([(B, gh) for _, gh in _ENC_GRU_DIMS]
+                  + [(B, d, cin) for cin, _, d in _ENC_CONV_DIMS])
+        state = _ready_state(state, shapes, dev)
+        z = torch.empty((B, nz, latent), device=dev)
+        new_state = [torch.empty(sh, device=dev) for sh in shapes]
+        bf = compute_dtype == torch.bfloat16
+        mma = bf or bool(weights.quant)     # on the tensor cores
+        name = "radae_fused_encoder_" + ("mma_step" if mma else "step")
+        kinds = _kinds(weights, _rounds(weights, compute_dtype, "gru"))
+        args = (B, nz, FRAMES_PER_STEP * F, latent, int(bottleneck))
+        if mma:
+            args += (int(bf),) + _mma_args(weights, kinds, compute_dtype)
+        status = _launch(getattr(_kernels.library("fused_core"), name),
+                         weights, x, z, state, new_state, args, kinds)
+        _kernels.check(status, name)
+        LAUNCHES[_launch_key("fused_encoder_step", weights,
+                             compute_dtype)] += 1
+        return z, tuple(new_state)

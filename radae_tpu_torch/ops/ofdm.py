@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from . import cplx
 from .cplx import C
 
@@ -88,15 +89,18 @@ def modulate(cfg, z: torch.Tensor, P: C, Winv: C) -> torch.Tensor:
     Winv: cfg.P and cfg.Winv made by cplx.const."""
     B = z.shape[0]
     n_rs = z.shape[1] * cfg.latent_dim // (cfg.bps * cfg.Nc)
-    tx_sym = qpsk_map(z)
-    if cfg.bottleneck == 2:
-        tx_sym = magnitude_bottleneck(tx_sym)
-    tx_sym = insert_pilots(tx_sym.reshape(B, n_rs, cfg.Nc), P,
-                           cfg.pilot_gain, cfg.Ns)
-    tx = add_cp(idft(tx_sym, Winv), cfg.Ncp).reshape(B, -1)
-    if cfg.bottleneck == 3:
-        tx = magnitude_bottleneck(tx)
-    return cplx.stack_last(tx)
+    with trace.span("modulate.map_pilots"):
+        tx_sym = qpsk_map(z)
+        if cfg.bottleneck == 2:
+            tx_sym = magnitude_bottleneck(tx_sym)
+        tx_sym = insert_pilots(tx_sym.reshape(B, n_rs, cfg.Nc), P,
+                               cfg.pilot_gain, cfg.Ns)
+    with trace.span("modulate.idft_cp"):
+        tx = add_cp(idft(tx_sym, Winv), cfg.Ncp).reshape(B, -1)
+    with trace.span("modulate.pa"):
+        if cfg.bottleneck == 3:
+            tx = magnitude_bottleneck(tx)
+        return cplx.stack_last(tx)
 
 
 def set_eoo_bits(cfg, eoo_bits) -> np.ndarray:

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import calibration, resolve_device
+from . import calibration, resolve_device, trace
 from .config import RADAEConfig
 from .models.core import CoreDecoder, CoreEncoder
 from .ops import cplx, ofdm
@@ -115,37 +115,46 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
             raise ValueError(
                 f"rx step built for ({batch}, {n_rs * (cfg.M + cfg.Ncp)}, 2) "
                 f"samples, got {tuple(rx_packed.shape)}")
-        rx = cplx.from_last(rx_packed).reshape(B, n_rs, cfg.M + cfg.Ncp)
-        rx_dash = ofdm.strip_cp(rx, cfg.M, cfg.Ncp, cfg.time_offset)
-        rx_sym = ofdm.dft(rx_dash, Wfwd)                  # (B, n_rs, Nc)
+        with trace.span("rx.front_end", dev):
+            with trace.span("rx.front_end.dft"):
+                rx = cplx.from_last(rx_packed).reshape(B, n_rs,
+                                                       cfg.M + cfg.Ncp)
+                rx_dash = ofdm.strip_cp(rx, cfg.M, cfg.Ncp, cfg.time_offset)
+                rx_sym = ofdm.dft(rx_dash, Wfwd)          # (B, n_rs, Nc)
 
-        rx_pilots = pilots_ops.est_pilots_ls(rx_sym[:, pil_idx, :], ls)
-        p0 = rx_pilots[:, :-1, :]                        # (B, fps, Nc)
-        p1 = rx_pilots[:, 1:, :]
-        slope = (p1 - p0) * (1.0 / (Ns + 1))
-        rx_ch = p0[:, :, None, :] + slope[:, :, None, :] * steps
-        data = rx_sym[:, dat_idx, :].reshape(B, fps, Ns, Nc) \
-            * rx_ch.unit().conj()
-        if cfg.coarse_mag:
-            # per frame, from its own two bracketing pilot rows
-            p2 = 0.5 * (p0.abs2().mean(dim=-1) + p1.abs2().mean(dim=-1))
-            mag = torch.sqrt(p2) + 1e-6                  # (B, fps)
-            if cfg.bottleneck == 3:
-                mag = mag * P0_abs / cfg.pilot_gain
-            data = data * (1.0 / mag)[:, :, None, None]
+            with trace.span("rx.front_end.pilot_eq"):
+                rx_pilots = pilots_ops.est_pilots_ls(rx_sym[:, pil_idx, :],
+                                                     ls)
+                p0 = rx_pilots[:, :-1, :]                # (B, fps, Nc)
+                p1 = rx_pilots[:, 1:, :]
+                slope = (p1 - p0) * (1.0 / (Ns + 1))
+                rx_ch = p0[:, :, None, :] + slope[:, :, None, :] * steps
+                data = rx_sym[:, dat_idx, :].reshape(B, fps, Ns, Nc) \
+                    * rx_ch.unit().conj()
+                if cfg.coarse_mag:
+                    # per frame, from its own two bracketing pilot rows
+                    p2 = 0.5 * (p0.abs2().mean(dim=-1)
+                                + p1.abs2().mean(dim=-1))
+                    mag = torch.sqrt(p2) + 1e-6          # (B, fps)
+                    if cfg.bottleneck == 3:
+                        mag = mag * P0_abs / cfg.pilot_gain
+                    data = data * (1.0 / mag)[:, :, None, None]
 
-        z_hat = ofdm.qpsk_demap(data.reshape(B, -1, cfg.latent_dim // 2))
-        if fused:
-            if fused_core.merged_layout(dec_params) != fused_merged:
-                raise ValueError(
-                    f"rx step built with fused_merged={fused_merged!r}: the "
-                    "weights must come from decoder_weights(..., merged="
-                    f"{fused_merged!r})")
-            _check_quant(dec_params, fused_quant, "rx step")
-            z_hat = z_hat.reshape(B, fps * cfg.Nzmf, cfg.latent_dim)
-            return fused_core.fused_decoder_step(dec_params, z_hat, dec_state,
-                                                 cd)
-        return decoder(dec_params, z_hat, key=None, state=dec_state)
+            with trace.span("rx.front_end.demap"):
+                z_hat = ofdm.qpsk_demap(data.reshape(B, -1,
+                                                     cfg.latent_dim // 2))
+        with trace.span("rx.decode"):
+            if fused:
+                if fused_core.merged_layout(dec_params) != fused_merged:
+                    raise ValueError(
+                        f"rx step built with fused_merged={fused_merged!r}: "
+                        "the weights must come from decoder_weights(..., "
+                        f"merged={fused_merged!r})")
+                _check_quant(dec_params, fused_quant, "rx step")
+                z_hat = z_hat.reshape(B, fps * cfg.Nzmf, cfg.latent_dim)
+                return fused_core.fused_decoder_step(dec_params, z_hat,
+                                                     dec_state, cd)
+            return decoder(dec_params, z_hat, key=None, state=dec_state)
 
     return step
 
@@ -169,14 +178,16 @@ def make_streaming_tx_step(cfg: RADAEConfig, encoder: CoreEncoder,
         B = features.shape[0]
         if B != batch:
             raise ValueError(f"tx step built for batch {batch}, got {B}")
-        if fused:
-            _check_quant(enc_params, fused_quant, "tx step")
-            z, enc_state = fused_core.fused_encoder_step(
-                enc_params, features, enc_state, cfg.bottleneck)
-        else:
-            z, enc_state = encoder(enc_params, features, key=None,
-                                   state=enc_state)
-        return ofdm.modulate(cfg, z, P, Winv), enc_state
+        with trace.span("tx.encode"):
+            if fused:
+                _check_quant(enc_params, fused_quant, "tx step")
+                z, enc_state = fused_core.fused_encoder_step(
+                    enc_params, features, enc_state, cfg.bottleneck)
+            else:
+                z, enc_state = encoder(enc_params, features, key=None,
+                                       state=enc_state)
+        with trace.span("tx.modulate", dev):
+            return ofdm.modulate(cfg, z, P, Winv), enc_state
 
     return step
 

@@ -5,7 +5,8 @@ Equivalent of the reference's cProfile/%-CPU performance ctests
 (reference: CMakeLists.txt:420-458, README.md:312-331): per-stage
 steady-state timings (the two-point slope method, see bench.py) for the
 streaming rx step and the training step, plus an optional torch.profiler
-trace for the kernel-level view.
+trace for the kernel-level view, with the program's spans and counters
+(radae_tpu_torch/trace.py) read from the traced steps.
 
 Everything runs on `--device` (default cuda; refused without a card) and
 is timed by CUDA events on a card, by time.perf_counter on the CPU; the
@@ -257,17 +258,74 @@ def main(argv=None):
 
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
+        from .. import trace
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         os.makedirs(args.trace, exist_ok=True)
+        trace.reset()
         with torch.no_grad(), profile(activities=acts) as prof:
             chain(10, decoder.zero_state(B, dev))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+        print_spans(trace.spans(), prof, trace.COUNTERS)
         path = os.path.join(args.trace, "rx_step_trace.json")
         prof.export_chrome_trace(path)
         print(f"trace written to {path}", file=sys.stderr)
 
+
+def print_spans(spans, prof, counters):
+    """The traced steps' spans (radae_tpu_torch/trace.py): each name's
+    count and mean host ms, card ms between its CUDA events (the spans
+    given a device) and device ms of the operations launched inside it
+    (the profiler's events, joined by correlation id; "-" off the card);
+    the mean offset of a span's start from its range's in the profiler's
+    events (their shared clock); the counters not at 0."""
+    import bisect
+
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    starts, launch, device = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            if e.name() in by_name:
+                starts.setdefault(e.name(), []).append(e.start_ns())
+            elif e.correlation_id() and e.name().startswith("cu"):
+                # a CUDA API call (cuda*, cu*): a launch or a copy
+                launch[e.correlation_id()] = e.start_ns()
+        elif not e.is_user_annotation():
+            device.append((e.correlation_id(), 1e-6 * e.duration_ns()))
+    ran = sorted((launch[c], ms) for c, ms in device if c in launch)
+    at = [t for t, _ in ran]
+    cum = [0.0]
+    for _, ms in ran:
+        cum.append(cum[-1] + ms)
+
+    def launched(s):
+        return (cum[bisect.bisect_right(at, s.t1_ns)]
+                - cum[bisect.bisect_left(at, s.t0_ns)])
+
+    print(f"\n{'span':>24} {'n':>4} {'host ms':>9} {'card ms':>9} "
+          f"{'dev ms':>9}")
+    offsets = []
+    for name, ss in by_name.items():
+        card = [s.card_ms for s in ss if s.card_ms is not None]
+        dev = sum(launched(s) for s in ss) / len(ss)
+        print(f"{name:>24} {len(ss):>4} "
+              f"{sum(s.host_ms for s in ss) / len(ss):9.4f} "
+              + (f"{sum(card) / len(card):9.4f} " if card else f"{'-':>9} ")
+              + (f"{dev:9.4f}" if ran else f"{'-':>9}"))
+        if len(starts.get(name, ())) == len(ss):
+            offsets += [s.t0_ns - t for s, t in zip(
+                sorted(ss, key=lambda s: s.t0_ns), sorted(starts[name]))]
+    if offsets:
+        print(f"span start - profiler range start: mean "
+              f"{1e-3 * sum(offsets) / len(offsets):.2f} us over "
+              f"{len(offsets)} spans")
+    for family, counts in counters.items():
+        kept = {k: v for k, v in counts.items() if v}
+        if kept:
+            print(f"{family}: {kept}")
 
 if __name__ == "__main__":
     main()

@@ -251,8 +251,14 @@ def test_profile_train_breakdown_rows(one_thread):
 def test_profile_rx_step_and_trace(one_thread, tmp_path, capsys):
     from radae_tpu_torch.tools.profile import main
     main(["--batch", "4", "--device", "cpu", "--trace", str(tmp_path)])
-    assert "streaming rx step B=4" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "streaming rx step B=4" in out
     assert os.path.getsize(tmp_path / "rx_step_trace.json") > 1000
+    # the traced steps' spans, ten a name, and their clock offset
+    for name in ("rx.front_end", "rx.front_end.dft", "rx.front_end.pilot_eq",
+                 "rx.front_end.demap", "rx.decode"):
+        assert f"{name:>24}   10 " in out, out
+    assert "span start - profiler range start: mean" in out
 
 
 def test_scaling_rows_do_not_depend_on_the_ranks(one_thread):
