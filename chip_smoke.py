@@ -305,6 +305,18 @@ GRAPH_REPS = 7           # replays a kernel form's graph is timed over
 BENCH_BUDGET_S = 300
 OFF_LADDER = ("int8bf16", "padf32", "padi8", "frame", "frame_vmem")
 BENCH_SCAN = 64
+# the streaming rx front end's kernel (rx_demod_phase): its launch key,
+# the batches it is held at (a ragged last tile at 37), the std of the
+# noise on its samples, and its geometries (the flagship modem and the
+# latent-40 one) at 1 and 2 frames a call
+DEMOD = "rx_demod"
+DEMOD_B = (65536, 2048, 37)
+DEMOD_TIME_B = (65536, 2048)
+DEMOD_NOISE = 0.05
+DEMOD_GEOMETRIES = {"flagship": {}, "l40": {"latent_dim": 40}}
+DEMOD_FPS = (1, 2)
+DEMOD_STEP_CALLS = 3
+DEMOD_FPS_PAST = 40      # frames a call whose rows no warp's shared memory holds
 # a quant_exclude set per int8 form that keeps some matrices in f32
 MIXED = {"fused_decoder_step_int8": ("whh", "out_w"),
          "fused_decoder_merged_step_int8": ("wgg",),
@@ -629,6 +641,139 @@ def rx_frames(rx, stream, timed=False):
                      rx.receiver.snrdB_3k_est, out.copy() if ret else None,
                      ms))
     return recs
+
+
+def rx_samples(cfg, fps, batch, seed, dev):
+    """(batch, fps*Nmf + M+Ncp, 2) rx samples on dev: fps frames and the
+    next pilot row of random latents through the port's modulator, a
+    second ray 3 samples late at half the gain and a random phase, a
+    random phase a stream, Gaussian noise (std DEMOD_NOISE)."""
+    import torch
+    from radae_tpu_torch.ops import cplx, ofdm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.tanh(torch.randn((batch, (fps + 1) * cfg.Nzmf, cfg.latent_dim),
+                               generator=g, device=dev))
+    tx = ofdm.modulate(cfg, z, cplx.const(cfg.P, dev),
+                       cplx.const(cfg.Winv, dev))
+    n = (fps * (cfg.Ns + 1) + 1) * (cfg.M + cfg.Ncp)
+    x = torch.complex(tx[..., 0], tx[..., 1])[:, :n]
+
+    def phase():
+        return torch.exp(2j * np.pi * torch.rand((batch, 1), generator=g,
+                                                 device=dev))
+    y = x.clone()
+    y[:, 3:] += 0.5 * phase() * x[:, :-3]
+    y = y * phase() + DEMOD_NOISE * torch.complex(
+        torch.randn(y.shape, generator=g, device=dev),
+        torch.randn(y.shape, generator=g, device=dev))
+    return torch.stack([y.real, y.imag], dim=-1).contiguous()
+
+
+def rx_demod_phase(dev, card):
+    """The streaming rx front end's kernel (csrc/rx_demod.cu) against its
+    plain version (ofdm.rx_front_end_plain) at TOL's rtol and 1e-5 atol:
+    the flagship and latent-40 modems, 1 and 2 frames a call, each batch of
+    DEMOD_B, coarse magnitude on (and off at B=2048); two launches to the
+    same bits; one launch a call of the rx step, counted; a geometry past
+    the kernel's limits refused without a launch; its time by CUDA events
+    over graph replays beside its bound and the plain version's at
+    DEMOD_TIME_B.  An isolated check: its launches are not main-path
+    launches, and it counts none of them there."""
+    import torch
+    from radae_tpu_torch.config import flagship_config
+    from radae_tpu_torch.models.core import CoreDecoder
+    from radae_tpu_torch.ops import fused_core as fc, ofdm
+    from radae_tpu_torch.runtime import make_streaming_rx_step
+    from radae_tpu_torch.utils.hostio import device_put_tree
+    tol = dict(rtol=TOL["rtol"], atol=1e-5)
+    rows = []
+    with torch.no_grad():
+        for geo, kw in DEMOD_GEOMETRIES.items():
+            for fps in DEMOD_FPS:
+                for mag in (True, False):
+                    cfg = flagship_config(coarse_mag=mag, **kw)
+                    k = ofdm.rx_front_end_consts(cfg, fps, dev)
+                    for batch in DEMOD_B if mag else (B,):
+                        x = rx_samples(cfg, fps, batch, 1000 * fps + batch,
+                                       dev)
+                        fc.reset_launches()
+                        got = ofdm.rx_front_end(x, k)
+                        again = ofdm.rx_front_end(x, k)
+                        want = ofdm.rx_front_end_plain(x, k)
+                        torch.cuda.synchronize()
+                        if fc.LAUNCHES[DEMOD] != 2 or sum(
+                                fc.LAUNCHES.values()) != 2:
+                            raise AssertionError(
+                                f"{DEMOD}: launches {dict(fc.LAUNCHES)}")
+                        what = f"{DEMOD} {geo} fps={fps} mag={mag} B={batch}"
+                        check_close(what, got, want, tol)
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{what}: two launches "
+                                                 "differ")
+                        row = {"geometry": geo, "fps": fps, "mag": mag,
+                               "B": batch, "err": max_err(got, want)}
+                        if mag and batch in DEMOD_TIME_B:
+                            # the bytes the kernel moves: the M stripped
+                            # samples of each row in (the CP's 128-byte
+                            # runs are never fetched) and the latents out
+                            nbytes = 4 * (batch * k.n_rs * cfg.M * 2
+                                          + got.numel())
+                            flop = 8.0 * batch * k.n_rs * cfg.M * cfg.Nc
+                            runs = graph_runs(
+                                lambda: ofdm.rx_front_end(x, k),
+                                reps=GRAPH_REPS)
+                            row.update(
+                                ms=sorted(runs)[len(runs) // 2],
+                                spread=spread(runs),
+                                bound_ms=1e3 * max(nbytes / H100_BYTES_S,
+                                                   flop / H100_F32_FLOPS),
+                                by=("bytes" if nbytes / H100_BYTES_S
+                                    > flop / H100_F32_FLOPS else "operations"),
+                                plain_ms=graph_ms(
+                                    lambda: ofdm.rx_front_end_plain(x, k), 5))
+                        rows.append(row)
+                        print(f"{what}: max abs err {row['err']:.3g}, same "
+                              "bits" + (f"; kernel {row['ms']:.4f} ms "
+                                        f"({row['spread']}), bound "
+                                        f"{row['bound_ms']:.4f} ({row['by']}),"
+                                        f" plain {row['plain_ms']:.4f}"
+                                        if "ms" in row else ""), flush=True)
+        # one launch a call of the rx step, whatever the decoder
+        cfg = flagship_config()
+        dec = CoreDecoder(cfg.latent_dim, cfg.feature_dim)
+        params = dec.init(5)
+        x = rx_samples(cfg, 1, RAGGED_B, 5, dev)
+        for fused in (False, True):
+            step = make_streaming_rx_step(cfg, dec, RAGGED_B, fused=fused,
+                                          device=dev)
+            w = (fc.decoder_weights(params, dev) if fused
+                 else device_put_tree(params, dev))
+            st = fc.decoder_state_zero(RAGGED_B, dev) if fused else None
+            fc.reset_launches()
+            for _ in range(DEMOD_STEP_CALLS):
+                _, st = step(w, x, st)
+            torch.cuda.synchronize()
+            want = {DEMOD: DEMOD_STEP_CALLS}
+            if fused:
+                want["fused_decoder_step"] = DEMOD_STEP_CALLS
+            got = {n: c for n, c in fc.LAUNCHES.items() if c}
+            if got != want:
+                raise AssertionError(f"rx step fused={fused}: launches {got}, "
+                                     f"not {want}")
+        # a geometry past the kernel's limits: too many frames a call
+        fc.reset_launches()
+        try:
+            ofdm.rx_front_end_consts(flagship_config(), DEMOD_FPS_PAST, dev)
+            raise AssertionError(f"{DEMOD}: frames_per_step {DEMOD_FPS_PAST} "
+                                 "not refused")
+        except ValueError as e:
+            refused = str(e)
+        if any(fc.LAUNCHES.values()):
+            raise AssertionError(f"{DEMOD}: refused geometry launched")
+    print(f"{DEMOD}: refused without a launch: {refused}")
+    print(f"{DEMOD}: one launch a rx step call (plain and fused decoder, "
+          f"B={RAGGED_B}, {DEMOD_STEP_CALLS} calls)")
+    print(json.dumps({DEMOD: rows, "card": card}))
 
 
 def product_phase(dev, raw, card):
@@ -2076,8 +2221,12 @@ def tools_phase(dev, raw, card):
 
     # -- 6. profile and scaling ---------------------------------------------
     trace = os.path.join(work, "trace")
-    rc, out, _, _ = run_tool("profile", ["--batch", str(B), "--trace", trace]
-                             + dev_args, {}, launched, wall)
+    rc, out, counts, _ = run_tool("profile", ["--batch", str(B), "--trace",
+                                              trace] + dev_args, None,
+                                  launched, wall)
+    if set(counts) != ({DEMOD} if dev.type == "cuda" else set()):
+        raise AssertionError(f"profile: kernels launched {counts}, not the "
+                             f"rx front end's alone (its plain rx step)")
     trace_b = os.path.getsize(os.path.join(trace, "rx_step_trace.json"))
     shutil.rmtree(trace)
     if not trace_b:
@@ -2151,7 +2300,8 @@ def main(argv=None) -> int:
 
     # -- build ------------------------------------------------------------
     t0 = time.time()
-    procs = {name: _kernels.start_build(name) for name in ("fused_core",)}
+    procs = {name: _kernels.start_build(name)
+             for name in ("fused_core", "rx_demod")}
     for name, proc in procs.items():
         log = _kernels.finish_build(name, proc)
         for line in log.splitlines():
@@ -2206,9 +2356,11 @@ def main(argv=None) -> int:
              "fused_decoder_merged_step_pad_bf16w_bf16": (
                  dec_w(merged="pad", dtype=bf), dwmb),
              "fused_decoder_merged_step_pad_int8_bf16": (dwpq, dwmq)}
-    if set(FORMS) != set(fc.LAUNCHES) or set(FORMS[7:]) != set(new_w):
+    if set(FORMS) | {DEMOD} != set(fc.LAUNCHES) or set(FORMS[7:]) != set(
+            new_w):
         raise AssertionError("FORMS must hold every form a wrapper launches: "
                              f"{sorted(set(fc.LAUNCHES) ^ set(FORMS))}")
+    rx_demod_phase(dev, card)
 
     def bf16_mask(name, w, mma=None):
         """Per array of w: the bf16 products its product takes on the
@@ -2722,10 +2874,11 @@ def main(argv=None) -> int:
         lambda: fc.decoder_state_zero(B, dev, merged=True))
     composite = make_streaming_rx_step(cfg, dec, B, fused=True, device=dev)
     rx_steps = {
-        "composite": (composite, dw, zero, ("fused_decoder_step",), None),
+        "composite": (composite, dw, zero, ("fused_decoder_step", DEMOD),
+                      None),
         "merged": (make_streaming_rx_step(cfg, dec, B, fused=True,
                                           fused_merged=True, device=dev),
-                   dwm, zero_m, ("fused_decoder_merged_step",), None),
+                   dwm, zero_m, ("fused_decoder_merged_step", DEMOD), None),
         "frame": (fc.make_fused_rx_frame_step(cfg, B, dev), rw, zero,
                   ("fused_rx_frame_step",), None)}
     for name, (w, _) in new_w.items():      # a path for each new form
@@ -2733,7 +2886,7 @@ def main(argv=None) -> int:
         cd = bf if name.endswith("_bf16") else None
         if name.startswith("fused_encoder_step"):
             rx_steps[name] = (composite, dw, zero,
-                              (name, "fused_decoder_step"), w)
+                              (name, "fused_decoder_step", DEMOD), w)
         elif name.startswith("fused_rx_frame_step"):
             rx_steps[name] = (fc.make_fused_rx_frame_step(
                 cfg, B, dev, compute_dtype=cd), w, zero, (name,), None)
@@ -2742,7 +2895,7 @@ def main(argv=None) -> int:
                 cfg, dec, B, fused=True, fused_merged=merged,
                 fused_quant="int8" if "_int8" in name else None,
                 fused_dtype=cd, device=dev), w, zero_m if merged else zero,
-                (name,), None)
+                (name, DEMOD), None)
     f32_paths = [p for p, v in rx_steps.items()
                  if not any(k in v[3][0] for k in ("_int8", "_bf16"))]
     launches, outs = {}, {}
@@ -2762,7 +2915,8 @@ def main(argv=None) -> int:
                                      f"{ {n: c for n, c in counts.items() if c} }, "
                                      f"not {N_FRAMES} of each of {names}")
             for n in names:
-                launches[n] = counts[n]
+                launches[n] = counts[n] + (launches.get(n, 0) if n == DEMOD
+                                           else 0)
         f_plain = rx_run(make_streaming_rx_step(cfg, dec, B, device=dev),
                          params["decoder"], None, tx_signal(False))
         torch.cuda.synchronize()
@@ -2826,33 +2980,42 @@ def main(argv=None) -> int:
         pair = {"int8": rx_q(dwq, buf)}
         torch.cuda.synchronize()
         want = {"fused_encoder_step_int8": N_FRAMES,
-                "fused_decoder_step_int8": N_FRAMES}
+                "fused_decoder_step_int8": N_FRAMES, DEMOD: N_FRAMES}
         counts = dict(fc.LAUNCHES)
         if any(counts[n] != c for n, c in want.items()):
             raise AssertionError(f"batch pair: kernels launched {counts}, "
                                  f"not {want}")
-        launches.update({n: counts[n] for n in want})
+        launches.update({n: counts[n] for n in want if n != DEMOD})
+        launches[DEMOD] += counts[DEMOD]
         fc.reset_launches()
         pair["int8 merged"] = receiver(dwmq, fused_quant="int8",
                                        fused_merged=True)(dwmq, buf)
         torch.cuda.synchronize()
         n_m = fc.LAUNCHES["fused_decoder_merged_step_int8"]
-        if n_m != N_FRAMES:
+        if n_m != N_FRAMES or fc.LAUNCHES[DEMOD] != N_FRAMES:
             raise AssertionError(f"batch pair, merged int8: kernels launched "
                                  f"{dict(fc.LAUNCHES)}")
         launches["fused_decoder_merged_step_int8"] = n_m
+        launches[DEMOD] += fc.LAUNCHES[DEMOD]
         # int8 weights with bf16 products (bench.py's int8bf16)
         fc.reset_launches()
         pair["int8 bf16"] = receiver(dwq, fused_quant="int8",
                                      fused_dtype=bf)(dwq, buf)
         torch.cuda.synchronize()
         n_b = fc.LAUNCHES["fused_decoder_step_int8_bf16"]
-        if n_b != N_FRAMES or sum(fc.LAUNCHES.values()) != N_FRAMES:
+        if n_b != N_FRAMES or fc.LAUNCHES[DEMOD] != N_FRAMES or sum(
+                fc.LAUNCHES.values()) != 2 * N_FRAMES:
             raise AssertionError(f"batch pair, int8 bf16: kernels launched "
                                  f"{ {n: c for n, c in fc.LAUNCHES.items() if c} }")
         launches["fused_decoder_step_int8_bf16"] = n_b
+        launches[DEMOD] += fc.LAUNCHES[DEMOD]
+        fc.reset_launches()
         pair["f32"] = receiver(dw)(dw, buf)
         torch.cuda.synchronize()
+        if fc.LAUNCHES[DEMOD] != N_FRAMES:
+            raise AssertionError(f"batch pair, f32: kernels launched "
+                                 f"{ {n: c for n, c in fc.LAUNCHES.items() if c} }")
+        launches[DEMOD] += fc.LAUNCHES[DEMOD]
     feats_cpu = feats.cpu()
     losses = {}
     for what, out in pair.items():

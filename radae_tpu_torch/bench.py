@@ -53,7 +53,8 @@ CACHE = os.path.join(HERE, ".bench_torch_cache.json")
 # Ladder of (batch, fused, scan), cheapest first, in bench.py's order (its
 # TPU grid tile has no counterpart here).  Each rung reports on completion;
 # later rungs only improve the result.  fused: False = the plain layers;
-# True = the unmerged decoder kernel behind the plain-torch front end;
+# True = the unmerged decoder kernel behind the rx front end's kernel (on
+# the card every rung's front end is ops/ofdm.rx_front_end's kernel);
 # "int8" its int8 instance; "mergedf32" / "int8m" the chain-merged kernel
 # on f32 / int8 weights.
 LADDER = (

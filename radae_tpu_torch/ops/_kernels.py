@@ -34,7 +34,11 @@ _F = ctypes.c_float
 # `mma_weights`, after the sizes and their flags);
 # the entries with no arguments return a constant of the
 # kernels' tiling, and radae_rx_frame_limit the frame kernel's limit a
-# modem geometry breaks.
+# modem geometry breaks.  rx_demod (the streaming rx front end): its
+# launch entry takes (samples, constants, latents, B, Ns, Nc, M, Ncp,
+# time_offset, fps, coarse_mag, mag_mul, mag_div, stream),
+# radae_rx_demod_limit the geometry and returns the limit it breaks, and
+# radae_rx_demod_lanes Nc and returns the kernel's DFT lanes across it.
 _SIGNATURES = {
     "fused_core": {
         "radae_block_rows": [],
@@ -60,6 +64,11 @@ _SIGNATURES = {
         "radae_fused_encoder_mma_step": [_P, _P, _I, _P, _P, _I, _P, _P, _I,
                                          _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                          _P],
+    },
+    "rx_demod": {
+        "radae_rx_demod_limit": [_I] * 6,
+        "radae_rx_demod_lanes": [_I],
+        "radae_rx_demod": [_P, _P, _P] + [_I] * 8 + [_F, _F, _P],
     },
 }
 

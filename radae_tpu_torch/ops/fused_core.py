@@ -90,7 +90,8 @@ def _launch_key(entry, weights, compute_dtype, pad=False):
 
 # kernel launches per form (kernel instance and weight kind) since the last
 # reset_launches(): every form a wrapper can launch; the dict is
-# trace.COUNTERS["launch"]
+# trace.COUNTERS["launch"], which also counts the rx front end's kernel
+# (`rx_demod`, ops/ofdm.py)
 LAUNCHES = trace.COUNTERS["launch"]
 LAUNCHES.update({
     e + p + k: 0

@@ -9,8 +9,12 @@ receiver (port of `radae_tpu/runtime.py`: `make_streaming_rx_step`,
            pilots + IDFT + CP + PA tanh -> (B, Nmf) samples (radae_txe)
 
 Complex samples go in and out as packed (..., 2) float tensors.  Each
-factory builds its device constants once; the DFT/IDFT are constant-matrix
-products left to torch.matmul (in full f32: TF32 is switched off).  With
+factory builds its device constants once.  The rx step's front end is
+`ops.ofdm.rx_front_end`: on the card one launch a call of the hand-written
+kernel of csrc/rx_demod.cu (DFT by f32 FMA), on the CPU its plain torch
+version `ops.ofdm.rx_front_end_plain`.  The tx step's IDFT is a
+constant-matrix product left to torch.matmul (in full f32: TF32 is
+switched off).  With
 fused=True the core net runs as the fused kernel of ops/fused_core.py and
 takes `decoder_weights`/`encoder_weights` and the fused state tuples;
 fused_merged=True (or "pad", the padded layout) picks the chain-merged
@@ -91,23 +95,16 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
     launch with a weight set and kept in it.  frames_per_step=N
     demodulates and decodes N consecutive frames per call, each frame
     equalised from its own two bracketing pilot rows (the same math as N
-    chained calls)."""
+    chained calls).  The front end (`ofdm.rx_front_end`, inside the span
+    `rx.front_end`) is one kernel launch a call on a CUDA device, whatever
+    the decoder, and its plain torch version on the CPU."""
     cd = _check_fused(fused, fused_quant, fused_dtype, fused_merged)
     dev = f32_device(device)
-    Ns, Nc = cfg.Ns, cfg.Nc
     fps = int(frames_per_step)
     if fps < 1:
         raise ValueError(f"frames_per_step must be >= 1, got {fps}")
-    Wfwd = cplx.const(cfg.Wfwd, dev)
-    ls = pilots_ops.ls_consts(cfg.P, cfg.w, cfg.Fs, dev)
-    pil_idx = torch.as_tensor([f * (Ns + 1) for f in range(fps + 1)],
-                              device=dev)
-    dat_idx = torch.as_tensor(np.concatenate(
-        [f * (Ns + 1) + 1 + np.arange(Ns) for f in range(fps)]), device=dev)
-    steps = torch.arange(1, Ns + 1, dtype=torch.float32,
-                         device=dev)[None, None, :, None]
-    P0_abs = float(np.abs(cfg.P[0]))
-    n_rs = fps * (Ns + 1) + 1
+    fe = ofdm.rx_front_end_consts(cfg, fps, dev)
+    n_rs = fe.n_rs
 
     def step(dec_params, rx_packed, dec_state):
         B = rx_packed.shape[0]
@@ -116,33 +113,7 @@ def make_streaming_rx_step(cfg: RADAEConfig, decoder: CoreDecoder,
                 f"rx step built for ({batch}, {n_rs * (cfg.M + cfg.Ncp)}, 2) "
                 f"samples, got {tuple(rx_packed.shape)}")
         with trace.span("rx.front_end", dev):
-            with trace.span("rx.front_end.dft"):
-                rx = cplx.from_last(rx_packed).reshape(B, n_rs,
-                                                       cfg.M + cfg.Ncp)
-                rx_dash = ofdm.strip_cp(rx, cfg.M, cfg.Ncp, cfg.time_offset)
-                rx_sym = ofdm.dft(rx_dash, Wfwd)          # (B, n_rs, Nc)
-
-            with trace.span("rx.front_end.pilot_eq"):
-                rx_pilots = pilots_ops.est_pilots_ls(rx_sym[:, pil_idx, :],
-                                                     ls)
-                p0 = rx_pilots[:, :-1, :]                # (B, fps, Nc)
-                p1 = rx_pilots[:, 1:, :]
-                slope = (p1 - p0) * (1.0 / (Ns + 1))
-                rx_ch = p0[:, :, None, :] + slope[:, :, None, :] * steps
-                data = rx_sym[:, dat_idx, :].reshape(B, fps, Ns, Nc) \
-                    * rx_ch.unit().conj()
-                if cfg.coarse_mag:
-                    # per frame, from its own two bracketing pilot rows
-                    p2 = 0.5 * (p0.abs2().mean(dim=-1)
-                                + p1.abs2().mean(dim=-1))
-                    mag = torch.sqrt(p2) + 1e-6          # (B, fps)
-                    if cfg.bottleneck == 3:
-                        mag = mag * P0_abs / cfg.pilot_gain
-                    data = data * (1.0 / mag)[:, :, None, None]
-
-            with trace.span("rx.front_end.demap"):
-                z_hat = ofdm.qpsk_demap(data.reshape(B, -1,
-                                                     cfg.latent_dim // 2))
+            z_hat = ofdm.rx_front_end(rx_packed, fe)
         with trace.span("rx.decode"):
             if fused:
                 if fused_core.merged_layout(dec_params) != fused_merged:

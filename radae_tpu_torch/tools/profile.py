@@ -12,7 +12,8 @@ Everything runs on `--device` (default cuda; refused without a card) and
 is timed by CUDA events on a card, by time.perf_counter on the CPU; the
 parameters reach the device in one copy (`utils.hostio.device_put_tree`).
 The rx step is the plain composite step (`runtime.make_streaming_rx_step`,
-fused=False), as radae_tpu's is.
+fused=False), as radae_tpu's is; on a card its front end is one launch of
+the rx front end's kernel (`ops.ofdm.rx_front_end`).
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ synchronise); `reset()` empties the buffer.
 
 Counters.  `COUNTERS` holds families of counters, always on (a dict
 increment where the event happens):
-  launch  kernel launches by form (`ops.fused_core.LAUNCHES` is this dict)
+  launch  kernel launches by form (`ops.fused_core.LAUNCHES` is this dict):
+          the core codec's forms and `rx_demod`, the rx front end's kernel
+          (`ops.ofdm.rx_front_end`)
   pack    `decoder`, `encoder`: kernel weight sets packed by
           `models.radae.CoreCodec.kernel_weights`; `mma`: weight sets
           packed for the tensor cores (`ops.fused_core._mma_args`)
@@ -56,7 +58,10 @@ import torch
 
 CAPACITY = 1 << 17      # records the buffer holds
 
-COUNTERS = {"launch": {}, "pack": {"decoder": 0, "encoder": 0, "mma": 0},
+# launch: the rx front end's kernel here, the core codec's forms added by
+# ops/fused_core.py (its LAUNCHES)
+COUNTERS = {"launch": {"rx_demod": 0},
+            "pack": {"decoder": 0, "encoder": 0, "mma": 0},
             "build": {}, "load": {}}
 
 

@@ -194,8 +194,8 @@ def test_wrappers_run_the_plain_version_on_cpu_without_launching(tree):
                                 "fused_decoder_merged_step_pad_int8",
                                 "fused_decoder_step_int8_bf16",
                                 "fused_rx_frame_step_bf16w_bf16",
-                                "fused_encoder_step_bf16"}
-    assert len(fc.LAUNCHES) == 23 and not any(fc.LAUNCHES.values())
+                                "fused_encoder_step_bf16", "rx_demod"}
+    assert len(fc.LAUNCHES) == 24 and not any(fc.LAUNCHES.values())
 
 
 def test_wrappers_refuse_other_devices(tree):

@@ -146,7 +146,8 @@ def test_span_clock_is_the_profilers(paths):
 def test_launch_counter_is_fused_core_launches():
     assert trace.COUNTERS["launch"] is fused_core.LAUNCHES
     assert set(trace.COUNTERS) == {"launch", "pack", "build", "load"}
-    assert len(fused_core.LAUNCHES) == 23
+    # the 23 core codec forms and the rx front end's kernel
+    assert len(fused_core.LAUNCHES) == 24 and "rx_demod" in fused_core.LAUNCHES
     key = "fused_decoder_step"
     saved = dict(fused_core.LAUNCHES)
     try:
